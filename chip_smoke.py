@@ -6,15 +6,20 @@
 Phases, each of which raises on failure (exit code != 0):
 
 1. print the card's name and power limit (``nvidia-smi``), build the CUDA
-   kernels from ``quantum_simulator_tpu_torch/csrc`` and print what
-   ``ptxas -v`` says of each (registers, spills);
+   kernels from ``quantum_simulator_tpu_torch/csrc`` (one ``nvcc`` per
+   source, in parallel), print what ``ptxas -v`` says of each (registers,
+   spills) and check the kernels' tile sizes against the wrapper's;
 2. hold each kernel against its plain PyTorch twin on the card, at the
    layouts of the main path (n = 16, 28 and 30): ``dense_axis`` in its
    three variants on every axis, ``cross_bit_axis`` on every geometry the
    brickwork plans emit plus a sliced bit inside the last axis, real and
    complex; tolerances 2e-4 dense and 2e-3 cross (those of
-   ``tests/test_pallas_exec.py``: the sums run in another order). Each
-   case is timed against its twin;
+   ``tests/test_pallas_exec.py``: the sums run in another order). The
+   kernels write in place, so the twin (and, at n = 16 and 28, a float64
+   reference) runs on a copy taken before the kernel; each wrapper must
+   return its input tensor, and at n = 16 and 28 the kernel's max error
+   against float64 must be at most 2x the twin's. Each case is timed
+   against its twin, with achieved TB/s and TFLOP/s;
 3. the main path through ``Simulator(device="cuda").run``: brickwork
    n=16 depth-40 (Ry+CNOT, all-real, and the Ry/Rz mix, planar complex)
    and n=28 depth-8 Ry/Rz, each matched against the plain-twin executor
@@ -22,9 +27,11 @@ Phases, each of which raises on failure (exit code != 0):
    plan's dense and cross step counts; n=28 sampled through the device
    sampler; GHZ-28 counts; QFT-20 from |0..0> flat to 1e-9;
 4. timing: executor alone (CUDA events, best of 3 after a warm-up, plain
-   and kernel executors in turns) and the whole ``Simulator.run`` wall
-   time, for brickwork n=16 depth-40 and n=28 depth-8, and the peak
-   device memory.
+   and kernel executors in turns, each call on a fresh copy of the basis
+   state made outside the timed region) and the whole ``Simulator.run``
+   wall time, for brickwork n=16 depth-40 and n=28 depth-8, and the peak
+   device memory of the executor and of ``Simulator.run(shots=0)``
+   (n=28 Ry/Rz: only dense and cross steps, peak <= 6.1 GiB).
 
 The line before the last is the JSON kernel summary; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits with an
@@ -50,6 +57,13 @@ from quantum_simulator_tpu_torch.ops import program as tprog
 DENSE_TOL = 2e-4
 CROSS_TOL = 2e-3
 STATE_TOL = 1e-5
+# A kernel's max error against float64 may be at most this times the
+# plain twin's (n = 16 and 28).
+F64_RATIO = 2.0
+F64_SIZES = (16, 28)
+# Simulator.run(shots=0) peak for n=28 depth-8 Ry/Rz: one planar state
+# (2 GiB) in place plus the complex result, with room to spare.
+RUN_PEAK_LIMIT = 6.1 * 2**30
 SEED = 42
 
 # Layouts of n = 16, 28 and 30 qubits (GroupLayout.for_qubits).
@@ -127,29 +141,33 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
-def event_ms(fn, reps: int = 3) -> float:
-    """Best-of-``reps`` device milliseconds of ``fn()`` (CUDA events)."""
+def event_ms(fn, prep=None, reps: int = 3) -> float:
+    """Best-of-``reps`` device milliseconds of ``fn(prep())`` (CUDA
+    events; ``prep`` runs before the timed region)."""
     best = float("inf")
     for _ in range(reps):
+        arg = prep() if prep else None
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        fn(arg) if prep else fn()
         b.record()
         b.synchronize()
         best = min(best, a.elapsed_time(b))
+        del arg
     return best
 
 
-def in_turns(plain_fn, kernel_fn, reps: int = 3) -> tuple[float, float]:
+def in_turns(plain_fn, kernel_fn, prep=None,
+             reps: int = 3) -> tuple[float, float]:
     """Warm both, then time plain, kernel, kernel, plain; best of each."""
-    plain_fn()
-    kernel_fn()
+    for fn in (plain_fn, kernel_fn):
+        fn(prep()) if prep else fn()
     torch.cuda.synchronize()
-    p1 = event_ms(plain_fn, reps)
-    k1 = event_ms(kernel_fn, reps)
-    k2 = event_ms(kernel_fn, reps)
-    p2 = event_ms(plain_fn, reps)
+    p1 = event_ms(plain_fn, prep, reps)
+    k1 = event_ms(kernel_fn, prep, reps)
+    k2 = event_ms(kernel_fn, prep, reps)
+    p2 = event_ms(plain_fn, prep, reps)
     return min(k1, k2), min(p1, p2)
 
 
@@ -174,7 +192,9 @@ def random_op(shape, real: bool, rng) -> torch.Tensor:
 
 
 def kernel_cases(rng):
-    """(kernel, label, run_kernel, run_plain, tol) for every case."""
+    """(kernel, label, key, shape, planar, op, run_kernel, run_plain, tol)
+    for every case; ``run_plain(x, op)`` takes the operator so it can also
+    run in float64."""
     cases = []
     for n, shape in LAYOUTS.items():
         for planar, real in ((False, True), (True, True), (True, False)):
@@ -188,7 +208,7 @@ def kernel_cases(rng):
                               shape, planar, op,
                               lambda x, op=op, a=axis, p=planar:
                               cuda_exec.dense_axis(x, op, a, p),
-                              lambda x, op=op, a=axis, p=planar:
+                              lambda x, op, a=axis, p=planar:
                               cuda_exec.dense_axis_plain(x, op, a, p),
                               DENSE_TOL))
     for n, s, pos, o in CROSS_CASES:
@@ -203,44 +223,69 @@ def kernel_cases(rng):
                           (n, (s, pos, o), planar, real), shape, planar, cop,
                           lambda x, c=cop, g=(s, pos, o), p=planar:
                           cuda_exec.cross_bit_axis(x, c, *g, p),
-                          lambda x, c=cop, g=(s, pos, o), p=planar:
+                          lambda x, c, g=(s, pos, o), p=planar:
                           cuda_exec.cross_bit_axis_plain(x, c, *g, p),
                           CROSS_TOL))
     return cases
 
 
-def phase_kernels(report: dict) -> dict:
+def rates(shape, planar: bool, real: bool, K: int, ms: float):
+    """(TB/s, TFLOP/s, unit): bytes read and written once; TF32 FLOPs of
+    the 3-pass split for K >= MMA_MIN_K, fp32 FLOPs below."""
+    numel = (2 if planar else 1) * int(np.prod(shape))
+    flops = 2 * K * numel * (1 if real else 2)
+    tf32 = K >= cuda_exec.MMA_MIN_K
+    return (2 * 4 * numel / (ms * 1e9), (3 if tf32 else 1) * flops /
+            (ms * 1e9), "TF32" if tf32 else "fp32")
+
+
+def phase_kernels(report: dict, card: str) -> dict:
     rng = np.random.default_rng(SEED)
     rows = []
     max_err = {"dense_axis": 0.0, "cross_bit_axis": 0.0}
     summary = {}
-    states: dict = {}
-    for (name, label, key, shape, planar, _op, kfn, pfn,
+    for (name, label, key, shape, planar, op, kfn, pfn,
          tol) in kernel_cases(rng):
-        skey = (shape, planar)
-        if skey not in states:
-            states.clear()
-            torch.cuda.empty_cache()
-            states[skey] = random_state(shape, planar, seed=len(rows))
-        x = states[skey]
+        n, real = key[0], key[3]
+        torch.cuda.empty_cache()
+        x = random_state(shape, planar, seed=len(rows))
+        x0 = x.clone()
         got = kfn(x)
         torch.cuda.synchronize()
-        want = pfn(x)
+        check(got is x, f"{label}: the wrapper did not return its input")
+        want = pfn(x0, op)
         err = float((got - want).abs().max())
-        del got, want
         check(err <= tol, f"{label}: max |kernel - plain| = {err} > {tol}")
-        k_ms, p_ms = in_turns(lambda: pfn(x), lambda: kfn(x))
+        f64 = {}
+        if n in F64_SIZES:
+            ref = pfn(x0.double(), op.double())
+            f64 = {"kernel_f64_err": float((got.double() - ref).abs().max()),
+                   "plain_f64_err": float((want.double() - ref).abs().max())}
+            del ref
+            check(f64["kernel_f64_err"] <= F64_RATIO * f64["plain_f64_err"],
+                  f"{label}: max error against float64 "
+                  f"{f64['kernel_f64_err']:.3e} > {F64_RATIO} x the "
+                  f"twin's {f64['plain_f64_err']:.3e}")
+        del got, want
+        # timed in place on x (the kernel) and out of place on x0 (twin)
+        k_ms, p_ms = in_turns(lambda: pfn(x0, op), lambda: kfn(x))
+        del x, x0
+        K = shape[key[1]] if name == "dense_axis" else 2 * shape[key[1][2]]
+        tbs, tfl, unit = rates(shape, planar, real, K, k_ms)
         max_err[name] = max(max_err[name], err)
         row = {"kernel": name, "case": label, "max_abs_err": err,
-               "ms": k_ms, "plain_ms": p_ms}
+               "ms": k_ms, "plain_ms": p_ms, "TB_per_s": tbs,
+               f"{unit}_TFLOP_per_s": tfl, **f64}
         rows.append(row)
-        print(f"kernel {label}: err {err:.3e} kernel {k_ms:.4f} ms "
-              f"plain {p_ms:.4f} ms", flush=True)
+        f64_txt = (f" f64 err kernel {f64['kernel_f64_err']:.3e} twin "
+                   f"{f64['plain_f64_err']:.3e}" if f64 else "")
+        print(f"kernel {label} [{card}]: err {err:.3e}{f64_txt} kernel "
+              f"{k_ms:.4f} ms plain {p_ms:.4f} ms; {tbs:.3f} TB/s "
+              f"{tfl:.1f} {unit} TFLOP/s", flush=True)
         kind, sn, geom, sp, sr = SUMMARY[name]
         want_key = (sn, geom, sp, sr)
         if key == want_key:
             summary[name] = row
-    states.clear()
     torch.cuda.empty_cache()
     report["kernel_cases"] = rows
     return {"max_err": max_err, "summary": summary}
@@ -250,10 +295,12 @@ def phase_kernels(report: dict) -> dict:
 # Phase 3: the main path
 # ---------------------------------------------------------------------------
 
-def step_counts(program) -> tuple[int, int]:
+def step_counts(program) -> tuple[int, int, int]:
+    """(dense, cross, other) steps of the program's group plan."""
     plan = tplan.build_group_plan(program)
-    return (sum(isinstance(s, tplan.AxisMatmulStep) for s in plan.steps),
-            sum(isinstance(s, tplan.CrossStep) for s in plan.steps))
+    n_dense = sum(isinstance(s, tplan.AxisMatmulStep) for s in plan.steps)
+    n_cross = sum(isinstance(s, tplan.CrossStep) for s in plan.steps)
+    return n_dense, n_cross, len(plan.steps) - n_dense - n_cross
 
 
 def run_and_match(sim: Simulator, circuit: QuantumCircuit, label: str,
@@ -261,7 +308,7 @@ def run_and_match(sim: Simulator, circuit: QuantumCircuit, label: str,
     """Simulator.run, its launch counts against the plan, and its final
     state against the plain-twin executor on the card."""
     program = tprog.compile_circuit(circuit)
-    n_dense, n_cross = step_counts(program)
+    n_dense, n_cross, _ = step_counts(program)
     d0 = cuda_exec.dense_axis.launches
     c0 = cuda_exec.cross_bit_axis.launches
     torch.cuda.reset_peak_memory_stats()
@@ -349,14 +396,24 @@ def phase_timing(card: str, report: dict) -> None:
                 build_s = min(build_s, time.perf_counter() - t0)
             ops = tplan.operands_to(host_ops, "cuda")
             planar = not plan.all_real
-            x0 = tplan.basis_state(plan, program.initial_index, "cuda",
-                                   planar)
+
+            def fresh():
+                return tplan.basis_state(plan, program.initial_index,
+                                         "cuda", planar)
 
             def executor(plain):
-                return lambda: tplan.execute_group_plan(
-                    plan, ops, program, params, x0, planar, plain)
+                # the executor owns (and the kernels overwrite) its state
+                return lambda x: tplan.execute_group_plan(
+                    plan, ops, program, params, x, planar, plain)
 
-            k_ms, p_ms = in_turns(executor(True), executor(False))
+            k_ms, p_ms = in_turns(executor(True), executor(False), fresh)
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            executor(False)(fresh())
+            torch.cuda.synchronize()
+            exec_peak = torch.cuda.max_memory_allocated() - base
             torch.cuda.empty_cache()
             walls = []
             for _ in range(4):  # first is a warm-up
@@ -370,11 +427,19 @@ def phase_timing(card: str, report: dict) -> None:
             sim.run(circuit, shots=0)
             peak = torch.cuda.max_memory_allocated()
             torch.cuda.empty_cache()
+            if n == 28 and mix:
+                check(step_counts(program)[2] == 0,
+                      f"{label}: plan has steps other than dense and cross")
+                check(peak <= RUN_PEAK_LIMIT,
+                      f"{label}: Simulator.run(shots=0) peak "
+                      f"{peak / 2**30:.3f} GiB > "
+                      f"{RUN_PEAK_LIMIT / 2**30} GiB")
             row = {"circuit": label, "kernel_ms": k_ms, "plain_ms": p_ms,
                    "kernel_layers_per_s": depth / (k_ms / 1e3),
                    "plain_layers_per_s": depth / (p_ms / 1e3),
                    "run_wall_ms": wall_ms, "host_operand_build_ms":
                    build_s * 1e3, "run_peak_bytes": peak,
+                   "executor_peak_bytes": exec_peak,
                    "steps": len(plan.steps),
                    "passes": tplan.count_state_passes(plan), "card": card}
             report.setdefault("timing", []).append(row)
@@ -383,7 +448,8 @@ def phase_timing(card: str, report: dict) -> None:
                   f"{p_ms:.3f} ms ({row['plain_layers_per_s']:.1f} "
                   f"layers/s); Simulator.run {wall_ms:.3f} ms "
                   f"(host operand build {build_s * 1e3:.3f} ms); peak "
-                  f"{peak / 2**30:.3f} GiB", flush=True)
+                  f"executor {exec_peak / 2**30:.3f} GiB, Simulator.run "
+                  f"(shots=0) {peak / 2**30:.3f} GiB", flush=True)
 
 
 def main() -> int:
@@ -407,11 +473,21 @@ def main() -> int:
         if "Compiling entry" in line or "Used" in line or "spill" in line:
             print("ptxas:", line.split(":", 1)[-1].strip())
     lib = _build.library()
-    print("dynamic shared memory per block, bytes (K: real, complex):",
-          ", ".join(f"{k}: {lib.qs_smem_bytes(k, 0)}, {lib.qs_smem_bytes(k, 1)}"
-                    for k in (2, 4, 8, 16, 32, 64, 128, 256)))
+    depths = (2, 4, 8, 16, 32, 64, 128, 256)
+    print("dynamic shared memory per block, bytes (K: real, complex; "
+          "fiber-major / row-major tile):",
+          ", ".join(f"{k}: {lib.qs_smem_bytes(k, 0, 0)}/"
+                    f"{lib.qs_smem_bytes(k, 0, 1)}, "
+                    f"{lib.qs_smem_bytes(k, 1, 0)}/{lib.qs_smem_bytes(k, 1, 1)}"
+                    for k in depths))
+    for k in depths:
+        for real in (True, False):
+            got = lib.qs_tile_fibers(k, int(not real))
+            check(got == cuda_exec.tile_fibers(k, real),
+                  f"tile fibers at K={k} real={real}: kernel {got}, "
+                  f"wrapper {cuda_exec.tile_fibers(k, real)}")
 
-    kernels = phase_kernels(report)
+    kernels = phase_kernels(report, card)
     launches = phase_main(report)
     phase_timing(card, report)
     print(f"max_memory_allocated over the run: "

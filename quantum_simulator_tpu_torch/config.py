@@ -6,8 +6,12 @@ The port runs eagerly, so it has no compile cache and no Pallas switch
 launches its hand-written kernel (``ops/cuda_exec.py``).
 
 Precision policy: the JAX package passes ``Precision.HIGHEST`` on every
-contraction. The port's form of that rule is to keep TF32 off for every
-float32 matrix product and convolution PyTorch runs, set here at import.
+contraction (on the TPU a multi-pass split of fp32 onto the bf16 matrix
+unit). The port's form of that rule: single-pass TF32 stays off for every
+float32 matrix product and convolution PyTorch runs (the flags below, set
+at import), and the hand-written kernels reach the tensor cores only
+through a 3-pass TF32 split (hi/lo parts, three products summed in fp32),
+held to float64 as tightly as an fp32 product (``csrc/fiber_matmul.cuh``).
 """
 
 from __future__ import annotations

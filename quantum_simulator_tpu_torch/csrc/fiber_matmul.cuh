@@ -1,7 +1,10 @@
 // Shared device code of the dense_axis and cross_bit_axis kernels.
 //
-// Both group-plan steps are one small matrix applied along a strided
-// "fiber" of the state:  Y[r, g] = sum_c W[r, c] X[c, g],  r, c < K.
+// Replaces the two Pallas TPU kernels of quantum_simulator_tpu/ops/
+// pallas_exec.py: lower_dense (:178, body :200-217) and lower_cross (:229,
+// body :289-330). Both group-plan steps are one small matrix applied along
+// a strided "fiber" of the state, in place:
+//   X[r, g] <- sum_c W[r, c] X[c, g],  r, c < K.
 // A fiber g = (outer o, mid m, inner t), t fastest, starts at element
 //   o * so + m * sm + t
 // and its row r sits at
@@ -9,24 +12,69 @@
 // dense_axis uses K = S (no bit term); cross_bit_axis uses K = 2S, the
 // sliced bit times the op axis. n_mid, n_inner and S are powers of two.
 //
-// What bounds it: fp32 FMA on CUDA cores, no TF32, no wgmma / TMA. Per
-// output element the kernel does 2K FLOPs (8K for a complex operator)
-// and moves 8 bytes of state (16 complex), i.e. 2K/8 FLOP per byte:
-// 32 at K = 128 and 64 at K = 256. The H100's fp32 CUDA-core ridge is
-// about 67e12 / 3.35e12 = 20 FLOP/byte, so at the main path's widths
-// these kernels are bound by fp32 issue, not by bytes. The design keeps
-// the FMA units fed: each block stages an RT x K slice of W once
-// (transposed, so a warp reads it without bank conflicts) and then walks
-// a persistent loop of fiber tiles; each thread holds a TM x TN register
-// tile, so a K-deep inner step costs TM + TN shared loads for TM * TN
-// (x4 complex) FMAs. A thread keeps 16 tile loads in flight at a time
-// (with one block of 256 threads per SM, loads issued one at a time left
-// the SM idle on device-memory latency for most of each tile). Loads and stores go through a padded shared tile
-// (pitch F + 1) so both the fiber-contiguous and the row-contiguous
-// layouts are read and written coalesced.
+// What bounds it on an H100: per output element 2K FLOPs (8K complex) for
+// 8 bytes of state moved (16 complex), i.e. 32 FLOP/byte at K = 128 and 64
+// at K = 256. That is above the fp32 CUDA-core ridge (67 TFLOP/s over
+// 3.35 TB/s = 20 FLOP/byte), where an fp32-FMA kernel is bound by issue.
+// On the tensor cores mma.sync reaches about 320 TFLOP/s TF32 (measured on
+// an H100 80GB HBM3 at 700 W), about 107 TFLOP/s of fp32 work after the 3x
+// split, so the kernels sit near the ridge: bound by mma issue and latency,
+// with the bytes close behind. For K >= kMmaMinK the product runs on the
+// tensor cores:
+//
+// * 3xTF32 through mma.sync.m16n8k8 (fp32 accuracy; single-pass TF32 is
+//   never used). Each operand value v splits at fragment load into
+//   hi = v rounded to TF32 as cvt.rna.tf32 rounds and lo = v - hi (the
+//   tensor core reads lo as TF32, i.e. without its low 13 bits). Order of the adds, per 8-deep
+//   step of the contraction: a zeroed fragment takes W_lo X_hi, then
+//   W_hi X_lo, then W_hi X_hi (complex: re takes Wr Xr then (-Wi) Xi, im
+//   takes Wr Xi then Wi Xr, each product in its three passes), and the
+//   fp32 accumulator then adds that fragment on the CUDA cores (round to
+//   nearest). The tensor core truncates as it accumulates: summing every
+//   step inside it measured 2.4-3.8x the fp32 twin's error against
+//   float64, the 8-deep flush 0.25-0.4x. tests/test_torch_kernels.py
+//   emulates this order on the CPU.
+//   mma.sync and not wgmma: its fragments are loaded by the threads, so
+//   one code path reads every strided fiber view, while wgmma takes TF32
+//   operands only K-major from shared memory and the fiber tile is
+//   MN-major whenever fibers are contiguous.
+// * One owner per fiber tile. A block copies all K rows of a tile of F
+//   fibers into shared memory and computes all K output rows before the
+//   tile's stage is reused, so no other block reads those fibers and the
+//   kernel writes its result over its input (as Pallas does with
+//   input_output_aliases).
+// * A two-stage ring filled with cp.async: the next tile's copies are in
+//   flight while the current tile's products run. The copy width (16, 8
+//   or 4 bytes, chosen by the wrapper from the geometry) follows whichever
+//   dimension is contiguous: fibers (n_inner >= 2) or rows (op_stride 1,
+//   n_inner 1). The tile is stored fiber-major or row-major to match, with
+//   pitches that make the mma fragment loads free of bank conflicts.
+// * Persistent blocks, one wave, walking the fiber tiles; two blocks per
+//   SM where shared memory allows, so one block's copies, barriers and
+//   stores overlap the other's products.
+// * K = 256 (every cross step on a 128-wide axis): the operator (256 KB
+//   real, 512 KB complex) cannot stay in shared memory, so it streams from
+//   L2 (every block reads the same operator) through a double-buffered
+//   slab of R output rows while the fiber tile stays resident. Each slab's
+//   rows are written as they finish, which is safe in place because the
+//   whole input tile is already in shared memory. Part j of the next
+//   tile's copies goes into the same cp.async group as slab j + 1, so one
+//   wait at the top of each slab serves both streams (three barriers a
+//   slab: copies visible, products done, staging done). A slab is only R x F outputs,
+//   so KS warp groups split its contraction (each a contiguous K / KS
+//   range, giving every warp four independent accumulator tiles) and the
+//   epilogue sums their partials in group order.
+// * Epilogue through shared memory, so stores are full vectors along the
+//   contiguous dimension in both layouts.
+//
+// Below kMmaMinK (the leading axis of n mod 7 qubits, cross steps on a
+// small op axis) a step moves 8 bytes per 2K <= 62 FLOPs on few rows; the
+// fp32 SIMT template below serves it, also with one owner per tile and in
+// place.
 #pragma once
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace qs {
 
@@ -36,6 +84,7 @@ struct FiberGeom {
   long long op_stride, bit_stride;
   long long plane_stride;   // offset of the imaginary plane (complex)
   int li, lm, ls;           // log2 of n_inner, n_mid and S
+  int vec;                  // floats per copy and store chunk: 4, 2 or 1
 };
 
 __device__ __forceinline__ long long fiber_base(const FiberGeom& g,
@@ -52,31 +101,30 @@ __device__ __forceinline__ long long row_offset(const FiberGeom& g, int r) {
 }
 
 constexpr int kThreads = 256;
+// Contraction depths from this one up take the tensor-core path.
+constexpr int kMmaMinK = 32;
 
-// Tile shape per contraction depth K: RT output rows per block (the W
-// slice staged in shared memory), F fibers per tile, and a TM x TN
-// register tile per thread (RT * F = 256 * TM * TN). At K = 256 the whole
-// operator (256 KB real, 512 KB complex) exceeds the 227 KB a block can
-// hold, so the rows are tiled: four blocks share each fiber tile.
+// ---------------------------------------------------------------------------
+// SIMT path (K < kMmaMinK): fp32 FMA, a TM x TN register tile per thread
+// ---------------------------------------------------------------------------
+
 template <int K, bool CPLX>
-struct Tile {
-  static constexpr int RT = K <= 128 ? K : 64;
-  static constexpr int F = K <= 128 ? 4096 / K : (CPLX ? 32 : 64);
-  static constexpr int TM = RT < 4 ? RT : 4;
-  static constexpr int TN = RT * F / (kThreads * TM);
+struct SimtTile {
+  static constexpr int F = 4096 / K;
+  static constexpr int TM = K < 4 ? K : 4;
+  static constexpr int TN = K * F / (kThreads * TM);
   static constexpr int NP = CPLX ? 2 : 1;
   static constexpr size_t smem_bytes =
-      sizeof(float) * NP * ((size_t)K * RT + (size_t)K * (F + 1));
+      sizeof(float) * NP * ((size_t)K * K + (size_t)K * (F + 1));
 };
 
 template <int K, bool CPLX>
 __global__ void __launch_bounds__(kThreads)
-fiber_matmul_kernel(const float* __restrict__ x, float* __restrict__ y,
-                    const float* __restrict__ w, FiberGeom g) {
-  using T = Tile<K, CPLX>;
-  constexpr int RT = T::RT, F = T::F, TM = T::TM, TN = T::TN, NP = T::NP;
+simt_kernel(float* x, const float* __restrict__ w, FiberGeom g) {
+  using T = SimtTile<K, CPLX>;
+  constexpr int F = T::F, TM = T::TM, TN = T::TN, NP = T::NP;
   constexpr int FP = F + 1;          // padded pitch of the fiber tile
-  constexpr int RG = RT / TM;        // row groups
+  constexpr int RG = K / TM;         // row groups
   constexpr int FG = F / TN;         // fiber groups
   constexpr int LD = K * F / kThreads;  // tile elements each thread loads
   constexpr int CH = LD < 16 ? LD : 16; // loads in flight per thread
@@ -84,18 +132,16 @@ fiber_matmul_kernel(const float* __restrict__ x, float* __restrict__ y,
   static_assert(LD % CH == 0 && K * F % kThreads == 0, "load batches");
 
   extern __shared__ __align__(16) float smem[];
-  float* wt = smem;                  // [NP][K][RT]: W slice, transposed
-  float* xs = smem + NP * K * RT;    // [NP][K][FP]: fiber tile, then Y tile
+  float* wt = smem;                  // [NP][K][K]: W, transposed
+  float* xs = smem + NP * K * K;     // [NP][K][FP]: fiber tile, then result
 
   const int tid = threadIdx.x;
-  const int r0 = blockIdx.y * RT;
-  for (int e = tid; e < NP * RT * K; e += kThreads) {
-    const int p = e / (RT * K);
-    const int rem = e - p * RT * K;
+  for (int e = tid; e < NP * K * K; e += kThreads) {
+    const int p = e / (K * K);
+    const int rem = e - p * K * K;
     const int rr = rem / K;
     const int c = rem - rr * K;
-    wt[(p * K + c) * RT + rr] = w[(long long)p * K * K +
-                                  (long long)(r0 + rr) * K + c];
+    wt[(p * K + c) * K + rr] = w[e];
   }
 
   const int rg = tid % RG;
@@ -108,9 +154,7 @@ fiber_matmul_kernel(const float* __restrict__ x, float* __restrict__ y,
   for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const long long f0 = tile * F;
     __syncthreads();  // W staged; the previous tile's stores are done
-    // Each thread issues CH loads before it waits on any of them: a
-    // loop that stores every load to shared memory at once would wait a
-    // full device-memory latency per element.
+    // Each thread issues CH loads before it waits on any of them.
     for (int b0 = 0; b0 < LD; b0 += CH) {
       float v0[CH], v1[CH];
 #pragma unroll
@@ -136,7 +180,7 @@ fiber_matmul_kernel(const float* __restrict__ x, float* __restrict__ y,
         if constexpr (CPLX) xs[(K + c) * FP + f] = v1[u];
       }
     }
-    __syncthreads();
+    __syncthreads();  // the whole tile is read before any of it is written
 
     float acc[NP][TM][TN];
 #pragma unroll
@@ -150,13 +194,13 @@ fiber_matmul_kernel(const float* __restrict__ x, float* __restrict__ y,
     for (int c = 0; c < K; ++c) {
       float wr[TM], xr[TN];
 #pragma unroll
-      for (int i = 0; i < TM; ++i) wr[i] = wt[c * RT + rg + RG * i];
+      for (int i = 0; i < TM; ++i) wr[i] = wt[c * K + rg + RG * i];
 #pragma unroll
       for (int j = 0; j < TN; ++j) xr[j] = xs[c * FP + fg + FG * j];
       if constexpr (CPLX) {
         float wi[TM], xi[TN];
 #pragma unroll
-        for (int i = 0; i < TM; ++i) wi[i] = wt[(K + c) * RT + rg + RG * i];
+        for (int i = 0; i < TM; ++i) wi[i] = wt[(K + c) * K + rg + RG * i];
 #pragma unroll
         for (int j = 0; j < TN; ++j) xi[j] = xs[(K + c) * FP + fg + FG * j];
 #pragma unroll
@@ -187,18 +231,436 @@ fiber_matmul_kernel(const float* __restrict__ x, float* __restrict__ y,
           xs[p * K * FP + (rg + RG * i) * FP + fg + FG * j] = acc[p][i][j];
     __syncthreads();
 
-    for (int e = tid; e < RT * F; e += kThreads) {
-      const int f = lanes_on_fibers ? e % F : e / RT;
-      const int rr = lanes_on_fibers ? e / F : e % RT;
+    for (int e = tid; e < K * F; e += kThreads) {
+      const int f = lanes_on_fibers ? e % F : e / K;
+      const int rr = lanes_on_fibers ? e / F : e % K;
       const long long fib = f0 + f;
       if (fib < g.n_fib) {
-        const long long a = fiber_base(g, fib) + row_offset(g, r0 + rr);
-        y[a] = xs[rr * FP + f];
-        if constexpr (CPLX) y[a + g.plane_stride] = xs[K * FP + rr * FP + f];
+        const long long a = fiber_base(g, fib) + row_offset(g, rr);
+        x[a] = xs[rr * FP + f];
+        if constexpr (CPLX) x[a + g.plane_stride] = xs[K * FP + rr * FP + f];
       }
     }
   }
 }
+
+// ---------------------------------------------------------------------------
+// Tensor-core path (K >= kMmaMinK)
+// ---------------------------------------------------------------------------
+
+// Tile shape per depth K, complex flag and layout. F fibers per tile; R
+// output rows per slab (R = K: the operator stays resident); a warp grid of
+// KS contraction groups x WN fiber groups x WM row groups, each warp an
+// (MT * 16) x (NT * 8) tile of m16n8 accumulators per output plane (a
+// complex warp computes both planes of its tile, sharing the fragments);
+// MINB blocks per SM. Pitches (floats): operator rows and a row-major
+// tile 8 mod 32 (paired 64-bit fragment loads hit banks 8 * gid + 2 * tig
+// and the next), a fiber-major tile F + 4 (banks 8 * tig + gid). Shared memory: the operator (resident, or two slab
+// buffers) and two fiber-tile stages; the epilogue stages over the
+// consumed fiber tile (resident) or the consumed slab buffer (streamed).
+// (F, R, KS, WM, MINB) per depth: see MmaTile.
+struct MmaShape {
+  int F, R, KS, WM, MINB;
+};
+
+constexpr MmaShape mma_shape(int K, bool cplx) {
+  if (cplx) {
+    return K == 32    ? MmaShape{64, 32, 1, 2, 2}
+           : K == 64  ? MmaShape{32, 64, 1, 4, 2}
+           : K == 128 ? MmaShape{32, 128, 1, 4, 1}
+                      : MmaShape{32, 16, 4, 1, 1};
+  }
+  return K == 32    ? MmaShape{128, 32, 1, 2, 2}
+         : K == 64  ? MmaShape{64, 64, 1, 2, 2}
+         : K == 128 ? MmaShape{128, 128, 1, 2, 1}
+                    : MmaShape{64, 32, 4, 1, 1};
+}
+
+template <int K, bool CPLX, bool ROWS>
+struct MmaTile {
+  static constexpr MmaShape SH = mma_shape(K, CPLX);
+  static constexpr int NP = CPLX ? 2 : 1;
+  static constexpr int F = SH.F;
+  static constexpr int R = SH.R;
+  static constexpr int NS = K / R;             // slabs per tile
+  static constexpr bool RESIDENT = NS == 1;
+  static constexpr int KS = SH.KS;
+  static constexpr int WM = SH.WM;
+  static constexpr int WN = kThreads / 32 / (KS * WM);
+  static constexpr int MT = R / (16 * WM);
+  static constexpr int NT = F / (8 * WN);
+  static constexpr int MINB = SH.MINB;
+  // Operator row pitch, 8 mod 32; a streamed slab buffer has 32 floats
+  // more per row so it can also hold the KS groups' staged partials.
+  static constexpr int KWP = K + (RESIDENT ? 8 : 40);
+  static constexpr int WPL = R * KWP;          // operator plane, one slab
+  static constexpr int WBUF = NP * WPL;        // one slab buffer
+  static constexpr int W_FLOATS = RESIDENT ? WBUF : 2 * WBUF;
+  static constexpr int XC = ROWS ? 1 : F + 4;  // stride of a row in a stage
+  static constexpr int XF = ROWS ? K + 8 : 1;  // stride of a fiber
+  static constexpr int XPL = ROWS ? F * (K + 8) : K * (F + 4);
+  static constexpr int XSTAGE = NP * XPL;
+  static constexpr int SC = ROWS ? 1 : F + 4;  // epilogue staging strides
+  static constexpr int SF = ROWS ? R + 4 : 1;
+  static constexpr int SPL = ROWS ? F * (R + 4) : R * (F + 4);
+  static constexpr size_t smem_bytes =
+      sizeof(float) * ((size_t)W_FLOATS + 2 * (size_t)XSTAGE);
+  static_assert(KS * WM * WN * 32 == kThreads, "warp grid");
+  static_assert(MT >= 1 && NT >= 1 && MT * 16 * WM == R &&
+                NT * 8 * WN == F && K % (8 * KS) == 0, "warp tiles");
+  static_assert(NS == 1 || NS % 2 == 0, "slab buffers alternate");
+  static_assert(KS * NP * SPL <= (RESIDENT ? XSTAGE : WBUF), "staging");
+  static_assert(smem_bytes * MINB + 1024 * MINB <= 233472, "shared memory");
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Asynchronous copy of BYTES into shared memory; zero-fill when !valid.
+template <int BYTES>
+__device__ __forceinline__ void cp_async(float* dst, const float* src,
+                                         bool valid) {
+  const int n = valid ? BYTES : 0;
+  if constexpr (BYTES == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(smem_u32(dst)), "l"(src), "r"(n) : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n"
+                 :: "r"(smem_u32(dst)), "l"(src), "n"(BYTES), "r"(n)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// v = hi + lo: hi = v rounded to TF32 (nearest, ties away: the rounding
+// of cvt.rna.tf32.f32, done in two integer ops, which measured 6-10 %
+// faster than the cvt), lo = the rest.
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(v - __uint_as_float(hi));
+}
+
+// d = a b + d
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d = a b
+__device__ __forceinline__ void mma_tf32_zero(float (&d)[4],
+                                              const uint32_t (&a)[4],
+                                              const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
+        "f"(0.f));
+}
+
+// Copy W rows [r0, r0 + T::R) of every plane (or all K rows when
+// resident) into a slab buffer, 16-byte chunks.
+template <class T, int K>
+__device__ __forceinline__ void issue_w(float* dst, const float* w, int r0) {
+  constexpr int CPR = K / 4;
+  constexpr int N = T::NP * T::R * CPR;
+  for (int e = threadIdx.x; e < N; e += kThreads) {
+    const int c4 = e % CPR;
+    const int pr = e / CPR;                  // p * R + r
+    const int p = pr / T::R;
+    const int r = pr - p * T::R;
+    cp_async<16>(dst + p * T::WPL + r * T::KWP + c4 * 4,
+                 w + ((long long)p * K + r0 + r) * K + c4 * 4, true);
+  }
+}
+
+// Part `part` of `parts` of the copies of the fiber tile starting at fiber
+// f0 into a stage. Chunks of VEC floats run along the fibers (fiber-major
+// stage) or along the rows (row-major stage); fibers past n_fib are zero.
+template <class T, int K, int VEC, bool ROWS>
+__device__ __forceinline__ void issue_x(float* stage, const float* x,
+                                        const FiberGeom& g, long long f0,
+                                        int part, int parts) {
+  constexpr int F = T::F;
+  constexpr int PER_PLANE = K * F / VEC;
+  constexpr int N = T::NP * PER_PLANE;
+  const int e0 = part * (N / parts);
+  const int e1 = e0 + N / parts;
+  for (int e = e0 + threadIdx.x; e < e1; e += kThreads) {
+    const int p = e / PER_PLANE;
+    const int q = e - p * PER_PLANE;
+    int c, f;
+    if constexpr (ROWS) {
+      c = (q % (K / VEC)) * VEC;
+      f = q / (K / VEC);
+    } else {
+      f = (q % (F / VEC)) * VEC;
+      c = q / (F / VEC);
+    }
+    const long long fib = f0 + f;
+    const bool valid = fib < g.n_fib;
+    const float* src = valid ? x + p * g.plane_stride + fiber_base(g, fib) +
+                                   row_offset(g, c)
+                             : x;
+    cp_async<4 * VEC>(stage + p * T::XPL + c * T::XC + f * T::XF, src, valid);
+  }
+}
+
+// Store the staged rows [row0, row0 + R) of the tile at fiber f0: the sum
+// of the KS groups' partials, in group order.
+template <class T, int VEC, bool ROWS>
+__device__ __forceinline__ void store_slab(float* x, const float* st,
+                                           const FiberGeom& g, long long f0,
+                                           int row0) {
+  constexpr int F = T::F, R = T::R;
+  constexpr int PER_PLANE = R * F / VEC;
+  for (int e = threadIdx.x; e < T::NP * PER_PLANE; e += kThreads) {
+    const int p = e / PER_PLANE;
+    const int q = e - p * PER_PLANE;
+    int r, f;
+    if constexpr (ROWS) {
+      r = (q % (R / VEC)) * VEC;
+      f = q / (R / VEC);
+    } else {
+      f = (q % (F / VEC)) * VEC;
+      r = q / (F / VEC);
+    }
+    const long long fib = f0 + f;
+    if (fib >= g.n_fib) continue;
+    const float* src = st + p * T::SPL + r * T::SC + f * T::SF;
+    float v[VEC];
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) v[i] = src[i];
+#pragma unroll
+    for (int kg = 1; kg < T::KS; ++kg)
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) v[i] += src[kg * T::NP * T::SPL + i];
+    float* dst = x + p * g.plane_stride + fiber_base(g, fib) +
+                 row_offset(g, row0 + r);
+    if constexpr (VEC == 4) {
+      *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+    } else if constexpr (VEC == 2) {
+      *reinterpret_cast<float2*>(dst) = make_float2(v[0], v[1]);
+    } else {
+      *dst = v[0];
+    }
+  }
+}
+
+template <class T, int K, bool ROWS>
+__device__ __forceinline__ void issue_x_vec(float* stage, const float* x,
+                                            const FiberGeom& g, long long f0,
+                                            int part, int parts) {
+  if (g.vec == 4) issue_x<T, K, 4, ROWS>(stage, x, g, f0, part, parts);
+  else if (g.vec == 2) issue_x<T, K, 2, ROWS>(stage, x, g, f0, part, parts);
+  else issue_x<T, K, 1, ROWS>(stage, x, g, f0, part, parts);
+}
+
+template <class T, bool ROWS>
+__device__ __forceinline__ void store_slab_vec(float* x, const float* st,
+                                               const FiberGeom& g,
+                                               long long f0, int row0) {
+  if (g.vec == 4) store_slab<T, 4, ROWS>(x, st, g, f0, row0);
+  else if (g.vec == 2) store_slab<T, 2, ROWS>(x, st, g, f0, row0);
+  else store_slab<T, 1, ROWS>(x, st, g, f0, row0);
+}
+
+// Fragments of one 8-deep step. The step's contraction index is paired:
+// fragment column tig of A (row tig of B) is k0 + 2 * tig and column
+// tig + 4 is k0 + 2 * tig + 1, the same for both operands, so each
+// thread's two values of an operator row (or of a row-major fiber) are
+// adjacent and load as one 64-bit shared load.
+template <class T>
+__device__ __forceinline__ void load_a(const float* row, int tig,
+                                       uint32_t (&ah)[4], uint32_t (&al)[4]) {
+  const float2 p = *reinterpret_cast<const float2*>(row + 2 * tig);
+  const float2 q =
+      *reinterpret_cast<const float2*>(row + 8 * T::KWP + 2 * tig);
+  split_tf32(p.x, ah[0], al[0]);
+  split_tf32(q.x, ah[1], al[1]);
+  split_tf32(p.y, ah[2], al[2]);
+  split_tf32(q.y, ah[3], al[3]);
+}
+
+template <class T>
+__device__ __forceinline__ void load_b(const float* xp, int k0, int n_base,
+                                       int gid, int tig,
+                                       uint32_t (&bh)[T::NT][2],
+                                       uint32_t (&bl)[T::NT][2]) {
+#pragma unroll
+  for (int nt = 0; nt < T::NT; ++nt) {
+    const float* c = xp + (k0 + 2 * tig) * T::XC +
+                     (n_base + nt * 8 + gid) * T::XF;
+    float v0, v1;
+    if constexpr (T::XC == 1) {
+      const float2 p = *reinterpret_cast<const float2*>(c);
+      v0 = p.x;
+      v1 = p.y;
+    } else {
+      v0 = c[0];
+      v1 = c[T::XC];
+    }
+    split_tf32(v0, bh[nt][0], bl[nt][0]);
+    split_tf32(v1, bh[nt][1], bl[nt][1]);
+  }
+}
+
+template <int K, bool CPLX, bool ROWS>
+__global__ void __launch_bounds__(kThreads, (MmaTile<K, CPLX, ROWS>::MINB))
+mma_kernel(float* x, const float* __restrict__ w, FiberGeom g) {
+  using T = MmaTile<K, CPLX, ROWS>;
+  constexpr int F = T::F, R = T::R, NS = T::NS, MT = T::MT, NT = T::NT;
+  constexpr int NP = T::NP;
+  constexpr int KK = K / T::KS;          // contraction range of a group
+
+  extern __shared__ __align__(16) float smem[];
+  float* wbuf = smem;                    // operator: resident or 2 slabs
+  float* xbuf = smem + T::W_FLOATS;      // two fiber-tile stages
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int wm = warp % T::WM;
+  const int wn = (warp / T::WM) % T::WN;
+  const int kg = warp / (T::WM * T::WN);   // contraction group
+  const int m_base = wm * MT * 16;
+  const int n_base = wn * NT * 8;
+  const long long n_tiles = (g.n_fib + F - 1) / F;
+
+  // Prologue: the operator (or its first slab) and the first tile.
+  issue_w<T, K>(wbuf, w, 0);
+  if (blockIdx.x < n_tiles)
+    issue_x_vec<T, K, ROWS>(xbuf, x, g, (long long)blockIdx.x * F, 0, 1);
+  cp_async_commit();
+
+  int it = 0;
+  for (long long tile = blockIdx.x; tile < n_tiles;
+       tile += gridDim.x, ++it) {
+    const long long f0 = tile * F;
+    const long long next = tile + gridDim.x;
+    float* xs = xbuf + (it & 1) * T::XSTAGE;
+    float* xn = xbuf + ((it + 1) & 1) * T::XSTAGE;
+
+    for (int j = 0; j < NS; ++j) {
+      cp_async_wait_all();  // this tile and this slab have landed
+      // Everyone's copies are visible, and the previous slab's stores
+      // have read their staging: its buffer may be refilled.
+      __syncthreads();
+      // One group: the next operator slab and part j of the next tile,
+      // in flight during this slab's products and stores.
+      if constexpr (!T::RESIDENT) {
+        if (j + 1 < NS || next < n_tiles)
+          issue_w<T, K>(wbuf + ((j + 1) & 1) * T::WBUF, w,
+                        ((j + 1) % NS) * R);
+      }
+      if (next < n_tiles)
+        issue_x_vec<T, K, ROWS>(xn, x, g, next * F, j, NS);
+      cp_async_commit();
+
+      const float* ws = wbuf + (T::RESIDENT ? 0 : (j & 1) * T::WBUF);
+      float acc[NP][MT][NT][4];
+#pragma unroll
+      for (int p = 0; p < NP; ++p)
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) acc[p][mt][nt][i] = 0.f;
+
+#pragma unroll 2
+      for (int k0 = kg * KK; k0 < (kg + 1) * KK; k0 += 8) {
+        float part[NP][MT][NT][4];   // this step's products, added to acc
+        // B fragments: X plane 0 and, complex, plane 1 and its negation
+        uint32_t bh[NP][NT][2], bl[NP][NT][2], nbh[NT][2], nbl[NT][2];
+        load_b<T>(xs, k0, n_base, gid, tig, bh[0], bl[0]);
+        if constexpr (CPLX) {
+          load_b<T>(xs + T::XPL, k0, n_base, gid, tig, bh[1], bl[1]);
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              nbh[nt][i] = bh[1][nt][i] ^ 0x80000000u;
+              nbl[nt][i] = bl[1][nt][i] ^ 0x80000000u;
+            }
+        }
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          const float* wrow = ws + (m_base + mt * 16 + gid) * T::KWP + k0;
+          uint32_t ah[4], al[4];
+          load_a<T>(wrow, tig, ah, al);        // W plane 0 (Wr)
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+            for (int p = 0; p < NP; ++p) {     // re: Wr Xr; im: Wr Xi
+              mma_tf32_zero(part[p][mt][nt], al, bh[p][nt]);
+              mma_tf32(part[p][mt][nt], ah, bl[p][nt]);
+              mma_tf32(part[p][mt][nt], ah, bh[p][nt]);
+            }
+          }
+          if constexpr (CPLX) {
+            load_a<T>(wrow + T::WPL, tig, ah, al);   // Wi
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt) {
+              // re += Wi (-Xi), the same products as (-Wi) Xi; im += Wi Xr
+              mma_tf32(part[0][mt][nt], al, nbh[nt]);
+              mma_tf32(part[0][mt][nt], ah, nbl[nt]);
+              mma_tf32(part[0][mt][nt], ah, nbh[nt]);
+              mma_tf32(part[1][mt][nt], al, bh[0][nt]);
+              mma_tf32(part[1][mt][nt], ah, bl[0][nt]);
+              mma_tf32(part[1][mt][nt], ah, bh[0][nt]);
+            }
+          }
+        }
+#pragma unroll
+        for (int p = 0; p < NP; ++p)
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+              for (int i = 0; i < 4; ++i)
+                acc[p][mt][nt][i] += part[p][mt][nt][i];
+      }
+      __syncthreads();  // every warp is done with this slab and tile
+
+      // Epilogue: stage over what was just consumed, then store.
+      float* st = T::RESIDENT ? xs : wbuf + (j & 1) * T::WBUF;
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        float* sp = st + (kg * NP + p) * T::SPL;
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            const int r = m_base + mt * 16 + gid;
+            const int f = n_base + nt * 8 + 2 * tig;
+            sp[r * T::SC + f * T::SF] = acc[p][mt][nt][0];
+            sp[r * T::SC + (f + 1) * T::SF] = acc[p][mt][nt][1];
+            sp[(r + 8) * T::SC + f * T::SF] = acc[p][mt][nt][2];
+            sp[(r + 8) * T::SC + (f + 1) * T::SF] = acc[p][mt][nt][3];
+          }
+      }
+      __syncthreads();
+      store_slab_vec<T, ROWS>(x, st, g, f0, j * R);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Launch
+// ---------------------------------------------------------------------------
 
 inline int log2_exact(long long v) {
   int l = 0;
@@ -206,54 +668,70 @@ inline int log2_exact(long long v) {
   return (1LL << l) == v ? l : -1;
 }
 
-// Launch on `stream` with one persistent wave of blocks; returns a CUDA
-// error code (0 on success), never synchronises.
-template <int K, bool CPLX>
-int launch(const float* x, float* y, const float* w, const FiberGeom& g,
-           cudaStream_t stream) {
-  using T = Tile<K, CPLX>;
-  auto kernel = fiber_matmul_kernel<K, CPLX>;
-  static int resident = 0;  // blocks resident on the whole card
+// One persistent wave of blocks on `stream`; returns a CUDA error code
+// (0 on success), never synchronises. `resident` caches blocks per card.
+template <class Kernel>
+int launch_persistent(Kernel kernel, size_t smem, long long n_tiles,
+                      int& resident, float* x, const float* w,
+                      const FiberGeom& g, cudaStream_t stream) {
   if (resident == 0) {
     cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)T::smem_bytes);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     int dev = 0, sms = 0, per_sm = 0;
     if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return (int)err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, kernel, kThreads, T::smem_bytes);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kThreads, smem);
     if (err != cudaSuccess) return (int)err;
     if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
     resident = sms * per_sm;
   }
-  const int row_tiles = K / T::RT;
-  const long long n_tiles = (g.n_fib + T::F - 1) / T::F;
-  long long gx = resident / row_tiles;
-  if (gx < 1) gx = 1;
-  if (gx > n_tiles) gx = n_tiles;
-  dim3 grid((unsigned)gx, (unsigned)row_tiles);
-  kernel<<<grid, kThreads, T::smem_bytes, stream>>>(x, y, w, g);
+  const long long gx = n_tiles < resident ? n_tiles : resident;
+  kernel<<<(unsigned)gx, kThreads, smem, stream>>>(x, w, g);
   return (int)cudaGetLastError();
+}
+
+template <int K, bool CPLX>
+int launch_k(float* x, const float* w, int rows, const FiberGeom& g,
+             cudaStream_t st) {
+  if constexpr (K < kMmaMinK) {
+    using T = SimtTile<K, CPLX>;
+    static int resident = 0;
+    return launch_persistent(simt_kernel<K, CPLX>, T::smem_bytes,
+                             (g.n_fib + T::F - 1) / T::F, resident, x, w, g,
+                             st);
+  } else if (rows) {
+    using T = MmaTile<K, CPLX, true>;
+    static int resident = 0;
+    return launch_persistent(mma_kernel<K, CPLX, true>, T::smem_bytes,
+                             (g.n_fib + T::F - 1) / T::F, resident, x, w, g,
+                             st);
+  } else {
+    using T = MmaTile<K, CPLX, false>;
+    static int resident = 0;
+    return launch_persistent(mma_kernel<K, CPLX, false>, T::smem_bytes,
+                             (g.n_fib + T::F - 1) / T::F, resident, x, w, g,
+                             st);
+  }
 }
 
 // One case of the K dispatch; depths outside [KMIN, KMAX] are not built.
 template <int KK, int KMIN, int KMAX>
-int launch_if(const float* x, float* y, const float* w, int cplx,
+int launch_if(float* x, const float* w, int cplx, int rows,
               const FiberGeom& g, cudaStream_t st) {
   if constexpr (KK >= KMIN && KK <= KMAX) {
-    return cplx ? launch<KK, true>(x, y, w, g, st)
-                : launch<KK, false>(x, y, w, g, st);
+    return cplx ? launch_k<KK, true>(x, w, rows, g, st)
+                : launch_k<KK, false>(x, w, rows, g, st);
   } else {
     return (int)cudaErrorInvalidValue;
   }
 }
 
-// Validate the view and dispatch on the contraction depth K.
+// Validate the view and the copy plan, then dispatch on the depth K.
 template <int KMIN, int KMAX>
-int dispatch(const float* x, float* y, const float* w, int K, int cplx,
+int dispatch(float* x, const float* w, int K, int cplx, int rows, int vec,
              long long n_outer, long long so, long long n_mid, long long sm,
              long long n_inner, long long S, long long op_stride,
              long long bit_stride, long long plane_stride, void* stream) {
@@ -267,18 +745,29 @@ int dispatch(const float* x, float* y, const float* w, int K, int cplx,
   g.li = log2_exact(n_inner);
   g.lm = log2_exact(n_mid);
   g.ls = log2_exact(S);
+  g.vec = vec;
   if (g.n_fib < 1 || g.li < 0 || g.lm < 0 || g.ls < 0)
+    return (int)cudaErrorInvalidValue;
+  // A chunk of vec floats must be contiguous and aligned: along the rows
+  // of one fiber (rows) or along a run of inner fibers (otherwise).
+  if (vec != 1 && vec != 2 && vec != 4) return (int)cudaErrorInvalidValue;
+  if (rows && (n_inner != 1 || op_stride != 1))
+    return (int)cudaErrorInvalidValue;
+  const long long run = rows ? S : n_inner;
+  if (run % vec || so % vec || sm % vec || bit_stride % vec ||
+      plane_stride % vec || (!rows && op_stride % vec) ||
+      reinterpret_cast<uintptr_t>(x) % (4 * vec))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   switch (K) {
-    case 2: return launch_if<2, KMIN, KMAX>(x, y, w, cplx, g, st);
-    case 4: return launch_if<4, KMIN, KMAX>(x, y, w, cplx, g, st);
-    case 8: return launch_if<8, KMIN, KMAX>(x, y, w, cplx, g, st);
-    case 16: return launch_if<16, KMIN, KMAX>(x, y, w, cplx, g, st);
-    case 32: return launch_if<32, KMIN, KMAX>(x, y, w, cplx, g, st);
-    case 64: return launch_if<64, KMIN, KMAX>(x, y, w, cplx, g, st);
-    case 128: return launch_if<128, KMIN, KMAX>(x, y, w, cplx, g, st);
-    case 256: return launch_if<256, KMIN, KMAX>(x, y, w, cplx, g, st);
+    case 2: return launch_if<2, KMIN, KMAX>(x, w, cplx, rows, g, st);
+    case 4: return launch_if<4, KMIN, KMAX>(x, w, cplx, rows, g, st);
+    case 8: return launch_if<8, KMIN, KMAX>(x, w, cplx, rows, g, st);
+    case 16: return launch_if<16, KMIN, KMAX>(x, w, cplx, rows, g, st);
+    case 32: return launch_if<32, KMIN, KMAX>(x, w, cplx, rows, g, st);
+    case 64: return launch_if<64, KMIN, KMAX>(x, w, cplx, rows, g, st);
+    case 128: return launch_if<128, KMIN, KMAX>(x, w, cplx, rows, g, st);
+    case 256: return launch_if<256, KMIN, KMAX>(x, w, cplx, rows, g, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
 ``nvcc`` compiles every ``.cu`` file of ``quantum_simulator_tpu_torch/csrc``
-into one shared library with a plain C interface, for ``sm_90a``, on first
-use; ``ctypes`` loads it. The library lands in
+for ``sm_90a`` on first use, one process per source, all started together,
+and links the objects into one shared library with a plain C interface;
+``ctypes`` loads it. The library lands in
 ``build/torch_kernels/<hash of the sources>/`` at the root of the checkout,
 so an edit to any source rebuilds and an unchanged tree reuses the build.
 The ``nvcc`` log (``-Xptxas -v``: registers, shared memory and spills per
@@ -26,11 +27,13 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "torch_kernels"
 
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
-# C entry points: (x, y, op, K, complex, n_outer, so, n_mid, sm, n_inner,
-# S, op_stride, bit_stride, plane_stride, stream) -> cudaError_t.
+# C entry points: (x, op, K, complex, rows, vec, n_outer, so, n_mid, sm,
+# n_inner, S, op_stride, bit_stride, plane_stride, stream) -> cudaError_t;
+# the kernel writes its result over x.
 _ENTRY_POINTS = ("qs_dense_axis", "qs_cross_bit_axis")
 
 
@@ -68,14 +71,26 @@ def build() -> Path:
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"libqs_kernels.{os.getpid()}.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(p) for p in sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out_dir / "nvcc.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
-                           + proc.stderr[-6000:])
+    nvcc, pid = _nvcc(), os.getpid()
+    tmp = out_dir / f"libqs_kernels.{pid}.so"
+    srcs = sorted(CSRC.glob("*.cu"))
+    objs = [out_dir / f"{src.stem}.{pid}.o" for src in srcs]
+    procs = [subprocess.Popen(
+        [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src, obj in zip(srcs, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    link = None
+    if all(p.returncode == 0 for p in procs):
+        link = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp),
+                               *map(str, objs)],
+                              capture_output=True, text=True)
+        logs.append(link.stdout + link.stderr)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    (out_dir / "nvcc.log").write_text("".join(logs))
+    if link is None or link.returncode != 0:
+        raise RuntimeError("nvcc failed:\n" + "".join(logs)[-6000:])
     os.replace(tmp, lib)  # atomic: concurrent builders never see half a file
     return lib
 
@@ -91,13 +106,15 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     for name in _ENTRY_POINTS:
         fn = getattr(lib, name)
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+        fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
                        + [ctypes.c_longlong] * 9 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     lib.qs_error_string.argtypes = [ctypes.c_int]
     lib.qs_error_string.restype = ctypes.c_char_p
-    lib.qs_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.qs_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.qs_smem_bytes.restype = ctypes.c_longlong
+    lib.qs_tile_fibers.argtypes = [ctypes.c_int] * 2
+    lib.qs_tile_fibers.restype = ctypes.c_int
     return lib
 
 

@@ -11,12 +11,14 @@ carry every FLOP of the main path:
 
 Both are one CUDA template (``csrc/fiber_matmul.cuh``): the state is a
 set of "fibers", each a K-long column of rows whose offsets are
-``(r // S) * bit_stride + (r % S) * op_stride``; a block stages a slice of
-the operator in shared memory and multiplies it into a tile of fibers.
+``(r // S) * bit_stride + (r % S) * op_stride``; one block owns each tile
+of fibers, multiplies the operator into it (3xTF32 on the tensor cores
+for K >= ``MMA_MIN_K``, fp32 FMA below) and writes the result over it.
 The wrappers below reduce the state to that strided view
-(``dense_geometry``, ``cross_geometry``), check what the kernel takes and
-raise on anything else. Every geometry the planner emits is covered,
-including a sliced bit inside the last axis, which Pallas declines.
+(``dense_geometry``, ``cross_geometry``), choose how a tile is copied
+(``copy_plan``), check what the kernel takes and raise on anything else.
+Every geometry the planner emits is covered, including a sliced bit
+inside the last axis, which Pallas declines.
 
 Each wrapper has a plain PyTorch twin (``*_plain``: ``torch.einsum`` on the
 JAX package's ``_dense_spec`` / ``_cross_spec`` forms). The wrapper takes
@@ -25,13 +27,16 @@ or raises. ``<wrapper>.launches`` counts kernel launches.
 
 The JAX package gates its kernels behind ``CONFIG.pallas_steps`` and a
 rank >= 5 rule tuned to XLA on the TPU; the port carries neither.
-Out-of-place: each launch writes a fresh output, so a step holds two
-states at its peak. Neither kernel has a backward pass (the Pallas ones
-have no VJP either).
+In place, like the Pallas kernels (``input_output_aliases``): on a CUDA
+tensor a wrapper overwrites its input and returns that same tensor, so a
+step holds one state; the plain twins (and so the CPU path) return a new
+tensor. Neither kernel has a backward pass (the Pallas ones have no VJP
+either).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -193,6 +198,38 @@ def cross_geometry(shape: tuple[int, ...], slice_axis: int, slice_pos: int,
     return g._replace(plane_stride=0 if op_real else total)
 
 
+# Contraction depths from this one up take the tensor-core path
+# (``kMmaMinK`` in ``csrc/fiber_matmul.cuh``).
+MMA_MIN_K = 32
+
+
+def tile_fibers(K: int, real: bool) -> int:
+    """Fibers per tile at depth K: ``SimtTile`` / ``MmaTile<K, ...>::F`` of
+    ``csrc/fiber_matmul.cuh`` (``chip_smoke.py`` checks the two agree)."""
+    if K < MMA_MIN_K:
+        return 4096 // K
+    if real:
+        return {32: 128, 128: 128}.get(K, 64)
+    return 64 if K == 32 else 32
+
+
+def copy_plan(g: Geometry) -> tuple[bool, int]:
+    """How a fiber tile is copied: ``(rows, vec)``.
+
+    ``rows`` is True when each fiber's rows are contiguous (op axis last:
+    ``n_inner == 1``, ``op_stride == 1``): the tile is stored row-major and
+    copy chunks run along the rows. Otherwise chunks run along a run of
+    ``n_inner`` contiguous fibers. ``vec`` is the floats per chunk (16, 8
+    or 4 bytes): the widest that divides the contiguous run and every
+    stride, so every chunk is contiguous and aligned."""
+    rows = g.n_inner == 1 and g.op_stride == 1
+    run = g.S if rows else g.n_inner
+    strides = (run, g.so, g.sm, g.bit_stride, g.plane_stride) + (
+        () if rows else (g.op_stride,))
+    vec = next(v for v in (4, 2, 1) if all(s % v == 0 for s in strides))
+    return rows, vec
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -221,41 +258,54 @@ def _check(x: torch.Tensor, op: torch.Tensor, op_shape: tuple[int, ...],
     return real
 
 
+@functools.lru_cache(maxsize=None)
+def _view(kind: str, shape: tuple[int, ...], geom, planar: bool,
+          real: bool) -> tuple[Geometry, tuple[bool, int]]:
+    """Geometry and copy plan of a launch, cached: an executor repeats a
+    few shapes, and at n=16 a launch's host work is most of its time."""
+    g = (dense_geometry(shape, geom, planar, real) if kind == "dense"
+         else cross_geometry(shape, *geom, planar, real))
+    return g, copy_plan(g)
+
+
 def _launch(fn_name: str, x: torch.Tensor, op: torch.Tensor, K: int,
-            real: bool, g: Geometry) -> torch.Tensor:
-    y = torch.empty_like(x)
+            real: bool, view: tuple[Geometry, tuple[bool, int]]) -> None:
+    """Launch a kernel over ``x`` in place on the current stream."""
+    g, (rows, vec) = view
+    if x.data_ptr() % (4 * vec) or op.data_ptr() % 16:
+        raise ValueError(f"{fn_name}: state or operator not aligned for "
+                         f"{4 * vec}-byte copies")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = getattr(_build.library(), fn_name)(
-            x.data_ptr(), y.data_ptr(), op.data_ptr(), K, int(not real),
+            x.data_ptr(), op.data_ptr(), K, int(not real), int(rows), vec,
             g.n_outer, g.so, g.n_mid, g.sm, g.n_inner, g.S, g.op_stride,
             g.bit_stride, g.plane_stride, stream)
     if rc != 0:
         raise RuntimeError(f"{fn_name}: launch failed with CUDA error {rc} "
                            f"({_build.error_string(rc)})")
-    return y
 
 
 def dense_axis(x: torch.Tensor, op: torch.Tensor, axis: int,
                planar: bool) -> torch.Tensor:
-    """AxisMatmulStep: the ``dense_axis`` kernel on a CUDA tensor, the
-    plain twin on a CPU one. Returns a new tensor."""
+    """AxisMatmulStep: the ``dense_axis`` kernel on a CUDA tensor (in
+    place: returns ``x``), the plain twin on a CPU one (a new tensor)."""
     if x.device.type == "cpu":
         return dense_axis_plain(x, op, axis, planar)
     shape = _layout_shape(x, planar)
     S = shape[axis]
     real = _check(x, op, (S, S), planar, "dense_axis")
-    y = _launch("qs_dense_axis", x, op, S, real,
-                dense_geometry(shape, axis, planar, real))
+    _launch("qs_dense_axis", x, op, S, real,
+            _view("dense", shape, axis, planar, real))
     dense_axis.launches += 1
-    return y
+    return x
 
 
 def cross_bit_axis(x: torch.Tensor, cop: torch.Tensor, slice_axis: int,
                    slice_pos: int, op_axis: int,
                    planar: bool) -> torch.Tensor:
-    """CrossStep: the ``cross_bit_axis`` kernel on a CUDA tensor, the
-    plain twin on a CPU one. Returns a new tensor."""
+    """CrossStep: the ``cross_bit_axis`` kernel on a CUDA tensor (in
+    place: returns ``x``), the plain twin on a CPU one (a new tensor)."""
     if x.device.type == "cpu":
         return cross_bit_axis_plain(x, cop, slice_axis, slice_pos, op_axis,
                                     planar)
@@ -266,11 +316,11 @@ def cross_bit_axis(x: torch.Tensor, cop: torch.Tensor, slice_axis: int,
         raise ValueError(f"cross_bit_axis: bad geometry ({slice_axis}, "
                          f"{slice_pos}, {op_axis}) for shape {shape}")
     real = _check(x, cop, (2, S, 2, S), planar, "cross_bit_axis")
-    y = _launch("qs_cross_bit_axis", x, cop, 2 * S, real,
-                cross_geometry(shape, slice_axis, slice_pos, op_axis, planar,
-                               real))
+    _launch("qs_cross_bit_axis", x, cop, 2 * S, real,
+            _view("cross", shape, (slice_axis, slice_pos, op_axis), planar,
+                  real))
     cross_bit_axis.launches += 1
-    return y
+    return x
 
 
 dense_axis.launches = 0

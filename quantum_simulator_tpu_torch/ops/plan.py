@@ -886,7 +886,11 @@ def execute_group_plan(plan: GroupPlan, operands, program, params,
     ``(*axis_sizes,)`` with ``planar=False`` (only for ``plan.all_real``).
     Dense and cross steps go through the ``cuda_exec`` kernel wrappers;
     ``plain=True`` calls their plain PyTorch twins instead on any device
-    (the reference executor the kernels are checked and timed against)."""
+    (the reference executor the kernels are checked and timed against).
+
+    Takes ownership of ``x``: on a CUDA tensor the kernels write in place,
+    so ``x`` may be overwritten by the run; pass a state you no longer
+    need (or a clone)."""
     layout = plan.layout
     shape = tuple(layout.axis_sizes)
     rank = len(shape)

@@ -8,7 +8,8 @@ not installed. Run on a machine with a card from the repository root:
 
 (``--noconftest`` because ``tests/conftest.py`` sets JAX up.)
 Tolerances are those of ``tests/test_pallas_exec.py``: 2e-4 dense, 2e-3
-cross, as the sums run in another order than cuBLAS's.
+cross, as the sums run in another order than cuBLAS's. The kernels write
+in place, so every twin runs on the state before the kernel does.
 """
 
 import numpy as np
@@ -56,9 +57,9 @@ def test_dense_kernel_matches_twin(cuda, shape, planar, real):
     for axis in range(len(shape)):
         S = shape[axis]
         op = _op((S, S), real, cuda, seed=axis)
-        got = cuda_exec.dense_axis(x, op, axis, planar)
-        torch.cuda.synchronize()
         want = cuda_exec.dense_axis_plain(x, op, axis, planar)
+        got = cuda_exec.dense_axis(x.clone(), op, axis, planar)
+        torch.cuda.synchronize()
         torch.testing.assert_close(got, want, atol=2e-4, rtol=0)
 
 
@@ -74,10 +75,160 @@ def test_cross_kernel_matches_twin(cuda, shape, s, pos, o, planar, real):
     x = _state(shape, planar, cuda, seed=s * 7 + o)
     S = shape[o]
     cop = _op((2, S, 2, S), real, cuda, seed=2)
+    want = cuda_exec.cross_bit_axis_plain(x, cop, s, pos, o, planar)
+    got = cuda_exec.cross_bit_axis(x.clone(), cop, s, pos, o, planar)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=2e-3, rtol=0)
+
+
+def _scaled_op(shape, real, device, seed):
+    """N(0, 1/K) entries: outputs stay O(1), like a unitary's."""
+    k = shape[-1] * (2 if len(shape) == 4 else 1)
+    return _op(shape, real, device, seed) / np.sqrt(k)
+
+
+def _check_dense(x, op, axis, planar, tol=2e-4):
+    want = cuda_exec.dense_axis_plain(x, op, axis, planar)
+    got = cuda_exec.dense_axis(x, op, axis, planar)
+    torch.cuda.synchronize()
+    assert got is x
+    torch.testing.assert_close(got, want, atol=tol, rtol=0)
+
+
+def _check_cross(x, cop, s, pos, o, planar, tol=2e-3):
+    want = cuda_exec.cross_bit_axis_plain(x, cop, s, pos, o, planar)
     got = cuda_exec.cross_bit_axis(x, cop, s, pos, o, planar)
     torch.cuda.synchronize()
-    want = cuda_exec.cross_bit_axis_plain(x, cop, s, pos, o, planar)
-    torch.testing.assert_close(got, want, atol=2e-3, rtol=0)
+    assert got is x
+    torch.testing.assert_close(got, want, atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("planar,real", VARIANTS)
+def test_wrappers_write_in_place(cuda, planar, real):
+    """Like Pallas's input_output_aliases: the result overwrites the
+    input and the wrapper returns that same tensor."""
+    x = _state((4, 128, 128), planar, cuda)
+    ptr = x.data_ptr()
+    op = _scaled_op((128, 128), real, cuda, seed=3)
+    assert cuda_exec.dense_axis(x, op, 2, planar) is x
+    assert x.data_ptr() == ptr
+    if planar and real:
+        return
+    cop = _scaled_op((2, 128, 2, 128), real, cuda, seed=4)
+    assert cuda_exec.cross_bit_axis(x, cop, 1, 6, 2, planar) is x
+    assert x.data_ptr() == ptr
+
+
+@pytest.mark.parametrize("planar,real", VARIANTS)
+def test_ragged_last_tile(cuda, planar, real):
+    """Fewer fibers than a tile holds: the tail is zero-filled on load
+    and masked on store."""
+    shape = (128, 16)                      # K = 128 on 16 or 32 fibers
+    g = cuda_exec.dense_geometry(shape, 0, planar, real)
+    assert g.n_outer * g.n_mid * g.n_inner < cuda_exec.tile_fibers(128, real)
+    _check_dense(_state(shape, planar, cuda), _scaled_op((128, 128), real,
+                                                         cuda, 5), 0, planar)
+    if planar and real:
+        return
+    cop = _scaled_op((2, 128, 2, 128), real, cuda, seed=6)
+    _check_cross(_state((2, 128), planar, cuda), cop, 0, 0, 1, planar)
+    # one fiber of K = 256
+
+
+@pytest.mark.parametrize("geom,width", [
+    ((1, 6, 2), (True, 4)),     # rows contiguous: 16-byte copies
+    ((0, 1, 2), (True, 4)),
+    ((2, 3, 0), (False, 4)),    # runs of 8 fibers (K = 8: SIMT)
+    ((1, 0, 0), (False, 4)),
+    ((2, 6, 1), (False, 1)),    # only bit pairs adjacent: 4 bytes
+    ((2, 5, 1), (False, 2)),    # runs of 2 fibers: 8 bytes
+])
+@pytest.mark.parametrize("planar,real", [(False, True), (True, False)])
+def test_copy_widths(cuda, geom, width, planar, real):
+    shape = (4, 128, 128)
+    g = cuda_exec.cross_geometry(shape, *geom, planar, real)
+    assert cuda_exec.copy_plan(g) == width
+    S = shape[geom[2]]
+    _check_cross(_state(shape, planar, cuda), _scaled_op(
+        (2, S, 2, S), real, cuda, 7), *geom, planar)
+
+
+# chip_smoke.py's CROSS_CASES: every cross geometry of the brickwork plans
+# at n = 16, 28 and 30, plus a sliced bit inside the last axis.
+LAYOUTS = {16: (4, 128, 128), 28: (128,) * 4, 30: (4,) + (128,) * 4}
+SMOKE_CROSS = [(16, 1, 0, 0), (16, 1, 6, 2), (28, 0, 6, 1), (28, 1, 6, 2),
+               (28, 2, 6, 3), (30, 1, 0, 0), (30, 1, 6, 2), (30, 2, 6, 3),
+               (30, 3, 6, 4), (16, 2, 3, 0), (28, 3, 0, 1)]
+
+
+@pytest.mark.parametrize("n,s,pos,o", SMOKE_CROSS)
+def test_cross_slab_loop_on_main_path_geometries(cuda, n, s, pos, o):
+    """K = 256 streams the operator in slabs of output rows; every main
+    path geometry, real operator on a real state (complex at n = 16)."""
+    shape = LAYOUTS[n]
+    S = shape[o]
+    variants = [(False, True)] + ([(True, False)] if n == 16 else [])
+    for planar, real in variants:
+        cop = _scaled_op((2, S, 2, S), real, cuda, seed=8)
+        _check_cross(_state(shape, planar, cuda), cop, s, pos, o, planar)
+        torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("planar,real", VARIANTS)
+def test_both_sides_of_the_small_k_line(cuda, planar, real):
+    """K < MMA_MIN_K runs the fp32 SIMT template, K >= it the 3xTF32
+    tensor-core one."""
+    assert cuda_exec.MMA_MIN_K == 32
+    shape = (16, 32, 64)
+    for axis in range(3):                  # K = 16 | K = 32, 64
+        S = shape[axis]
+        _check_dense(_state(shape, planar, cuda),
+                     _scaled_op((S, S), real, cuda, 9 + axis), axis, planar)
+    if planar and real:
+        return
+    for shape, geoms in (((4, 8, 16), ((2, 0, 0), (2, 0, 1), (0, 0, 2))),
+                         ((16, 32, 64), ((1, 0, 0), (0, 0, 1)))):
+        for s, pos, o in geoms:            # K = 8, 16 | K = 32 | 32, 64
+            S = shape[o]
+            _check_cross(_state(shape, planar, cuda),
+                         _scaled_op((2, S, 2, S), real, cuda, 12), s, pos,
+                         o, planar)
+
+
+def test_a_step_allocates_no_second_state(cuda):
+    """In place: a step's peak is the state plus at most 64 MiB."""
+    x = _state((16, 128, 128, 128), True, cuda)      # 256 MiB planar
+    ops = (_scaled_op((128, 128), False, cuda, 15),
+           _scaled_op((2, 128, 2, 128), False, cuda, 16))
+    for run in (lambda: cuda_exec.dense_axis(x, ops[0], 2, True),
+                lambda: cuda_exec.cross_bit_axis(x, ops[1], 1, 6, 3, True)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        run()
+        torch.cuda.synchronize()
+        assert torch.cuda.max_memory_allocated() - base <= 64 * 2**20
+
+
+def test_executor_holds_one_state(cuda):
+    """The fault the in-place kernels repair: an out-of-place step held
+    two states at its peak. A plan of dense and cross steps only now holds
+    the state it was given and nothing close to a second one."""
+    c = QuantumCircuit.from_dict(build_circuit_dict(28, 8, 5, True))
+    p = tprog.compile_circuit(c)
+    plan = tplan.build_group_plan(p)
+    assert all(isinstance(s, (tplan.AxisMatmulStep, tplan.CrossStep))
+               for s in plan.steps)
+    ops = tplan.operands_to(
+        tplan.build_group_operands(p, plan, p.initial_params), cuda)
+    x = tplan.basis_state(plan, p.initial_index, cuda, True)   # 2 GiB
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = tplan.execute_group_plan(plan, ops, p, p.initial_params, x, True)
+    torch.cuda.synchronize()
+    assert out.data_ptr() == x.data_ptr()
+    assert torch.cuda.max_memory_allocated() - base <= 64 * 2**20
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):

@@ -10,10 +10,14 @@ tensor each wrapper takes its plain PyTorch twin. Here:
   ``tests/test_pallas_exec.py`` runs them (same shapes, cases and
   tolerances: 2e-4 dense, 2e-3 cross), and the sliced-bit-in-the-last-axis
   case Pallas declines against the JAX ``_cross_spec`` einsum;
+* the kernels' 3xTF32 product (``csrc/fiber_matmul.cuh``) is emulated
+  with TF32 rounding done on int32 bits and the kernel's order of adds,
+  and held to float64 as tightly as an fp32 product;
 * the fiber geometry the wrappers hand the kernels (``dense_geometry``,
-  ``cross_geometry``) is emulated with index arithmetic identical to the
-  kernel's (``csrc/fiber_matmul.cuh``) and held against the twins; the
-  view must visit every state element exactly once.
+  ``cross_geometry``), the tile map and the copy chunks (``copy_plan``)
+  are emulated with index arithmetic identical to the kernel's and held
+  against the twins; every state element must be read and written by
+  exactly one tile.
 
 The kernels themselves are checked on the card by ``tests/test_torch_gpu.py``
 and ``chip_smoke.py``.
@@ -124,35 +128,179 @@ class TestCrossTwin:
 
 
 # ---------------------------------------------------------------------------
-# The kernels' strided view, emulated
+# The kernels' 3xTF32 arithmetic, emulated
 # ---------------------------------------------------------------------------
+
+def _tf32(v: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32``: keep 10 mantissa bits, round to nearest with
+    ties away from zero (add half an ulp to the magnitude bits, mask)."""
+    b = v.contiguous().view(torch.int32)
+    return ((b + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _lo(v: torch.Tensor) -> torch.Tensor:
+    """``v - hi`` as the tensor core reads it: a TF32 operand, i.e. the
+    fp32 value without its low 13 bits."""
+    b = (v - _tf32(v)).contiguous().view(torch.int32)
+    return (b & -0x2000).view(torch.float32)
+
+
+# Contraction groups per slab at K = 256 (``MmaTile::KS``): (real, complex).
+K_GROUPS = {256: (2, 4)}
+
+
+def _mma_emulated(pairs, K: int, groups: int = 1,
+                  passes: int = 3) -> torch.Tensor:
+    """The order of ``mma_kernel``'s adds: each of ``groups`` contiguous
+    K ranges accumulates in fp32, in 8-deep steps; a step is a zeroed
+    fragment that takes, for each (A, B) product in turn, A_lo B_hi,
+    A_hi B_lo, A_hi B_hi; the groups' partials are summed in order.
+    (``passes=1``: the single-pass A_hi B_hi the kernels never use.)"""
+    split = [((_tf32(a), _lo(a)), (_tf32(b), _lo(b))) for a, b in pairs]
+    out = None
+    for g in range(groups):
+        acc = torch.zeros(pairs[0][0].shape[0], pairs[0][1].shape[1])
+        for k0 in range(g * K // groups, (g + 1) * K // groups, 8):
+            s = slice(k0, k0 + 8)
+            step = torch.zeros_like(acc)
+            for (ah, al), (bh, bl) in split:
+                if passes == 3:
+                    step = step + al[:, s] @ bh[s]
+                    step = step + ah[:, s] @ bl[s]
+                step = step + ah[:, s] @ bh[s]
+            acc = acc + step
+        out = acc if out is None else out + acc
+    return out
+
+
+def _product_emulated(w: torch.Tensor, xs, K: int, real: bool,
+                      passes: int = 3):
+    """Planes of W X for a real (K, K) or complex (2, K, K) W, as the
+    tensor-core path computes them: re += Wr Xr then (-Wi) Xi; im += Wr Xi
+    then Wi Xr."""
+    groups = K_GROUPS.get(K, (1, 1))[0 if real else 1]
+    if real:
+        return [_mma_emulated([(w, xs[0])], K, groups, passes)]
+    wr, wi = w[0], w[1]
+    xr, xi = xs
+    return [_mma_emulated([(wr, xr), (-wi, xi)], K, groups, passes),
+            _mma_emulated([(wr, xi), (wi, xr)], K, groups, passes)]
+
+
+@pytest.mark.parametrize("K", [32, 128, 256])
+@pytest.mark.parametrize("real", [True, False])
+def test_3xtf32_is_as_accurate_as_fp32(K, real):
+    """The kernels' split product against float64: at most 2x the error
+    of the fp32 product (the plain twin's arithmetic); one TF32 pass
+    misses the 2e-4 dense tolerance, so the test tells the two apart."""
+    rng = np.random.default_rng(K + real)
+    n = 2048
+    w = rng.standard_normal((K, K) if real else (2, K, K)) / np.sqrt(K)
+    x = rng.standard_normal((1 if real else 2, K, n))
+    w32 = torch.from_numpy(w.astype(np.float32))
+    x32 = [torch.from_numpy(p.astype(np.float32)) for p in x]
+    w64 = w32.double().numpy()
+    x64 = [p.double().numpy() for p in x32]
+    if real:
+        want = [w64 @ x64[0]]
+        fp32 = [w32 @ x32[0]]
+    else:
+        want = [w64[0] @ x64[0] - w64[1] @ x64[1],
+                w64[0] @ x64[1] + w64[1] @ x64[0]]
+        fp32 = [w32[0] @ x32[0] - w32[1] @ x32[1],
+                w32[0] @ x32[1] + w32[1] @ x32[0]]
+
+    def err(planes):
+        return max(float(np.abs(p.double().numpy() - q).max())
+                   for p, q in zip(planes, want))
+
+    e3 = err(_product_emulated(w32, x32, K, real))
+    e32 = err(fp32)
+    e1 = err(_product_emulated(w32, x32, K, real, passes=1))
+    assert e3 <= 2 * e32, (e3, e32)
+    assert e1 > 2e-4, e1
+
+
+def test_tf32_rounding_is_round_to_nearest_away():
+    one = 1.0
+    ulp = 2.0 ** -10                       # TF32 spacing at 1.0
+    v = torch.tensor([one + ulp / 2, -(one + ulp / 2), one + ulp / 4,
+                      one + 3 * ulp / 4, 3.0e-3], dtype=torch.float32)
+    got = _tf32(v)
+    assert got[0] == one + ulp and got[1] == -(one + ulp)
+    assert got[2] == one and got[3] == one + ulp
+    hi, lo = _tf32(v), _lo(v)
+    torch.testing.assert_close(hi.double() + lo.double(), v.double(),
+                               atol=0, rtol=2.0 ** -20)
+
+
+# ---------------------------------------------------------------------------
+# The kernels' tile map and strided view, emulated
+# ---------------------------------------------------------------------------
+
+def _chunk_addresses(g: cuda_exec.Geometry, K: int) -> torch.Tensor:
+    """(K, n_fib) element offsets as the kernel reaches them: from the
+    start of a copy chunk of ``vec`` floats plus the position in it
+    (``issue_x`` / ``store_slab`` of ``csrc/fiber_matmul.cuh``), along the
+    rows of one fiber or along a run of fibers (``copy_plan``). Asserts
+    each chunk address is the element's own offset."""
+    rows, vec = cuda_exec.copy_plan(g)
+    n_fib = g.n_outer * g.n_mid * g.n_inner
+
+    def base(f):
+        om = f // g.n_inner
+        return (om // g.n_mid) * g.so + (om % g.n_mid) * g.sm + f % g.n_inner
+
+    def roff(r):
+        return (r // g.S) * g.bit_stride + (r % g.S) * g.op_stride
+
+    f = torch.arange(n_fib)
+    r = torch.arange(K)
+    exact = roff(r)[:, None] + base(f)[None, :]
+    if rows:
+        chunk = (roff(r - r % vec) + r % vec)[:, None] + base(f)[None, :]
+    else:
+        chunk = roff(r)[:, None] + (base(f - f % vec) + f % vec)[None, :]
+    assert torch.equal(chunk, exact), "a copy chunk is not contiguous"
+    return chunk
+
 
 def _emulate_kernel(x: torch.Tensor, w: torch.Tensor, g: cuda_exec.Geometry,
                     K: int, real: bool) -> torch.Tensor:
-    """What ``fiber_matmul_kernel`` computes, with its index arithmetic:
-    Y[r, fib] = sum_c W[r, c] X[c, fib] on the strided fiber view."""
-    fib = torch.arange(g.n_outer * g.n_mid * g.n_inner)
-    t = fib % g.n_inner
-    om = fib // g.n_inner
-    base = (om // g.n_mid) * g.so + (om % g.n_mid) * g.sm + t
-    r = torch.arange(K)
-    roff = (r // g.S) * g.bit_stride + (r % g.S) * g.op_stride
-    addr = roff[:, None] + base[None, :]
+    """What the kernel computes, with its index map and arithmetic:
+    X[r, fib] <- sum_c W[r, c] X[c, fib] in place on the strided fiber
+    view, tiles of ``tile_fibers`` fibers each owned by one block, the
+    3xTF32 product for K >= MMA_MIN_K and fp32 below."""
+    F = cuda_exec.tile_fibers(K, real)
+    rows, vec = cuda_exec.copy_plan(g)
+    assert F % vec == 0  # a chunk never straddles two tiles
+    addr = _chunk_addresses(g, K)
+    planes = [addr] if real else [addr, addr + g.plane_stride]
     flat = x.reshape(-1)
-    y = torch.empty_like(flat)
-    if real:
-        y[addr] = w.reshape(K, K) @ flat[addr]
-        touched = addr.reshape(-1)
-    else:
-        wr, wi = w[0].reshape(K, K), w[1].reshape(K, K)
-        xr, xi = flat[addr], flat[addr + g.plane_stride]
-        y[addr] = wr @ xr - wi @ xi
-        y[addr + g.plane_stride] = wr @ xi + wi @ xr
-        touched = torch.cat([addr.reshape(-1),
-                             (addr + g.plane_stride).reshape(-1)])
-    # the view visits every element of the state exactly once
+    # Every element is read (and then written) by exactly one tile: the
+    # one that owns its fiber. So no block reads what another writes, and
+    # the kernel may write in place.
+    touched = torch.cat([p.reshape(-1) for p in planes])
     assert torch.equal(torch.sort(touched).values,
                        torch.arange(flat.numel()))
+    owner = (torch.arange(addr.shape[1]) // F).expand(K, -1)
+    tile_of = torch.empty(flat.numel(), dtype=torch.long)
+    for p in planes:
+        tile_of[p.reshape(-1)] = owner.reshape(-1)
+    for p in planes:
+        assert torch.equal(tile_of[p], owner)
+    xs = [flat[p] for p in planes]
+    if K >= cuda_exec.MMA_MIN_K:
+        ys = _product_emulated(w.reshape((K, K) if real else (2, K, K)), xs,
+                               K, real)
+    elif real:
+        ys = [w.reshape(K, K) @ xs[0]]
+    else:
+        wr, wi = w[0].reshape(K, K), w[1].reshape(K, K)
+        ys = [wr @ xs[0] - wi @ xs[1], wr @ xs[1] + wi @ xs[0]]
+    y = flat.clone()
+    for p, v in zip(planes, ys):
+        y[p] = v
     return y.reshape(x.shape)
 
 
@@ -214,6 +362,29 @@ def test_main_path_cross_geometries_cover_the_state(n, s, pos, o):
     last = ((g.n_outer - 1) * g.so + (g.n_mid - 1) * g.sm + g.n_inner - 1
             + g.bit_stride + (g.S - 1) * g.op_stride)
     assert last == total - 1
+
+
+@pytest.mark.parametrize("kind,shape,geom,want", [
+    ("dense", (4, 128, 128), 1, (False, 4)),      # fibers contiguous
+    ("dense", (4, 128, 128), 2, (True, 4)),       # rows contiguous
+    ("cross", (4, 128, 128), (1, 6, 2), (True, 4)),
+    ("cross", (4, 128, 128), (2, 5, 1), (False, 2)),  # runs of 2 fibers
+    ("cross", (4, 128, 128), (2, 6, 1), (False, 1)),  # only bit pairs
+])
+def test_copy_plan_follows_the_contiguous_dimension(kind, shape, geom, want):
+    if kind == "dense":
+        g = cuda_exec.dense_geometry(shape, geom, False, True)
+    else:
+        g = cuda_exec.cross_geometry(shape, *geom, False, True)
+    assert cuda_exec.copy_plan(g) == want
+
+
+def test_tile_fibers_split_the_two_paths():
+    assert cuda_exec.MMA_MIN_K == 32
+    assert [cuda_exec.tile_fibers(k, True) for k in (2, 16, 32, 64, 128, 256)] \
+        == [2048, 256, 128, 64, 128, 64]
+    assert [cuda_exec.tile_fibers(k, False) for k in (32, 64, 128, 256)] \
+        == [64, 32, 32, 32]
 
 
 def test_cpu_tensor_takes_the_twin_and_counts_no_launch():
