@@ -33,6 +33,35 @@ Phases, each of which raises on failure (exit code != 0):
    device memory of the executor and of ``Simulator.run(shots=0)``
    (n=28 Ry/Rz: only dense and cross steps, peak <= 6.1 GiB).
 
+The noisy-trajectory slice adds:
+
+2b. the batched kernels (a leading batch of B trajectories, one operator
+    per trajectory or one shared with stride 0) against their batched
+    twins at the layouts of n = 10, 16, 20 and 24, B in {16, 256} capped
+    so a planar batch stays within 8 GiB, a real operator on a real state
+    and a complex one on a planar state, every dense axis and every cross
+    geometry the noisy brickwork plans emit; the checks and tolerances of
+    phase 2, with ms, TB/s, TFLOP/s and the bound of each case;
+3b. the noisy path: ``Simulator(noise_model=..., device="cuda")
+    .trajectory_states`` on the five ``bench.py:221-226`` cases
+    (brickwork seed 42 with ``DepolarizingNoise(0.05)`` at (n, depth, T) =
+    (10, 10, 1024), (20, 8, 256), (24, 8, 16), ``AmplitudeDampingNoise
+    (0.05)`` at (20, 8, 256), (24, 8, 16)): the batched launch counts
+    equal the plans' dense and cross steps times the batches, every norm
+    is 1 +- 1e-4, and the kernel executor matches the plain-twin executor
+    within 1e-5 on the same draws; ``run_with_noise`` at n=16 depth-40
+    Ry+CNOT with readout error returns its 1024 shots; and 2000-trajectory
+    ensembles at n=4 reach a NumPy density-matrix reference (Kraus sums
+    gate by gate) within 0.05 for depolarizing, amplitude damping and
+    two-qubit depolarizing noise;
+4b. timing of the five cases: trajectories/s with the kernels and with
+    the twins in turns, the device split into operand build, draws and
+    executor (CUDA events), the ``run_with_noise`` wall time at n=16 with
+    1024 shots, and peak memory.
+
+Launch counts in the summary are those of the two main paths, phases 3
+and 3b, each read from zero.
+
 The line before the last is the JSON kernel summary; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits with an
 error and prints no result. ``--out`` also writes every measurement as JSON.
@@ -49,10 +78,17 @@ import time
 import numpy as np
 import torch
 
-from quantum_simulator_tpu_torch import QuantumCircuit, Simulator
+from quantum_simulator_tpu_torch import (AmplitudeDampingNoise,
+                                         DepolarizingNoise, NoiseModel,
+                                         QuantumCircuit, ReadoutError,
+                                         Simulator,
+                                         TwoQubitDepolarizingNoise)
+from quantum_simulator_tpu_torch import simulator as tsim
 from quantum_simulator_tpu_torch.ops import _build, cuda_exec
+from quantum_simulator_tpu_torch.ops import monomial_traj as tmono
 from quantum_simulator_tpu_torch.ops import plan as tplan
 from quantum_simulator_tpu_torch.ops import program as tprog
+from quantum_simulator_tpu_torch.ops import unitary_traj as tunit
 
 DENSE_TOL = 2e-4
 CROSS_TOL = 2e-3
@@ -229,6 +265,26 @@ def kernel_cases(rng):
     return cases
 
 
+def library_call(name: str, x: torch.Tensor, op: torch.Tensor, geom,
+                 planar: bool):
+    """One ``torch.einsum`` (cuBLAS fp32, TF32 off) computing the kernel's
+    function on the same inputs, its operator blocked beforehand: the
+    library yardstick. The plain twin is this call plus the blocking."""
+    real = op.ndim == (2 if name == "dense_axis" else 4)
+    blk = op if real else cuda_exec._blocked(op)
+    shape = cuda_exec._layout_shape(x, planar)
+    lead = (2,) if planar else ()
+    if name == "dense_axis":
+        spec = cuda_exec._dense_spec(len(shape), geom, real, planar)
+        return lambda: torch.einsum(spec, blk, x)
+    s, pos, o = geom
+    new_shape, bit_axis = cuda_exec._split_axis_bit(shape, s, pos)
+    spec = cuda_exec._cross_spec(len(new_shape), bit_axis,
+                                 o + (2 if o > s else 0), real, planar)
+    xr = x.reshape(lead + new_shape)
+    return lambda: torch.einsum(spec, blk, xr)
+
+
 def rates(shape, planar: bool, real: bool, K: int, ms: float):
     """(TB/s, TFLOP/s, unit): bytes read and written once; TF32 FLOPs of
     the 3-pass split for K >= MMA_MIN_K, fp32 FLOPs below."""
@@ -285,6 +341,11 @@ def phase_kernels(report: dict, card: str) -> dict:
         kind, sn, geom, sp, sr = SUMMARY[name]
         want_key = (sn, geom, sp, sr)
         if key == want_key:
+            x0 = random_state(shape, planar, seed=len(rows))
+            row["library_ms"] = event_ms(library_call(name, x0, op, geom,
+                                                      planar))
+            row["bound_ms"], row["bound_by"] = bound(shape, planar, sr, K)
+            del x0
             summary[name] = row
     torch.cuda.empty_cache()
     report["kernel_cases"] = rows
@@ -452,6 +513,473 @@ def phase_timing(card: str, report: dict) -> None:
                   f"(shots=0) {peak / 2**30:.3f} GiB", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Bounds (the H100 SXM's published peaks, NVIDIA's data sheet)
+# ---------------------------------------------------------------------------
+
+HBM_BYTES_PER_S = 3.35e12
+TF32_FLOP_PER_S = 495e12
+FP32_FLOP_PER_S = 67e12
+
+
+def bound(shape, planar: bool, real: bool, K: int, batch: int = 1,
+          op_copies: int = 1) -> tuple[float, str]:
+    """(least ms, "bytes" or "operations") of one launch: each state
+    element read and written once plus each distinct operator read once,
+    at 3.35 TB/s; against its products, 2K FLOPs per real output element
+    (x2 complex), as the 3xTF32 split's three TF32 passes at 495 TFLOP/s
+    for K >= MMA_MIN_K and as fp32 at 67 TFLOP/s below."""
+    numel = batch * (2 if planar else 1) * int(np.prod(shape))
+    op_bytes = op_copies * 4 * K * K * (1 if real else 2)
+    t_bytes = (8 * numel + op_bytes) / HBM_BYTES_PER_S
+    flops = 2 * K * numel * (1 if real else 2)
+    t_ops = (3 * flops / TF32_FLOP_PER_S if K >= cuda_exec.MMA_MIN_K
+             else flops / FP32_FLOP_PER_S)
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+# ---------------------------------------------------------------------------
+# Phase 2b: batched kernels vs batched twins
+# ---------------------------------------------------------------------------
+
+# Layouts of n = 10, 16, 20 and 24 qubits and the bench depths of the
+# noisy cases there (bench.py:221-226; n = 16 is the headline depth-40).
+BATCH_LAYOUTS = {10: ((8, 128), 10), 16: ((4, 128, 128), 40),
+                 20: ((64, 128, 128), 8), 24: ((8, 128, 128, 128), 8)}
+BATCH_SIZES = (16, 256)
+BATCH_STATE_CAP = 8 * 2**30   # bytes of a planar batch
+
+
+def noise_model(label: str, p: float = 0.05) -> NoiseModel:
+    nm = NoiseModel()
+    nm.add_global_noise(DepolarizingNoise(p) if label == "depol"
+                        else AmplitudeDampingNoise(p))
+    return nm
+
+
+def noisy_plans(program, nm) -> list:
+    """The group plans one batch of trajectories runs: the spliced program
+    (mixed-unitary noise) or every window's segment (monomial noise)."""
+    route = tprog.trajectory_route(program, nm)
+    if route == "unitary":
+        return [tplan.get_group_plan(
+            tunit.unitary_insert_spec(program, nm).aug)]
+    if route == "monomial":
+        return [tplan.get_group_plan(s)
+                for s in tmono.monomial_spec(program, nm).segments]
+    raise RuntimeError(f"route {route} has no plan list")
+
+
+def noisy_cross_geometries(n: int, depth: int) -> list:
+    program = tprog.compile_circuit(brickwork(n, depth, SEED, False))
+    geoms = set()
+    for label in ("depol", "amp-damp"):
+        for plan in noisy_plans(program, noise_model(label)):
+            geoms |= {(s.slice_axis, s.slice_pos, s.op_axis)
+                      for s in plan.steps if isinstance(s, tplan.CrossStep)}
+    return sorted(geoms)
+
+
+def batch_op(B: int, shape, real: bool, shared: bool,
+             gen: torch.Generator) -> torch.Tensor:
+    """N(0, 1/K) entries (as ``random_op``); shared = one operator repeated
+    with stride 0."""
+    k = shape[-1] * (2 if len(shape) == 4 else 1)
+    full = tuple(shape) if real else (2,) + tuple(shape)
+    lead = 1 if shared else B
+    a = torch.randn((lead,) + full, generator=gen, device="cuda")
+    a /= float(np.sqrt(k))
+    return a.expand((B,) + full)
+
+
+def phase_batched_kernels(report: dict, card: str) -> dict:
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 1)
+    rows = []
+    max_err = {"dense_axis": 0.0, "cross_bit_axis": 0.0}
+    for n, (shape, depth) in BATCH_LAYOUTS.items():
+        geoms = noisy_cross_geometries(n, depth)
+        per_traj = 8 * int(np.prod(shape))
+        sizes = sorted({min(b, BATCH_STATE_CAP // per_traj)
+                        for b in BATCH_SIZES})
+        cases = [("dense_axis", (a,), shape[a]) for a in range(len(shape))]
+        cases += [("cross_bit_axis", g, 2 * shape[g[2]]) for g in geoms]
+        for B in sizes:
+            for planar, real in ((False, True), (True, False)):
+                for shared in (True, False):
+                    for name, geom, K in cases:
+                        torch.cuda.empty_cache()
+                        op_shape = ((K, K) if name == "dense_axis"
+                                    else (2, K // 2, 2, K // 2))
+                        op = batch_op(B, op_shape, real, shared, gen)
+                        kfn = getattr(cuda_exec, name)
+                        pfn = getattr(cuda_exec, name + "_plain")
+                        x = torch.randn((B,) + ((2,) if planar else ())
+                                        + shape, generator=gen,
+                                        device="cuda")
+                        x0 = x.clone()
+                        got = kfn(x, op, *geom, planar, True)
+                        torch.cuda.synchronize()
+                        label = (f"batched {name} n={n} B={B} geom={geom} "
+                                 f"{'planar' if planar else 'real'}-state "
+                                 f"{'real' if real else 'complex'}-op "
+                                 f"{'shared' if shared else 'per-trajectory'}")
+                        check(got is x, f"{label}: the wrapper did not "
+                              "return its input")
+                        want = pfn(x0, op, *geom, planar, True)
+                        tol = DENSE_TOL if name == "dense_axis" else CROSS_TOL
+                        err = float((got - want).abs().max())
+                        check(err <= tol, f"{label}: max |kernel - plain| = "
+                              f"{err} > {tol}")
+                        f64 = {}
+                        if n <= 16:
+                            ref = pfn(x0.double(), op.double(), *geom,
+                                      planar, True)
+                            f64 = {"kernel_f64_err": float(
+                                       (got.double() - ref).abs().max()),
+                                   "plain_f64_err": float(
+                                       (want.double() - ref).abs().max())}
+                            del ref
+                            check(f64["kernel_f64_err"] <= F64_RATIO
+                                  * f64["plain_f64_err"],
+                                  f"{label}: error against float64 "
+                                  f"{f64['kernel_f64_err']:.3e} > "
+                                  f"{F64_RATIO} x the twin's "
+                                  f"{f64['plain_f64_err']:.3e}")
+                        del got, want
+                        k_ms, p_ms = in_turns(
+                            lambda: pfn(x0, op, *geom, planar, True),
+                            lambda: kfn(x, op, *geom, planar, True), reps=2)
+                        del x, x0
+                        tbs, tfl, unit = rates((B,) + shape, planar, real, K,
+                                               k_ms)
+                        b_ms, b_by = bound(shape, planar, real, K, B,
+                                           1 if shared else B)
+                        max_err[name] = max(max_err[name], err)
+                        rows.append({"kernel": name, "case": label,
+                                     "n": n, "B": B, "shared": shared,
+                                     "max_abs_err": err, "ms": k_ms,
+                                     "plain_ms": p_ms, "TB_per_s": tbs,
+                                     f"{unit}_TFLOP_per_s": tfl,
+                                     "bound_ms": b_ms, "bound_by": b_by,
+                                     **f64})
+                        print(f"{label} [{card}]: err {err:.3e} kernel "
+                              f"{k_ms:.4f} ms plain {p_ms:.4f} ms; "
+                              f"{tbs:.3f} TB/s {tfl:.1f} {unit} TFLOP/s; "
+                              f"bound {b_ms:.4f} ms ({b_by})", flush=True)
+    torch.cuda.empty_cache()
+    report["batched_kernel_cases"] = rows
+    slower = sum(r["ms"] > r["plain_ms"] for r in rows)
+    print(f"batched kernels: {len(rows)} cases, {slower} slower than the "
+          f"twin [{card}]", flush=True)
+    return max_err
+
+
+# ---------------------------------------------------------------------------
+# Phase 3b: the noisy path
+# ---------------------------------------------------------------------------
+
+# (label, n, depth, trajectories): bench.py:221-226
+NOISY_CASES = [("depol", 10, 10, 1024), ("depol", 20, 8, 256),
+               ("depol", 24, 8, 16), ("amp-damp", 20, 8, 256),
+               ("amp-damp", 24, 8, 16)]
+LAW_TRAJ = 2000
+LAW_TOL = 0.05
+
+
+def launch_counts() -> dict:
+    return {k.__name__: k.launches for k in cuda_exec.KERNELS}
+
+
+def add_launches(total: dict, before: dict) -> dict:
+    now = launch_counts()
+    delta = {k: now[k] - before[k] for k in now}
+    for k, v in delta.items():
+        total[k] = total.get(k, 0) + v
+    return delta
+
+
+def _kraus_sum(rho, kraus, targets, n: int):
+    """sum_K K rho K^+ with K on ``targets`` of a (2,)*2n density tensor."""
+    k = len(targets)
+    rows = list(targets)
+    cols = [n + q for q in targets]
+    out = np.zeros_like(rho)
+    for K in kraus:
+        g = np.asarray(K, np.complex128).reshape((2,) * (2 * k))
+        t = np.tensordot(g, rho, axes=(list(range(k, 2 * k)), rows))
+        t = np.moveaxis(t, list(range(k)), rows)
+        t = np.tensordot(t, g.conj(), axes=(cols, list(range(k, 2 * k))))
+        out += np.moveaxis(t, list(range(2 * n - k, 2 * n)), cols)
+    return out
+
+
+def density_reference(program, nm) -> np.ndarray:
+    """Exact probabilities of the noisy circuit: rho evolved gate by gate
+    in NumPy complex128, each gate's channels applied after it as Kraus
+    sums (one-qubit stacks on each target, two-qubit stacks on the
+    gate's pair)."""
+    n = program.num_qubits
+    rho = np.zeros((1 << n, 1 << n), np.complex128)
+    rho[program.initial_index, program.initial_index] = 1.0
+    rho = rho.reshape((2,) * (2 * n))
+    params = program.initial_params
+    for op in program.ops:
+        rho = _kraus_sum(rho, [program.op_matrix(op, params, np.complex128)],
+                         op.targets, n)
+        for stack in nm.kraus_stacks_for_gate(op.gate_name):
+            if stack.shape[1] == 2:
+                for q in op.targets:
+                    rho = _kraus_sum(rho, stack, (q,), n)
+            else:
+                rho = _kraus_sum(rho, stack, op.targets, n)
+    return np.real(np.diagonal(rho.reshape(1 << n, 1 << n)))
+
+
+def phase_noisy(report: dict, card: str) -> dict:
+    """Every sub-run of the noisy main path reads its launches from zero;
+    the comparison runs against the twins are not counted."""
+    path = {}
+    for label, n, depth, T in NOISY_CASES:
+        circuit = brickwork(n, depth, SEED, False)
+        nm = noise_model(label)
+        program = tprog.compile_circuit(circuit)
+        plans = noisy_plans(program, nm)
+        n_dense = sum(isinstance(s, tplan.AxisMatmulStep)
+                      for p in plans for s in p.steps)
+        n_cross = sum(isinstance(s, tplan.CrossStep)
+                      for p in plans for s in p.steps)
+        chunk = tsim._chunk_size(program, nm, T)
+        n_chunks = -(-T // chunk)
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_exec.reset_launch_counts()
+        t0 = time.perf_counter()
+        states = Simulator(noise_model=nm, device="cuda").trajectory_states(
+            circuit, T, seed=SEED)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        delta = add_launches(path, {k: 0 for k in launch_counts()})
+        peak = torch.cuda.max_memory_allocated()
+        case = f"{label} n={n} depth-{depth} T={T}"
+        check(tuple(states.shape) == (T, 1 << n),
+              f"{case}: states of shape {tuple(states.shape)}")
+        check(delta["dense_axis"] == n_dense * n_chunks
+              and delta["cross_bit_axis"] == n_cross * n_chunks,
+              f"{case}: launches {delta}, plans have {n_dense} dense and "
+              f"{n_cross} cross steps x {n_chunks} batches")
+        norms = states.abs().square().sum(-1)
+        norm_err = float((norms - 1).abs().max())
+        check(norm_err <= 1e-4, f"{case}: max |norm - 1| = {norm_err}")
+        del states, norms
+        # the same draws through the kernel and the plain-twin executors
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED)
+        got, draws = tprog.batched_trajectories(
+            program, nm, program.initial_params, T, "cuda", gen)
+        want, _ = tprog.batched_trajectories(
+            program, nm, program.initial_params, T, "cuda", draws=draws,
+            plain=True)
+        err = float((got - want).abs().max())
+        check(err <= STATE_TOL, f"{case}: max |kernel - plain| = {err} on "
+              "the same draws")
+        del got, want, draws
+        print(f"noisy {case} [{card}]: route "
+              f"{tprog.trajectory_route(program, nm)}, {n_chunks} batch(es) "
+              f"of <= {chunk}, launches dense {delta['dense_axis']} cross "
+              f"{delta['cross_bit_axis']} (plans {n_dense} + {n_cross}), "
+              f"max |norm - 1| {norm_err:.2e}, kernel vs plain {err:.2e}, "
+              f"trajectory_states {wall:.3f} s (cold), peak "
+              f"{peak / 2**30:.3f} GiB", flush=True)
+        report.setdefault("noisy", []).append(
+            {"case": case, "batches": n_chunks, "chunk": chunk,
+             "launches": delta, "plan_dense": n_dense,
+             "plan_cross": n_cross, "norm_err": norm_err,
+             "kernel_vs_plain": err, "cold_s": wall, "peak_bytes": peak})
+
+    nm = noise_model("depol")
+    nm.set_readout_error(ReadoutError(0.01, 0.02))
+    before = launch_counts()
+    res = Simulator(noise_model=nm, device="cuda").run_with_noise(
+        brickwork(16, 40, SEED, False), shots=1024, seed=SEED)
+    add_launches(path, before)
+    shots = sum(res.measurement_counts.values())
+    check(shots == 1024, f"run_with_noise returned {shots} shots")
+    print(f"noisy run_with_noise n=16 depth-40 Ry+CNOT, depolarizing 0.05 "
+          f"+ readout [{card}]: {shots} shots, "
+          f"{len(res.measurement_counts)} distinct strings", flush=True)
+
+    law = {"depol": DepolarizingNoise(0.1),
+           "amp-damp": AmplitudeDampingNoise(0.2),
+           "2q-depol": TwoQubitDepolarizingNoise(0.3)}
+    circuit = brickwork(4, 6, SEED, True)
+    program = tprog.compile_circuit(circuit)
+    for name, ch in law.items():
+        nm = NoiseModel()
+        if name == "2q-depol":
+            nm.add_gate_noise("CNOT", ch)
+        else:
+            nm.add_global_noise(ch)
+        want = density_reference(program, nm)
+        before = launch_counts()
+        states = Simulator(noise_model=nm, device="cuda").trajectory_states(
+            circuit, LAW_TRAJ, seed=SEED)
+        add_launches(path, before)
+        got = states.abs().square().mean(0).double().cpu().numpy()
+        dev = float(np.abs(got - want).max())
+        check(dev <= LAW_TOL, f"law {name}: max |ensemble - rho| = {dev}")
+        print(f"noisy law n=4 {name} [{card}]: {LAW_TRAJ} trajectories, "
+              f"max |p - p_rho| = {dev:.4f} (<= {LAW_TOL})", flush=True)
+        report.setdefault("law", []).append({"channel": name,
+                                             "max_dev": dev})
+    check(all(v > 0 for v in path.values()),
+          f"a kernel never launched on the noisy path: {path}")
+    report["noisy_launches"] = path
+    return path
+
+
+# ---------------------------------------------------------------------------
+# Phase 4b: noisy timing
+# ---------------------------------------------------------------------------
+
+class Spans:
+    """CUDA-event spans summed by name (read after a synchronize)."""
+
+    def __init__(self):
+        self.pairs: dict[str, list] = {}
+
+    def span(self, name: str):
+        spans = self
+
+        class _Ctx:
+            def __enter__(self):
+                self.a = torch.cuda.Event(enable_timing=True)
+                self.b = torch.cuda.Event(enable_timing=True)
+                self.a.record()
+
+            def __exit__(self, *exc):
+                self.b.record()
+                spans.pairs.setdefault(name, []).append((self.a, self.b))
+        return _Ctx()
+
+    def ms(self) -> dict:
+        torch.cuda.synchronize()
+        return {k: sum(a.elapsed_time(b) for a, b in v)
+                for k, v in self.pairs.items()}
+
+
+def traced_batch(program, nm, T: int, gen) -> dict:
+    """One batch of the splice bodies with its device time split into
+    draws, operand build and executor (the bodies' own steps, each
+    bracketed by CUDA events)."""
+    sp = Spans()
+    params = program.initial_params
+    if tprog.trajectory_route(program, nm) == "unitary":
+        spec = tunit.unitary_insert_spec(program, nm)
+        plan = tplan.get_group_plan(spec.aug)
+        with sp.span("draws"):
+            branch = tunit.draw_branches(spec, T, "cuda", gen)
+        with sp.span("operand_build"):
+            ops = tplan.build_group_operands_batched(
+                spec.aug, plan, params, T, "cuda",
+                tunit.branch_overrides(spec, branch))
+        planar = not plan.all_real
+        x = tplan.basis_state(plan, spec.aug.initial_index, "cuda", planar, T)
+        with sp.span("executor"):
+            x = tplan.execute_group_plan(plan, ops, spec.aug, params, x,
+                                         planar, batched=True)
+            tunit.finalize(x, planar)
+        return sp.ms()
+    spec = tmono.monomial_spec(program, nm)
+    layout = tplan.GroupLayout.for_qubits(program.num_qubits)
+    plans = [tplan.get_group_plan(s) for s in spec.segments]
+    planar = not (spec.real and all(p.all_real for p in plans))
+    x = tplan.layout_basis_state(layout, program.initial_index, "cuda",
+                                 planar, T)
+    overrides = None
+    for w, seg in enumerate(spec.segments):
+        with sp.span("operand_build"):
+            ops = tplan.build_group_operands_batched(seg, plans[w], params,
+                                                     T, "cuda", overrides)
+        with sp.span("executor"):
+            x = tplan.execute_group_plan(plans[w], ops, seg, params, x,
+                                         planar, batched=True)
+        del ops
+        if w == len(spec.windows):
+            break
+        with sp.span("draws"):
+            idxs, nsq = tmono._sample_axes(x, planar, layout, gen)
+            overrides, _ = tmono._window_draws(spec, spec.windows[w], idxs,
+                                               nsq, layout, gen)
+    with sp.span("executor"):
+        tunit.finalize(x, planar)
+    return sp.ms()
+
+
+def phase_noisy_timing(card: str, report: dict) -> None:
+    for label, n, depth, T in NOISY_CASES:
+        program = tprog.compile_circuit(brickwork(n, depth, SEED, False))
+        nm = noise_model(label)
+        params = program.initial_params
+
+        def body(plain):
+            def run():
+                gen = torch.Generator(device="cuda")
+                gen.manual_seed(SEED)
+                return tprog.batched_trajectories(program, nm, params, T,
+                                                  "cuda", gen, plain=plain)
+            return run
+
+        torch.cuda.empty_cache()
+        k_ms, p_ms = in_turns(body(True), body(False), reps=2)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED)
+        traced_batch(program, nm, T, gen)          # warm
+        split = traced_batch(program, nm, T, gen)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        body(False)()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        case = f"{label} n={n} depth-{depth} T={T}"
+        row = {"case": case, "kernel_ms": k_ms, "plain_ms": p_ms,
+               "kernel_traj_per_s": T / (k_ms / 1e3),
+               "plain_traj_per_s": T / (p_ms / 1e3),
+               "split_ms": split, "batch_peak_bytes": peak, "card": card}
+        report.setdefault("noisy_timing", []).append(row)
+        print(f"time noisy {case} [{card}]: one batch kernel {k_ms:.3f} ms "
+              f"({row['kernel_traj_per_s']:.1f} traj/s), plain "
+              f"{p_ms:.3f} ms ({row['plain_traj_per_s']:.1f} traj/s); "
+              f"device split " + ", ".join(f"{k} {v:.3f} ms"
+                                           for k, v in split.items())
+              + f"; peak {peak / 2**30:.3f} GiB", flush=True)
+
+    nm = noise_model("depol")
+    nm.set_readout_error(ReadoutError(0.01, 0.02))
+    sim = Simulator(noise_model=nm, device="cuda")
+    circuit = brickwork(16, 40, SEED, False)
+    walls = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(4):  # first is a warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim.run_with_noise(circuit, shots=1024, seed=SEED)
+        walls.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    chunk = tsim._chunk_size(tprog.compile_circuit(circuit), nm, 1024)
+    row = {"run_with_noise_n16_1024_wall_ms": min(walls[1:]) * 1e3,
+           "cold_ms": walls[0] * 1e3, "peak_bytes": peak, "chunk": chunk,
+           "card": card}
+    report["run_with_noise_timing"] = row
+    print(f"time run_with_noise n=16 depth-40 Ry+CNOT depolarizing 1024 "
+          f"shots [{card}]: {row['run_with_noise_n16_1024_wall_ms']:.1f} ms "
+          f"(best of 3 warm; cold {row['cold_ms']:.1f} ms), batches of "
+          f"<= {chunk}, peak {peak / 2**30:.3f} GiB", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every measurement as JSON")
@@ -460,6 +988,7 @@ def main() -> int:
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
                          "this script needs a CUDA card")
 
+    t_start = time.perf_counter()
     card = card_line()
     print(card, flush=True)
     report: dict = {"card": card, "torch": torch.__version__,
@@ -488,19 +1017,28 @@ def main() -> int:
                   f"wrapper {cuda_exec.tile_fibers(k, real)}")
 
     kernels = phase_kernels(report, card)
-    launches = phase_main(report)
+    batched_err = phase_batched_kernels(report, card)
+    ideal = phase_main(report)
+    noisy = phase_noisy(report, card)
     phase_timing(card, report)
+    phase_noisy_timing(card, report)
     print(f"max_memory_allocated over the run: "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB [{card}]")
+    report["wall_s"] = time.perf_counter() - t_start
+    print(f"chip_smoke wall time {report['wall_s']:.1f} s [{card}]",
+          flush=True)
 
     summary = {"kernels": []}
     for name, (source, replaces) in KERNEL_INFO.items():
         row = kernels["summary"][name]
         summary["kernels"].append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": kernels["max_err"][name],
-            "ms": row["ms"], "plain_ms": row["plain_ms"]})
+            "replaces": replaces, "launches": ideal[name] + noisy[name],
+            "max_abs_err": max(kernels["max_err"][name],
+                               batched_err[name]),
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"]})
     report["summary"] = summary
     if args.out:
         with open(args.out, "w") as f:

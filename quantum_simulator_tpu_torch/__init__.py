@@ -1,16 +1,21 @@
 """quantum_simulator_tpu_torch — the PyTorch / CUDA port of quantum_simulator_tpu.
 
 The JAX package ``quantum_simulator_tpu`` is the reference. This package
-runs its ideal ``Simulator.run`` path on an NVIDIA H100: the same host
-planner and NumPy operand build, a torch executor, and hand-written CUDA
-kernels (``csrc/``) for every dense and cross group-plan step. It imports
-torch and NumPy, never JAX and never the JAX package.
+runs its ``Simulator`` paths on an NVIDIA H100, ideal and noisy: the same
+host planner and NumPy operand build, a torch executor, noisy
+trajectories batched on the device (``noise``, ``ops/unitary_traj``,
+``ops/monomial_traj``), and hand-written CUDA kernels (``csrc/``) for
+every dense and cross group-plan step. It imports torch and NumPy, never
+JAX and never the JAX package.
 """
 
 from .circuit import GateInstance, QuantumCircuit
 from .config import CONFIG, EngineConfig
 from .gates import GateDefinition, GateType
 from .measurement import MeasurementBasis, MeasurementEngine
+from .noise import (AmplitudeDampingNoise, BitFlipNoise, DepolarizingNoise,
+                    NoiseChannel, NoiseModel, PhaseFlipNoise, ReadoutError,
+                    ThermalRelaxationNoise, TwoQubitDepolarizingNoise)
 from .registry import GateRegistry
 from .simulator import SimulationResult, Simulator
 from .state import StateVector
@@ -18,7 +23,10 @@ from .state import StateVector
 __version__ = "0.1.0"
 
 __all__ = [
+    "AmplitudeDampingNoise",
+    "BitFlipNoise",
     "CONFIG",
+    "DepolarizingNoise",
     "EngineConfig",
     "GateDefinition",
     "GateInstance",
@@ -26,8 +34,14 @@ __all__ = [
     "GateType",
     "MeasurementBasis",
     "MeasurementEngine",
+    "NoiseChannel",
+    "NoiseModel",
+    "PhaseFlipNoise",
     "QuantumCircuit",
+    "ReadoutError",
     "SimulationResult",
     "Simulator",
     "StateVector",
+    "ThermalRelaxationNoise",
+    "TwoQubitDepolarizingNoise",
 ]

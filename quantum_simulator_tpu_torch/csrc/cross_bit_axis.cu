@@ -32,9 +32,12 @@ extern "C" int qs_cross_bit_axis(float* x, const float* c, int K, int cplx,
                                  long long so, long long n_mid, long long sm,
                                  long long n_inner, long long S,
                                  long long op_stride, long long bit_stride,
-                                 long long plane_stride, void* stream) {
+                                 long long plane_stride, long long n_batch,
+                                 long long x_batch_stride,
+                                 long long op_batch_stride, void* stream) {
   if (K != 2 * S) return (int)cudaErrorInvalidValue;
   return qs::dispatch<4, 256>(x, c, K, cplx, rows, vec, n_outer, so, n_mid,
                               sm, n_inner, S, op_stride, bit_stride,
-                              plane_stride, stream);
+                              plane_stride, n_batch,
+                              x_batch_stride, op_batch_stride, stream);
 }

@@ -71,6 +71,28 @@
 // small op axis) a step moves 8 bytes per 2K <= 62 FLOPs on few rows; the
 // fp32 SIMT template below serves it, also with one owner per tile and in
 // place.
+//
+// A batch of trajectories (the noisy path, where JAX vmaps the executor
+// over PRNG keys): trajectory b's state starts b * xb floats in and its
+// operator b * wb floats in (wb = 0: one operator shared by all). Both
+// kernels walk (trajectory, tile) pairs in trajectory-major order; a tile
+// never spans two trajectories and each trajectory's ragged last tile is
+// masked like any ragged tile. Where trouble lies:
+// * Operator staging. The SIMT path stages W once per block and the MMA
+//   path keeps a K <= 128 operator resident; with one operator per
+//   trajectory a block restages it when its trajectory changes, which the
+//   trajectory-major order keeps to about once per trajectory per block
+//   (not overlapped with the tile's copies).
+// * K = 256. The operator streams from L2 in slabs and every tile of a
+//   trajectory re-reads it; a real cross operator is 256 KB and a complex
+//   one 512 KB, more than a 16-qubit trajectory's 256 KB state. The walk
+//   keeps one trajectory's tiles adjacent in time so its operator is
+//   still in the 50 MB L2 when the next of its tiles needs it.
+// * Small n. At n = 10, layout (8, 128), a trajectory has 8 fibers on its
+//   K = 128 axis against tiles of 32-128: each tile restages a 64 KB
+//   operator for 4-8 KB of state, so such launches are bound by operator
+//   bytes, T x (2 x state bytes + operator bytes).
+// * In place holds per trajectory: one owner per tile, as without a batch.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -79,7 +101,9 @@
 namespace qs {
 
 struct FiberGeom {
-  long long n_fib;          // n_outer * n_mid * n_inner
+  long long n_fib;          // fibers of one trajectory: n_outer*n_mid*n_inner
+  long long n_batch;        // trajectories
+  long long xb, wb;         // state and operator batch strides, in floats
   long long so, sm;         // outer and mid strides, in elements
   long long op_stride, bit_stride;
   long long plane_stride;   // offset of the imaginary plane (complex)
@@ -136,23 +160,34 @@ simt_kernel(float* x, const float* __restrict__ w, FiberGeom g) {
   float* xs = smem + NP * K * K;     // [NP][K][FP]: fiber tile, then result
 
   const int tid = threadIdx.x;
-  for (int e = tid; e < NP * K * K; e += kThreads) {
-    const int p = e / (K * K);
-    const int rem = e - p * K * K;
-    const int rr = rem / K;
-    const int c = rem - rr * K;
-    wt[(p * K + c) * K + rr] = w[e];
-  }
-
   const int rg = tid % RG;
   const int fg = tid / RG;
   // Lanes walk the fibers when a run of inner fibers is contiguous,
   // else they walk the rows (op_stride == 1 when the op axis is last).
   const bool lanes_on_fibers = (1LL << g.li) >= 32 || (1LL << g.li) >= F;
-  const long long n_tiles = (g.n_fib + F - 1) / F;
+  const long long tpt = (g.n_fib + F - 1) / F;   // tiles per trajectory
+  const long long n_tiles = tpt * g.n_batch;
+  const float* staged = nullptr;     // the operator now in wt
 
+  // Tiles in trajectory-major order: a block restages W only when its
+  // trajectory's operator differs from the one it holds.
   for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const long long f0 = tile * F;
+    const long long b = tile / tpt;
+    const long long f0 = (tile - b * tpt) * F;
+    float* xt = x + b * g.xb;
+    const float* wtraj = w + b * g.wb;
+    if (wtraj != staged) {
+      // every thread passed the barrier after the previous tile's
+      // products, so nobody still reads wt
+      for (int e = tid; e < NP * K * K; e += kThreads) {
+        const int p = e / (K * K);
+        const int rem = e - p * K * K;
+        const int rr = rem / K;
+        const int c = rem - rr * K;
+        wt[(p * K + c) * K + rr] = wtraj[e];
+      }
+      staged = wtraj;
+    }
     __syncthreads();  // W staged; the previous tile's stores are done
     // Each thread issues CH loads before it waits on any of them.
     for (int b0 = 0; b0 < LD; b0 += CH) {
@@ -167,8 +202,8 @@ simt_kernel(float* x, const float* __restrict__ w, FiberGeom g) {
         v1[u] = 0.f;
         if (fib < g.n_fib) {
           const long long a = fiber_base(g, fib) + row_offset(g, c);
-          v0[u] = x[a];
-          if constexpr (CPLX) v1[u] = x[a + g.plane_stride];
+          v0[u] = xt[a];
+          if constexpr (CPLX) v1[u] = xt[a + g.plane_stride];
         }
       }
 #pragma unroll
@@ -237,8 +272,8 @@ simt_kernel(float* x, const float* __restrict__ w, FiberGeom g) {
       const long long fib = f0 + f;
       if (fib < g.n_fib) {
         const long long a = fiber_base(g, fib) + row_offset(g, rr);
-        x[a] = xs[rr * FP + f];
-        if constexpr (CPLX) x[a + g.plane_stride] = xs[K * FP + rr * FP + f];
+        xt[a] = xs[rr * FP + f];
+        if constexpr (CPLX) xt[a + g.plane_stride] = xs[K * FP + rr * FP + f];
       }
     }
   }
@@ -536,21 +571,47 @@ mma_kernel(float* x, const float* __restrict__ w, FiberGeom g) {
   const int kg = warp / (T::WM * T::WN);   // contraction group
   const int m_base = wm * MT * 16;
   const int n_base = wn * NT * 8;
-  const long long n_tiles = (g.n_fib + F - 1) / F;
+  const long long tpt = (g.n_fib + F - 1) / F;   // tiles per trajectory
+  const long long n_tiles = tpt * g.n_batch;
 
-  // Prologue: the operator (or its first slab) and the first tile.
-  issue_w<T, K>(wbuf, w, 0);
-  if (blockIdx.x < n_tiles)
-    issue_x_vec<T, K, ROWS>(xbuf, x, g, (long long)blockIdx.x * F, 0, 1);
+  // Prologue: the first tile and, when streamed, the first operator slab
+  // of its trajectory (a resident operator is staged at the tile's top).
+  // The grid never exceeds n_tiles.
+  {
+    const long long b0 = blockIdx.x / tpt;
+    if constexpr (!T::RESIDENT) issue_w<T, K>(wbuf, w + b0 * g.wb, 0);
+    issue_x_vec<T, K, ROWS>(xbuf, x + b0 * g.xb, g,
+                            (blockIdx.x - b0 * tpt) * F, 0, 1);
+  }
   cp_async_commit();
 
+  // Tiles in trajectory-major order, never spanning two trajectories: a
+  // block restages a resident operator only when its trajectory's
+  // operator differs from the one it holds.
+  const float* staged = nullptr;
   int it = 0;
   for (long long tile = blockIdx.x; tile < n_tiles;
        tile += gridDim.x, ++it) {
-    const long long f0 = tile * F;
+    const long long b = tile / tpt;
+    const long long f0 = (tile - b * tpt) * F;
+    float* xt = x + b * g.xb;
+    const float* wtraj = w + b * g.wb;
     const long long next = tile + gridDim.x;
+    const long long bn = next / tpt;
+    const long long fn0 = (next - bn * tpt) * F;
+    float* xnext = x + bn * g.xb;
     float* xs = xbuf + (it & 1) * T::XSTAGE;
     float* xn = xbuf + ((it + 1) & 1) * T::XSTAGE;
+
+    if constexpr (T::RESIDENT) {
+      if (wtraj != staged) {
+        // every warp passed the barrier after the previous tile's
+        // products, so the resident operator is no longer read
+        issue_w<T, K>(wbuf, wtraj, 0);
+        cp_async_commit();
+        staged = wtraj;
+      }
+    }
 
     for (int j = 0; j < NS; ++j) {
       cp_async_wait_all();  // this tile and this slab have landed
@@ -560,12 +621,13 @@ mma_kernel(float* x, const float* __restrict__ w, FiberGeom g) {
       // One group: the next operator slab and part j of the next tile,
       // in flight during this slab's products and stores.
       if constexpr (!T::RESIDENT) {
-        if (j + 1 < NS || next < n_tiles)
-          issue_w<T, K>(wbuf + ((j + 1) & 1) * T::WBUF, w,
-                        ((j + 1) % NS) * R);
+        if (j + 1 < NS)
+          issue_w<T, K>(wbuf + ((j + 1) & 1) * T::WBUF, wtraj, (j + 1) * R);
+        else if (next < n_tiles)
+          issue_w<T, K>(wbuf + ((j + 1) & 1) * T::WBUF, w + bn * g.wb, 0);
       }
       if (next < n_tiles)
-        issue_x_vec<T, K, ROWS>(xn, x, g, next * F, j, NS);
+        issue_x_vec<T, K, ROWS>(xn, xnext, g, fn0, j, NS);
       cp_async_commit();
 
       const float* ws = wbuf + (T::RESIDENT ? 0 : (j & 1) * T::WBUF);
@@ -653,7 +715,7 @@ mma_kernel(float* x, const float* __restrict__ w, FiberGeom g) {
           }
       }
       __syncthreads();
-      store_slab_vec<T, ROWS>(x, st, g, f0, j * R);
+      store_slab_vec<T, ROWS>(xt, st, g, f0, j * R);
     }
   }
 }
@@ -700,20 +762,20 @@ int launch_k(float* x, const float* w, int rows, const FiberGeom& g,
     using T = SimtTile<K, CPLX>;
     static int resident = 0;
     return launch_persistent(simt_kernel<K, CPLX>, T::smem_bytes,
-                             (g.n_fib + T::F - 1) / T::F, resident, x, w, g,
-                             st);
+                             g.n_batch * ((g.n_fib + T::F - 1) / T::F),
+                             resident, x, w, g, st);
   } else if (rows) {
     using T = MmaTile<K, CPLX, true>;
     static int resident = 0;
     return launch_persistent(mma_kernel<K, CPLX, true>, T::smem_bytes,
-                             (g.n_fib + T::F - 1) / T::F, resident, x, w, g,
-                             st);
+                             g.n_batch * ((g.n_fib + T::F - 1) / T::F),
+                             resident, x, w, g, st);
   } else {
     using T = MmaTile<K, CPLX, false>;
     static int resident = 0;
     return launch_persistent(mma_kernel<K, CPLX, false>, T::smem_bytes,
-                             (g.n_fib + T::F - 1) / T::F, resident, x, w, g,
-                             st);
+                             g.n_batch * ((g.n_fib + T::F - 1) / T::F),
+                             resident, x, w, g, st);
   }
 }
 
@@ -734,9 +796,14 @@ template <int KMIN, int KMAX>
 int dispatch(float* x, const float* w, int K, int cplx, int rows, int vec,
              long long n_outer, long long so, long long n_mid, long long sm,
              long long n_inner, long long S, long long op_stride,
-             long long bit_stride, long long plane_stride, void* stream) {
+             long long bit_stride, long long plane_stride, long long n_batch,
+             long long x_batch_stride, long long op_batch_stride,
+             void* stream) {
   FiberGeom g;
   g.n_fib = n_outer * n_mid * n_inner;
+  g.n_batch = n_batch;
+  g.xb = x_batch_stride;
+  g.wb = op_batch_stride;
   g.so = so;
   g.sm = sm;
   g.op_stride = op_stride;
@@ -747,6 +814,12 @@ int dispatch(float* x, const float* w, int K, int cplx, int rows, int vec,
   g.ls = log2_exact(S);
   g.vec = vec;
   if (g.n_fib < 1 || g.li < 0 || g.lm < 0 || g.ls < 0)
+    return (int)cudaErrorInvalidValue;
+  // Each trajectory's state starts vec-aligned, and its operator 16-byte
+  // aligned (the operator copies are 16 bytes); stride 0 shares one.
+  if (n_batch < 1 || x_batch_stride < 0 || op_batch_stride < 0 ||
+      x_batch_stride % vec || op_batch_stride % 4 ||
+      reinterpret_cast<uintptr_t>(w) % 16)
     return (int)cudaErrorInvalidValue;
   // A chunk of vec floats must be contiguous and aligned: along the rows
   // of one fiber (rows) or along a run of inner fibers (otherwise).

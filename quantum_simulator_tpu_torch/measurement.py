@@ -10,8 +10,9 @@ JAX package. At or above it the distribution stays on the device: a
 ``torch.Generator`` seeded from one ``rng.integers(0, 2**63)`` draw (as
 ``measurement.py:118`` forks its JAX key), then an inverse CDF (float64
 cumsum, ``searchsorted`` on uniforms, ``bincount``). ``torch.multinomial``
-takes at most 2^24 categories and so cannot serve n >= 25. Readout error
-comes with the port of the noise module.
+takes at most 2^24 categories and so cannot serve n >= 25.
+``sample_with_basis`` applies readout error (``noise.ReadoutError``) in
+shot or distribution mode.
 """
 
 from __future__ import annotations
@@ -66,6 +67,26 @@ def sample_counts_device(probs: torch.Tensor, shots: int,
     return dict(zip(nz.cpu().tolist(), counts[nz].cpu().tolist()))
 
 
+# torch.multinomial takes at most 2^24 categories.
+MULTINOMIAL_MAX_DIM = 1 << 24
+
+
+def sample_rows(probs: torch.Tensor, k: int,
+                generator: torch.Generator) -> torch.Tensor:
+    """``k`` draws with replacement from each row of ``(T, D)``
+    probabilities on their device: ``torch.multinomial`` up to its 2^24
+    categories, else an inverse CDF per row (float64 cumsum,
+    ``searchsorted`` on uniforms). Returns ``(T, k)`` basis indices."""
+    D = probs.shape[-1]
+    if D <= MULTINOMIAL_MAX_DIM:
+        return torch.multinomial(probs, k, replacement=True,
+                                 generator=generator)
+    cdf = torch.cumsum(probs.to(torch.float64), dim=-1)
+    u = torch.rand((probs.shape[0], k), dtype=torch.float64,
+                   device=probs.device, generator=generator) * cdf[:, -1:]
+    return torch.searchsorted(cdf, u, right=True).clamp_(max=D - 1)
+
+
 class MeasurementEngine:
     """Static measurement helpers over StateVector."""
 
@@ -94,9 +115,26 @@ class MeasurementEngine:
     @staticmethod
     def sample_with_basis(state: StateVector, shots: int,
                           basis: MeasurementBasis = MeasurementBasis.Z,
+                          readout_error=None,
+                          readout_mode: str = "shot",
                           rng: np.random.Generator | None = None
                           ) -> dict[str, int]:
-        """Basis rotation, then sampling."""
+        """Basis rotation, sampling and optional readout error
+        (``measurement.py:133-165``): ``readout_mode="distribution"``
+        transforms the probabilities with the per-qubit confusion matrix
+        before a host multinomial; ``"shot"`` corrupts the sampled
+        bitstrings afterwards (``ReadoutError.corrupt_counts``)."""
         rng = rng or np.random.default_rng()
-        return MeasurementEngine.sample(rotate_to_basis(state, basis), shots,
-                                        rng=rng)
+        rotated = rotate_to_basis(state, basis)
+        n = rotated.num_qubits
+        if readout_error is not None and readout_mode == "distribution":
+            probs = rotated.probabilities
+            total = probs.sum()
+            if total > 1e-15:
+                probs = probs / total
+            noisy = readout_error.apply_to_distribution(probs, n)
+            return counts_from_array(rng.multinomial(shots, noisy), n)
+        counts = MeasurementEngine.sample(rotated, shots, rng=rng)
+        if readout_error is not None and readout_mode == "shot":
+            counts = readout_error.corrupt_counts(counts, rng)
+        return counts

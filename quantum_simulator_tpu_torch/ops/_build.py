@@ -32,8 +32,9 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
 # C entry points: (x, op, K, complex, rows, vec, n_outer, so, n_mid, sm,
-# n_inner, S, op_stride, bit_stride, plane_stride, stream) -> cudaError_t;
-# the kernel writes its result over x.
+# n_inner, S, op_stride, bit_stride, plane_stride, n_batch, x_batch_stride,
+# op_batch_stride, stream) -> cudaError_t; the kernel writes its result
+# over x.
 _ENTRY_POINTS = ("qs_dense_axis", "qs_cross_bit_axis")
 
 
@@ -107,7 +108,7 @@ def library() -> ctypes.CDLL:
     for name in _ENTRY_POINTS:
         fn = getattr(lib, name)
         fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
-                       + [ctypes.c_longlong] * 9 + [ctypes.c_void_p])
+                       + [ctypes.c_longlong] * 12 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     lib.qs_error_string.argtypes = [ctypes.c_int]
     lib.qs_error_string.restype = ctypes.c_char_p

@@ -14,7 +14,6 @@ from __future__ import annotations
 
 import string
 
-import numpy as np
 import torch
 
 
@@ -62,20 +61,23 @@ def _segmented_view(targets: tuple[int, ...], n: int):
 
 def apply_gate(state: torch.Tensor, matrix, targets: tuple[int, ...],
                num_qubits: int) -> torch.Tensor:
-    """Apply a ``2^k x 2^k`` unitary to ``targets`` of a flat ``2^n``
-    complex state. The first target is the most significant bit of the
-    gate-matrix index."""
+    """Apply a ``2^k x 2^k`` unitary (NumPy or torch) to ``targets`` of a
+    ``(..., 2^n)`` complex state; leading dims are a batch. The first
+    target is the most significant bit of the gate-matrix index."""
     n = num_qubits
     k = len(targets)
     if any(t < 0 or t >= n for t in targets):
         raise ValueError(f"target qubits {targets} out of range for n={n}")
-    g = torch.as_tensor(np.asarray(matrix), dtype=state.dtype,
+    g = torch.as_tensor(matrix, dtype=state.dtype,
                         device=state.device).reshape((2,) * (2 * k))
     order = sorted(range(k), key=lambda i: targets[i])
     if order != list(range(k)):
         g = g.permute(tuple(order) + tuple(k + i for i in order))
     shape, spec = _segmented_view(tuple(sorted(targets)), n)
-    out = torch.einsum(spec, g, state.reshape(shape))
+    gate_sub, rest = spec.split(",")
+    state_sub, out_sub = rest.split("->")
+    out = torch.einsum(f"{gate_sub},...{state_sub}->...{out_sub}", g,
+                       state.reshape(tuple(state.shape[:-1]) + shape))
     return out.reshape(state.shape)
 
 

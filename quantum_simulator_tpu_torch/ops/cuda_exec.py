@@ -25,6 +25,15 @@ JAX package's ``_dense_spec`` / ``_cross_spec`` forms). The wrapper takes
 the twin only for a tensor on the CPU; a CUDA tensor launches the kernel
 or raises. ``<wrapper>.launches`` counts kernel launches.
 
+Both wrappers also take a batch of B trajectories (``batched=True``): the
+state ``(B, [2,] *axis_sizes)`` and an operator with a leading B axis,
+one per trajectory, or one shared operator repeated with stride 0
+(``expand``). That is the noisy-trajectory path, where JAX vmaps the
+executor over PRNG keys (``program.batched_trajectories_fn``) and every
+step becomes one operation with a different operator per trajectory: one
+launch serves the whole batch, and ``launches`` counts batched launches.
+The twins take the same leading axis (one einsum with a batch index).
+
 The JAX package gates its kernels behind ``CONFIG.pallas_steps`` and a
 rank >= 5 rule tuned to XLA on the TPU; the port carries neither.
 In place, like the Pallas kernels (``input_output_aliases``): on a CUDA
@@ -51,19 +60,24 @@ _AXIS_LETTERS = "abefghjlmnopqrstuvwz"  # reserved: c d i k x y
 # ---------------------------------------------------------------------------
 
 def _dense_spec(rank: int, axis: int, op_real: bool = False,
-                planar: bool = True) -> str:
+                planar: bool = True, batched: bool = False) -> str:
+    """``batched``: a leading trajectory index ``T`` on the operator, the
+    state and the result (one operator per trajectory)."""
+    t = "T" if batched else ""
     subs = list(_AXIS_LETTERS[:rank])
     out = list(subs)
     out[axis] = "y"
     if op_real and not planar:
-        return f"y{subs[axis]},{''.join(subs)}->{''.join(out)}"
+        return f"{t}y{subs[axis]},{t}{''.join(subs)}->{t}{''.join(out)}"
     if op_real:
-        return f"y{subs[axis]},d{''.join(subs)}->d{''.join(out)}"
-    return f"cdy{subs[axis]},d{''.join(subs)}->c{''.join(out)}"
+        return f"{t}y{subs[axis]},{t}d{''.join(subs)}->{t}d{''.join(out)}"
+    return f"{t}cdy{subs[axis]},{t}d{''.join(subs)}->{t}c{''.join(out)}"
 
 
 def _cross_spec(rank_new: int, bit_axis: int, op_axis_new: int,
-                op_real: bool = False, planar: bool = True) -> str:
+                op_real: bool = False, planar: bool = True,
+                batched: bool = False) -> str:
+    t = "T" if batched else ""
     subs = list(_AXIS_LETTERS[:rank_new])
     subs[bit_axis] = "k"
     subs[op_axis_new] = "x"
@@ -71,10 +85,10 @@ def _cross_spec(rank_new: int, bit_axis: int, op_axis_new: int,
     out[bit_axis] = "i"
     out[op_axis_new] = "y"
     if op_real and not planar:
-        return f"iykx,{''.join(subs)}->{''.join(out)}"
+        return f"{t}iykx,{t}{''.join(subs)}->{t}{''.join(out)}"
     if op_real:
-        return f"iykx,d{''.join(subs)}->d{''.join(out)}"
-    return f"cdiykx,d{''.join(subs)}->c{''.join(out)}"
+        return f"{t}iykx,{t}d{''.join(subs)}->{t}d{''.join(out)}"
+    return f"{t}cdiykx,{t}d{''.join(subs)}->{t}c{''.join(out)}"
 
 
 def _split_axis_bit(shape: tuple[int, ...], axis: int, pos: int):
@@ -86,48 +100,57 @@ def _split_axis_bit(shape: tuple[int, ...], axis: int, pos: int):
     return shape[:axis] + (pre, 2, post) + shape[axis + 1:], axis + 1
 
 
-def _blocked(planes: torch.Tensor) -> torch.Tensor:
-    """(2, ...) (re, im) planes -> the blocked ``[[re, -im], [im, re]]``
-    (2, 2, ...) operator the einsum forms contract against."""
-    re, im = planes[0], planes[1]
-    return torch.stack([torch.stack([re, -im]), torch.stack([im, re])])
+def _blocked(planes: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """(re, im) planes at ``dim`` -> the blocked ``[[re, -im], [im, re]]``
+    (2, 2) pair of dims there, the form the einsums contract against."""
+    re, im = planes.select(dim, 0), planes.select(dim, 1)
+    return torch.stack([torch.stack([re, -im], dim), torch.stack([im, re],
+                                                                 dim)], dim)
 
 
 # ---------------------------------------------------------------------------
 # Plain twins
 # ---------------------------------------------------------------------------
 
-def _layout_shape(x: torch.Tensor, planar: bool) -> tuple[int, ...]:
-    return tuple(x.shape[1:] if planar else x.shape)
+def _layout_shape(x: torch.Tensor, planar: bool,
+                  batched: bool = False) -> tuple[int, ...]:
+    return tuple(x.shape[int(batched) + int(planar):])
 
 
 def dense_axis_plain(x: torch.Tensor, op: torch.Tensor, axis: int,
-                     planar: bool) -> torch.Tensor:
+                     planar: bool, batched: bool = False) -> torch.Tensor:
     """``U x`` along ``axis``: ``op`` is a real (S, S) or complex
-    (2, S, S) (re, im) operator; ``x`` real or planar ``(2, ...)``."""
-    real = op.ndim == 2
+    (2, S, S) (re, im) operator; ``x`` real or planar ``(2, ...)``.
+    ``batched``: ``x`` and ``op`` carry a leading trajectory axis and
+    trajectory ``t`` takes ``op[t]`` (one einsum with a batch index)."""
+    b = int(batched)
+    real = op.ndim == 2 + b
     if not real and not planar:
         raise ValueError("a complex operator needs a planar state")
-    rank = len(_layout_shape(x, planar))
-    return torch.einsum(_dense_spec(rank, axis, real, planar),
-                        op if real else _blocked(op), x)
+    rank = len(_layout_shape(x, planar, batched))
+    return torch.einsum(_dense_spec(rank, axis, real, planar, batched),
+                        op if real else _blocked(op, b), x)
 
 
 def cross_bit_axis_plain(x: torch.Tensor, cop: torch.Tensor,
                          slice_axis: int, slice_pos: int, op_axis: int,
-                         planar: bool) -> torch.Tensor:
+                         planar: bool, batched: bool = False
+                         ) -> torch.Tensor:
     """Cross step: ``cop`` is a real (2, S, 2, S) or complex
-    (2, 2, S, 2, S) operator indexed (i, y, k, x)."""
-    real = cop.ndim == 4
+    (2, 2, S, 2, S) operator indexed (i, y, k, x); ``batched`` as for
+    ``dense_axis_plain``."""
+    b = int(batched)
+    real = cop.ndim == 4 + b
     if not real and not planar:
         raise ValueError("a complex operator needs a planar state")
-    shape = _layout_shape(x, planar)
+    shape = _layout_shape(x, planar, batched)
     new_shape, bit_axis = _split_axis_bit(shape, slice_axis, slice_pos)
     o = op_axis + (2 if op_axis > slice_axis else 0)
-    lead = (2,) if planar else ()
+    lead = tuple(x.shape[:b + int(planar)])
     xr = x.reshape(lead + new_shape)
-    out = torch.einsum(_cross_spec(len(new_shape), bit_axis, o, real, planar),
-                       cop if real else _blocked(cop), xr)
+    out = torch.einsum(
+        _cross_spec(len(new_shape), bit_axis, o, real, planar, batched),
+        cop if real else _blocked(cop, b), xr)
     return out.reshape(x.shape)
 
 
@@ -235,8 +258,11 @@ def copy_plan(g: Geometry) -> tuple[bool, int]:
 # ---------------------------------------------------------------------------
 
 def _check(x: torch.Tensor, op: torch.Tensor, op_shape: tuple[int, ...],
-           planar: bool, name: str) -> bool:
-    """Validate a CUDA launch; returns True for a real operator."""
+           planar: bool, batched: bool, name: str) -> bool:
+    """Validate a CUDA launch; returns True for a real operator. A batched
+    operator may repeat one block with stride 0 (shared by every
+    trajectory) or hold one contiguous block per trajectory at any
+    stride that keeps 16-byte copies aligned."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: state on {x.device}, expected CUDA or CPU")
     if op.device != x.device:
@@ -244,15 +270,22 @@ def _check(x: torch.Tensor, op: torch.Tensor, op_shape: tuple[int, ...],
                          f"{x.device}")
     if x.dtype != torch.float32 or op.dtype != torch.float32:
         raise TypeError(f"{name}: needs float32, got {x.dtype} / {op.dtype}")
-    if not x.is_contiguous() or not op.is_contiguous():
+    b = int(batched)
+    block = op[0] if batched else op
+    if not x.is_contiguous() or not block.is_contiguous():
         raise ValueError(f"{name}: state and operator must be contiguous")
-    if planar and x.shape[0] != 2:
-        raise ValueError(f"{name}: planar state needs a leading plane "
-                         f"axis of 2, got shape {tuple(x.shape)}")
-    real = tuple(op.shape) == op_shape
-    if not real and tuple(op.shape) != (2,) + op_shape:
+    if batched and (op.shape[0] != x.shape[0] or op.stride(0) % 4):
+        raise ValueError(f"{name}: batched operator of shape "
+                         f"{tuple(op.shape)} and stride {op.stride(0)} for "
+                         f"{x.shape[0]} trajectories")
+    if planar and x.shape[b] != 2:
+        raise ValueError(f"{name}: planar state needs a plane axis of 2 "
+                         f"after {b} batch axes, got shape {tuple(x.shape)}")
+    real = tuple(block.shape) == op_shape
+    if not real and tuple(block.shape) != (2,) + op_shape:
         raise ValueError(f"{name}: operator shape {tuple(op.shape)}, "
-                         f"expected {op_shape} or {(2,) + op_shape}")
+                         f"expected {op_shape} or {(2,) + op_shape}"
+                         f"{' per trajectory' if batched else ''}")
     if not real and not planar:
         raise ValueError(f"{name}: a complex operator needs a planar state")
     return real
@@ -269,56 +302,64 @@ def _view(kind: str, shape: tuple[int, ...], geom, planar: bool,
 
 
 def _launch(fn_name: str, x: torch.Tensor, op: torch.Tensor, K: int,
-            real: bool, view: tuple[Geometry, tuple[bool, int]]) -> None:
-    """Launch a kernel over ``x`` in place on the current stream."""
+            real: bool, view: tuple[Geometry, tuple[bool, int]],
+            batched: bool) -> None:
+    """Launch a kernel over ``x`` in place on the current stream. A batch
+    of B trajectories: trajectory b's state starts ``b * x[0].numel()``
+    floats in and its operator ``b * op.stride(0)`` floats in."""
     g, (rows, vec) = view
     if x.data_ptr() % (4 * vec) or op.data_ptr() % 16:
         raise ValueError(f"{fn_name}: state or operator not aligned for "
                          f"{4 * vec}-byte copies")
+    n_batch, xb, wb = ((x.shape[0], x[0].numel(), op.stride(0)) if batched
+                       else (1, 0, 0))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = getattr(_build.library(), fn_name)(
             x.data_ptr(), op.data_ptr(), K, int(not real), int(rows), vec,
             g.n_outer, g.so, g.n_mid, g.sm, g.n_inner, g.S, g.op_stride,
-            g.bit_stride, g.plane_stride, stream)
+            g.bit_stride, g.plane_stride, n_batch, xb, wb, stream)
     if rc != 0:
         raise RuntimeError(f"{fn_name}: launch failed with CUDA error {rc} "
                            f"({_build.error_string(rc)})")
 
 
 def dense_axis(x: torch.Tensor, op: torch.Tensor, axis: int,
-               planar: bool) -> torch.Tensor:
+               planar: bool, batched: bool = False) -> torch.Tensor:
     """AxisMatmulStep: the ``dense_axis`` kernel on a CUDA tensor (in
-    place: returns ``x``), the plain twin on a CPU one (a new tensor)."""
+    place: returns ``x``), the plain twin on a CPU one (a new tensor).
+    ``batched``: ``x`` is ``(B, [2,] ...)`` and ``op`` ``(B, [2,] S, S)``,
+    one operator per trajectory (stride 0 shares one), in one launch."""
     if x.device.type == "cpu":
-        return dense_axis_plain(x, op, axis, planar)
-    shape = _layout_shape(x, planar)
+        return dense_axis_plain(x, op, axis, planar, batched)
+    shape = _layout_shape(x, planar, batched)
     S = shape[axis]
-    real = _check(x, op, (S, S), planar, "dense_axis")
+    real = _check(x, op, (S, S), planar, batched, "dense_axis")
     _launch("qs_dense_axis", x, op, S, real,
-            _view("dense", shape, axis, planar, real))
+            _view("dense", shape, axis, planar, real), batched)
     dense_axis.launches += 1
     return x
 
 
 def cross_bit_axis(x: torch.Tensor, cop: torch.Tensor, slice_axis: int,
-                   slice_pos: int, op_axis: int,
-                   planar: bool) -> torch.Tensor:
+                   slice_pos: int, op_axis: int, planar: bool,
+                   batched: bool = False) -> torch.Tensor:
     """CrossStep: the ``cross_bit_axis`` kernel on a CUDA tensor (in
-    place: returns ``x``), the plain twin on a CPU one (a new tensor)."""
+    place: returns ``x``), the plain twin on a CPU one (a new tensor);
+    ``batched`` as for ``dense_axis``."""
     if x.device.type == "cpu":
         return cross_bit_axis_plain(x, cop, slice_axis, slice_pos, op_axis,
-                                    planar)
-    shape = _layout_shape(x, planar)
+                                    planar, batched)
+    shape = _layout_shape(x, planar, batched)
     S = shape[op_axis]
     if slice_axis == op_axis or not 0 <= slice_pos < \
             shape[slice_axis].bit_length() - 1:
         raise ValueError(f"cross_bit_axis: bad geometry ({slice_axis}, "
                          f"{slice_pos}, {op_axis}) for shape {shape}")
-    real = _check(x, cop, (2, S, 2, S), planar, "cross_bit_axis")
+    real = _check(x, cop, (2, S, 2, S), planar, batched, "cross_bit_axis")
     _launch("qs_cross_bit_axis", x, cop, 2 * S, real,
             _view("cross", shape, (slice_axis, slice_pos, op_axis), planar,
-                  real))
+                  real), batched)
     cross_bit_axis.launches += 1
     return x
 

@@ -1,0 +1,371 @@
+"""General-Kraus (monomial) noise trajectories as classical draws spliced
+into the group plan.
+
+Counterpart of the trajectory part of
+``quantum_simulator_tpu/ops/monomial_traj.py`` (``:78-469``). Every
+reference channel (and thermal relaxation) has Kraus operators that are
+monomial in the computational basis: ``K_m |j> = c_{m,j} |f_m(j)>``. With
+one auxiliary basis sample ``b ~ |psi|^2`` per composition window, every
+pending noise site becomes an independent classical draw from the static
+``|c|^2`` table at b's bits, and same-qubit site chains update b through
+the static maps ``f_m``; the marginal over b is exactly the sequential
+stochastic-Kraus law. A trajectory therefore runs a window of gates
+through the group plan, draws one basis sample, draws the window's sites,
+and splices the chosen Kraus operators into the next window as operand
+overrides. The law equals ``plan.group_trajectory_body``'s; the draws
+per key do not.
+
+The spec (segments, windows and sites) is the JAX package's. The port
+runs T trajectories at once: one basis sample per trajectory per window
+(a per-axis categorical on the device), the site draws gathered from the
+static ``w2`` / ``fmap`` tables, and every dense and cross step one
+batched kernel launch. The monitored variant (``events``) and the chunked
+n >= 30 path wait (ROADMAP Queue 1, items 5b and 6).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from . import program as prog
+from .bigtraj import trajectory_is_real
+from .plan import (
+    GroupLayout,
+    OperandOverrides,
+    build_group_operands_batched,
+    categorical,
+    execute_group_plan,
+    get_group_plan,
+    layout_basis_state,
+)
+from .unitary_traj import finalize
+
+# Classification dummies (see unitary_traj): the plan reads static_matrix
+# for realness and diagonality; operand values come from OperandOverrides.
+_DUMMY_R1 = np.array([[1.0, 1.0], [1.0, -1.0]]) / np.sqrt(2)
+_DUMMY_C1 = np.array([[1.0, 1.0], [1.0j, -1.0j]]) / np.sqrt(2)
+
+
+class MonomialStack(NamedTuple):
+    """Static per-stack data for a monomial (m, D, D) Kraus stack."""
+
+    kraus: np.ndarray        # (m, D, D) complex64 raw Kraus operators
+    kraus_real: object       # (m, D, D) f32 phase-real forms, or None
+    w2: np.ndarray           # (m, D) f32: |c_{m,j}|^2 per input value j
+    fmap: np.ndarray         # (m, D) int32: f_m(j) (identity where c=0)
+
+
+def monomial_stack(raw: np.ndarray) -> MonomialStack | None:
+    """(m, D, D) Kraus stack -> MonomialStack when every operator is a
+    generalized permutation matrix (<= 1 nonzero per column and per row)
+    and the stack is trace-preserving; else None."""
+    st = np.asarray(raw, np.complex128)
+    if st.ndim != 3 or st.shape[1] != st.shape[2]:
+        return None
+    m, D, _ = st.shape
+    w2 = np.zeros((m, D), np.float64)
+    fmap = np.tile(np.arange(D, dtype=np.int32), (m, 1))
+    for mi, K in enumerate(st):
+        used_rows: set[int] = set()
+        for j in range(D):
+            nz = np.flatnonzero(np.abs(K[:, j]) > 1e-12)
+            if nz.size > 1:
+                return None
+            if nz.size == 1:
+                r = int(nz[0])
+                if r in used_rows:
+                    return None  # two columns hit one row: interference
+                used_rows.add(r)
+                w2[mi, j] = abs(K[r, j]) ** 2
+                fmap[mi, j] = r
+    if not np.allclose(w2.sum(axis=0), 1.0, atol=1e-6):
+        return None  # not trace-preserving
+    return MonomialStack(kraus=st.astype(np.complex64),
+                         kraus_real=_phase_real_generic(st),
+                         w2=w2.astype(np.float32), fmap=fmap)
+
+
+def _phase_real_generic(stack: np.ndarray):
+    """(m, D, D) -> f32 real forms when every operator is real up to a
+    global phase, else None."""
+    out = []
+    for K in np.asarray(stack):
+        flat = K.reshape(-1)
+        a = flat[int(np.argmax(np.abs(flat)))]
+        if abs(a) < 1e-30:
+            out.append(np.zeros_like(K, dtype=np.float64))
+            continue
+        R = K * (np.conj(a) / abs(a))
+        if not np.allclose(R.imag, 0.0, atol=1e-10):
+            return None
+        out.append(R.real)
+    return np.stack(out).astype(np.float32)
+
+
+class _Site(NamedTuple):
+    window: int              # which window's boundary sample it draws on
+    seg_pos: int             # dummy-op index within segments[window + 1]
+    stack_id: int
+    targets: tuple[int, ...]
+    key_index: int           # the site's draw slot
+    event_index: int         # measurement outcome slot; -1 for noise
+
+
+class MonomialSpec(NamedTuple):
+    segments: tuple          # tuple[CircuitProgram]: len = n_windows + 1
+    windows: tuple           # windows[w] = tuple[_Site] (in draw order)
+    stacks: tuple            # tuple[MonomialStack]
+    n_site_keys: int
+    real: bool
+
+
+_SPEC_CACHE: dict[tuple, MonomialSpec | None] = {}
+
+
+def _dummy_op(targets, mat, column_index) -> prog.ProgramOp:
+    return prog.ProgramOp("__MONO_KRAUS__", tuple(targets), 0, 0,
+                          column_index, mat, None, -1)
+
+
+def monomial_spec(program: prog.CircuitProgram,
+                  noise_model) -> MonomialSpec | None:
+    """Host-side splice plan, or None when any channel is not monomial."""
+    key = (program.compile_key, noise_model.spec_key())
+    if key in _SPEC_CACHE:
+        return _SPEC_CACHE[key]
+    spec = _build_spec(program, noise_model)
+    if len(_SPEC_CACHE) > 128:
+        _SPEC_CACHE.pop(next(iter(_SPEC_CACHE)))
+    _SPEC_CACHE[key] = spec
+    return spec
+
+
+def _build_spec(program, noise_model):
+    real = trajectory_is_real(program, noise_model)
+    stacks: list[MonomialStack] = []
+    stack_ids: dict[bytes, int] = {}
+    by_gate: dict[str, list[int] | None] = {}
+
+    def stack_id_for(raw) -> int | None:
+        skey = np.asarray(raw).tobytes()
+        sid = stack_ids.get(skey)
+        if sid is not None:
+            return sid
+        ms = monomial_stack(raw)
+        if ms is None or (real and ms.kraus_real is None):
+            return None
+        sid = len(stacks)
+        stacks.append(ms)
+        stack_ids[skey] = sid
+        return sid
+
+    # Windows close when an op touches a pending site's target.
+    # segments[w] holds the gates of window w; the window's spliced
+    # dummies head segments[w + 1].
+    segments: list[list] = [[]]
+    windows: list[list[_Site]] = []
+    pending: list[tuple] = []   # (stack_id, targets, key_index)
+    pending_qubits: set[int] = set()
+    site_keys = 0
+
+    def close_window():
+        nonlocal pending, pending_qubits
+        if not pending:
+            return
+        w = len(windows)
+        seg: list = []
+        sites: list[_Site] = []
+        for sid, targets, ki in pending:
+            if stacks[sid].kraus.shape[1] == 2:
+                dummy = _DUMMY_R1 if real else _DUMMY_C1
+            else:
+                dummy = (np.kron(_DUMMY_R1, _DUMMY_R1) if real
+                         else np.kron(_DUMMY_C1, _DUMMY_C1))
+            sites.append(_Site(w, len(seg), sid, targets, ki, -1))
+            seg.append(_dummy_op(targets, dummy, 0))
+        windows.append(sites)
+        segments.append(seg)
+        pending = []
+        pending_qubits = set()
+
+    def pend_site(sid, targets):
+        nonlocal site_keys
+        pending.append((sid, tuple(targets), site_keys))
+        site_keys += 1
+        pending_qubits.update(targets)
+
+    for op in program.ops:
+        if op.gate_name not in by_gate:
+            sids = []
+            for raw in noise_model.kraus_stacks_for_gate(op.gate_name):
+                sid = stack_id_for(np.asarray(raw))
+                if sid is None:
+                    sids = None
+                    break
+                sids.append(sid)
+            by_gate[op.gate_name] = sids
+        sids = by_gate[op.gate_name]
+        if sids is None:
+            return None
+        if pending_qubits & set(op.targets):
+            close_window()
+        segments[-1].append(op)
+        k = len(op.targets)
+        for sid in sids:
+            D = stacks[sid].kraus.shape[1]
+            if D == 2:
+                for q in op.targets:
+                    pend_site(sid, (q,))
+            elif D == 1 << k and k == 2:
+                pend_site(sid, op.targets)
+            else:
+                return None  # arity mismatch or a wide correlated stack
+    close_window()
+
+    seg_programs = tuple(prog.CircuitProgram(
+        num_qubits=program.num_qubits,
+        initial_index=program.initial_index,
+        ops=tuple(seg_ops),
+        num_columns=1,
+        num_params=program.num_params,
+        initial_params=program.initial_params,
+        compile_key=program.compile_key + (
+            ("mono-seg", w, noise_model.spec_key(), (), real),),
+    ) for w, seg_ops in enumerate(segments))
+    return MonomialSpec(seg_programs, tuple(tuple(ws) for ws in windows),
+                        tuple(stacks), site_keys, real)
+
+
+def monomial_insert_supported(program, noise_model) -> bool:
+    return monomial_spec(program, noise_model) is not None
+
+
+def _sample_axes(x: torch.Tensor, planar: bool, layout: GroupLayout,
+                 generator, forced: torch.Tensor | None = None):
+    """One basis sample per trajectory from the batched grouped state: a
+    categorical on the first axis's marginal, then on each next axis's
+    marginal given the earlier picks (``monomial_traj.py:316-339``).
+    Returns ``(per-axis indices (T, rank), |psi|^2 (T,))``; ``forced``
+    replays given indices."""
+    T = x.shape[0]
+    p = x.square()
+    if planar:
+        p = p.sum(1)
+    rows = torch.arange(T, device=x.device)
+    idxs = []
+    nsq = None
+    for ax in range(len(layout.axis_sizes)):
+        m = p.reshape(T, p.shape[1], -1).sum(-1)
+        if ax == 0:
+            nsq = m.sum(-1)
+        a = forced[:, ax] if forced is not None else categorical(
+            m + 1e-30, generator)
+        idxs.append(a)
+        p = p[rows, a]
+    return torch.stack(idxs, dim=1), nsq
+
+
+def _decode_bit(idxs: torch.Tensor, layout: GroupLayout, q: int):
+    ax = layout.axis_of(q)
+    shift = layout.axis_bits[ax] - 1 - layout.pos_in_axis(q)
+    return (idxs[:, ax] >> shift) & 1
+
+
+def _window_draws(spec: MonomialSpec, window, idxs, nsq, layout: GroupLayout,
+                  generator, forced: torch.Tensor | None = None):
+    """Classical draws of one window's sites given each trajectory's
+    boundary basis sample (``monomial_traj.py:353-410``). Returns the
+    next segment's overrides and the (T, sites) branch indices. The first
+    operand is scaled by ``1/|psi|`` so the spliced product's norm stays
+    O(1); the true branch probabilities fold into the final exact
+    normalization."""
+    device = idxs.device
+    inv_norm = torch.rsqrt(nsq.clamp(min=1e-30))
+    bit_state: dict[int, torch.Tensor] = {}
+    pool_rows: list[torch.Tensor] = []
+    pool_map: dict[int, int] = {}
+    per_op: dict[int, torch.Tensor] = {}
+    branches = []
+
+    def bit(q):
+        if q not in bit_state:
+            bit_state[q] = _decode_bit(idxs, layout, q)
+        return bit_state[q]
+
+    for si, site in enumerate(window):
+        st = spec.stacks[site.stack_id]
+        if len(site.targets) == 1:
+            bv = bit(site.targets[0])
+        else:
+            bv = bit(site.targets[0]) * 2 + bit(site.targets[1])
+        D = st.kraus.shape[1]
+        w2_t = torch.from_numpy(np.ascontiguousarray(st.w2.T)).to(device)
+        probs = w2_t[bv]                                    # (T, m)
+        m = forced[:, si] if forced is not None else categorical(
+            probs + 1e-30, generator)
+        branches.append(m)
+        scale = torch.rsqrt(probs.gather(1, m[:, None]).squeeze(1).clamp(
+            min=1e-30))
+        if si == 0:
+            scale = scale * inv_norm
+        mats = torch.from_numpy(np.asarray(
+            st.kraus_real if spec.real else st.kraus,
+            dtype=np.complex64)).to(device)
+        operand = mats[m] * scale[:, None, None]
+        fm_flat = torch.from_numpy(st.fmap.reshape(-1).astype(
+            np.int64)).to(device)
+        newv = fm_flat[m * D + bv]
+        if len(site.targets) == 1:
+            bit_state[site.targets[0]] = newv
+        else:
+            bit_state[site.targets[0]] = (newv >> 1) & 1
+            bit_state[site.targets[1]] = newv & 1
+        if D == 2:
+            pool_map[site.seg_pos] = len(pool_rows)
+            pool_rows.append(operand[:, None])
+        else:
+            per_op[site.seg_pos] = operand
+    rows = torch.cat(pool_rows, dim=1) if pool_rows else None
+    return (OperandOverrides(pool_rows=rows, pool_map=pool_map,
+                             per_op=per_op), torch.stack(branches, dim=1))
+
+
+def monomial_trajectory_body(program, noise_model, params, n_traj: int,
+                             device, generator=None, draws=None,
+                             plain: bool = False):
+    """``n_traj`` stochastic trajectories with every (monomial-channel)
+    noise draw spliced into the group plan, windows separated by basis
+    samples (``_run_spec`` and ``_finalize``). Returns ``(states (T, 2^n)
+    complex64, draws)``: ``draws[w]`` = (basis indices (T, rank), site
+    branches (T, sites)) of window w; passing ``draws`` replays them."""
+    spec = monomial_spec(program, noise_model)
+    if spec is None:
+        raise ValueError("noise model has non-monomial channels; use the "
+                         "per-gate body (plan.group_trajectory_body)")
+    layout = GroupLayout.for_qubits(program.num_qubits)
+    plans = [get_group_plan(s) for s in spec.segments]
+    planar = not (spec.real and all(p.all_real for p in plans))
+    x = layout_basis_state(layout, program.initial_index, device, planar,
+                           n_traj)
+    record = []
+    overrides = None
+    n_windows = len(spec.windows)
+    for w in range(n_windows + 1):
+        seg = spec.segments[w]
+        operands = build_group_operands_batched(seg, plans[w], params,
+                                                n_traj, device, overrides)
+        x = execute_group_plan(plans[w], operands, seg, params, x, planar,
+                               plain, batched=True)
+        del operands
+        if w == n_windows:
+            break
+        forced = draws[w] if draws is not None else (None, None)
+        idxs, nsq = _sample_axes(x, planar, layout, generator, forced[0])
+        overrides, branches = _window_draws(spec, spec.windows[w], idxs,
+                                            nsq, layout, generator,
+                                            forced[1])
+        record.append((idxs, branches))
+    return finalize(x, planar), record

@@ -14,14 +14,21 @@ are, so the port takes the same steps as the JAX package:
 * ``DiagPairStep`` / ``DiagProductStep`` -> elementwise torch ops;
 * ``GenericStep`` -> the segmented einsum of ``ops/apply.py``.
 
-Operands are built once per run on the host and moved to the device.
-The port stores a complex operator as two float32 planes ``(re, im)``
-where the JAX package stores the blocked ``[[re, -im], [im, re]]`` form.
+An ideal run builds its operands once on the host and moves them to the
+device. Noisy trajectories run as batches: ``build_group_operands_batched``
+builds every trajectory's operands on the device with a leading
+trajectory axis (the noise draws enter as ``OperandOverrides``), and the
+executor takes a state ``(T, [2,] *axis_sizes)``, so each dense and cross
+step is one batched kernel launch. The per-gate trajectory body
+(``group_trajectory_body``) is at the end of the module. The port stores a
+complex operator as two float32 planes ``(re, im)`` where the JAX package
+stores the blocked ``[[re, -im], [im, re]]`` form.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -524,14 +531,19 @@ def _embed_in_axis(u: np.ndarray, positions: tuple[int, ...],
 
 class _GateMatrixPool:
     """Per-op gate matrices plus one (P, 2, 2) pool of the single-qubit
-    ones (``plan.py:553-707``, NumPy mode)."""
+    ones (``plan.py:553-707``, NumPy mode). Ops in ``skip`` take their
+    matrices from ``OperandOverrides`` instead and are left out, as in
+    the JAX pool."""
 
-    def __init__(self, program: prog.CircuitProgram, params, dtype):
+    def __init__(self, program: prog.CircuitProgram, params, dtype,
+                 skip: frozenset = frozenset()):
         self._per_op: dict[int, np.ndarray] = {}
         by_name: dict[tuple, list[int]] = {}
         static_cache: dict[bytes, np.ndarray] = {}
         static_1q: dict[bytes, tuple[np.ndarray, int]] = {}
         for oi, op in enumerate(program.ops):
+            if oi in skip:
+                continue  # injected matrix: see OperandOverrides
             if op.cphase_value is not None:
                 continue  # matrix-less wide diagonal: DiagProductStep only
             if op.static_matrix is None and op.num_params > 0:
@@ -556,6 +568,8 @@ class _GateMatrixPool:
         pool_parts = [np.asarray(np.concatenate(pool_parts), dtype=dtype)]
         base = 1 + len(static_1q)
         for oi, op in enumerate(program.ops):
+            if oi in skip:
+                continue
             if len(op.targets) == 1 and op.static_matrix is not None:
                 self._pool_index[oi] = \
                     1 + static_1q[op.static_matrix.tobytes()][1]
@@ -815,17 +829,354 @@ def operands_to(operands, device):
 
 
 # ---------------------------------------------------------------------------
+# Batched operator building on the device (noisy trajectories)
+# ---------------------------------------------------------------------------
+
+class OperandOverrides(NamedTuple):
+    """Per-trajectory matrices injected for designated ops
+    (``plan.py:540-551``): the noise draws of the splice executors
+    (``ops/unitary_traj.py``, ``ops/monomial_traj.py``). Override ops
+    carry a classification-only dummy ``static_matrix`` whose realness and
+    diagonality match the injected values: the plan reads the dummy, the
+    operands read the override."""
+
+    pool_rows: torch.Tensor | None    # (T, R, 2, 2) complex64 1q matrices
+    pool_map: dict                     # op index -> row in pool_rows
+    per_op: dict                       # op index -> (T, D, D) complex64
+
+
+_C64 = torch.complex64
+
+
+class _DevicePool:
+    """Gate matrices on the device with a leading batch axis: 1 for a
+    matrix every trajectory shares (built by the host pool), T for an
+    override. The 1q pool is the host pool's rows (identity at row 0)
+    followed by the override rows, as in the JAX pool."""
+
+    def __init__(self, program, params, device,
+                 overrides: OperandOverrides | None):
+        self.overrides = overrides
+        self.device = device
+        self._skip = (frozenset(overrides.pool_map) | frozenset(
+            overrides.per_op)) if overrides else frozenset()
+        self.host = _GateMatrixPool(program, params, np.complex64,
+                                    self._skip)
+        rows = self.host.pool_1q
+        if rows is None:
+            rows = np.eye(2, dtype=np.complex64)[None]
+        self.static_rows = torch.from_numpy(
+            np.ascontiguousarray(rows)).to(device)[None]
+        self.n_static = rows.shape[0]
+        self._cache: dict[int, torch.Tensor] = {}
+        self._full = None
+
+    def is_override(self, oi: int) -> bool:
+        return oi in self._skip
+
+    def pool_index(self, oi: int) -> int:
+        if self.overrides is not None and oi in self.overrides.pool_map:
+            return self.n_static + self.overrides.pool_map[oi]
+        return self.host.pool_index(oi)
+
+    def rows(self, per_trajectory: bool) -> torch.Tensor:
+        """(1, P, 2, 2) shared rows, or (T, P + R, 2, 2) with overrides."""
+        if not per_trajectory:
+            return self.static_rows
+        if self._full is None:
+            extra = self.overrides.pool_rows
+            self._full = torch.cat([self.static_rows.expand(
+                extra.shape[0], -1, -1, -1), extra.to(_C64)], dim=1)
+        return self._full
+
+    def matrix(self, oi: int) -> torch.Tensor:
+        """(1, D, D) shared or (T, D, D) per-trajectory matrix of op oi."""
+        if self.overrides is not None:
+            m = self.overrides.per_op.get(oi)
+            if m is not None:
+                return m.to(_C64)
+            r = self.overrides.pool_map.get(oi)
+            if r is not None:
+                return self.overrides.pool_rows[:, r].to(_C64)
+        m = self._cache.get(oi)
+        if m is None:
+            m = torch.from_numpy(np.ascontiguousarray(
+                self.host.matrix(oi), dtype=np.complex64)).to(
+                    self.device)[None]
+            self._cache[oi] = m
+        return m
+
+
+def _t_kron(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched Kronecker product of (Ba, m, m) and (Bb, n, n): out[(r i),
+    (c j)] = a[r, c] b[i, j]; batch axes of 1 broadcast."""
+    m, n = a.shape[-1], b.shape[-1]
+    out = a[..., :, None, :, None] * b[..., None, :, None, :]
+    return out.reshape(out.shape[:-4] + (m * n, m * n))
+
+
+def _t_permute_bits(u: torch.Tensor, order: list[int]) -> torch.Tensor:
+    """Batched (B, 2^k, 2^k) matrix with its row and column bits taken in
+    ``order`` (the torch form of the NumPy transposes above)."""
+    k = len(order)
+    if order == list(range(k)):
+        return u
+    g = u.reshape((u.shape[0],) + (2,) * (2 * k))
+    g = g.permute((0,) + tuple(1 + i for i in order)
+                  + tuple(1 + k + i for i in order))
+    return g.reshape(u.shape)
+
+
+def _t_reorder_gate_matrix(u: torch.Tensor, pos: list[int]) -> torch.Tensor:
+    return _t_permute_bits(u, sorted(range(len(pos)), key=lambda i: pos[i]))
+
+
+def _t_reorder_targets(u: torch.Tensor, targets, qubit_order) -> torch.Tensor:
+    return _t_permute_bits(u, [list(targets).index(q) for q in qubit_order])
+
+
+def _t_batched_1q_subcolumns(rows: torch.Tensor,
+                             tables: np.ndarray) -> torch.Tensor:
+    """(B, P, 2, 2) pool rows and (N, bits) index tables -> (B, N, 2^bits,
+    2^bits) kron products (index 0 = identity)."""
+    gathered = rows[:, torch.from_numpy(tables).to(rows.device)]
+    acc = gathered[:, :, 0]
+    for b in range(1, tables.shape[1]):
+        acc = _t_kron(acc, gathered[:, :, b])
+    return acc
+
+
+def _t_subcolumn_operator(program, pool: _DevicePool, op_indices, layout,
+                          axis: int) -> torch.Tensor:
+    """(B, S, S) operator of a sub-column (``_subcolumn_operator``)."""
+    bits = layout.axis_bits[axis]
+    items: list = []
+    covered: set[int] = set()
+    for oi in op_indices:
+        op = program.ops[oi]
+        pos = [layout.pos_in_axis(q) for q in op.targets]
+        u = _t_reorder_gate_matrix(pool.matrix(oi), pos)
+        spos = tuple(sorted(pos))
+        items.append((spos[0], spos, u))
+        covered |= set(spos)
+    run: list[int] = []
+
+    def eye(k: int) -> torch.Tensor:
+        return torch.eye(1 << k, dtype=_C64, device=pool.device)[None]
+
+    for p in range(bits):
+        if p in covered:
+            if run:
+                items.append((run[0], tuple(run), eye(len(run))))
+                run = []
+        else:
+            run.append(p)
+    if run:
+        items.append((run[0], tuple(run), eye(len(run))))
+    items.sort(key=lambda it: it[0])
+    acc = None
+    bit_order: list[int] = []
+    for _, spos, u in items:
+        bit_order.extend(spos)
+        acc = u if acc is None else _t_kron(acc, u)
+    if bit_order != sorted(bit_order):
+        acc = _t_permute_bits(acc, [bit_order.index(p)
+                                    for p in sorted(bit_order)])
+    return acc
+
+
+_DEVICE_MASKS: dict[tuple, torch.Tensor] = {}
+
+
+def _t_embed_in_axis(u: torch.Tensor, positions: tuple[int, ...],
+                     axis_bits: int) -> torch.Tensor:
+    """Batched ``_embed_in_axis``: (B, 2^k, 2^k) -> (B, S, S); each output
+    entry takes exactly one input entry, so the float32 products are
+    exact."""
+    key = (positions, axis_bits, str(u.device))
+    masks = _DEVICE_MASKS.get(key)
+    if masks is None:
+        m = _embed_masks(positions, axis_bits)
+        masks = torch.from_numpy(m.reshape(m.shape[0], -1)).to(u.device)
+        _DEVICE_MASKS[key] = masks
+    S = 1 << axis_bits
+    flat = u.reshape(u.shape[0], -1)
+    re = (flat.real @ masks).reshape(-1, S, S)
+    im = (flat.imag @ masks).reshape(-1, S, S)
+    return torch.complex(re, im)
+
+
+def _t_planes(m: torch.Tensor, n_traj: int) -> torch.Tensor:
+    """(B, ...) complex -> (T, 2, ...) float32 (re, im) planes; a shared
+    (B = 1) operator is repeated with stride 0, not copied."""
+    out = torch.stack([m.real, m.imag], dim=1)
+    return out.expand((n_traj,) + tuple(out.shape[1:]))
+
+
+def build_group_operands_batched(program: prog.CircuitProgram,
+                                 plan: GroupPlan, params, n_traj: int,
+                                 device,
+                                 overrides: OperandOverrides | None = None):
+    """Operands of ``n_traj`` trajectories, built on ``device`` in torch
+    complex64 with the arithmetic of ``build_group_operands`` (TF32 stays
+    off, ``config.py``). Each operand has a leading trajectory axis:
+
+    * ``axis_stacks[ax][i]``: (T, 2, S, S);
+    * ``cross_ops[i]``: (T, 2, 2, S, 2, S);
+    * ``diag_ops[i]``: (T, 2, S_a, S_b);
+    * ``prod_ops[i]``: as in ``build_group_operands``, on the device;
+    * ``bitpair_ops[i]``: (T, 2, 2, 2, 2, 2), or None for a SWAP.
+
+    An operand no override touches is computed once and shared across
+    the trajectories with stride 0. The JAX package builds these operands
+    outside any kernel too (``plan.py:818-982`` under vmap)."""
+    layout = plan.layout
+    T = n_traj
+    pool = _DevicePool(program, params, device, overrides)
+
+    def touched(ops) -> bool:
+        return any(pool.is_override(oi) for oi in ops)
+
+    # Every all-1q sub-column of each axis width goes through one gather
+    # and kron chain; shared and per-trajectory ones apart.
+    classes: dict[tuple[int, bool], list[np.ndarray]] = {}
+    class_ref: dict[tuple[int, int], tuple] = {}
+    for si, seg in enumerate(plan.dense_segments):
+        bits = layout.axis_bits[seg.axis]
+        for bi, sub in enumerate(seg.subcolumns):
+            if not all(len(program.ops[oi].targets) == 1 for oi in sub):
+                continue
+            table = np.zeros(bits, dtype=np.int64)
+            for oi in sub:
+                q = program.ops[oi].targets[0]
+                table[layout.pos_in_axis(q)] = pool.pool_index(oi)
+            key = (bits, touched(sub))
+            class_ref[(si, bi)] = (key, len(classes.setdefault(key, [])))
+            classes[key].append(table)
+    batched = {key: _t_batched_1q_subcolumns(pool.rows(key[1]),
+                                             np.stack(tables))
+               for key, tables in classes.items()}
+
+    axis_stacks: list[list[torch.Tensor]] = [[] for _ in layout.axis_sizes]
+    for si, seg in enumerate(plan.dense_segments):
+        combined = None
+        for bi, sub in enumerate(seg.subcolumns):
+            ref = class_ref.get((si, bi))
+            if ref is not None:
+                sc = batched[ref[0]][:, ref[1]]
+            else:
+                sc = _t_subcolumn_operator(program, pool, sub, layout,
+                                           seg.axis)
+            combined = sc if combined is None else torch.matmul(sc, combined)
+        axis_stacks[seg.axis].append(_t_planes(combined, T))
+    del batched
+    for ax, ops in enumerate(axis_stacks):
+        if not ops:
+            ops.append(_t_planes(torch.eye(layout.axis_sizes[ax], dtype=_C64,
+                                           device=device)[None], T))
+
+    cross_ops = []
+    for spec in plan.cross_specs:
+        op = program.ops[spec.op_index]
+        slice_q = next(q for q in op.targets
+                       if layout.axis_of(q) == spec.slice_axis)
+        op_qs = sorted((q for q in op.targets
+                        if layout.axis_of(q) == spec.op_axis),
+                       key=lambda q: layout.pos_in_axis(q))
+        u = _t_reorder_targets(pool.matrix(spec.op_index), op.targets,
+                               [slice_q] + op_qs)
+        gl = 1 << len(op_qs)
+        u4 = u.reshape(u.shape[0], 2, gl, 2, gl)
+        pos = tuple(layout.pos_in_axis(q) for q in op_qs)
+        bits = layout.axis_bits[spec.op_axis]
+        blocks = [[_t_embed_in_axis(u4[:, i, :, kk, :], pos, bits)
+                   for kk in (0, 1)] for i in (0, 1)]
+        if spec.pre_slice_ops:
+            us = None
+            for oi in spec.pre_slice_ops:
+                m = pool.matrix(oi)
+                us = m if us is None else torch.matmul(m, us)
+            blocks = [[blocks[i][0] * us[:, 0, kk, None, None]
+                       + blocks[i][1] * us[:, 1, kk, None, None]
+                       for kk in (0, 1)] for i in (0, 1)]
+        if spec.pre_op_subcolumns:
+            m = None
+            for sub in spec.pre_op_subcolumns:
+                sc = _t_subcolumn_operator(program, pool, sub, layout,
+                                           spec.op_axis)
+                m = sc if m is None else torch.matmul(sc, m)
+            blocks = [[torch.matmul(blocks[i][kk], m)
+                       for kk in (0, 1)] for i in (0, 1)]
+        C = torch.stack([torch.stack(row, dim=1) for row in blocks], dim=1)
+        cross_ops.append(_t_planes(C.permute(0, 1, 3, 2, 4), T))
+
+    bitpair_ops = []
+    for spec in plan.bitpair_specs:
+        if spec.is_swap:
+            bitpair_ops.append(None)
+            continue
+        op = program.ops[spec.op_index]
+        slice_q = next(q for q in op.targets
+                       if layout.axis_of(q) == spec.slice_axis)
+        op_q = next(q for q in op.targets if q != slice_q)
+        u = _t_reorder_targets(pool.matrix(spec.op_index), op.targets,
+                               [slice_q, op_q])
+        bitpair_ops.append(_t_planes(u.reshape(-1, 2, 2, 2, 2), T))
+
+    prod_ops = []
+    for seg in plan.prod_segments:
+        v = _diag_product_value(program.ops[seg.op_index])
+        facs = tuple(torch.from_numpy(m).to(device) for _, m in
+                     _indicator_masks(program.ops[seg.op_index].targets,
+                                      layout))
+        prod_ops.append((facs, float(np.real(v - 1)), float(np.imag(v - 1))))
+
+    diag_ops = []
+    for seg in plan.diag_segments:
+        sa = layout.axis_sizes[seg.axis_a]
+        sb = layout.axis_sizes[seg.axis_b]
+        D = torch.ones((1, sa, sb), dtype=_C64, device=device)
+        for oi in seg.op_indices:
+            op = program.ops[oi]
+            k = len(op.targets)
+            if op.cphase_value is not None:
+                dv = np.ones(1 << k, np.complex64)
+                dv[-1] = op.cphase_value
+                d = torch.from_numpy(dv).to(device)[None]
+            else:
+                d = torch.diagonal(pool.matrix(oi), dim1=-2, dim2=-1)
+            code_a = np.zeros(sa, dtype=np.int64)
+            code_b = np.zeros(sb, dtype=np.int64)
+            for j, q in enumerate(op.targets):
+                shift = k - 1 - j
+                p = layout.pos_in_axis(q)
+                if layout.axis_of(q) == seg.axis_a:
+                    ab = layout.axis_bits[seg.axis_a]
+                    code_a |= ((np.arange(sa) >> (ab - 1 - p)) & 1) << shift
+                else:
+                    bb = layout.axis_bits[seg.axis_b]
+                    code_b |= ((np.arange(sb) >> (bb - 1 - p)) & 1) << shift
+            idx = torch.from_numpy(code_a[:, None] + code_b[None, :]).to(
+                device)
+            D = D * d[:, idx]
+        diag_ops.append(_t_planes(D, T))
+
+    return axis_stacks, cross_ops, diag_ops, prod_ops, bitpair_ops
+
+
+# ---------------------------------------------------------------------------
 # Execution
 # ---------------------------------------------------------------------------
 
 def _diag_spec(rank: int, axis_a: int, axis_b: int, op_real: bool = False,
-               planar: bool = True) -> str:
+               planar: bool = True, batched: bool = False) -> str:
+    t = "T" if batched else ""
     subs = "".join(cuda_exec._AXIS_LETTERS[:rank])
     if op_real and not planar:
-        return f"{subs[axis_a]}{subs[axis_b]},{subs}->{subs}"
+        return f"{t}{subs[axis_a]}{subs[axis_b]},{t}{subs}->{t}{subs}"
     if op_real:
-        return f"{subs[axis_a]}{subs[axis_b]},d{subs}->d{subs}"
-    return f"cd{subs[axis_a]}{subs[axis_b]},d{subs}->c{subs}"
+        return f"{t}{subs[axis_a]}{subs[axis_b]},{t}d{subs}->{t}d{subs}"
+    return f"{t}cd{subs[axis_a]}{subs[axis_b]},{t}d{subs}->{t}c{subs}"
 
 
 def _split_two_bits(shape: tuple[int, ...], ax_a: int, pos_a: int,
@@ -841,7 +1192,8 @@ def _split_two_bits(shape: tuple[int, ...], ax_a: int, pos_a: int,
     return new_shape, ia, ib + 2
 
 
-def apply_bitpair(x, plan, step, bitpair_ops, planar: bool):
+def apply_bitpair(x, plan, step, bitpair_ops, planar: bool,
+                  batched: bool = False):
     """BitPairStep: an exact SWAP transposes the two bit dims; anything
     else is a K=4 einsum (``plan.py:1090-1112``)."""
     spec = plan.bitpair_specs[step.index]
@@ -854,15 +1206,18 @@ def apply_bitpair(x, plan, step, bitpair_ops, planar: bool):
     if spec.is_swap:
         xr = xr.transpose(lead + bs, lead + bo)
     else:
+        b = int(batched)
         real = plan.bitpair_real[step.index]
         q = bitpair_ops[step.index]
-        xr = torch.einsum(_cross_spec(len(new_shape), bs, bo, real, planar),
-                          q[0] if real else _blocked(q), xr)
+        xr = torch.einsum(
+            _cross_spec(len(new_shape), bs, bo, real, planar, batched),
+            q.select(b, 0) if real else _blocked(q, b), xr)
     return xr.reshape(x.shape)
 
 
 def apply_prod_diag(x, facs, cre: float, cim: float, rank: int,
-                    axes: tuple[int, ...], planar: bool) -> torch.Tensor:
+                    axes: tuple[int, ...], planar: bool,
+                    batched: bool = False) -> torch.Tensor:
     """``x += (v-1) * x * prod mask_ax`` as broadcast elementwise ops."""
     ind = None
     for ax, m in zip(axes, facs):
@@ -872,21 +1227,28 @@ def apply_prod_diag(x, facs, cre: float, cim: float, rank: int,
         ind = f if ind is None else ind * f
     if not planar:
         return x + cre * (x * ind)  # real state => v real
-    xr, xi = x[0], x[1]
+    b = int(batched)
+    xr, xi = x.select(b, 0), x.select(b, 1)
     tr = xr * ind
     ti = xi * ind
     return torch.stack([xr + cre * tr - cim * ti,
-                        xi + cre * ti + cim * tr])
+                        xi + cre * ti + cim * tr], dim=b)
 
 
 def execute_group_plan(plan: GroupPlan, operands, program, params,
                        x: torch.Tensor, planar: bool = True,
-                       plain: bool = False) -> torch.Tensor:
+                       plain: bool = False,
+                       batched: bool = False) -> torch.Tensor:
     """Run all steps on ``x``: planar ``(2, *axis_sizes)``, or real
     ``(*axis_sizes,)`` with ``planar=False`` (only for ``plan.all_real``).
     Dense and cross steps go through the ``cuda_exec`` kernel wrappers;
     ``plain=True`` calls their plain PyTorch twins instead on any device
     (the reference executor the kernels are checked and timed against).
+
+    ``batched``: ``x`` has a leading trajectory axis ``(T, [2,] ...)`` and
+    ``operands`` come from ``build_group_operands_batched``; every dense
+    and cross step is then one batched kernel launch with one operator
+    per trajectory, and the other steps take the batch as a leading dim.
 
     Takes ownership of ``x``: on a CUDA tensor the kernels write in place,
     so ``x`` may be overwritten by the run; pass a state you no longer
@@ -894,6 +1256,7 @@ def execute_group_plan(plan: GroupPlan, operands, program, params,
     layout = plan.layout
     shape = tuple(layout.axis_sizes)
     rank = len(shape)
+    b = int(batched)
     axis_stacks, cross_ops, diag_ops, prod_ops, bitpair_ops = operands
     dense = cuda_exec.dense_axis_plain if plain else cuda_exec.dense_axis
     cross = (cuda_exec.cross_bit_axis_plain if plain
@@ -905,42 +1268,73 @@ def execute_group_plan(plan: GroupPlan, operands, program, params,
         if isinstance(step, AxisMatmulStep):
             real = plan.dense_real[step.axis][step.op_index]
             op = axis_stacks[step.axis][step.op_index]
-            x = dense(x.contiguous(), op[0] if real else op, step.axis,
-                      planar)
+            x = dense(x.contiguous(), op.select(b, 0) if real else op,
+                      step.axis, planar, batched)
         elif isinstance(step, CrossStep):
             real = plan.cross_real[step.index]
             cop = cross_ops[step.index]
-            x = cross(x.contiguous(), cop[0] if real else cop,
-                      step.slice_axis, step.slice_pos, step.op_axis, planar)
+            x = cross(x.contiguous(), cop.select(b, 0) if real else cop,
+                      step.slice_axis, step.slice_pos, step.op_axis, planar,
+                      batched)
         elif isinstance(step, BitPairStep):
-            x = apply_bitpair(x, plan, step, bitpair_ops, planar)
+            x = apply_bitpair(x, plan, step, bitpair_ops, planar, batched)
         elif isinstance(step, DiagPairStep):
             real = plan.diag_real[step.index]
             d = diag_ops[step.index]
             x = torch.einsum(
-                _diag_spec(rank, step.axis_a, step.axis_b, real, planar),
-                d[0] if real else _blocked(d), x)
+                _diag_spec(rank, step.axis_a, step.axis_b, real, planar,
+                           batched),
+                d.select(b, 0) if real else _blocked(d, b), x)
         elif isinstance(step, DiagProductStep):
             facs, cre, cim = prod_ops[step.index]
-            x = apply_prod_diag(x, facs, cre, cim, rank, step.axes, planar)
-        else:  # GenericStep (never in an all-real plan)
+            x = apply_prod_diag(x, facs, cre, cim, rank, step.axes, planar,
+                                batched)
+        else:  # GenericStep (never in an all-real plan, never an override)
             op = program.ops[step.program_op]
             u = program.op_matrix(op, params, np.complex64)
-            flat = torch.complex(x[0], x[1]).reshape(-1)
+            lead = tuple(x.shape[:b])
+            flat = torch.complex(x.select(b, 0), x.select(b, 1)).reshape(
+                lead + (-1,))
             shaped = apply_gate(flat, u, op.targets,
-                                layout.num_qubits).reshape(shape)
-            x = torch.stack([shaped.real, shaped.imag])
+                                layout.num_qubits).reshape(lead + shape)
+            x = torch.stack([shaped.real, shaped.imag], dim=b)
     return x
 
 
-def basis_state(plan: GroupPlan, index: int, device,
-                planar: bool = True) -> torch.Tensor:
-    """One-hot float32 basis state, planar ``(2, *axis_sizes)`` or real."""
-    shape = tuple(plan.layout.axis_sizes)
-    x = torch.zeros(((2,) if planar else ()) + shape, dtype=torch.float32,
-                    device=device)
-    (x[0] if planar else x).view(-1)[index] = 1.0
+def basis_state(plan: GroupPlan, index: int, device, planar: bool = True,
+                n_traj: int | None = None) -> torch.Tensor:
+    """One-hot float32 basis state, planar ``(2, *axis_sizes)`` or real;
+    ``n_traj`` adds a leading trajectory axis (one copy each)."""
+    return layout_basis_state(plan.layout, index, device, planar, n_traj)
+
+
+def layout_basis_state(layout: GroupLayout, index: int, device,
+                       planar: bool = True,
+                       n_traj: int | None = None) -> torch.Tensor:
+    shape = tuple(layout.axis_sizes)
+    lead = () if n_traj is None else (n_traj,)
+    x = torch.zeros(lead + ((2,) if planar else ()) + shape,
+                    dtype=torch.float32, device=device)
+    re = x.reshape(lead + ((2,) if planar else ()) + (-1,))
+    if planar:
+        re = re.select(len(lead), 0)
+    re[..., index] = 1.0
     return x
+
+
+_PLANS: dict[tuple, GroupPlan] = {}
+
+
+def get_group_plan(program: prog.CircuitProgram) -> GroupPlan:
+    """``build_group_plan`` cached by the program's compile key (the
+    trajectory executors rebuild their segment programs per chunk)."""
+    plan = _PLANS.get(program.compile_key)
+    if plan is None:
+        plan = build_group_plan(program)
+        if len(_PLANS) > 128:
+            _PLANS.pop(next(iter(_PLANS)))
+        _PLANS[program.compile_key] = plan
+    return plan
 
 
 def group_forward_body(program: prog.CircuitProgram, params, device,
@@ -957,3 +1351,189 @@ def group_forward_body(program: prog.CircuitProgram, params, device,
     if planar:
         return torch.complex(x[0], x[1]).reshape(-1)
     return x.reshape(-1).to(torch.complex64)
+
+
+# ---------------------------------------------------------------------------
+# Per-gate trajectory body (``plan.py:1134-1535``), batched over
+# trajectories: noise after every gate forbids composition, so each gate
+# and each drawn Kraus operator is its own step.
+# ---------------------------------------------------------------------------
+
+def categorical(weights: torch.Tensor,
+                generator: torch.Generator | None) -> torch.Tensor:
+    """One index per row of ``(T, m)`` non-negative weights, drawn by
+    inverse CDF on float64 uniforms from ``generator`` (on the weights'
+    device). The law of ``jax.random.categorical(key, log(w))``; the
+    numbers differ."""
+    cdf = torch.cumsum(weights.to(torch.float64), dim=-1)
+    u = torch.rand(cdf.shape[:-1] + (1,), dtype=torch.float64,
+                   device=cdf.device, generator=generator) * cdf[..., -1:]
+    idx = torch.searchsorted(cdf, u, right=True).squeeze(-1)
+    return idx.clamp_(max=weights.shape[-1] - 1)
+
+
+def apply_gate_grouped(x: torch.Tensor, u: torch.Tensor,
+                       targets: tuple[int, ...], layout: GroupLayout,
+                       plain: bool = False) -> torch.Tensor:
+    """Apply a (B, 2^k, 2^k) complex gate (B = 1 shared, or one per
+    trajectory) to a planar batched state ``(T, 2, *axis_sizes)``
+    (``plan.py:1387-1440``): a one-axis gate embeds into a dense operator
+    (the ``dense_axis`` kernel), a two-axis gate with a lone bit becomes a
+    cross operator (``cross_bit_axis``), anything else the flat segmented
+    einsum."""
+    T = x.shape[0]
+    axes = sorted({layout.axis_of(q) for q in targets})
+    if len(axes) == 1:
+        ax = axes[0]
+        qubits = sorted(targets, key=lambda q: layout.pos_in_axis(q))
+        full = _t_embed_in_axis(_t_reorder_targets(u, targets, qubits),
+                                tuple(layout.pos_in_axis(q) for q in qubits),
+                                layout.axis_bits[ax])
+        dense = cuda_exec.dense_axis_plain if plain else cuda_exec.dense_axis
+        return dense(x.contiguous(), _t_planes(full, T), ax, True, True)
+    by_axis: dict[int, list[int]] = {}
+    for q in targets:
+        by_axis.setdefault(layout.axis_of(q), []).append(q)
+    lone = [ax for ax in axes if len(by_axis[ax]) == 1]
+    if len(axes) == 2 and lone:
+        slice_axis = lone[0]
+        op_axis = axes[0] if axes[0] != slice_axis else axes[1]
+        slice_q = by_axis[slice_axis][0]
+        op_qubits = sorted(by_axis[op_axis],
+                           key=lambda q: layout.pos_in_axis(q))
+        gl = 1 << len(op_qubits)
+        u4 = _t_reorder_targets(u, targets, [slice_q] + op_qubits).reshape(
+            -1, 2, gl, 2, gl)
+        pos = tuple(layout.pos_in_axis(q) for q in op_qubits)
+        bits = layout.axis_bits[op_axis]
+        blocks = [[_t_embed_in_axis(u4[:, i, :, j, :], pos, bits)
+                   for j in (0, 1)] for i in (0, 1)]
+        C = torch.stack([torch.stack(row, dim=1) for row in blocks], dim=1)
+        cross = (cuda_exec.cross_bit_axis_plain if plain
+                 else cuda_exec.cross_bit_axis)
+        return cross(x.contiguous(), _t_planes(C.permute(0, 1, 3, 2, 4), T),
+                     slice_axis, layout.pos_in_axis(slice_q), op_axis, True,
+                     True)
+    flat = torch.complex(x[:, 0], x[:, 1]).reshape(T, -1)
+    if u.shape[0] != 1:
+        raise ValueError("a per-trajectory gate on three or more axes has "
+                         "no grouped form")
+    shaped = apply_gate(flat, u[0], targets, layout.num_qubits).reshape(
+        (T,) + tuple(layout.axis_sizes))
+    return torch.stack([shaped.real, shaped.imag], dim=1)
+
+
+def apply_cphase_grouped(x: torch.Tensor, targets: tuple[int, ...],
+                         v: complex, layout: GroupLayout) -> torch.Tensor:
+    """Controlled-phase-form diagonal on a planar batched state: one
+    broadcast pass (``plan.py:1134-1150``)."""
+    facs = tuple(torch.from_numpy(m).to(x.device)
+                 for _, m in _indicator_masks(targets, layout))
+    axes = tuple(sorted({layout.axis_of(q) for q in targets}))
+    return apply_prod_diag(x, facs, float(np.real(v)) - 1.0,
+                           float(np.imag(v)), len(layout.axis_sizes), axes,
+                           True, True)
+
+
+def _rho_q_grouped(x: torch.Tensor, q: int,
+                   layout: GroupLayout) -> torch.Tensor:
+    """(T, 2, 2) single-qubit reduced density matrices of a planar batched
+    state (``plan.py:1443-1454``)."""
+    ax = layout.axis_of(q)
+    pos = layout.pos_in_axis(q)
+    shape = tuple(layout.axis_sizes)
+    pre = int(np.prod(shape[:ax], dtype=np.int64)) << pos
+    post = (shape[ax] >> (pos + 1)) * int(np.prod(shape[ax + 1:],
+                                                  dtype=np.int64))
+    y = x.reshape(x.shape[0], 2, pre, 2, post)
+    yr, yi = y[:, 0], y[:, 1]
+    rr = (torch.einsum("tabc,tadc->tbd", yr, yr)
+          + torch.einsum("tabc,tadc->tbd", yi, yi))
+    ri = (torch.einsum("tabc,tadc->tbd", yi, yr)
+          - torch.einsum("tabc,tadc->tbd", yr, yi))
+    return torch.complex(rr, ri)
+
+
+def _combine(x: torch.Tensor) -> torch.Tensor:
+    """Planar batched state -> (T, 2^n) complex64."""
+    return torch.complex(x[:, 0], x[:, 1]).reshape(x.shape[0], -1)
+
+
+def group_trajectory_body(program: prog.CircuitProgram, noise_model,
+                          params, n_traj: int, device,
+                          generator: torch.Generator | None = None,
+                          draws: torch.Tensor | None = None,
+                          record_columns: bool = False,
+                          plain: bool = False):
+    """``n_traj`` stochastic-Kraus trajectories over the group layout
+    (``plan.py:1457-1535``): after every gate, for each channel and each
+    target, branch probabilities from the target's reduced density
+    matrix, one categorical draw per trajectory, the drawn Kraus operator
+    applied (one batched kernel launch with one operator per trajectory)
+    and the state rescaled; one exact normalization at the end.
+
+    Returns ``(states, draws)``: states ``(T, 2^n)`` complex64, or ``(T,
+    columns + 1, 2^n)`` with ``record_columns`` (the initial state, then
+    one snapshot after each column); ``draws`` the ``(T, total_draws)``
+    branch indices. Passing ``draws`` replays those branches."""
+    layout = GroupLayout.for_qubits(program.num_qubits)
+    T = n_traj
+    total_draws = sum(len(noise_model.kraus_stacks_for_gate(op.gate_name))
+                      * len(op.targets) for op in program.ops)
+    if draws is None:
+        draws = torch.zeros((T, total_draws), dtype=torch.long,
+                            device=device)
+        replay = False
+    else:
+        replay = True
+    x = layout_basis_state(layout, program.initial_index, device, True, T)
+    snapshots = [_combine(x)] if record_columns else None
+    d = 0
+    op_i = 0
+    for col in range(program.num_columns):
+        while (op_i < len(program.ops)
+               and program.ops[op_i].column_index == col):
+            op = program.ops[op_i]
+            if op.cphase_value is not None:
+                x = apply_cphase_grouped(x, op.targets, op.cphase_value,
+                                         layout)
+            else:
+                u = torch.from_numpy(program.op_matrix(
+                    op, params, np.complex64)).to(device)[None]
+                x = apply_gate_grouped(x, u, op.targets, layout, plain)
+            for kraus_np in noise_model.kraus_stacks_for_gate(op.gate_name):
+                if kraus_np.shape[1] != 2:
+                    raise ValueError(
+                        "the per-gate trajectory body applies one-qubit "
+                        "Kraus stacks; a multi-qubit stack needs the "
+                        "splice executors (ops/unitary_traj.py, "
+                        "ops/monomial_traj.py)")
+                kraus = torch.from_numpy(np.asarray(
+                    kraus_np, dtype=np.complex64)).to(device)
+                for q in op.targets:
+                    rho = _rho_q_grouped(x, q, layout)
+                    norms = torch.einsum("mij,tjk,mik->tm", kraus, rho,
+                                         kraus.conj()).real
+                    if replay:
+                        idx = draws[:, d]
+                    else:
+                        idx = categorical(norms + 1e-30, generator)
+                        draws[:, d] = idx
+                    x = apply_gate_grouped(x, kraus[idx], (q,), layout,
+                                           plain)
+                    p = norms.gather(1, idx[:, None]).squeeze(1)
+                    inv = torch.rsqrt(p.clamp(min=1e-30))
+                    x = x * inv.reshape((T,) + (1,) * (x.ndim - 1))
+                    d += 1
+            op_i += 1
+        if record_columns:
+            snapshots.append(_combine(x))
+    if total_draws:
+        # one exact division restores ||psi|| = 1; it changes no branch
+        nsq = x.square().reshape(T, -1).sum(-1)
+        x = x * torch.rsqrt(nsq).reshape((T,) + (1,) * (x.ndim - 1))
+        if record_columns:
+            snapshots[-1] = _combine(x)
+    if record_columns:
+        return torch.stack(snapshots, dim=1), draws
+    return _combine(x), draws

@@ -1,10 +1,13 @@
 """Circuit -> ordered op list + parameter vector.
 
 Counterpart of ``quantum_simulator_tpu/ops/program.py``: ``ProgramOp``,
-``CircuitProgram`` and ``compile_circuit`` (``program.py:41-158``). The
-port runs eagerly and has no per-structure compile, so ``forward_fn``
-always routes to the group executor (``ops/plan.py``) at every n; the JAX
-package routes there only on a TPU (``program.py:342``).
+``CircuitProgram`` and ``compile_circuit`` (``program.py:41-158``), and
+the entry points of the executors. The port runs eagerly and has no
+per-structure compile, so ``forward_fn`` always routes to the group
+executor (``ops/plan.py``) at every n; the JAX package routes there only
+on a TPU (``program.py:342``). The trajectory entry points
+(``batched_trajectories``, ``trajectory_fn``, ``steps_fn``) route noise
+to the splice bodies or the per-gate body (``trajectory_route``).
 """
 
 from __future__ import annotations
@@ -121,3 +124,105 @@ def forward_fn(program: CircuitProgram, device) -> Callable:
     from .plan import group_forward_body
 
     return lambda params: group_forward_body(program, params, device)
+
+
+class _NoNoise:
+    """Channel-free noise stand-in for reusing the trajectory bodies."""
+
+    @staticmethod
+    def kraus_stacks_for_gate(gate_name: str):
+        return []
+
+    @staticmethod
+    def spec_key():
+        return ()
+
+    @staticmethod
+    def has_channels() -> bool:
+        return False
+
+
+def trajectory_route(program: CircuitProgram, noise_model) -> str:
+    """Which trajectory body serves this noise model, fastest applicable
+    first (``program.py:534-573``):
+
+    * ``"unitary"``: mixed-unitary channels splice as unitaries into the
+      plan's composition windows (``ops/unitary_traj.py``);
+    * ``"monomial"``: monomial channels (amplitude damping, thermal
+      relaxation, any mix with the mixed-unitary family) splice as
+      classical draws given one basis sample per window
+      (``ops/monomial_traj.py``);
+    * ``"per-gate"``: ``plan.group_trajectory_body``. The JAX package
+      sends these channels to its per-gate fold executor (``bigtraj``,
+      ROADMAP Queue 1 item 6); the per-gate body draws from the same
+      sequential stochastic-Kraus law.
+
+    The port takes the group path at every n, as its forward does; the
+    JAX package's per-gate einsum body below n = 19 is a TPU compile-time
+    choice with the same law (``program.py:329-336``)."""
+    from .monomial_traj import monomial_insert_supported
+    from .unitary_traj import unitary_insert_supported
+
+    if unitary_insert_supported(program, noise_model):
+        return "unitary"
+    if monomial_insert_supported(program, noise_model):
+        return "monomial"
+    return "per-gate"
+
+
+def batched_trajectories(program: CircuitProgram, noise_model, params,
+                         n_traj: int, device, generator=None, draws=None,
+                         plain: bool = False):
+    """``(states (T, 2^n) complex64, draws)`` of ``n_traj`` stochastic
+    trajectories in one batch on ``device``: every dense and cross step of
+    the batch is one kernel launch (``plain``: the twins). ``draws`` from
+    an earlier call with the same arguments replays its branches."""
+    route = trajectory_route(program, noise_model)
+    if route == "unitary":
+        from .unitary_traj import unitary_insert_trajectory_body
+
+        return unitary_insert_trajectory_body(
+            program, noise_model, params, n_traj, device, generator, draws,
+            plain)
+    if route == "monomial":
+        from .monomial_traj import monomial_trajectory_body
+
+        return monomial_trajectory_body(program, noise_model, params,
+                                        n_traj, device, generator, draws,
+                                        plain)
+    from .plan import group_trajectory_body
+
+    return group_trajectory_body(program, noise_model, params, n_traj,
+                                 device, generator, draws, plain=plain)
+
+
+def batched_trajectories_fn(program: CircuitProgram, noise_model,
+                            device) -> Callable:
+    """``f(params, n_traj, generator) -> states (T, 2^n)``."""
+    return lambda params, n_traj, generator: batched_trajectories(
+        program, noise_model, params, n_traj, device, generator)[0]
+
+
+def trajectory_fn(program: CircuitProgram, noise_model, device,
+                  record_columns: bool = False) -> Callable:
+    """``f(params, generator) -> state (2^n,)``: one stochastic trajectory;
+    with ``record_columns``, ``(columns + 1, 2^n)`` snapshots through the
+    per-gate body (``program.py:426-450``)."""
+    from .plan import group_trajectory_body
+
+    if record_columns:
+        return lambda params, generator: group_trajectory_body(
+            program, noise_model, params, 1, device, generator,
+            record_columns=True)[0][0]
+    return lambda params, generator: batched_trajectories(
+        program, noise_model, params, 1, device, generator)[0][0]
+
+
+def steps_fn(program: CircuitProgram, device) -> Callable:
+    """``f(params) -> (columns + 1, 2^n)``: the ideal state before the
+    first column and after each column (``program.py:406-418``: the
+    per-gate body with no channels)."""
+    from .plan import group_trajectory_body
+
+    return lambda params: group_trajectory_body(
+        program, _NoNoise, params, 1, device, record_columns=True)[0][0]

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from .config import CONFIG
+from .ops.apply import basis_state_index
 from .ops.apply import probabilities as _probabilities
 
 
@@ -27,6 +28,15 @@ class StateVector:
         self._data = torch.zeros(1 << num_qubits, dtype=CONFIG.dtype,
                                  device=device or CONFIG.device)
         self._data[0] = 1.0
+
+    @classmethod
+    def from_initial_states(cls, initial_states: list[int],
+                            device=None) -> "StateVector":
+        """The computational basis product state (qubit 0 = MSB)."""
+        sv = cls(len(initial_states), device=device)
+        sv._data[0] = 0.0
+        sv._data[basis_state_index(initial_states)] = 1.0
+        return sv
 
     @classmethod
     def from_tensor(cls, tensor: torch.Tensor, num_qubits: int
@@ -60,6 +70,10 @@ class StateVector:
     def device_data(self) -> torch.Tensor:
         """The raw device tensor (no copy, no dtype change)."""
         return self._data
+
+    @device_data.setter
+    def device_data(self, tensor: torch.Tensor) -> None:
+        self._data = tensor
 
     @property
     def data(self) -> np.ndarray:

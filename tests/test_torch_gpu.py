@@ -281,3 +281,140 @@ def test_qft_with_strided_steps_goes_through_the_kernels(cuda):
     assert cuda_exec.dense_axis.launches > 0
     probs = got.abs().square()
     assert float((probs - 2.0 ** -12).abs().max()) <= 1e-9
+
+
+# ---------------------------------------------------------------------------
+# Trajectory batches: one launch, one operator per trajectory
+# ---------------------------------------------------------------------------
+
+def _batch_state(B, shape, planar, device, seed=0):
+    return torch.stack([_state(shape, planar, device, seed + b)
+                        for b in range(B)])
+
+
+def _batch_op(B, shape, real, device, seed, shared):
+    if shared:
+        one = _scaled_op(shape, real, device, seed)
+        return one[None].expand((B,) + tuple(one.shape))
+    return torch.stack([_scaled_op(shape, real, device, seed + b)
+                        for b in range(B)])
+
+
+def _check_batched(kind, x, op, geom, planar, tol):
+    fn = cuda_exec.dense_axis if kind == "dense" else cuda_exec.cross_bit_axis
+    twin = (cuda_exec.dense_axis_plain if kind == "dense"
+            else cuda_exec.cross_bit_axis_plain)
+    geom = geom if isinstance(geom, tuple) else (geom,)
+    want = twin(x, op, *geom, planar, True)
+    loop = torch.stack([twin(x[b], op[b], *geom, planar)
+                        for b in range(x.shape[0])])
+    got = fn(x, op, *geom, planar, True)
+    torch.cuda.synchronize()
+    assert got is x
+    torch.testing.assert_close(want, loop, atol=tol, rtol=0)
+    torch.testing.assert_close(got, want, atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("shape", [(8, 128), (4, 128, 128), (4, 16, 128)])
+@pytest.mark.parametrize("planar,real", VARIANTS)
+@pytest.mark.parametrize("shared", [True, False])
+def test_batched_dense_matches_twin(cuda, shape, planar, real, shared):
+    for axis in range(len(shape)):
+        S = shape[axis]
+        x = _batch_state(5, shape, planar, cuda, seed=axis)
+        op = _batch_op(5, (S, S), real, cuda, 20 + axis, shared)
+        _check_batched("dense", x, op, axis, planar, 2e-4)
+
+
+@pytest.mark.parametrize("shape,s,pos,o", [
+    ((8, 128), 1, 0, 0), ((8, 128), 0, 2, 1), ((8, 128), 1, 6, 0),
+    ((4, 128, 128), 1, 0, 0), ((4, 128, 128), 1, 6, 2),
+    ((4, 128, 128), 2, 6, 1), ((8, 16, 128), 2, 3, 0),
+])
+@pytest.mark.parametrize("planar,real", [(False, True), (True, False)])
+@pytest.mark.parametrize("shared", [True, False])
+def test_batched_cross_matches_twin(cuda, shape, s, pos, o, planar, real,
+                                    shared):
+    S = shape[o]
+    x = _batch_state(3, shape, planar, cuda, seed=s + o)
+    cop = _batch_op(3, (2, S, 2, S), real, cuda, 40, shared)
+    _check_batched("cross", x, cop, (s, pos, o), planar, 2e-3)
+
+
+@pytest.mark.parametrize("planar,real", VARIANTS)
+def test_batched_ragged_tile_per_trajectory(cuda, planar, real):
+    """Each trajectory has fewer fibers than a tile: every trajectory's
+    tail is masked and no tile reads into the next trajectory."""
+    shape = (128, 16)
+    g = cuda_exec.dense_geometry(shape, 0, planar, real)
+    assert g.n_outer * g.n_mid * g.n_inner < cuda_exec.tile_fibers(128, real)
+    x = _batch_state(7, shape, planar, cuda)
+    _check_batched("dense", x, _batch_op(7, (128, 128), real, cuda, 60,
+                                         False), 0, planar, 2e-4)
+    if planar and real:
+        return
+    x = _batch_state(7, (2, 128), planar, cuda)
+    _check_batched("cross", x, _batch_op(7, (2, 128, 2, 128), real, cuda,
+                                         70, False), (0, 0, 1), planar, 2e-3)
+
+
+@pytest.mark.parametrize("planar,real", [(False, True), (True, False)])
+def test_batched_shared_operator_equals_full_stride(cuda, planar, real):
+    """Op stride 0 (one operator shared) gives bit for bit what the same
+    operator copied per trajectory gives."""
+    x = _batch_state(4, (4, 128, 128), planar, cuda)
+    for kind, shape, geom in (("dense", (128, 128), (2,)),
+                              ("cross", (2, 128, 2, 128), (1, 6, 2))):
+        fn = (cuda_exec.dense_axis if kind == "dense"
+              else cuda_exec.cross_bit_axis)
+        shared = _batch_op(4, shape, real, cuda, 80, True)
+        assert shared.stride(0) == 0
+        a = fn(x.clone(), shared, *geom, planar, True)
+        b = fn(x.clone(), shared.contiguous(), *geom, planar, True)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
+
+
+def test_batched_launch_is_in_place_and_counted(cuda):
+    x = _batch_state(6, (4, 128, 128), True, cuda)
+    ptr = x.data_ptr()
+    cuda_exec.reset_launch_counts()
+    op = _batch_op(6, (128, 128), False, cuda, 90, False)
+    cop = _batch_op(6, (2, 128, 2, 128), False, cuda, 91, False)
+    assert cuda_exec.dense_axis(x, op, 1, True, True) is x
+    assert cuda_exec.cross_bit_axis(x, cop, 1, 6, 2, True, True) is x
+    assert x.data_ptr() == ptr
+    assert cuda_exec.dense_axis.launches == 1
+    assert cuda_exec.cross_bit_axis.launches == 1
+
+
+def test_noisy_batches_go_through_the_kernels(cuda):
+    """Kernel and plain-twin executors on the same draws, for the three
+    trajectory bodies; every dense and cross step is one launch."""
+    from quantum_simulator_tpu_torch import (AmplitudeDampingNoise,
+                                             DepolarizingNoise, NoiseModel,
+                                             ThermalRelaxationNoise)
+
+    c = QuantumCircuit.from_dict(build_circuit_dict(12, 6, 5, True))
+    p = tprog.compile_circuit(c)
+    for ch in (DepolarizingNoise(0.05), AmplitudeDampingNoise(0.05)):
+        nm = NoiseModel()
+        nm.add_global_noise(ch)
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        cuda_exec.reset_launch_counts()
+        got, draws = tprog.batched_trajectories(p, nm, p.initial_params, 9,
+                                                cuda, gen)
+        assert cuda_exec.dense_axis.launches > 0
+        want, _ = tprog.batched_trajectories(p, nm, p.initial_params, 9,
+                                             cuda, draws=draws, plain=True)
+        assert float((got - want).abs().max()) <= 1e-5
+        norms = got.abs().square().sum(-1)
+        assert float((norms - 1).abs().max()) <= 1e-4
+    nm = NoiseModel()
+    nm.add_global_noise(ThermalRelaxationNoise(30.0, 40.0, 8.0))
+    got, draws = tplan.group_trajectory_body(
+        p, nm, p.initial_params, 3, cuda,
+        torch.Generator(device="cuda").manual_seed(2))
+    want, _ = tplan.group_trajectory_body(p, nm, p.initial_params, 3, cuda,
+                                          draws=draws, plain=True)
+    assert float((got - want).abs().max()) <= 1e-5

@@ -4,7 +4,7 @@ Amplitudes must agree within 1e-5 and Z/X/Y-basis counts within a total
 variation distance of 0.03 over 8192 shots drawn with the same NumPy
 seed. Also: the device sampler (used at 2^20 amplitudes and above)
 against exact probabilities, the package's import boundary (no JAX), and
-what the ideal-path port refuses.
+what the port still refuses.
 """
 
 import os
@@ -138,7 +138,11 @@ def test_import_pulls_in_no_jax():
             "q.Simulator; "
             "import quantum_simulator_tpu_torch.ops.plan, "
             "quantum_simulator_tpu_torch.ops.cuda_exec, "
-            "quantum_simulator_tpu_torch.interop; "
+            "quantum_simulator_tpu_torch.interop, "
+            "quantum_simulator_tpu_torch.noise, "
+            "quantum_simulator_tpu_torch.ops.unitary_traj, "
+            "quantum_simulator_tpu_torch.ops.monomial_traj, "
+            "quantum_simulator_tpu_torch.ops.bigtraj; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'quantum_simulator_tpu' "
             "or m.startswith('quantum_simulator_tpu.')]; "
@@ -158,16 +162,35 @@ def test_config_defaults_and_tf32_off():
 
 
 def test_noise_and_step_recording_not_ported_yet():
-    nm = jq.NoiseModel()
-    nm.add_global_noise(jq.DepolarizingNoise(0.05))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        Simulator(noise_model=nm, device="cpu")
-    assert Simulator(noise_model=jq.NoiseModel(), device="cpu").device \
-        == "cpu"
+    """Noise and step recording run below n = 30; at the sizes where the
+    JAX package takes its chunked huge-state paths they are refused, before
+    any state is allocated."""
+    from quantum_simulator_tpu_torch import DepolarizingNoise, NoiseModel
+
+    nm = NoiseModel()
+    nm.add_global_noise(DepolarizingNoise(0.05))
+    sim = Simulator(noise_model=nm, device="cpu")
+    assert sim.device == "cpu"
+    c = QuantumCircuit(30)
+    c.add("H", [0])
+    for call in (lambda: sim.run(c, shots=4),
+                 lambda: sim.trajectory_states(c, 2, seed=0),
+                 lambda: sim.run_with_noise(c, shots=4, seed=0),
+                 lambda: sim.ensemble_qubit_density_matrices(c, 2, seed=0),
+                 lambda: next(sim.run_step_by_step(c)),
+                 lambda: Simulator(device="cpu").run(c, record_steps=True)):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+            call()
+    with pytest.raises(ValueError, match="num_qubits"):
+        sim.run(QuantumCircuit(CONFIG.max_qubits + 1), shots=1)
+
+
+def test_monitored_trajectories_not_ported_yet():
     c = QuantumCircuit(2)
     c.add("H", [0])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        Simulator(device="cpu").run(c, record_steps=True)
+    c.add("Measure", [0], [], 1)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5b"):
+        Simulator(device="cpu").monitored_trajectories(c, 4, seed=0)
 
 
 def test_state_vector_round_trip():
