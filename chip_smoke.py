@@ -59,8 +59,27 @@ The noisy-trajectory slice adds:
     executor (CUDA events), the ``run_with_noise`` wall time at n=16 with
     1024 shots, and peak memory.
 
-Launch counts in the summary are those of the two main paths, phases 3
-and 3b, each read from zero.
+The variational slice adds:
+
+5. the variational path (``optimizer``, ``models``): the parameter-shift
+   gradient of ``hardware_efficient_ansatz(20, 4)`` (Ry + CNOT, P = 100,
+   real kernels) on the Heisenberg chain and of ``qaoa_maxcut_ansatz(16,
+   3)`` on the 16-ring (P = 96, planar kernels), 2P parameter rows through
+   the batched executor: launches equal the plans' dense and cross steps
+   times the batches, the gradient matches the twins' within 1e-4 and
+   autodiff (the per-gate body) within 1e-3, and the twins' gradient
+   launches no kernel; ``CircuitOptimizer.run`` (3 iterations, parameter
+   shift) never rises above its first cost and ``multi_start`` (8 starts,
+   20 iterations) ends at or below the mean of its first costs. Timed: ms
+   and rows/s per gradient (kernels and twins in turns), autodiff ms, the
+   device split of one gradient batch into operand build, executor and
+   cost (CUDA events), the executor with one operator per row against
+   one shared by all rows (same plan and B), and peak memory.
+
+Launch counts in the summary are those of the three main paths: phase 3
+is driven with the counters set to 0 just before it and read just after;
+in phases 3b and 5 each trajectory run, gradient and optimizer run is.
+The comparison runs against the twins launch nothing (phase 5 checks it).
 
 The line before the last is the JSON kernel summary; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits with an
@@ -83,6 +102,8 @@ from quantum_simulator_tpu_torch import (AmplitudeDampingNoise,
                                          QuantumCircuit, ReadoutError,
                                          Simulator,
                                          TwoQubitDepolarizingNoise)
+from quantum_simulator_tpu_torch import models
+from quantum_simulator_tpu_torch import optimizer as topt
 from quantum_simulator_tpu_torch import simulator as tsim
 from quantum_simulator_tpu_torch.ops import _build, cuda_exec
 from quantum_simulator_tpu_torch.ops import monomial_traj as tmono
@@ -801,10 +822,10 @@ def phase_noisy(report: dict, card: str) -> dict:
 
     nm = noise_model("depol")
     nm.set_readout_error(ReadoutError(0.01, 0.02))
-    before = launch_counts()
+    cuda_exec.reset_launch_counts()
     res = Simulator(noise_model=nm, device="cuda").run_with_noise(
         brickwork(16, 40, SEED, False), shots=1024, seed=SEED)
-    add_launches(path, before)
+    add_launches(path, {k: 0 for k in launch_counts()})
     shots = sum(res.measurement_counts.values())
     check(shots == 1024, f"run_with_noise returned {shots} shots")
     print(f"noisy run_with_noise n=16 depth-40 Ry+CNOT, depolarizing 0.05 "
@@ -823,10 +844,10 @@ def phase_noisy(report: dict, card: str) -> dict:
         else:
             nm.add_global_noise(ch)
         want = density_reference(program, nm)
-        before = launch_counts()
+        cuda_exec.reset_launch_counts()
         states = Simulator(noise_model=nm, device="cuda").trajectory_states(
             circuit, LAW_TRAJ, seed=SEED)
-        add_launches(path, before)
+        add_launches(path, {k: 0 for k in launch_counts()})
         got = states.abs().square().mean(0).double().cpu().numpy()
         dev = float(np.abs(got - want).max())
         check(dev <= LAW_TOL, f"law {name}: max |ensemble - rho| = {dev}")
@@ -980,6 +1001,260 @@ def phase_noisy_timing(card: str, report: dict) -> None:
           f"<= {chunk}, peak {peak / 2**30:.3f} GiB", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: the variational path
+# ---------------------------------------------------------------------------
+
+# VQE: hardware_efficient_ansatz(20, 4), Ry + CNOT (P = 100, all-real), on
+# the 20-site Heisenberg chain (57 terms). QAOA: qaoa_maxcut_ansatz(16, 3)
+# on the 16-ring, Rz + Rx (P = 96, planar complex).
+VQE_SIZE = (20, 4)
+QAOA_SIZE = (16, 3)
+GRAD_TOL = 1e-4        # parameter shift through the kernels vs the twins
+AUTODIFF_TOL = 1e-3    # autodiff vs parameter shift (both exact rules)
+COST_TOL = 1e-4        # the per-gate body's cost vs the batched executor's
+OPT_ITERATIONS = 3
+MULTI_STARTS, MULTI_ITERATIONS = 8, 20
+
+
+def variational_cases() -> list:
+    """(label, circuit, cost, what the phase runs after the gradient)."""
+    n, layers = VQE_SIZE
+    vqe = (f"VQE hardware-efficient n={n} L={layers} Heisenberg",
+           models.hardware_efficient_ansatz(n, layers),
+           topt.CostFunction.vqe_hamiltonian(models.heisenberg_chain(n)),
+           "optimizer")
+    n, p = QAOA_SIZE
+    edges = models.maxcut_edges_ring(n)
+    qaoa = (f"QAOA MaxCut ring n={n} p={p}",
+            models.qaoa_maxcut_ansatz(n, p, edges),
+            topt.CostFunction.qaoa_maxcut(edges), "multi_start")
+    return [vqe, qaoa]
+
+
+def cost_launches(program, n_rows: int) -> tuple[dict, int]:
+    """Launches of one batched cost evaluation of ``n_rows`` parameter rows
+    (the plan's dense and cross steps once per batch), and the batches."""
+    n_dense, n_cross, _ = step_counts(program)
+    batches = -(-n_rows // tsim.param_rows_per_batch(program, n_rows))
+    return ({"dense_axis": n_dense * batches,
+             "cross_bit_axis": n_cross * batches}, batches)
+
+
+def twin_gradient(program, cost, offsets, values: np.ndarray) -> np.ndarray:
+    """``GradientEstimator.parameter_shift`` at ``values`` with the kernels'
+    plain twins: its 2P shifted rows through ``optimizer._device_costs``
+    with ``plain=True``."""
+    P = len(values)
+    costs = topt._device_costs(program, cost, offsets,
+                               topt._shift_matrix(values, np.pi / 2), "cuda",
+                               plain=True)
+    return (costs[:P] - costs[P:]) / (2.0 * np.sin(np.pi / 2))
+
+
+def per_row_vs_shared(program, offsets, values: np.ndarray, label: str
+                      ) -> tuple[float, float]:
+    """Executor ms of one gradient batch (B = 2P rows, a fresh basis state
+    per call made outside the timed region) with its per-row operators,
+    and with the operators of the batch's first row shared by every row
+    (stride 0): the same plan, B and launches, so the difference is what
+    one operator per row costs the kernels (a block restages its operator
+    at each row change; at K = 256 each row's slabs are re-read from L2).
+    Row 0, which both batches share, must come out the same."""
+    batch = torch.as_tensor(
+        topt._shift_matrix(values, np.pi / 2).astype(np.float32),
+        device="cuda")
+    params = topt._param_rows(program, offsets, batch)
+    row0 = params[0].double().cpu().numpy()
+    plan = tplan.get_group_plan(program)
+    B = params.shape[0]
+    planar = not plan.all_real
+    per_row = tplan.build_group_operands_batched(program, plan, params, B,
+                                                 "cuda")
+    shared = tplan.build_group_operands_batched(program, plan, row0, B,
+                                                "cuda")
+
+    def fresh():
+        return tplan.basis_state(plan, program.initial_index, "cuda", planar,
+                                 B)
+
+    def executor(ops, p):
+        return lambda x: tplan.execute_group_plan(plan, ops, program, p, x,
+                                                  planar, batched=True)
+
+    a = executor(per_row, params)(fresh())[:1].clone()
+    b = executor(shared, row0)(fresh())[:1].clone()
+    err = float((a - b).abs().max())
+    check(err <= STATE_TOL, f"{label}: row 0 per-row vs shared operators "
+          f"differ by {err}")
+    shared_ms, row_ms = in_turns(executor(per_row, params),
+                                 executor(shared, row0), fresh)
+    return row_ms, shared_ms
+
+
+def traced_gradient(program, cost, offsets, values: np.ndarray) -> dict:
+    """One parameter-shift batch (``optimizer._device_costs`` on a single
+    batch) with its device time split into operand build, executor and
+    cost (CUDA events)."""
+    sp = Spans()
+    batch = torch.as_tensor(
+        topt._shift_matrix(values, np.pi / 2).astype(np.float32),
+        device="cuda")
+    params = topt._param_rows(program, offsets, batch)
+    plan = tplan.get_group_plan(program)
+    B = params.shape[0]
+    planar = not plan.all_real
+    with sp.span("operand_build"):
+        ops = tplan.build_group_operands_batched(program, plan, params, B,
+                                                 "cuda")
+    with sp.span("executor"):
+        x = tplan.basis_state(plan, program.initial_index, "cuda", planar, B)
+        x = tplan.execute_group_plan(plan, ops, program, params, x, planar,
+                                     batched=True)
+        psi = (tplan._combine(x) if planar
+               else x.reshape(B, -1).to(torch.complex64))
+    del ops, x
+    with sp.span("cost"):
+        cost.device_fn(psi, program.num_qubits)
+    return sp.ms()
+
+
+def phase_variational(report: dict, card: str) -> dict:
+    """Each gradient batch, optimizer run and multi-start reads its
+    launches from zero; the comparison runs against the twins and the
+    timing repeats are not counted."""
+    path: dict = {}
+    rng = np.random.default_rng(SEED)
+    for label, circuit, cost, then in variational_cases():
+        cfg = topt.ParameterizedCircuitConfig.auto_detect(circuit)
+        program, offsets = cfg.compiled()
+        P = cfg.num_params
+        values = rng.uniform(-np.pi, np.pi, P)
+        want, batches = cost_launches(program, 2 * P)
+        plan = tplan.get_group_plan(program)
+
+        def gradient(plain: bool):
+            if plain:
+                return lambda: twin_gradient(program, cost, offsets, values)
+            return lambda: topt.GradientEstimator.parameter_shift(
+                cfg, cost, values, device="cuda")
+
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_exec.reset_launch_counts()
+        t0 = time.perf_counter()
+        grad = gradient(False)()
+        cold_s = time.perf_counter() - t0
+        delta = add_launches(path, {k: 0 for k in launch_counts()})
+        peak = torch.cuda.max_memory_allocated()
+        check(delta == want, f"{label}: gradient launches {delta}, plan "
+              f"steps x {batches} batch(es) give {want}")
+        check(bool(np.isfinite(grad).all()) and grad.shape == (P,),
+              f"{label}: gradient of shape {grad.shape}, finite "
+              f"{bool(np.isfinite(grad).all())}")
+        before = launch_counts()
+        plain = gradient(True)()
+        check(launch_counts() == before, f"{label}: the twins' gradient "
+              f"launched a kernel: {before} -> {launch_counts()}")
+        err = float(np.abs(grad - plain).max())
+        check(err <= GRAD_TOL, f"{label}: max |grad kernels - grad twins| "
+              f"= {err} > {GRAD_TOL}")
+        ad_cost, ad_grad = topt.GradientEstimator.autodiff(cfg, cost, values,
+                                                           device="cuda")
+        ad_err = float(np.abs(ad_grad - grad).max())
+        check(ad_err <= AUTODIFF_TOL, f"{label}: max |autodiff - parameter "
+              f"shift| = {ad_err} > {AUTODIFF_TOL}")
+        batched_cost = float(topt.GradientEstimator._batched_costs(
+            cfg, cost, values[None], device="cuda")[0])
+        cost_err = abs(ad_cost - batched_cost)
+        check(cost_err <= COST_TOL, f"{label}: cost per-gate {ad_cost} vs "
+              f"batched {batched_cost}")
+
+        k_ms, p_ms = in_turns(gradient(True), gradient(False), reps=1)
+        ad_ms = event_ms(lambda: topt.GradientEstimator.autodiff(
+            cfg, cost, values, device="cuda"), reps=2)
+        traced_gradient(program, cost, offsets, values)          # warm
+        split = traced_gradient(program, cost, offsets, values)
+        total = sum(split.values())
+        row_ms, shared_ms = per_row_vs_shared(program, offsets, values,
+                                              label)
+        row = {"case": label, "params": P, "rows": 2 * P,
+               "batches": batches, "plan_dense": want["dense_axis"] // batches,
+               "plan_cross": want["cross_bit_axis"] // batches,
+               "planar": not plan.all_real, "launches": delta,
+               "grad_err_vs_twins": err, "autodiff_err": ad_err,
+               "cost_err": cost_err, "kernel_ms": k_ms, "plain_ms": p_ms,
+               "kernel_rows_per_s": 2 * P / (k_ms / 1e3),
+               "plain_rows_per_s": 2 * P / (p_ms / 1e3),
+               "autodiff_ms": ad_ms, "cold_s": cold_s, "split_ms": split,
+               "executor_per_row_ms": row_ms,
+               "executor_shared_ms": shared_ms,
+               "peak_bytes": peak, "card": card}
+        print(f"variational {label} [{card}]: {2 * P} rows in {batches} "
+              f"batch(es), launches dense {delta['dense_axis']} cross "
+              f"{delta['cross_bit_axis']}, |grad kernels - twins| "
+              f"{err:.2e}, |autodiff - shift| {ad_err:.2e}; gradient kernel "
+              f"{k_ms:.3f} ms ({row['kernel_rows_per_s']:.1f} rows/s), "
+              f"twins {p_ms:.3f} ms ({row['plain_rows_per_s']:.1f} rows/s), "
+              f"autodiff {ad_ms:.3f} ms; device split " + ", ".join(
+                  f"{k} {v:.3f} ms ({100 * v / total:.1f} %)"
+                  for k, v in split.items())
+              + f"; executor per-row operators {row_ms:.3f} ms, one shared "
+              f"{shared_ms:.3f} ms; peak {peak / 2**30:.3f} GiB", flush=True)
+
+        if then == "optimizer":     # CircuitOptimizer.run from the point
+            start = topt.ParameterizedCircuitConfig.auto_detect(
+                cfg.bind_values(values))
+            opt = topt.CircuitOptimizer(start, cost,
+                                        max_iterations=OPT_ITERATIONS,
+                                        gradient_method="parameter_shift",
+                                        device="cuda")
+            one, _ = cost_launches(program, 1)
+            cuda_exec.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = opt.run(seed=SEED)
+            row["optimizer_s"] = time.perf_counter() - t0
+            delta = add_launches(path, {k: 0 for k in launch_counts()})
+            costs = [c for _, c in res.history]
+            row["optimizer_costs"] = costs
+            check(res.iterations == OPT_ITERATIONS,
+                  f"{label}: optimizer ran {res.iterations} iterations")
+            check(delta == {k: OPT_ITERATIONS * (want[k] + one[k])
+                            for k in want},
+                  f"{label}: optimizer launches {delta}")
+            check(all(c <= costs[0] for c in costs),
+                  f"{label}: optimizer costs {costs} rise above the first")
+            print(f"variational {label} CircuitOptimizer.run "
+                  f"{OPT_ITERATIONS} iterations [{card}]: costs "
+                  + ", ".join(f"{c:.6f}" for c in costs)
+                  + f" in {row['optimizer_s']:.3f} s", flush=True)
+        else:                       # multi_start (the per-gate body)
+            t0 = time.perf_counter()
+            ms = topt.CircuitOptimizer.multi_start(
+                cfg, cost, n_starts=MULTI_STARTS,
+                max_iterations=MULTI_ITERATIONS, seed=SEED, device="cuda")
+            row["multi_start_ms"] = (time.perf_counter() - t0) * 1e3
+            first = float(ms.cost_histories[:, 0].mean())
+            row["multi_start_best"] = ms.optimal_cost
+            row["multi_start_first_mean"] = first
+            check(ms.cost_histories.shape == (MULTI_STARTS, MULTI_ITERATIONS)
+                  and ms.optimal_cost <= first,
+                  f"{label}: multi_start best {ms.optimal_cost} > the "
+                  f"starts' mean first cost {first}")
+            print(f"variational {label} multi_start S={MULTI_STARTS} "
+                  f"{MULTI_ITERATIONS} iterations [{card}]: best "
+                  f"{ms.optimal_cost:.6f} (starts' first costs mean "
+                  f"{first:.6f}) in {row['multi_start_ms']:.1f} ms",
+                  flush=True)
+        report.setdefault("variational", []).append(row)
+        torch.cuda.empty_cache()
+    check(all(v > 0 for v in path.values()),
+          f"a kernel never launched on the variational path: {path}")
+    report["variational_launches"] = path
+    return path
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every measurement as JSON")
@@ -1022,6 +1297,7 @@ def main() -> int:
     noisy = phase_noisy(report, card)
     phase_timing(card, report)
     phase_noisy_timing(card, report)
+    variational = phase_variational(report, card)
     print(f"max_memory_allocated over the run: "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB [{card}]")
     report["wall_s"] = time.perf_counter() - t_start
@@ -1033,7 +1309,8 @@ def main() -> int:
         row = kernels["summary"][name]
         summary["kernels"].append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": ideal[name] + noisy[name],
+            "replaces": replaces,
+            "launches": ideal[name] + noisy[name] + variational[name],
             "max_abs_err": max(kernels["max_err"][name],
                                batched_err[name]),
             "ms": row["ms"], "plain_ms": row["plain_ms"],

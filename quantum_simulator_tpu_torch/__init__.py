@@ -5,10 +5,13 @@ runs its ``Simulator`` paths on an NVIDIA H100, ideal and noisy: the same
 host planner and NumPy operand build, a torch executor, noisy
 trajectories batched on the device (``noise``, ``ops/unitary_traj``,
 ``ops/monomial_traj``), and hand-written CUDA kernels (``csrc/``) for
-every dense and cross group-plan step. It imports torch and NumPy, never
-JAX and never the JAX package.
+every dense and cross group-plan step. The variational path
+(``optimizer``, ``analysis.StateAnalysis``, ``models``) runs parameter
+batches through the same kernels. It imports torch and NumPy, never JAX
+and never the JAX package.
 """
 
+from .analysis import StateAnalysis
 from .circuit import GateInstance, QuantumCircuit
 from .config import CONFIG, EngineConfig
 from .gates import GateDefinition, GateType
@@ -16,6 +19,11 @@ from .measurement import MeasurementBasis, MeasurementEngine
 from .noise import (AmplitudeDampingNoise, BitFlipNoise, DepolarizingNoise,
                     NoiseChannel, NoiseModel, PhaseFlipNoise, ReadoutError,
                     ThermalRelaxationNoise, TwoQubitDepolarizingNoise)
+from .optimizer import (BarrenPlateauAnalysis, CircuitOptimizer,
+                        CostFunction, DeviceCost, GradientEstimator,
+                        MPSParameterizedConfig, MultiStartResult,
+                        OptimizationResult, ParameterBinding,
+                        ParameterizedCircuitConfig)
 from .registry import GateRegistry
 from .simulator import SimulationResult, Simulator
 from .state import StateVector
@@ -24,23 +32,34 @@ __version__ = "0.1.0"
 
 __all__ = [
     "AmplitudeDampingNoise",
+    "BarrenPlateauAnalysis",
     "BitFlipNoise",
     "CONFIG",
+    "CircuitOptimizer",
+    "CostFunction",
     "DepolarizingNoise",
+    "DeviceCost",
     "EngineConfig",
     "GateDefinition",
     "GateInstance",
     "GateRegistry",
     "GateType",
+    "GradientEstimator",
+    "MPSParameterizedConfig",
     "MeasurementBasis",
     "MeasurementEngine",
+    "MultiStartResult",
     "NoiseChannel",
     "NoiseModel",
+    "OptimizationResult",
+    "ParameterBinding",
+    "ParameterizedCircuitConfig",
     "PhaseFlipNoise",
     "QuantumCircuit",
     "ReadoutError",
     "SimulationResult",
     "Simulator",
+    "StateAnalysis",
     "StateVector",
     "ThermalRelaxationNoise",
     "TwoQubitDepolarizingNoise",

@@ -2,8 +2,8 @@
 
 Counterpart of ``quantum_simulator_tpu/circuit.py:28-220``: the same
 ``GateInstance`` / ``QuantumCircuit`` surface, column-as-time-step layout,
-JSON serde version "1.0" and hashes. Qubit 0 is the most significant bit
-of the basis index.
+layers, copies, JSON serde version "1.0" and hashes. Qubit 0 is the most
+significant bit of the basis index.
 """
 
 from __future__ import annotations
@@ -92,6 +92,28 @@ class QuantumCircuit:
             by_col.setdefault(g.column, []).append(g)
         return [sorted(by_col[c], key=lambda g: g.target_qubits[0])
                 for c in sorted(by_col)]
+
+    def compute_layers(self) -> list[list[int]]:
+        """Gate indices grouped by column, columns ascending (the layer
+        definition the barren-plateau analysis groups by)."""
+        by_col: dict[int, list[int]] = {}
+        for gi, g in enumerate(self.gates):
+            by_col.setdefault(g.column, []).append(gi)
+        return [by_col[c] for c in sorted(by_col)]
+
+    def gate_to_layer_map(self) -> list[int]:
+        mapping = [0] * len(self.gates)
+        for layer_idx, indices in enumerate(self.compute_layers()):
+            for gi in indices:
+                mapping[gi] = layer_idx
+        return mapping
+
+    def copy(self) -> "QuantumCircuit":
+        c = QuantumCircuit(self.num_qubits,
+                           initial_states=list(self.initial_states))
+        c.gates = [GateInstance(g.gate_name, list(g.target_qubits),
+                                list(g.params), g.column) for g in self.gates]
+        return c
 
     def circuit_hash(self) -> int:
         """Hash of qubit count, initial states and every gate (name,

@@ -1,12 +1,14 @@
 """Quantum gate definitions: canonical NumPy matrices and builders.
 
-Counterpart of ``quantum_simulator_tpu/gates.py:23-202`` without the
-``jnp_*`` builders: the port builds every operator on the host in NumPy,
-as the JAX package's ``xp=np`` operand build does
-(``quantum_simulator_tpu/ops/plan.py:818-831``). A built-in parameterized
-gate carries its matrix function as ``param_builder``; that marks its
-parameters as a runtime vector, like ``jnp_matrix_func`` does in the JAX
-package (``ops/program.py:110``).
+Counterpart of ``quantum_simulator_tpu/gates.py:23-212``. A built-in
+parameterized gate carries two builders. ``param_builder`` (NumPy) builds
+the host operands of an ideal run, as the JAX package's ``xp=np`` operand
+build does (``quantum_simulator_tpu/ops/plan.py:818-831``), and marks the
+gate's parameters as a runtime vector, like ``jnp_matrix_func`` does in
+the JAX package (``ops/program.py:110``). ``torch_matrix_func`` (the
+``TORCH_BUILDERS``, counterparts of ``JNP_BUILDERS``) builds the matrices
+of a parameter batch on the device and is differentiable: angles of any
+leading shape give ``(..., d, d)`` complex matrices.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from enum import Enum
 from typing import Callable
 
 import numpy as np
+import torch
 
 
 class GateType(Enum):
@@ -47,6 +50,8 @@ class GateDefinition:
     # Wide controlled-phase diagonals (MCZ_k, k > 10) carry only the phase
     # of the all-targets-set amplitude; matrix_func raises.
     cphase_value: complex | None = None
+    # Differentiable torch builder of a built-in parameterized gate.
+    torch_matrix_func: Callable[..., torch.Tensor] | None = None
 
 
 # --- Fixed single-qubit matrices --------------------------------------------
@@ -143,4 +148,83 @@ PARAM_BUILDERS: dict[str, Callable] = {
     "Phase": phase_matrix,
     "U3": u3_matrix,
     "CPhase": cphase_matrix,
+}
+
+
+# --- Parameterized builders: torch (batched, differentiable) ---------------
+
+def _angles(*thetas) -> list[torch.Tensor]:
+    """Angles as broadcast float tensors (a Python or NumPy number becomes
+    a float32 tensor)."""
+    ts = [t if isinstance(t, torch.Tensor)
+          else torch.as_tensor(t, dtype=torch.float32) for t in thetas]
+    return list(torch.broadcast_tensors(*ts))
+
+
+def _cmat(re_rows, im_rows) -> torch.Tensor:
+    """(..., d, d) complex matrix from nested rows of real and imaginary
+    parts, each entry a tensor of the angles' shape."""
+    re = torch.stack([torch.stack(r, -1) for r in re_rows], -2)
+    im = torch.stack([torch.stack(r, -1) for r in im_rows], -2)
+    return torch.complex(re, im)
+
+
+def torch_rx_matrix(theta) -> torch.Tensor:
+    (theta,) = _angles(theta)
+    c, s = torch.cos(theta / 2), torch.sin(theta / 2)
+    z = torch.zeros_like(c)
+    return _cmat([[c, z], [z, c]], [[z, -s], [-s, z]])
+
+
+def torch_ry_matrix(theta) -> torch.Tensor:
+    (theta,) = _angles(theta)
+    c, s = torch.cos(theta / 2), torch.sin(theta / 2)
+    z = torch.zeros_like(c)
+    return _cmat([[c, -s], [s, c]], [[z, z], [z, z]])
+
+
+def torch_rz_matrix(theta) -> torch.Tensor:
+    (theta,) = _angles(theta)
+    c, s = torch.cos(theta / 2), torch.sin(theta / 2)
+    z = torch.zeros_like(c)
+    return _cmat([[c, z], [z, c]], [[-s, z], [z, s]])
+
+
+def torch_phase_matrix(phi) -> torch.Tensor:
+    (phi,) = _angles(phi)
+    z = torch.zeros_like(phi)
+    one = torch.ones_like(phi)
+    return _cmat([[one, z], [z, torch.cos(phi)]],
+                 [[z, z], [z, torch.sin(phi)]])
+
+
+def torch_u3_matrix(theta, phi, lam) -> torch.Tensor:
+    theta, phi, lam = _angles(theta, phi, lam)
+    c, s = torch.cos(theta / 2), torch.sin(theta / 2)
+    z = torch.zeros_like(c)
+    return _cmat(
+        [[c, -torch.cos(lam) * s],
+         [torch.cos(phi) * s, torch.cos(phi + lam) * c]],
+        [[z, -torch.sin(lam) * s],
+         [torch.sin(phi) * s, torch.sin(phi + lam) * c]])
+
+
+def torch_cphase_matrix(phi) -> torch.Tensor:
+    (phi,) = _angles(phi)
+    z = torch.zeros_like(phi)
+    one = torch.ones_like(phi)
+    re = [[one, z, z, z], [z, one, z, z], [z, z, one, z],
+          [z, z, z, torch.cos(phi)]]
+    im = [[z, z, z, z], [z, z, z, z], [z, z, z, z],
+          [z, z, z, torch.sin(phi)]]
+    return _cmat(re, im)
+
+
+TORCH_BUILDERS: dict[str, Callable] = {
+    "Rx": torch_rx_matrix,
+    "Ry": torch_ry_matrix,
+    "Rz": torch_rz_matrix,
+    "Phase": torch_phase_matrix,
+    "U3": torch_u3_matrix,
+    "CPhase": torch_cphase_matrix,
 }

@@ -4,7 +4,9 @@ Counterpart of ``quantum_simulator_tpu/ops/apply.py``: the segmented
 einsum of ``apply_gate`` (``apply.py:47-112``), ``apply_cphase``,
 ``apply_gate_all_qubits`` and ``probabilities``. The group executor uses
 ``apply_gate`` only for a ``GenericStep`` (a non-diagonal gate on three or
-more axes); basis rotations use ``apply_gate_all_qubits``.
+more axes); basis rotations use ``apply_gate_all_qubits``; the per-gate
+body (``program.forward_body``), the cost functions and ``StateAnalysis``
+use ``apply_gate`` and ``apply_cphase`` on states with a leading batch.
 
 Qubit 0 is the most significant bit of the basis index, so qubit ``q``
 has stride ``2**(n-1-q)`` in the flat vector.
@@ -62,33 +64,39 @@ def _segmented_view(targets: tuple[int, ...], n: int):
 def apply_gate(state: torch.Tensor, matrix, targets: tuple[int, ...],
                num_qubits: int) -> torch.Tensor:
     """Apply a ``2^k x 2^k`` unitary (NumPy or torch) to ``targets`` of a
-    ``(..., 2^n)`` complex state; leading dims are a batch. The first
-    target is the most significant bit of the gate-matrix index."""
+    ``(..., 2^n)`` complex state; leading dims are a batch. A torch
+    ``(..., 2^k, 2^k)`` matrix with leading dims applies one matrix per
+    batch row (they broadcast against the state's). The first target is
+    the most significant bit of the gate-matrix index. Differentiable."""
     n = num_qubits
     k = len(targets)
     if any(t < 0 or t >= n for t in targets):
         raise ValueError(f"target qubits {targets} out of range for n={n}")
-    g = torch.as_tensor(matrix, dtype=state.dtype,
-                        device=state.device).reshape((2,) * (2 * k))
+    g = torch.as_tensor(matrix, dtype=state.dtype, device=state.device)
+    lead = tuple(g.shape[:-2])
+    g = g.reshape(lead + (2,) * (2 * k))
     order = sorted(range(k), key=lambda i: targets[i])
     if order != list(range(k)):
-        g = g.permute(tuple(order) + tuple(k + i for i in order))
+        b = len(lead)
+        g = g.permute(tuple(range(b)) + tuple(b + i for i in order)
+                      + tuple(b + k + i for i in order))
     shape, spec = _segmented_view(tuple(sorted(targets)), n)
     gate_sub, rest = spec.split(",")
     state_sub, out_sub = rest.split("->")
-    out = torch.einsum(f"{gate_sub},...{state_sub}->...{out_sub}", g,
+    out = torch.einsum(f"...{gate_sub},...{state_sub}->...{out_sub}", g,
                        state.reshape(tuple(state.shape[:-1]) + shape))
-    return out.reshape(state.shape)
+    return out.reshape(tuple(out.shape[:-len(shape)]) + (1 << n,))
 
 
 def apply_cphase(state: torch.Tensor, targets: tuple[int, ...],
                  value: complex, num_qubits: int) -> torch.Tensor:
-    """Controlled-phase-form diagonal of any width on a flat state:
-    multiply the amplitudes whose targets are all |1> by ``value``."""
+    """Controlled-phase-form diagonal of any width on a ``(..., 2^n)``
+    state (leading dims are a batch): multiply the amplitudes whose
+    targets are all |1> by ``value``."""
     mask = 0
     for q in targets:
         mask |= 1 << (num_qubits - 1 - q)
-    idx = torch.arange(state.shape[0], device=state.device)
+    idx = torch.arange(state.shape[-1], device=state.device)
     hit = (idx & mask) == mask
     return torch.where(hit, state * value, state)
 

@@ -19,7 +19,10 @@ device. Noisy trajectories run as batches: ``build_group_operands_batched``
 builds every trajectory's operands on the device with a leading
 trajectory axis (the noise draws enter as ``OperandOverrides``), and the
 executor takes a state ``(T, [2,] *axis_sizes)``, so each dense and cross
-step is one batched kernel launch. The per-gate trajectory body
+step is one batched kernel launch. A batch of parameter rows (the
+variational path, ``group_batched_forward``) takes the same route: each
+parameterized op gets one matrix per row, built on the device by the
+torch gate builders and injected as an override. The per-gate trajectory body
 (``group_trajectory_body``) is at the end of the module. The port stores a
 complex operator as two float32 planes ``(re, im)`` where the JAX package
 stores the blocked ``[[re, -im], [im, re]]`` form.
@@ -1013,13 +1016,56 @@ def _t_planes(m: torch.Tensor, n_traj: int) -> torch.Tensor:
     return out.expand((n_traj,) + tuple(out.shape[1:]))
 
 
+def param_overrides(program: prog.CircuitProgram,
+                    params: torch.Tensor) -> OperandOverrides:
+    """Per-row matrices of every parameterized op for a ``(B, P)``
+    parameter batch, built on its device by the torch gate builders (one
+    call per builder over all of its ops): one-qubit ops as pool rows,
+    wider ones per op, as the noise draws enter (``OperandOverrides``).
+    The plan's realness and diagonality depend on the gate names only
+    (``_REAL_PARAM_GATES``, ``_DIAGONAL_PARAM_GATES``), so no dummy
+    matrix is needed."""
+    by_builder: dict[tuple, list[int]] = {}
+    for oi, op in enumerate(program.ops):
+        if op.static_matrix is None and op.num_params > 0:
+            by_builder.setdefault((op.gate_name, op.torch_builder,
+                                   len(op.targets)), []).append(oi)
+    rows: list[torch.Tensor] = []
+    pool_map: dict[int, int] = {}
+    per_op: dict[int, torch.Tensor] = {}
+    n_rows = 0
+    for (name, builder, k), indices in by_builder.items():
+        if builder is None:
+            raise ValueError(f"{name} has no torch builder: its parameters "
+                             "cannot run as a batch")
+        offs = torch.as_tensor([program.ops[oi].param_offset
+                                for oi in indices], device=params.device)
+        mats = builder(*[params[:, offs + j] for j in
+                         range(program.ops[indices[0]].num_params)])
+        mats = mats.to(_C64)                     # (B, len(indices), D, D)
+        if k == 1:
+            for r, oi in enumerate(indices):
+                pool_map[oi] = n_rows + r
+            n_rows += len(indices)
+            rows.append(mats)
+        else:
+            for r, oi in enumerate(indices):
+                per_op[oi] = mats[:, r]
+    return OperandOverrides(torch.cat(rows, dim=1) if rows else None,
+                            pool_map, per_op)
+
+
 def build_group_operands_batched(program: prog.CircuitProgram,
                                  plan: GroupPlan, params, n_traj: int,
                                  device,
                                  overrides: OperandOverrides | None = None):
     """Operands of ``n_traj`` trajectories, built on ``device`` in torch
     complex64 with the arithmetic of ``build_group_operands`` (TF32 stays
-    off, ``config.py``). Each operand has a leading trajectory axis:
+    off, ``config.py``). ``params`` is one parameter vector shared by the
+    batch, or a ``(n_traj, P)`` tensor of parameter rows, whose
+    parameterized ops then take one matrix per row (``param_overrides``;
+    not combined with ``overrides``). Each operand has a leading
+    trajectory axis:
 
     * ``axis_stacks[ax][i]``: (T, 2, S, S);
     * ``cross_ops[i]``: (T, 2, 2, S, 2, S);
@@ -1032,6 +1078,13 @@ def build_group_operands_batched(program: prog.CircuitProgram,
     outside any kernel too (``plan.py:818-982`` under vmap)."""
     layout = plan.layout
     T = n_traj
+    if isinstance(params, torch.Tensor) and params.ndim == 2:
+        if overrides is not None or params.shape[0] != T:
+            raise ValueError(
+                f"a parameter batch of shape {tuple(params.shape)} for "
+                f"{T} rows{' with overrides' if overrides else ''}")
+        overrides = param_overrides(program, params)
+        params = program.initial_params   # the host pool builds fixed ops
     pool = _DevicePool(program, params, device, overrides)
 
     def touched(ops) -> bool:
@@ -1249,6 +1302,7 @@ def execute_group_plan(plan: GroupPlan, operands, program, params,
     ``operands`` come from ``build_group_operands_batched``; every dense
     and cross step is then one batched kernel launch with one operator
     per trajectory, and the other steps take the batch as a leading dim.
+    ``params`` may then be a ``(T, P)`` tensor of parameter rows.
 
     Takes ownership of ``x``: on a CUDA tensor the kernels write in place,
     so ``x`` may be overwritten by the run; pass a state you no longer
@@ -1291,7 +1345,11 @@ def execute_group_plan(plan: GroupPlan, operands, program, params,
                                 batched)
         else:  # GenericStep (never in an all-real plan, never an override)
             op = program.ops[step.program_op]
-            u = program.op_matrix(op, params, np.complex64)
+            if isinstance(params, torch.Tensor) and params.ndim == 2 \
+                    and op.static_matrix is None:
+                u = program.op_matrix_torch(op, params)   # one per row
+            else:
+                u = program.op_matrix(op, params, np.complex64)
             lead = tuple(x.shape[:b])
             flat = torch.complex(x.select(b, 0), x.select(b, 1)).reshape(
                 lead + (-1,))
@@ -1351,6 +1409,32 @@ def group_forward_body(program: prog.CircuitProgram, params, device,
     if planar:
         return torch.complex(x[0], x[1]).reshape(-1)
     return x.reshape(-1).to(torch.complex64)
+
+
+def group_batched_forward(program: prog.CircuitProgram, params_batch,
+                          device, plain: bool = False) -> torch.Tensor:
+    """``(B, 2^n)`` complex64 states of the circuit at each row of a
+    ``(B, P)`` parameter batch: the port's form of the JAX package's
+    ``vmap(forward_body)`` (``program.py:384-391``). The operands are built
+    on ``device`` with one matrix per row for every parameterized op, and
+    every dense and cross step is one batched kernel launch (``plain``:
+    the twins). No renormalization: the JAX forward has none."""
+    params = prog.param_tensor(params_batch, device)
+    if params.ndim != 2:
+        raise ValueError(f"expected a (B, P) parameter batch, got shape "
+                         f"{tuple(params.shape)}")
+    B = params.shape[0]
+    plan = get_group_plan(program)
+    operands = build_group_operands_batched(program, plan, params, B,
+                                            device)
+    planar = not plan.all_real
+    x = basis_state(plan, program.initial_index, device, planar, B)
+    x = execute_group_plan(plan, operands, program, params, x, planar,
+                           plain, batched=True)
+    del operands
+    if planar:
+        return _combine(x)
+    return x.reshape(B, -1).to(torch.complex64)
 
 
 # ---------------------------------------------------------------------------

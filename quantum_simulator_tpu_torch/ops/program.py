@@ -8,6 +8,14 @@ executor (``ops/plan.py``) at every n; the JAX package routes there only
 on a TPU (``program.py:342``). The trajectory entry points
 (``batched_trajectories``, ``trajectory_fn``, ``steps_fn``) route noise
 to the splice bodies or the per-gate body (``trajectory_route``).
+
+The variational path has two bodies. ``forward_body`` is the per-gate
+body (``program.py:175-180, 351-354``): one ``apply_gate`` per op on a
+``(..., 2^n)`` state, differentiable through the torch gate builders, for
+autodiff and ``multi_start``. ``batched_forward_fn`` is the port's form of
+the JAX package's ``vmap`` over parameter rows (``program.py:384-391``):
+the batched group executor, one kernel launch per dense and cross step
+for the whole batch (``plan.group_batched_forward``).
 """
 
 from __future__ import annotations
@@ -16,10 +24,12 @@ from dataclasses import dataclass
 from typing import Callable
 
 import numpy as np
+import torch
 
+from ..config import CONFIG
 from ..gates import GateType
 from ..registry import GateRegistry
-from .apply import basis_state_index
+from .apply import apply_cphase, apply_gate, basis_state_index
 
 
 @dataclass(frozen=True)
@@ -37,6 +47,8 @@ class ProgramOp:
     # Controlled-phase-form diagonal too wide to materialize (MCZ_k,
     # k > 10): diag = ones except the all-targets-set entry = v.
     cphase_value: complex | None = None
+    # Differentiable torch builder of a parameterized gate (batched).
+    torch_builder: Callable | None = None
 
 
 @dataclass(frozen=True)
@@ -48,6 +60,32 @@ class CircuitProgram:
     num_params: int
     initial_params: np.ndarray
     compile_key: tuple
+
+    def param_offset_for(self, gate_index: int, param_index: int
+                         ) -> int | None:
+        """Position in the parameter vector of ``circuit.gates
+        [gate_index]``'s ``param_index``-th parameter, or None when that
+        gate's matrix was baked (``program.py:70-80``)."""
+        for op in self.ops:
+            if op.gate_index == gate_index:
+                if op.num_params == 0:
+                    return None
+                return op.param_offset + param_index
+        return None
+
+    def op_matrix_torch(self, op: ProgramOp,
+                        params: torch.Tensor) -> torch.Tensor:
+        """Torch matrix of ``op`` on ``params``' device: ``(..., D, D)``
+        complex for a parameterized op and a ``(..., P)`` parameter
+        tensor (differentiable), ``(D, D)`` complex64 for a fixed one."""
+        if op.static_matrix is not None:
+            return torch.from_numpy(np.asarray(
+                op.static_matrix, dtype=np.complex64)).to(params.device)
+        if op.torch_builder is None:
+            raise ValueError(f"{op.gate_name} has no torch builder: its "
+                             "parameters cannot run as a torch batch")
+        return op.torch_builder(*[params[..., op.param_offset + j]
+                                  for j in range(op.num_params)])
 
     def op_matrix(self, op: ProgramOp, params, dtype=np.complex64
                   ) -> np.ndarray:
@@ -88,7 +126,8 @@ def compile_circuit(circuit) -> CircuitProgram:
                 params.extend(float(p) for p in inst.params)
                 ops.append(ProgramOp(inst.gate_name, targets, offset,
                                      gd.num_params, col_idx, None,
-                                     gd.param_builder, gate_index))
+                                     gd.param_builder, gate_index,
+                                     torch_builder=gd.torch_matrix_func))
                 key_parts.append((inst.gate_name, targets, col_idx))
             elif gd.cphase_value is not None:
                 ops.append(ProgramOp(inst.gate_name, targets, 0, 0, col_idx,
@@ -124,6 +163,48 @@ def forward_fn(program: CircuitProgram, device) -> Callable:
     from .plan import group_forward_body
 
     return lambda params: group_forward_body(program, params, device)
+
+
+def param_tensor(params, device=None) -> torch.Tensor:
+    """Parameters as a float tensor: a tensor stays as it is (and keeps
+    its autograd graph); anything else becomes float32 on ``device``
+    (default ``CONFIG.device``)."""
+    if isinstance(params, torch.Tensor):
+        return params
+    return torch.as_tensor(np.asarray(params, dtype=np.float32),
+                           device=device or CONFIG.device)
+
+
+def forward_body(program: CircuitProgram, params, device=None
+                 ) -> torch.Tensor:
+    """The per-gate forward (``program.py:175-180``): one ``apply_gate``
+    (or ``apply_cphase``) per op from the initial basis state. ``params``
+    of shape ``(P,)`` gives a ``(2^n,)`` complex64 state, ``(B, P)`` a
+    ``(B, 2^n)`` batch, one row per parameter row. Differentiable in
+    ``params`` (autodiff, ``multi_start``); no kernel is involved."""
+    params = param_tensor(params, device)
+    n = program.num_qubits
+    state = torch.zeros(tuple(params.shape[:-1]) + (1 << n,),
+                        dtype=torch.complex64, device=params.device)
+    state[..., program.initial_index] = 1.0
+    for op in program.ops:
+        if op.cphase_value is not None:
+            state = apply_cphase(state, op.targets, op.cphase_value, n)
+        else:
+            state = apply_gate(state, program.op_matrix_torch(op, params),
+                               op.targets, n)
+    return state
+
+
+def batched_forward_fn(program: CircuitProgram, device=None,
+                       plain: bool = False) -> Callable:
+    """``f(params_batch (B, P)) -> states (B, 2^n)`` complex64: the same
+    structure at many parameter points in one batch, every dense and
+    cross step one kernel launch (``plain``: the twins)."""
+    from .plan import group_batched_forward
+
+    return lambda params: group_batched_forward(
+        program, params, device or CONFIG.device, plain)
 
 
 class _NoNoise:

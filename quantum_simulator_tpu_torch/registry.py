@@ -22,6 +22,7 @@ from .gates import (
     S_DAG_MATRIX,
     S_MATRIX,
     SWAP_MATRIX,
+    TORCH_BUILDERS,
     T_DAG_MATRIX,
     T_MATRIX,
     TOFFOLI_MATRIX,
@@ -53,6 +54,7 @@ def _param(name, display, func, n_params, param_names, symbol, color):
         num_qubits=1, num_params=n_params, param_names=param_names,
         matrix_func=func, symbol=symbol, color=color,
         param_builder=PARAM_BUILDERS.get(name),
+        torch_matrix_func=TORCH_BUILDERS.get(name),
     )
 
 
@@ -105,7 +107,8 @@ class GateRegistry:
             num_qubits=2, num_params=1, param_names=("φ",),
             matrix_func=cphase_matrix, symbol="CP", color="#5D4037",
             num_controls=1, num_targets=1,
-            param_builder=PARAM_BUILDERS["CPhase"]))
+            param_builder=PARAM_BUILDERS["CPhase"],
+            torch_matrix_func=TORCH_BUILDERS["CPhase"]))
         self.register(GateDefinition(
             name="CNOT", display_name="Controlled-NOT", gate_type=GateType.CONTROLLED,
             num_qubits=2, num_params=0, param_names=(),

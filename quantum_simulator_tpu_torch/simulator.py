@@ -39,8 +39,9 @@ from .utils.seeding import generator_from_rng
 # ``bigstate.auto_chunks`` chunks a planar state from n = 30 on.
 NOISY_MAX_QUBITS = 29
 
-# Device bytes a batch of trajectories may take at its peak (states,
-# results and batched operands): a fifth of an 80 GB card.
+# Device bytes a batch of trajectories or of parameter rows may take at
+# its peak (states, results and batched operands): a fifth of an 80 GB
+# card.
 TRAJECTORY_MEMORY_BYTES = 16 * 2**30
 
 
@@ -104,6 +105,22 @@ def _chunk_size(program, noise_model, n_traj: int) -> int:
         ops = 32 * 128 ** 2   # one embedded cross operator per gate or draw
     per = 3 * (8 << program.num_qubits) + 4 * ops
     return max(1, min(n_traj, TRAJECTORY_MEMORY_BYTES // per))
+
+
+def param_rows_per_batch(program, n_rows: int) -> int:
+    """Parameter rows per batch of the variational path
+    (``optimizer._device_costs``): ``TRAJECTORY_MEMORY_BYTES`` over one
+    row's peak, which is five state-sized complex64 buffers (the grouped
+    state, the complex result and the cost's temporaries, such as a
+    flipped copy of the result and its product with the result) and four
+    times its operands,
+    every one of which may be its own (the kron chains and compositions
+    of the batched build, as in ``_chunk_size``)."""
+    from .ops import plan as gplan
+
+    ops = _plan_operand_bytes(gplan.get_group_plan(program))
+    per = 5 * (8 << program.num_qubits) + 4 * ops
+    return max(1, min(n_rows, TRAJECTORY_MEMORY_BYTES // per))
 
 
 class Simulator:

@@ -418,3 +418,81 @@ def test_noisy_batches_go_through_the_kernels(cuda):
     want, _ = tplan.group_trajectory_body(p, nm, p.initial_params, 3, cuda,
                                           draws=draws, plain=True)
     assert float((got - want).abs().max()) <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# Parameter batches: the variational path
+# ---------------------------------------------------------------------------
+
+def _variational(kind):
+    """(circuit, cost): a real plan (Ry + CNOT) or a planar one (QAOA)."""
+    from quantum_simulator_tpu_torch import models
+    from quantum_simulator_tpu_torch import optimizer as topt
+
+    if kind == "real":
+        return (models.hardware_efficient_ansatz(12, 2),
+                topt.CostFunction.vqe_hamiltonian(
+                    models.heisenberg_chain(12)))
+    edges = models.maxcut_edges_ring(10)
+    return (models.qaoa_maxcut_ansatz(10, 2, edges),
+            topt.CostFunction.qaoa_maxcut(edges))
+
+
+def _step_counts(plan):
+    return (sum(isinstance(s, tplan.AxisMatmulStep) for s in plan.steps),
+            sum(isinstance(s, tplan.CrossStep) for s in plan.steps))
+
+
+@pytest.mark.parametrize("kind", ["real", "planar"])
+def test_parameter_batch_goes_through_the_kernels(cuda, kind):
+    """One batch of parameter rows: each dense and cross step is one
+    launch, and the states equal the twins' and the per-gate body's."""
+    circuit, _ = _variational(kind)
+    p = tprog.compile_circuit(circuit)
+    plan = tplan.get_group_plan(p)
+    assert plan.all_real == (kind == "real")
+    rng = np.random.default_rng(5)
+    params = torch.from_numpy(rng.uniform(
+        -np.pi, np.pi, (6, p.num_params)).astype(np.float32)).to(cuda)
+    want = tplan.group_batched_forward(p, params, cuda, plain=True)
+    cuda_exec.reset_launch_counts()
+    got = tplan.group_batched_forward(p, params, cuda)
+    torch.cuda.synchronize()
+    n_dense, n_cross = _step_counts(plan)
+    assert cuda_exec.dense_axis.launches == n_dense > 0
+    assert cuda_exec.cross_bit_axis.launches == n_cross > 0
+    assert got.shape == (6, 1 << p.num_qubits)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    torch.testing.assert_close(got, tprog.forward_body(p, params),
+                               atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("kind", ["real", "planar"])
+def test_gradients_on_cuda(cuda, kind):
+    """Parameter shift through the kernels launches the plan's steps once
+    per batch and matches the twins' costs (1e-4), which launch nothing;
+    autodiff on the card matches it (1e-3)."""
+    from quantum_simulator_tpu_torch import optimizer as topt
+    from quantum_simulator_tpu_torch import simulator as tsim
+
+    circuit, cost = _variational(kind)
+    cfg = topt.ParameterizedCircuitConfig.auto_detect(circuit)
+    program, offsets = cfg.compiled()
+    values = np.random.default_rng(6).uniform(-np.pi, np.pi, cfg.num_params)
+    rows = 2 * cfg.num_params
+    batches = -(-rows // tsim.param_rows_per_batch(program, rows))
+    cuda_exec.reset_launch_counts()
+    grad = topt.GradientEstimator.parameter_shift(cfg, cost, values,
+                                                  device="cuda")
+    n_dense, n_cross = _step_counts(tplan.get_group_plan(program))
+    assert cuda_exec.dense_axis.launches == n_dense * batches
+    assert cuda_exec.cross_bit_axis.launches == n_cross * batches
+    costs = topt._device_costs(program, cost, offsets,
+                               topt._shift_matrix(values, np.pi / 2), "cuda",
+                               plain=True)
+    assert cuda_exec.dense_axis.launches == n_dense * batches   # the twins
+    assert cuda_exec.cross_bit_axis.launches == n_cross * batches
+    plain = (costs[:cfg.num_params] - costs[cfg.num_params:]) / 2.0
+    np.testing.assert_allclose(grad, plain, atol=1e-4)
+    _, ad = topt.GradientEstimator.autodiff(cfg, cost, values, device="cuda")
+    np.testing.assert_allclose(ad, grad, atol=1e-3)
