@@ -76,10 +76,51 @@ The variational slice adds:
    cost (CUDA events), the executor with one operator per row against
    one shared by all rows (same plan and B), and peak memory.
 
-Launch counts in the summary are those of the three main paths: phase 3
-is driven with the counters set to 0 just before it and read just after;
-in phases 3b and 5 each trajectory run, gradient and optimizer run is.
-The comparison runs against the twins launch nothing (phase 5 checks it).
+The large-state and monitored slice adds:
+
+2c. both kernels against their twins at the layouts of n = 31 and 32,
+    real and planar, every dense axis and every cross geometry the
+    brickwork plans emit there, within the tolerances of phase 2; the
+    twin runs slice by slice along an axis the step does not touch, so
+    the check holds two states and one slice's temporaries;
+6.  the n >= 30 ideal path through ``Simulator(device="cuda").run``:
+    brickwork Ry/Rz (planar) at n = 30 and 32 and Ry+CNOT (real) at
+    n = 31, depth 8, 4096 shots in the Z basis, and the X basis at
+    n = 30: a ``PlanarStateVector`` of norm 1 +- 1e-4, launch counts equal
+    to the plans' dense and cross steps, the shots adding up, the kernel
+    executor within 1e-5 of the twin executor at n = 30 and 31, the peak
+    of ``run(shots=4096)`` under 1.75x the state at n = 32; GHZ-32 gives
+    only 0..0 and 1..1; Z and Pauli strings on GHZ-30 take their known
+    values; ``run_step_by_step`` at n = 30 yields marginal summaries, the
+    last one equal to the final state's qubit probabilities within 1e-5;
+    QFT-30 from |0..0> (pair diagonals and swaps, chunk by chunk in
+    place) is flat to 1e-3 of 2^-30, its peak under 1.75x the state;
+7.  the n >= 30 noisy and the monitored paths: at n = 30, depth 4, one
+    ``Simulator.run`` trajectory with depolarizing noise (unitary splice),
+    amplitude damping (monomial splice) and amplitude damping in the X
+    basis (fold executor), each of norm 1 +- 1e-4 with its shots adding
+    up and the kernels within 1e-5 of the twins on the same draws;
+    ``run_with_noise`` with 256 shots over 4 trajectories; the ensemble
+    single-qubit density matrices over 2 trajectories, traces 1 +- 1e-4;
+    ``monitored_trajectories`` at n = 20 (T = 64, one batch) and n = 30
+    (T = 2, ``final_shots=256``) on a brickwork with a ``Measure`` on
+    every fourth qubit after each second layer and one measurement
+    repeated at once: outcomes in {0, 1}, the repeat equal, and at n = 4
+    the outcome frequencies over 4000 trajectories within 0.05 of the
+    exact ones; the fold body at n = 20, T = 64 launches one kernel per
+    gate for the whole batch. Timed: ms per ``Simulator.run`` at n = 30,
+    31 and 32 with the executor's share and the sampler's ms for 4096
+    shots, s per noisy trajectory at n = 30 by route, monitored
+    trajectories/s at n = 20, and every peak.
+
+``--phases 2c,6`` runs only the named phases (and then prints no summary
+and no result line): for bringing up one phase on the card.
+
+Launch counts in the summary are those of the main paths: phase 3 is
+driven with the counters set to 0 just before it and read just after; in
+phases 3b, 5, 6 and 7 each run, trajectory, gradient and optimizer run
+is. The comparison runs against the twins launch nothing (phase 5 checks
+it).
 
 The line before the last is the JSON kernel summary; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits with an
@@ -98,14 +139,18 @@ import numpy as np
 import torch
 
 from quantum_simulator_tpu_torch import (AmplitudeDampingNoise,
-                                         DepolarizingNoise, NoiseModel,
+                                         DepolarizingNoise,
+                                         MarginalStateSummary,
+                                         MeasurementBasis, NoiseChannel,
+                                         NoiseModel, PlanarStateVector,
                                          QuantumCircuit, ReadoutError,
                                          Simulator,
                                          TwoQubitDepolarizingNoise)
 from quantum_simulator_tpu_torch import models
 from quantum_simulator_tpu_torch import optimizer as topt
 from quantum_simulator_tpu_torch import simulator as tsim
-from quantum_simulator_tpu_torch.ops import _build, cuda_exec
+from quantum_simulator_tpu_torch.ops import (_build, bigstate, bigtraj,
+                                             cuda_exec)
 from quantum_simulator_tpu_torch.ops import monomial_traj as tmono
 from quantum_simulator_tpu_torch.ops import plan as tplan
 from quantum_simulator_tpu_torch.ops import program as tprog
@@ -122,6 +167,7 @@ F64_SIZES = (16, 28)
 # (2 GiB) in place plus the complex result, with room to spare.
 RUN_PEAK_LIMIT = 6.1 * 2**30
 SEED = 42
+PHASES = ("2", "2b", "2c", "3", "3b", "4", "4b", "5", "6", "7")
 
 # Layouts of n = 16, 28 and 30 qubits (GroupLayout.for_qubits).
 LAYOUTS = {16: (4, 128, 128), 28: (128,) * 4, 30: (4,) + (128,) * 4}
@@ -932,8 +978,8 @@ def traced_batch(program, nm, T: int, gen) -> dict:
             break
         with sp.span("draws"):
             idxs, nsq = tmono._sample_axes(x, planar, layout, gen)
-            overrides, _ = tmono._window_draws(spec, spec.windows[w], idxs,
-                                               nsq, layout, gen)
+            overrides, _, _ = tmono._window_draws(
+                spec, spec.windows[w], idxs, nsq, layout, gen)
     with sp.span("executor"):
         tunit.finalize(x, planar)
     return sp.ms()
@@ -1255,10 +1301,701 @@ def phase_variational(report: dict, card: str) -> dict:
     return path
 
 
+# ---------------------------------------------------------------------------
+# Phase 2c: the kernels at the layouts of n = 31 and 32
+# ---------------------------------------------------------------------------
+
+HUGE_LAYOUTS = {31: (8,) + (128,) * 4, 32: (16,) + (128,) * 4}
+HUGE_DEPTH = 8
+# Elements of one slice of a twin that runs slice by slice (1 GiB).
+SLICE_ELEMS = 1 << 28
+
+
+def brickwork_cross_geometries(n: int, depth: int) -> list:
+    """Every cross geometry of the Ry+CNOT and Ry/Rz brickwork plans."""
+    geoms = set()
+    for mix in (False, True):
+        plan = tplan.get_group_plan(tprog.compile_circuit(
+            brickwork(n, depth, SEED, mix)))
+        geoms |= {(s.slice_axis, s.slice_pos, s.op_axis)
+                  for s in plan.steps if isinstance(s, tplan.CrossStep)}
+    return sorted(geoms)
+
+
+def sliced_max_err(got: torch.Tensor, x0: torch.Tensor, plain_fn,
+                   planar: bool, involved: set) -> float:
+    """max |got - plain_fn(x0)| with the twin run slice by slice along the
+    largest data axis the step does not touch."""
+    lead = int(planar)
+    shape = tuple(x0.shape[lead:])
+    ax = max((a for a in range(len(shape)) if a not in involved),
+             key=lambda a: shape[a])
+    width = min(shape[ax], max(1, shape[ax] * SLICE_ELEMS // x0.numel()))
+    err = torch.zeros((), device=x0.device)
+    for start in range(0, shape[ax], width):
+        want = plain_fn(x0.narrow(lead + ax, start, width))
+        err = torch.maximum(
+            err, (got.narrow(lead + ax, start, width) - want).abs().max())
+        del want
+    return float(err)
+
+
+def phase_huge_kernels(report: dict, card: str) -> dict:
+    rng = np.random.default_rng(SEED + 2)
+    rows = []
+    max_err = {"dense_axis": 0.0, "cross_bit_axis": 0.0}
+    for n, shape in HUGE_LAYOUTS.items():
+        cases = []
+        for planar, real in ((False, True), (True, True), (True, False)):
+            for axis in range(len(shape)):
+                cases.append(("dense_axis", (axis,), {axis}, planar, real,
+                              shape[axis], DENSE_TOL))
+        for g in brickwork_cross_geometries(n, HUGE_DEPTH):
+            for planar, real in ((False, True), (True, False)):
+                cases.append(("cross_bit_axis", g, {g[0], g[2]}, planar,
+                              real, 2 * shape[g[2]], CROSS_TOL))
+        for name, geom, involved, planar, real, K, tol in cases:
+            torch.cuda.empty_cache()
+            op = random_op((K, K) if name == "dense_axis"
+                           else (2, K // 2, 2, K // 2), real, rng)
+            kfn = getattr(cuda_exec, name)
+            pfn = getattr(cuda_exec, name + "_plain")
+            x = random_state(shape, planar, seed=len(rows))
+            x0 = x.clone()
+            got = kfn(x, op, *geom, planar)
+            torch.cuda.synchronize()
+            label = (f"{name} n={n} geom={geom} "
+                     f"{'planar' if planar else 'real'}-state "
+                     f"{'real' if real else 'complex'}-op")
+            check(got is x, f"{label}: the wrapper did not return its input")
+            err = sliced_max_err(got, x0,
+                                 lambda v: pfn(v, op, *geom, planar),
+                                 planar, involved)
+            check(err <= tol, f"{label}: max |kernel - plain| = {err} > {tol}")
+            del x0, got
+            ms = event_ms(lambda: kfn(x, op, *geom, planar), reps=2)
+            del x
+            tbs, tfl, unit = rates(shape, planar, real, K, ms)
+            b_ms, b_by = bound(shape, planar, real, K)
+            max_err[name] = max(max_err[name], err)
+            rows.append({"kernel": name, "case": label, "n": n,
+                         "max_abs_err": err, "ms": ms, "TB_per_s": tbs,
+                         f"{unit}_TFLOP_per_s": tfl, "bound_ms": b_ms,
+                         "bound_by": b_by})
+            print(f"kernel {label} [{card}]: err {err:.3e} kernel "
+                  f"{ms:.3f} ms; {tbs:.3f} TB/s {tfl:.1f} {unit} TFLOP/s; "
+                  f"bound {b_ms:.3f} ms ({b_by})", flush=True)
+    torch.cuda.empty_cache()
+    report["huge_kernel_cases"] = rows
+    return max_err
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: the n >= 30 ideal path
+# ---------------------------------------------------------------------------
+
+HUGE_SHOTS = 4096
+# Qubit counts of the phase: planar Ry/Rz at the first and the last, real
+# Ry+CNOT at the middle one; GHZ at the last (counts) and first (strings).
+HUGE_SIZES = (30, 31, 32)
+# Simulator.run(shots=4096) may hold at most this many states at its peak.
+HUGE_PEAK_RATIO = 1.75
+MARGINAL_TOL = 1e-5
+NO_LAUNCHES = {"dense_axis": 0, "cross_bit_axis": 0}
+
+
+def state_bytes(n: int, planar: bool) -> int:
+    return (8 if planar else 4) << n
+
+
+def grouped_max_diff(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| of two grouped states, chunk by chunk."""
+    fa, fb = a.reshape(-1), b.reshape(-1)
+    err = torch.zeros((), device=a.device)
+    for s in range(0, fa.numel(), tplan.CHUNK_ELEMS):
+        e = s + tplan.CHUNK_ELEMS
+        err = torch.maximum(err, (fa[s:e] - fb[s:e]).abs().max())
+    return float(err)
+
+
+def plan_launches(programs) -> dict:
+    """Dense and cross steps of the programs' group plans."""
+    counts = [step_counts(p) for p in programs]
+    return {"dense_axis": sum(c[0] for c in counts),
+            "cross_bit_axis": sum(c[1] for c in counts)}
+
+
+def x_rotated(circuit: QuantumCircuit) -> QuantumCircuit:
+    """The circuit ``Simulator.run`` samples for the X basis at n >= 30."""
+    rotated = circuit.copy()
+    col = rotated.get_column_count()
+    for q in range(circuit.num_qubits):
+        rotated.add("H", [q], [], col)
+    return rotated
+
+
+def huge_run(sim: Simulator, circuit: QuantumCircuit, label: str,
+             basis: MeasurementBasis, compare: bool, timed: bool, path: dict,
+             report: dict, card: str) -> np.ndarray:
+    """One ``Simulator.run`` at n >= 30 with its checks; returns the final
+    state's per-qubit probabilities."""
+    n = circuit.num_qubits
+    program = tprog.compile_circuit(circuit)
+    programs = [program]
+    if basis == MeasurementBasis.X:
+        programs.append(tprog.compile_circuit(x_rotated(circuit)))
+    want_launches = plan_launches(programs)
+    plan = tplan.get_group_plan(program)
+    planar = not plan.all_real
+    size = state_bytes(n, planar)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_exec.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = sim.run(circuit, shots=HUGE_SHOTS, seed=SEED,
+                  measurement_basis=basis)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    delta = add_launches(path, NO_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    fs = res.final_state
+    check(isinstance(fs, PlanarStateVector) and fs.is_planar == planar,
+          f"{label}: final state {fs!r}")
+    check(delta == want_launches, f"{label}: launches {delta}, the plans "
+          f"have {want_launches}")
+    norm = fs.norm_sq()
+    check(abs(norm - 1.0) <= 1e-4, f"{label}: |psi|^2 = {norm}")
+    counts = res.measurement_counts
+    check(sum(counts.values()) == HUGE_SHOTS
+          and all(len(b) == n for b in counts),
+          f"{label}: {sum(counts.values())} shots")
+    check(peak <= HUGE_PEAK_RATIO * size, f"{label}: peak "
+          f"{peak / 2**30:.3f} GiB > {HUGE_PEAK_RATIO} x the state's "
+          f"{size / 2**30:.0f} GiB")
+    qp = fs.qubit_probabilities()
+    row = {"circuit": label, "n": n, "planar": planar, "state_bytes": size,
+           "peak_bytes": peak, "launches": delta, "norm": norm,
+           "cold_run_s": cold_s, "distinct_strings": len(counts),
+           "card": card}
+    text = ""
+    if compare:
+        want, _ = tplan.group_forward_state_body(
+            program, program.initial_params, "cuda", plain=True)
+        err = grouped_max_diff(fs.state_data, want)
+        del want
+        check(err <= STATE_TOL, f"{label}: max |kernel - plain state| = "
+              f"{err}")
+        row["state_err"] = err
+        text += f", kernel vs plain executor {err:.3e}"
+    del res, fs
+    if timed:
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = sim.run(circuit, shots=HUGE_SHOTS, seed=SEED)
+        torch.cuda.synchronize()
+        row["run_ms"] = (time.perf_counter() - t0) * 1e3
+        x = res.final_state.state_data
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED)
+        row["sampler_ms"] = event_ms(
+            lambda: bigstate.sample_state_indices(x, HUGE_SHOTS, planar,
+                                                  gen), reps=2)
+        row["marginals_ms"] = event_ms(
+            lambda: bigstate.state_axis_marginals(x, planar), reps=2)
+        del res, x
+        torch.cuda.empty_cache()
+        params = program.initial_params
+        ops = tplan.operands_to(
+            tplan.build_group_operands(program, plan, params), "cuda")
+        row["executor_ms"] = event_ms(
+            lambda x: tplan.execute_group_plan(plan, ops, program, params,
+                                               x, planar),
+            lambda: tplan.basis_state(plan, program.initial_index, "cuda",
+                                      planar), reps=2)
+        text += (f"; Simulator.run {row['run_ms']:.1f} ms (executor "
+                 f"{row['executor_ms']:.1f} ms = "
+                 f"{100 * row['executor_ms'] / row['run_ms']:.1f} %, "
+                 f"sampler {row['sampler_ms']:.2f} ms for {HUGE_SHOTS} "
+                 f"shots, marginals {row['marginals_ms']:.1f} ms)")
+    report.setdefault("huge", []).append(row)
+    print(f"huge {label} [{card}]: {'planar' if planar else 'real'} state "
+          f"{size / 2**30:.0f} GiB, peak {peak / 2**30:.3f} GiB "
+          f"({peak / size:.3f} x), launches dense {delta['dense_axis']} "
+          f"cross {delta['cross_bit_axis']}, |psi|^2 {norm:.7f}, "
+          f"{len(counts)} distinct strings of {HUGE_SHOTS} shots, cold "
+          f"{cold_s:.3f} s{text}", flush=True)
+    return qp
+
+
+def phase_huge(report: dict, card: str) -> dict:
+    path: dict = {}
+    sim = Simulator(device="cuda")
+    Z, X = MeasurementBasis.Z, MeasurementBasis.X
+    n0, n1, n2 = HUGE_SIZES
+    c30 = brickwork(n0, HUGE_DEPTH, SEED, True)
+    qp30 = huge_run(sim, c30, f"brickwork n={n0} depth-8 Ry/Rz Z basis", Z,
+                    True, True, path, report, card)
+    huge_run(sim, c30, f"brickwork n={n0} depth-8 Ry/Rz X basis", X, False,
+             False, path, report, card)
+    huge_run(sim, brickwork(n1, HUGE_DEPTH, SEED, False),
+             f"brickwork n={n1} depth-8 Ry+CNOT Z basis", Z, True, True,
+             path, report, card)
+    huge_run(sim, brickwork(n2, HUGE_DEPTH, SEED, True),
+             f"brickwork n={n2} depth-8 Ry/Rz Z basis", Z, False, True, path,
+             report, card)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_exec.reset_launch_counts()
+    res = sim.run(ghz(n2), shots=HUGE_SHOTS, seed=SEED)
+    add_launches(path, NO_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    counts = res.measurement_counts
+    zeros, ones = counts.get("0" * n2, 0), counts.get("1" * n2, 0)
+    check(zeros + ones == HUGE_SHOTS and 0.4 <= zeros / HUGE_SHOTS <= 0.6,
+          f"GHZ-{n2} counts {dict(list(counts.items())[:4])}")
+    print(f"huge GHZ-{n2} [{card}]: {zeros} x 0..0, {ones} x 1..1 of "
+          f"{HUGE_SHOTS}, peak {peak / 2**30:.3f} GiB", flush=True)
+    report["ghz_counts"] = {"zeros": zeros, "ones": ones, "peak_bytes": peak}
+    del res
+    torch.cuda.empty_cache()
+
+    cuda_exec.reset_launch_counts()
+    fs = sim.run(ghz(n0), shots=0).final_state
+    add_launches(path, NO_LAUNCHES)
+    every, last = list(range(n0)), n0 - 1
+    strings = {
+        "<Z0>": (fs.expectation_z(0), 0.0),
+        "<Z3 Z4> (one group)": (fs.expectation_z_string([3, 4]), 1.0),
+        "<Z0 Z_last>": (fs.expectation_z_string([0, last]), 1.0),
+        "<Z0 Z5 Z_last>": (fs.expectation_z_string([0, 5, last]), 0.0),
+        "<X0 X1>": (fs.expectation_pauli_string([0, 1], "XX"), 0.0),
+        "<X^n>": (fs.expectation_pauli_string(every, "X" * n0), 1.0),
+        "<Y0 Y1 X^(n-2)>": (fs.expectation_pauli_string(
+            every, "YY" + "X" * (n0 - 2)), -1.0),
+    }
+    for name, (got, want) in strings.items():
+        check(abs(got - want) <= 1e-5,
+              f"GHZ-{n0} {name} = {got}, not {want}")
+    print(f"huge GHZ-{n0} strings [{card}]: " + ", ".join(
+        f"{k} = {v[0]:+.6f}" for k, v in strings.items()), flush=True)
+    report["ghz_strings"] = {k: v[0] for k, v in strings.items()}
+    del fs
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    cuda_exec.reset_launch_counts()
+    t0 = time.perf_counter()
+    steps = list(sim.run_step_by_step(c30))
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    delta = add_launches(path, NO_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    check(len(steps) == HUGE_DEPTH + 1
+          and [c for _, c in steps] == list(range(-1, HUGE_DEPTH))
+          and all(isinstance(s, MarginalStateSummary) for s, _ in steps),
+          f"run_step_by_step n={n0}: {len(steps)} snapshots")
+    dev = float(np.abs(steps[-1][0].qubit_probabilities() - qp30).max())
+    check(dev <= MARGINAL_TOL, f"run_step_by_step n={n0}: last snapshot's "
+          f"qubit probabilities differ from the final state's by {dev}")
+    print(f"huge run_step_by_step n={n0} depth-8 Ry/Rz [{card}]: "
+          f"{len(steps)} marginal summaries in {step_s:.3f} s, last vs "
+          f"final state {dev:.2e}, launches dense {delta['dense_axis']} "
+          f"cross {delta['cross_bit_axis']}, peak {peak / 2**30:.3f} GiB",
+          flush=True)
+    report["step_by_step"] = {"seconds": step_s, "dev": dev,
+                              "peak_bytes": peak, "launches": delta}
+    del steps
+    torch.cuda.empty_cache()
+
+    # QFT-30: the steps that are no kernel (pair diagonals, swaps) run
+    # chunk by chunk in place
+    program = tprog.compile_circuit(qft(n0))
+    want_launches = plan_launches([program])
+    other = step_counts(program)[2]
+    size = state_bytes(n0, True)
+    torch.cuda.reset_peak_memory_stats()
+    cuda_exec.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = sim.run(qft(n0), shots=HUGE_SHOTS, seed=SEED)
+    torch.cuda.synchronize()
+    qft_s = time.perf_counter() - t0
+    delta = add_launches(path, NO_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    check(delta == want_launches, f"QFT-{n0}: launches {delta}, the plan "
+          f"has {want_launches}")
+    check(peak <= HUGE_PEAK_RATIO * size, f"QFT-{n0}: peak "
+          f"{peak / 2**30:.3f} GiB > {HUGE_PEAK_RATIO} x the state")
+    p = res.final_state.probabilities_device
+    dev = float((p * float(2 ** n0) - 1.0).abs().max())
+    del p
+    check(dev <= 1e-3, f"QFT-{n0}: max |2^n |amp|^2 - 1| = {dev}")
+    check(sum(res.measurement_counts.values()) == HUGE_SHOTS,
+          f"QFT-{n0}: {sum(res.measurement_counts.values())} shots")
+    print(f"huge QFT-{n0} [{card}]: {other} steps beside "
+          f"{delta['dense_axis']} dense and {delta['cross_bit_axis']} cross, "
+          f"max |2^n |amp|^2 - 1| = {dev:.3e}, {qft_s:.3f} s, peak "
+          f"{peak / 2**30:.3f} GiB "
+          f"({peak / size:.3f} x the state)", flush=True)
+    report["qft"] = {"seconds": qft_s, "dev": dev, "peak_bytes": peak,
+                     "other_steps": other, "launches": delta}
+    del res
+    torch.cuda.empty_cache()
+    check(all(v > 0 for v in path.values()),
+          f"a kernel never launched on the n >= 30 path: {path}")
+    report["huge_launches"] = path
+    return path
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: the n >= 30 noisy paths and monitored trajectories
+# ---------------------------------------------------------------------------
+
+HUGE_NOISY_DEPTH = 4
+MONITOR_BATCH_N = 20
+MONITOR_LAW_TRAJ = 4000
+MONITOR_LAW_TOL = 0.05
+
+
+class XBasisDamping(NoiseChannel):
+    """Amplitude damping conjugated by H: trace preserving, neither
+    mixed-unitary nor monomial, so it takes the fold executor."""
+
+    def __init__(self, gamma: float):
+        self._gamma = gamma
+
+    @property
+    def probability(self) -> float:
+        return self._gamma
+
+    def get_kraus_operators(self) -> list:
+        h = np.array([[1.0, 1.0], [1.0, -1.0]]) / np.sqrt(2.0)
+        return [h @ np.asarray(k) @ h for k in
+                AmplitudeDampingNoise(self._gamma).get_kraus_operators()]
+
+
+def global_noise(channel) -> NoiseModel:
+    nm = NoiseModel()
+    nm.add_global_noise(channel)
+    return nm
+
+
+def evolve_launches(program, nm) -> dict:
+    """Launches of one trajectory of the n >= 30 evolution: the spliced
+    plans' dense and cross steps, or one per gate on the fold route."""
+    route = bigtraj.trajectory_evolve_route(program, nm)
+    if route == "fold":
+        return {"total": len(program.ops)}
+    plans = noisy_plans(program, nm)
+    return {"dense_axis": sum(isinstance(s, tplan.AxisMatmulStep)
+                              for p in plans for s in p.steps),
+            "cross_bit_axis": sum(isinstance(s, tplan.CrossStep)
+                                  for p in plans for s in p.steps)}
+
+
+def launches_match(delta: dict, want: dict, times: int = 1) -> bool:
+    if "total" in want:
+        return sum(delta.values()) == times * want["total"]
+    return delta == {k: times * v for k, v in want.items()}
+
+
+def monitored_brickwork(n: int, depth: int, seed: int) -> QuantumCircuit:
+    """Ry+CNOT brickwork with a ``Measure`` on every fourth qubit after
+    each second layer; the first measurement of qubit 0 is repeated at
+    once, with no gate between."""
+    rng = np.random.default_rng(seed)
+    c = QuantumCircuit(n)
+    col = 0
+    for layer in range(depth):
+        if layer % 2 == 0:
+            for q in range(n):
+                c.add("Ry", [q], [float(rng.uniform(0, 2 * np.pi))], col)
+        else:
+            for q in range((layer // 2) % 2, n - 1, 2):
+                c.add("CNOT", [q, q + 1], [], col)
+            col += 1
+            for q in range(0, n, 4):
+                c.add("Measure", [q], [], col)
+            if layer == 1:
+                col += 1
+                c.add("Measure", [0], [], col)
+        col += 1
+    return c
+
+
+def monitored_events(circuit: QuantumCircuit) -> tuple:
+    """``(op_position, qubit)`` of every ``Measure``, as
+    ``Simulator.monitored_trajectories`` derives them."""
+    events, pos = [], 0
+    for column in circuit.get_ordered_gates():
+        for g in column:
+            if g.gate_name == "Measure":
+                events.append((pos, g.target_qubits[0]))
+            else:
+                pos += 1
+    return tuple(events)
+
+
+def monitored_launches(circuit: QuantumCircuit) -> dict:
+    program = tprog.compile_circuit(circuit)
+    spec = tmono.monomial_spec(program, tprog._NoNoise,
+                               monitored_events(circuit))
+    return plan_launches(spec.segments)
+
+
+def phase_huge_noisy(report: dict, card: str) -> dict:
+    path: dict = {}
+    n = HUGE_SIZES[0]
+    circuit = brickwork(n, HUGE_NOISY_DEPTH, SEED, False)
+    program = tprog.compile_circuit(circuit)
+    params = program.initial_params
+    models_by_route = [("unitary", "depolarizing 0.05",
+                        global_noise(DepolarizingNoise(0.05))),
+                       ("monomial", "amplitude damping 0.05",
+                        global_noise(AmplitudeDampingNoise(0.05))),
+                       ("fold", "X-basis amplitude damping 0.05",
+                        global_noise(XBasisDamping(0.05)))]
+    for route, name, nm in models_by_route:
+        label = f"noisy n={n} depth-{HUGE_NOISY_DEPTH} Ry+CNOT {name}"
+        got_route = bigtraj.trajectory_evolve_route(program, nm)
+        check(got_route == route, f"{label}: route {got_route}, expected "
+              f"{route}")
+        want_launches = evolve_launches(program, nm)
+        planar = not bigtraj.trajectory_is_real(program, nm)
+        size = state_bytes(n, planar)
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_exec.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = Simulator(noise_model=nm, device="cuda").run(
+            circuit, shots=1024, seed=SEED)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        delta = add_launches(path, NO_LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        fs = res.final_state
+        check(isinstance(fs, PlanarStateVector) and fs.is_planar == planar,
+              f"{label}: final state {fs!r}")
+        check(launches_match(delta, want_launches), f"{label}: launches "
+              f"{delta}, expected {want_launches}")
+        norm = fs.norm_sq()
+        check(abs(norm - 1.0) <= 1e-4, f"{label}: |psi|^2 = {norm}")
+        shots = sum(res.measurement_counts.values())
+        check(shots == 1024, f"{label}: {shots} shots")
+        del res, fs
+        torch.cuda.empty_cache()
+        # the same draws through the kernels and through the twins
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x, _, draws = bigtraj.huge_trajectory_state_body(
+            program, nm, params, 1, "cuda", gen)
+        torch.cuda.synchronize()
+        kernel_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want, _, _ = bigtraj.huge_trajectory_state_body(
+            program, nm, params, 1, "cuda", None, draws, plain=True)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        err = grouped_max_diff(x, want)
+        check(err <= STATE_TOL, f"{label}: max |kernel - plain| = {err} on "
+              "the same draws")
+        del x, want, draws
+        print(f"huge {label} [{card}]: route {route}, "
+              f"{'planar' if planar else 'real'} state "
+              f"{size / 2**30:.0f} GiB, launches dense "
+              f"{delta['dense_axis']} cross {delta['cross_bit_axis']}, "
+              f"|psi|^2 {norm:.7f}, {shots} shots, Simulator.run "
+              f"{run_s:.3f} s, one trajectory kernels {kernel_s:.3f} s twins "
+              f"{plain_s:.3f} s, kernel vs plain {err:.2e}, peak "
+              f"{peak / 2**30:.3f} GiB", flush=True)
+        report.setdefault("huge_noisy", []).append(
+            {"case": label, "route": route, "launches": delta, "norm": norm,
+             "run_s": run_s, "trajectory_kernel_s": kernel_s,
+             "trajectory_plain_s": plain_s, "kernel_vs_plain": err,
+             "peak_bytes": peak, "state_bytes": size, "card": card})
+
+    nm = global_noise(DepolarizingNoise(0.05))
+    sim = Simulator(noise_model=nm, device="cuda")
+    want_launches = evolve_launches(program, nm)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_exec.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = sim.run_with_noise(circuit, shots=256, seed=SEED, trajectories=4)
+    noise_s = time.perf_counter() - t0
+    delta = add_launches(path, NO_LAUNCHES)
+    shots = sum(res.measurement_counts.values())
+    check(res.final_state is None and shots == 256,
+          f"run_with_noise n={n}: {shots} shots, final state "
+          f"{res.final_state!r}")
+    check(launches_match(delta, want_launches, 4),
+          f"run_with_noise n={n}: launches {delta}, 4 x {want_launches}")
+    print(f"huge run_with_noise n={n} depth-{HUGE_NOISY_DEPTH} depolarizing "
+          f"[{card}]: {shots} shots over 4 trajectories in {noise_s:.3f} s, "
+          f"peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB",
+          flush=True)
+    report["run_with_noise_huge"] = {"seconds": noise_s, "launches": delta}
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_exec.reset_launch_counts()
+    t0 = time.perf_counter()
+    rhos = sim.ensemble_qubit_density_matrices(circuit, n_trials=2,
+                                               seed=SEED)
+    rho_s = time.perf_counter() - t0
+    delta = add_launches(path, NO_LAUNCHES)
+    traces = np.trace(rhos, axis1=1, axis2=2)
+    check(rhos.shape == (n, 2, 2)
+          and float(np.abs(traces - 1.0).max()) <= 1e-4
+          and float(np.abs(rhos - rhos.conj().transpose(0, 2, 1)).max())
+          <= 1e-6, f"ensemble_qubit_density_matrices n={n}: traces {traces}")
+    check(launches_match(delta, want_launches, 2),
+          f"ensemble n={n}: launches {delta}, 2 x {want_launches}")
+    print(f"huge ensemble_qubit_density_matrices n={n} [{card}]: 2 "
+          f"trajectories in {rho_s:.3f} s, max |tr - 1| "
+          f"{float(np.abs(traces - 1.0).max()):.2e}, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB", flush=True)
+    report["ensemble_rho_huge"] = {"seconds": rho_s, "launches": delta}
+
+    # monitored trajectories
+    ideal = Simulator(device="cuda")
+    for n_m, T, final_shots in ((MONITOR_BATCH_N, 64, None), (n, 2, 256)):
+        mc = monitored_brickwork(n_m, HUGE_NOISY_DEPTH, SEED)
+        want_launches = monitored_launches(mc)
+        n_events = len(monitored_events(mc))
+        repeat = len(range(0, n_m, 4))    # slot of the repeated measurement
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_exec.reset_launch_counts()
+        t0 = time.perf_counter()
+        outcomes, sites, third = ideal.monitored_trajectories(
+            mc, T, seed=SEED, final_shots=final_shots)
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+        delta = add_launches(path, NO_LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        label = f"monitored n={n_m} depth-{HUGE_NOISY_DEPTH} T={T}"
+        batches = 1 if final_shots is None else T
+        check(outcomes.shape == (T, n_events) and len(sites) == n_events
+              and set(np.unique(outcomes)) <= {0, 1},
+              f"{label}: outcomes of shape {outcomes.shape}")
+        check(sites[0][1] == 0 and sites[repeat][1] == 0
+              and bool((outcomes[:, 0] == outcomes[:, repeat]).all()),
+              f"{label}: the repeated measurement of qubit 0 changed")
+        check(launches_match(delta, want_launches, batches),
+              f"{label}: launches {delta}, {batches} x {want_launches}")
+        if final_shots is None:
+            check(len(third) == T, f"{label}: {len(third)} states")
+            norms = [float(s.device_data.abs().square().sum())
+                     for s in third[:4]]
+            check(all(abs(v - 1.0) <= 1e-4 for v in norms),
+                  f"{label}: norms {norms}")
+            del third
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ideal.monitored_trajectories(mc, T, seed=SEED + 1)
+            torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t0
+            extra = f", warm {T / warm_s:.1f} trajectories/s"
+            report["monitored_batch_traj_per_s"] = T / warm_s
+        else:
+            check(len(third) == T and all(
+                sum(d.values()) == final_shots for d in third),
+                f"{label}: final counts {[sum(d.values()) for d in third]}")
+            extra = f", {final_shots} final shots each"
+        print(f"{label} [{card}]: {n_events} measurements, launches dense "
+              f"{delta['dense_axis']} cross {delta['cross_bit_axis']}, "
+              f"mean outcome {float(outcomes.mean()):.3f}, cold "
+              f"{cold_s:.3f} s{extra}, peak {peak / 2**30:.3f} GiB",
+              flush=True)
+        report.setdefault("monitored", []).append(
+            {"case": label, "launches": delta, "cold_s": cold_s,
+             "peak_bytes": peak, "card": card})
+
+    # law at n = 4: Ry on every qubit, measure 0, CNOT(0, 1), measure 1
+    theta = [0.9, 2.1, 0.4, 1.3]
+    lc = QuantumCircuit(4)
+    for q, t in enumerate(theta):
+        lc.add("Ry", [q], [t], 0)
+    lc.add("Measure", [0], [], 1)
+    lc.add("CNOT", [0, 1], [], 2)
+    lc.add("Measure", [1], [], 3)
+    a, b = np.sin(theta[0] / 2) ** 2, np.sin(theta[1] / 2) ** 2
+    want = np.array([a, a * (1 - b) + (1 - a) * b])
+    cuda_exec.reset_launch_counts()
+    outcomes, _, _ = ideal.monitored_trajectories(lc, MONITOR_LAW_TRAJ,
+                                                  seed=SEED)
+    add_launches(path, NO_LAUNCHES)
+    freq = outcomes.mean(axis=0)
+    dev = float(np.abs(freq - want).max())
+    check(dev <= MONITOR_LAW_TOL, f"monitored law n=4: frequencies {freq}, "
+          f"exact {want}")
+    print(f"monitored law n=4 [{card}]: {MONITOR_LAW_TRAJ} trajectories, "
+          f"P(1) {freq[0]:.4f}, {freq[1]:.4f} against {want[0]:.4f}, "
+          f"{want[1]:.4f}", flush=True)
+    report["monitored_law_dev"] = dev
+
+    # the fold body on a batch: one launch per gate for all trajectories
+    n_f, T = MONITOR_BATCH_N, 64
+    fc = brickwork(n_f, HUGE_DEPTH, SEED, False)
+    fp = tprog.compile_circuit(fc)
+    nm = global_noise(XBasisDamping(0.05))
+    check(tprog.trajectory_route(fp, nm) == "fold",
+          f"fold batch: route {tprog.trajectory_route(fp, nm)}")
+    torch.cuda.empty_cache()
+    cuda_exec.reset_launch_counts()
+    states = Simulator(noise_model=nm, device="cuda").trajectory_states(
+        fc, T, seed=SEED)
+    delta = add_launches(path, NO_LAUNCHES)
+    check(sum(delta.values()) == len(fp.ops), f"fold batch n={n_f} T={T}: "
+          f"launches {delta} for {len(fp.ops)} gates")
+    norm_err = float((states.abs().square().sum(-1) - 1).abs().max())
+    check(norm_err <= 1e-4, f"fold batch: max |norm - 1| = {norm_err}")
+    del states
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got, draws = bigtraj.fold_trajectory_body(fp, nm, fp.initial_params, T,
+                                              "cuda", gen)
+    torch.cuda.synchronize()
+    fold_s = time.perf_counter() - t0
+    want_states, _ = bigtraj.fold_trajectory_body(
+        fp, nm, fp.initial_params, T, "cuda", None, draws, plain=True)
+    err = float((got - want_states).abs().max())
+    check(err <= STATE_TOL, f"fold batch: max |kernel - plain| = {err}")
+    del got, want_states
+    print(f"fold batch n={n_f} depth-8 T={T} X-basis damping [{card}]: "
+          f"{len(fp.ops)} gates, launches dense {delta['dense_axis']} cross "
+          f"{delta['cross_bit_axis']}, max |norm - 1| {norm_err:.2e}, "
+          f"kernel vs plain {err:.2e}, {T / fold_s:.1f} trajectories/s",
+          flush=True)
+    report["fold_batch"] = {"launches": delta, "gates": len(fp.ops),
+                            "traj_per_s": T / fold_s,
+                            "kernel_vs_plain": err}
+    torch.cuda.empty_cache()
+    check(all(v > 0 for v in path.values()),
+          f"a kernel never launched on the huge noisy path: {path}")
+    report["huge_noisy_launches"] = path
+    return path
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every measurement as JSON")
+    ap.add_argument("--phases", help="comma-separated phases to run, of "
+                    + ",".join(PHASES) + " (then no summary is printed)")
     args = ap.parse_args()
+    chosen = set(args.phases.split(",")) if args.phases else set(PHASES)
+    if not chosen <= set(PHASES):
+        raise SystemExit(f"chip_smoke: unknown phases "
+                         f"{sorted(chosen - set(PHASES))}")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
                          "this script needs a CUDA card")
@@ -1291,28 +2028,45 @@ def main() -> int:
                   f"tile fibers at K={k} real={real}: kernel {got}, "
                   f"wrapper {cuda_exec.tile_fibers(k, real)}")
 
-    kernels = phase_kernels(report, card)
-    batched_err = phase_batched_kernels(report, card)
-    ideal = phase_main(report)
-    noisy = phase_noisy(report, card)
-    phase_timing(card, report)
-    phase_noisy_timing(card, report)
-    variational = phase_variational(report, card)
+    phases = {"2": lambda: phase_kernels(report, card),
+              "2b": lambda: phase_batched_kernels(report, card),
+              "2c": lambda: phase_huge_kernels(report, card),
+              "3": lambda: phase_main(report),
+              "3b": lambda: phase_noisy(report, card),
+              "4": lambda: phase_timing(card, report),
+              "4b": lambda: phase_noisy_timing(card, report),
+              "5": lambda: phase_variational(report, card),
+              "6": lambda: phase_huge(report, card),
+              "7": lambda: phase_huge_noisy(report, card)}
+    out = {}
+    for name in PHASES:
+        if name in chosen:
+            t0 = time.perf_counter()
+            out[name] = phases[name]()
+            print(f"phase {name}: {time.perf_counter() - t0:.1f} s",
+                  flush=True)
     print(f"max_memory_allocated over the run: "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB [{card}]")
     report["wall_s"] = time.perf_counter() - t_start
     print(f"chip_smoke wall time {report['wall_s']:.1f} s [{card}]",
           flush=True)
 
+    if chosen != set(PHASES):
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump(report, f, indent=1)
+        print(f"partial run (phases {sorted(chosen)}): no summary")
+        return 0
     summary = {"kernels": []}
     for name, (source, replaces) in KERNEL_INFO.items():
-        row = kernels["summary"][name]
+        row = out["2"]["summary"][name]
         summary["kernels"].append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": ideal[name] + noisy[name] + variational[name],
-            "max_abs_err": max(kernels["max_err"][name],
-                               batched_err[name]),
+            "launches": sum(out[p][name] for p in ("3", "3b", "5", "6",
+                                                   "7")),
+            "max_abs_err": max(out["2"]["max_err"][name], out["2b"][name],
+                               out["2c"][name]),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"]})

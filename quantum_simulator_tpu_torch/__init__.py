@@ -1,7 +1,8 @@
 """quantum_simulator_tpu_torch — the PyTorch / CUDA port of quantum_simulator_tpu.
 
 The JAX package ``quantum_simulator_tpu`` is the reference. This package
-runs its ``Simulator`` paths on an NVIDIA H100, ideal and noisy: the same
+runs its ``Simulator`` paths on an NVIDIA H100, ideal, noisy and monitored,
+up to 32 qubits (from n = 30 on with planar results): the same
 host planner and NumPy operand build, a torch executor, noisy
 trajectories batched on the device (``noise``, ``ops/unitary_traj``,
 ``ops/monomial_traj``), and hand-written CUDA kernels (``csrc/``) for
@@ -24,6 +25,7 @@ from .optimizer import (BarrenPlateauAnalysis, CircuitOptimizer,
                         MPSParameterizedConfig, MultiStartResult,
                         OptimizationResult, ParameterBinding,
                         ParameterizedCircuitConfig)
+from .ops.bigstate import MarginalStateSummary, PlanarStateVector
 from .registry import GateRegistry
 from .simulator import SimulationResult, Simulator
 from .state import StateVector
@@ -46,6 +48,7 @@ __all__ = [
     "GateType",
     "GradientEstimator",
     "MPSParameterizedConfig",
+    "MarginalStateSummary",
     "MeasurementBasis",
     "MeasurementEngine",
     "MultiStartResult",
@@ -55,6 +58,7 @@ __all__ = [
     "ParameterBinding",
     "ParameterizedCircuitConfig",
     "PhaseFlipNoise",
+    "PlanarStateVector",
     "QuantumCircuit",
     "ReadoutError",
     "SimulationResult",

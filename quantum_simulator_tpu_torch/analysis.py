@@ -13,9 +13,10 @@ apply the observable as a gate (``ops/apply.apply_gate``). The small
 eigenproblems (2x2, 4x4, 2^k reduced matrices) finish in NumPy float64.
 
 Not ported yet (ROADMAP Queue 1 item 8): ``EntanglementEventDetector``,
-``ConvergenceAnalysis`` and ``BenchmarkAnalysis`` (``analysis.py:369-786``),
-and the n >= 30 planar-state dispatch of ``pauli_string_expectation``
-(item 6).
+``ConvergenceAnalysis`` and ``BenchmarkAnalysis`` (``analysis.py:369-786``).
+A ``PlanarStateVector`` (n >= 30) answers ``pauli_string_expectation`` and
+``hamiltonian_expectation`` by its own read-only pass over the grouped
+state.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import torch
 from .config import CONFIG
 from .gates import X_MATRIX, Y_MATRIX, Z_MATRIX
 from .ops.apply import apply_gate
+from .ops.bigstate import PlanarStateVector
 from .state import StateVector
 
 _PAULI = {"X": X_MATRIX, "Y": Y_MATRIX, "Z": Z_MATRIX}
@@ -293,6 +295,8 @@ class StateAnalysis:
                              f"{sorted(qubits)}")
         if not qubits:
             return 1.0
+        if isinstance(state, PlanarStateVector):
+            return state.expectation_pauli_string(list(qubits), paulis)
         obs = np.array([[1.0]], dtype=np.complex128)
         for p in paulis:
             obs = np.kron(obs, _PAULI[p])
@@ -304,7 +308,8 @@ class StateAnalysis:
     def hamiltonian_expectation(state, terms, device=None) -> float:
         """<H> for H = sum_t coeff_t * prod_i P_i, ``terms`` a list of
         ``(coeff, qubits, paulis)`` triples: one expectation pass each."""
-        state = _as_tensor(state, device)
+        if not isinstance(state, PlanarStateVector):
+            state = _as_tensor(state, device)
         total = 0.0
         for coeff, qubits, paulis in terms:
             total += float(coeff) * StateAnalysis.pauli_string_expectation(

@@ -2,7 +2,10 @@
 
 Counterpart of ``quantum_simulator_tpu/ops/apply.py``: the segmented
 einsum of ``apply_gate`` (``apply.py:47-112``), ``apply_cphase``,
-``apply_gate_all_qubits`` and ``probabilities``. The group executor uses
+``apply_gate_all_qubits``, ``probabilities``, and the mid-circuit
+measurement primitives ``prob_qubit_zero``, ``collapse_qubit`` and
+``normalize`` (``apply.py:152-197``), which take a leading batch of
+trajectories. The group executor uses
 ``apply_gate`` only for a ``GenericStep`` (a non-diagonal gate on three or
 more axes); basis rotations use ``apply_gate_all_qubits``; the per-gate
 body (``program.forward_body``), the cost functions and ``StateAnalysis``
@@ -112,3 +115,35 @@ def apply_gate_all_qubits(state: torch.Tensor, matrix,
 def probabilities(state: torch.Tensor) -> torch.Tensor:
     """|amplitude|^2 in the state's real dtype."""
     return state.real.square() + state.imag.square()
+
+
+def _qubit_bits(state: torch.Tensor, qubit: int,
+                num_qubits: int) -> torch.Tensor:
+    """(2^n,) value of ``qubit``'s bit at every basis index."""
+    idx = torch.arange(state.shape[-1], device=state.device)
+    return (idx >> (num_qubits - 1 - qubit)) & 1
+
+
+def prob_qubit_zero(state: torch.Tensor, qubit: int,
+                    num_qubits: int) -> torch.Tensor:
+    """P(qubit = 0), unnormalized, of a ``(..., 2^n)`` state by a masked
+    reduction (qubit 0 = MSB); leading dims are a batch."""
+    keep = _qubit_bits(state, qubit, num_qubits) == 0
+    return (probabilities(state) * keep).sum(-1)
+
+
+def collapse_qubit(state: torch.Tensor, qubit: int, outcome,
+                   num_qubits: int) -> torch.Tensor:
+    """Project a ``(..., 2^n)`` state onto ``qubit == outcome`` and
+    renormalize; ``outcome`` is an int or one bit per batch row."""
+    bits = _qubit_bits(state, qubit, num_qubits)
+    outcome = torch.as_tensor(outcome, device=state.device)
+    kept = torch.where(bits == outcome[..., None], state,
+                       torch.zeros_like(state))
+    return normalize(kept)
+
+
+def normalize(state: torch.Tensor) -> torch.Tensor:
+    """Each ``(..., 2^n)`` row scaled to norm 1; a zero row stays zero."""
+    norm = probabilities(state).sum(-1, keepdim=True).sqrt()
+    return torch.where(norm > 1e-15, state / norm.clamp(min=1e-30), state)

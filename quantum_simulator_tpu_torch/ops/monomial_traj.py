@@ -19,8 +19,15 @@ The spec (segments, windows and sites) is the JAX package's. The port
 runs T trajectories at once: one basis sample per trajectory per window
 (a per-axis categorical on the device), the site draws gathered from the
 static ``w2`` / ``fmap`` tables, and every dense and cross step one
-batched kernel launch. The monitored variant (``events``) and the chunked
-n >= 30 path wait (ROADMAP Queue 1, items 5b and 6).
+batched kernel launch.
+
+Projective mid-circuit measurement is the monomial channel ``{|0><0|,
+|1><1|}`` whose draw given b is the sampled bit itself, so monitored
+circuits (``events``) run through the same windows
+(``monomial_monitored_body``). ``monomial_insert_evolve`` and
+``monomial_monitored_evolve`` are the n >= 30 forms: they evolve a
+provided grouped state, normalize it once in place and build no complex
+result.
 """
 
 from __future__ import annotations
@@ -30,13 +37,16 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from . import plan as gplan
 from . import program as prog
-from .bigtraj import trajectory_is_real
+from .bigtraj import normalize_, trajectory_is_real
 from .plan import (
+    GenericStep,
     GroupLayout,
     OperandOverrides,
     build_group_operands_batched,
     categorical,
+    chunk_ranges,
     execute_group_plan,
     get_group_plan,
     layout_basis_state,
@@ -47,6 +57,10 @@ from .unitary_traj import finalize
 # for realness and diagonality; operand values come from OperandOverrides.
 _DUMMY_R1 = np.array([[1.0, 1.0], [1.0, -1.0]]) / np.sqrt(2)
 _DUMMY_C1 = np.array([[1.0, 1.0], [1.0j, -1.0j]]) / np.sqrt(2)
+
+# Measurement pseudo-stack: the projectors onto |0> and |1>.
+_MEASURE_STACK = np.stack([np.diag([1.0, 0.0]), np.diag([0.0, 1.0])]
+                          ).astype(np.complex128)
 
 
 class MonomialStack(NamedTuple):
@@ -110,7 +124,7 @@ class _Site(NamedTuple):
     seg_pos: int             # dummy-op index within segments[window + 1]
     stack_id: int
     targets: tuple[int, ...]
-    key_index: int           # the site's draw slot
+    key_index: int           # the site's draw slot; -1 for a measurement
     event_index: int         # measurement outcome slot; -1 for noise
 
 
@@ -120,6 +134,7 @@ class MonomialSpec(NamedTuple):
     stacks: tuple            # tuple[MonomialStack]
     n_site_keys: int
     real: bool
+    n_events: int
 
 
 _SPEC_CACHE: dict[tuple, MonomialSpec | None] = {}
@@ -130,20 +145,23 @@ def _dummy_op(targets, mat, column_index) -> prog.ProgramOp:
                           column_index, mat, None, -1)
 
 
-def monomial_spec(program: prog.CircuitProgram,
-                  noise_model) -> MonomialSpec | None:
-    """Host-side splice plan, or None when any channel is not monomial."""
-    key = (program.compile_key, noise_model.spec_key())
+def monomial_spec(program: prog.CircuitProgram, noise_model,
+                  events: tuple = ()) -> MonomialSpec | None:
+    """Host-side splice plan, or None when any channel is not monomial.
+    ``events`` are monitored ``(op_position, qubit)`` measurement sites,
+    each firing before the op at that position."""
+    key = (program.compile_key, noise_model.spec_key(), tuple(events))
     if key in _SPEC_CACHE:
         return _SPEC_CACHE[key]
-    spec = _build_spec(program, noise_model)
+    spec = _build_spec(program, noise_model, tuple(events))
     if len(_SPEC_CACHE) > 128:
         _SPEC_CACHE.pop(next(iter(_SPEC_CACHE)))
     _SPEC_CACHE[key] = spec
     return spec
 
 
-def _build_spec(program, noise_model):
+def _build_spec(program, noise_model, events):
+    # projectors are real, so the trajectory's realness decides
     real = trajectory_is_real(program, noise_model)
     stacks: list[MonomialStack] = []
     stack_ids: dict[bytes, int] = {}
@@ -162,12 +180,14 @@ def _build_spec(program, noise_model):
         stack_ids[skey] = sid
         return sid
 
-    # Windows close when an op touches a pending site's target.
-    # segments[w] holds the gates of window w; the window's spliced
-    # dummies head segments[w + 1].
+    measure_sid = stack_id_for(_MEASURE_STACK) if events else -1
+
+    # Walk the ops with the events between them; windows close when an op
+    # touches a pending site's target. segments[w] holds the gates of
+    # window w; the window's spliced dummies head segments[w + 1].
     segments: list[list] = [[]]
     windows: list[list[_Site]] = []
-    pending: list[tuple] = []   # (stack_id, targets, key_index)
+    pending: list[tuple] = []   # (stack_id, targets, key_index, event)
     pending_qubits: set[int] = set()
     site_keys = 0
 
@@ -178,26 +198,36 @@ def _build_spec(program, noise_model):
         w = len(windows)
         seg: list = []
         sites: list[_Site] = []
-        for sid, targets, ki in pending:
+        for sid, targets, ki, ev in pending:
             if stacks[sid].kraus.shape[1] == 2:
                 dummy = _DUMMY_R1 if real else _DUMMY_C1
             else:
                 dummy = (np.kron(_DUMMY_R1, _DUMMY_R1) if real
                          else np.kron(_DUMMY_C1, _DUMMY_C1))
-            sites.append(_Site(w, len(seg), sid, targets, ki, -1))
+            sites.append(_Site(w, len(seg), sid, targets, ki, ev))
             seg.append(_dummy_op(targets, dummy, 0))
         windows.append(sites)
         segments.append(seg)
         pending = []
         pending_qubits = set()
 
-    def pend_site(sid, targets):
+    def pend_site(sid, targets, ev=-1):
         nonlocal site_keys
-        pending.append((sid, tuple(targets), site_keys))
-        site_keys += 1
+        ki = -1
+        if ev < 0:
+            ki = site_keys
+            site_keys += 1
+        pending.append((sid, tuple(targets), ki, ev))
         pending_qubits.update(targets)
 
-    for op in program.ops:
+    ev_i = 0
+    for pos in range(len(program.ops) + 1):
+        while ev_i < len(events) and events[ev_i][0] == pos:
+            pend_site(measure_sid, (events[ev_i][1],), ev=ev_i)
+            ev_i += 1
+        if pos == len(program.ops):
+            break
+        op = program.ops[pos]
         if op.gate_name not in by_gate:
             sids = []
             for raw in noise_model.kraus_stacks_for_gate(op.gate_name):
@@ -233,38 +263,55 @@ def _build_spec(program, noise_model):
         num_params=program.num_params,
         initial_params=program.initial_params,
         compile_key=program.compile_key + (
-            ("mono-seg", w, noise_model.spec_key(), (), real),),
+            ("mono-seg", w, noise_model.spec_key(), events, real),),
     ) for w, seg_ops in enumerate(segments))
     return MonomialSpec(seg_programs, tuple(tuple(ws) for ws in windows),
-                        tuple(stacks), site_keys, real)
+                        tuple(stacks), site_keys, real, len(events))
 
 
-def monomial_insert_supported(program, noise_model) -> bool:
-    return monomial_spec(program, noise_model) is not None
+def monomial_insert_supported(program, noise_model,
+                              events: tuple = ()) -> bool:
+    return monomial_spec(program, noise_model, tuple(events)) is not None
+
+
+def _lead_marginal(y: torch.Tensor, planar: bool) -> torch.Tensor:
+    """``(T, A)`` marginal of the leading data axis of a batched grouped
+    state (or of a conditional slice of one); a big state is squared
+    chunk by chunk along that axis."""
+    T, A = y.shape[0], y.shape[1 + int(planar)]
+
+    def marginal(v):
+        p = v.square()
+        if planar:
+            p = p.sum(1)
+        return p.reshape(T, p.shape[1], -1).sum(-1)
+
+    if y.numel() <= gplan.CHUNK_ELEMS:
+        return marginal(y)
+    return torch.cat([marginal(y.narrow(1 + int(planar), start, width))
+                      for start, width in chunk_ranges(A, y.numel())], dim=1)
 
 
 def _sample_axes(x: torch.Tensor, planar: bool, layout: GroupLayout,
                  generator, forced: torch.Tensor | None = None):
     """One basis sample per trajectory from the batched grouped state: a
     categorical on the first axis's marginal, then on each next axis's
-    marginal given the earlier picks (``monomial_traj.py:316-339``).
-    Returns ``(per-axis indices (T, rank), |psi|^2 (T,))``; ``forced``
-    replays given indices."""
-    T = x.shape[0]
-    p = x.square()
-    if planar:
-        p = p.sum(1)
-    rows = torch.arange(T, device=x.device)
+    marginal given the earlier picks (``monomial_traj.py:316-339``): the
+    first marginal reads the whole state, every later one a slice 1/S of
+    the one before. Returns ``(per-axis indices (T, rank), |psi|^2
+    (T,))``; ``forced`` replays given indices."""
+    rows = torch.arange(x.shape[0], device=x.device)
+    y = x
     idxs = []
     nsq = None
     for ax in range(len(layout.axis_sizes)):
-        m = p.reshape(T, p.shape[1], -1).sum(-1)
+        m = _lead_marginal(y, planar)
         if ax == 0:
             nsq = m.sum(-1)
         a = forced[:, ax] if forced is not None else categorical(
             m + 1e-30, generator)
         idxs.append(a)
-        p = p[rows, a]
+        y = y[rows, :, a] if planar else y[rows, a]
     return torch.stack(idxs, dim=1), nsq
 
 
@@ -278,10 +325,11 @@ def _window_draws(spec: MonomialSpec, window, idxs, nsq, layout: GroupLayout,
                   generator, forced: torch.Tensor | None = None):
     """Classical draws of one window's sites given each trajectory's
     boundary basis sample (``monomial_traj.py:353-410``). Returns the
-    next segment's overrides and the (T, sites) branch indices. The first
-    operand is scaled by ``1/|psi|`` so the spliced product's norm stays
-    O(1); the true branch probabilities fold into the final exact
-    normalization."""
+    next segment's overrides, the (T, sites) branch indices and the
+    ``(event slot, (T,) outcome)`` updates of the window's measurements,
+    whose branch is the sampled bit itself. The first operand is scaled
+    by ``1/|psi|`` so the spliced product's norm stays O(1); the true
+    branch probabilities fold into the final exact normalization."""
     device = idxs.device
     inv_norm = torch.rsqrt(nsq.clamp(min=1e-30))
     bit_state: dict[int, torch.Tensor] = {}
@@ -289,6 +337,7 @@ def _window_draws(spec: MonomialSpec, window, idxs, nsq, layout: GroupLayout,
     pool_map: dict[int, int] = {}
     per_op: dict[int, torch.Tensor] = {}
     branches = []
+    outcomes: list[tuple[int, torch.Tensor]] = []
 
     def bit(q):
         if q not in bit_state:
@@ -302,13 +351,18 @@ def _window_draws(spec: MonomialSpec, window, idxs, nsq, layout: GroupLayout,
         else:
             bv = bit(site.targets[0]) * 2 + bit(site.targets[1])
         D = st.kraus.shape[1]
-        w2_t = torch.from_numpy(np.ascontiguousarray(st.w2.T)).to(device)
-        probs = w2_t[bv]                                    # (T, m)
-        m = forced[:, si] if forced is not None else categorical(
-            probs + 1e-30, generator)
+        if site.event_index >= 0:
+            m = bv
+            outcomes.append((site.event_index, bv))
+            scale = torch.ones_like(inv_norm)
+        else:
+            w2_t = torch.from_numpy(np.ascontiguousarray(st.w2.T)).to(device)
+            probs = w2_t[bv]                                    # (T, m)
+            m = forced[:, si] if forced is not None else categorical(
+                probs + 1e-30, generator)
+            scale = torch.rsqrt(probs.gather(1, m[:, None]).squeeze(
+                1).clamp(min=1e-30))
         branches.append(m)
-        scale = torch.rsqrt(probs.gather(1, m[:, None]).squeeze(1).clamp(
-            min=1e-30))
         if si == 0:
             scale = scale * inv_norm
         mats = torch.from_numpy(np.asarray(
@@ -330,7 +384,48 @@ def _window_draws(spec: MonomialSpec, window, idxs, nsq, layout: GroupLayout,
             per_op[site.seg_pos] = operand
     rows = torch.cat(pool_rows, dim=1) if pool_rows else None
     return (OperandOverrides(pool_rows=rows, pool_map=pool_map,
-                             per_op=per_op), torch.stack(branches, dim=1))
+                             per_op=per_op), torch.stack(branches, dim=1),
+            outcomes)
+
+
+def _run_windows(spec: MonomialSpec, params, x: torch.Tensor, planar: bool,
+                 generator, draws, plain: bool):
+    """Every segment through the group plan with a basis sample and the
+    window's draws between them (``_run_spec``, and the window loop of
+    ``_chunked_windows_evolve``). Returns ``(x, outcomes (T, events)
+    int64, record)``: ``record[w]`` = (basis indices (T, rank), site
+    branches (T, sites)) of window w; passing it back as ``draws``
+    replays the trajectories."""
+    n_traj, device = x.shape[0], x.device
+    layout = GroupLayout.for_qubits(spec.segments[0].num_qubits)
+    outcomes = torch.zeros((n_traj, spec.n_events), dtype=torch.long,
+                           device=device)
+    record = []
+    overrides = None
+    n_windows = len(spec.windows)
+    for w in range(n_windows + 1):
+        seg = spec.segments[w]
+        plan = get_group_plan(seg)
+        operands = build_group_operands_batched(seg, plan, params, n_traj,
+                                                device, overrides)
+        x = execute_group_plan(plan, operands, seg, params, x, planar,
+                               plain, batched=True)
+        del operands
+        if w == n_windows:
+            break
+        forced = draws[w] if draws is not None else (None, None)
+        idxs, nsq = _sample_axes(x, planar, layout, generator, forced[0])
+        overrides, branches, updates = _window_draws(
+            spec, spec.windows[w], idxs, nsq, layout, generator, forced[1])
+        for ev, bv in updates:
+            outcomes[:, ev] = bv
+        record.append((idxs, branches))
+    return x, outcomes, record
+
+
+def _body_planar(spec: MonomialSpec) -> bool:
+    return not (spec.real and all(get_group_plan(s).all_real
+                                  for s in spec.segments))
 
 
 def monomial_trajectory_body(program, noise_model, params, n_traj: int,
@@ -339,33 +434,88 @@ def monomial_trajectory_body(program, noise_model, params, n_traj: int,
     """``n_traj`` stochastic trajectories with every (monomial-channel)
     noise draw spliced into the group plan, windows separated by basis
     samples (``_run_spec`` and ``_finalize``). Returns ``(states (T, 2^n)
-    complex64, draws)``: ``draws[w]`` = (basis indices (T, rank), site
-    branches (T, sites)) of window w; passing ``draws`` replays them."""
+    complex64, draws)``; passing ``draws`` replays them."""
     spec = monomial_spec(program, noise_model)
     if spec is None:
         raise ValueError("noise model has non-monomial channels; use the "
-                         "per-gate body (plan.group_trajectory_body)")
-    layout = GroupLayout.for_qubits(program.num_qubits)
-    plans = [get_group_plan(s) for s in spec.segments]
-    planar = not (spec.real and all(p.all_real for p in plans))
-    x = layout_basis_state(layout, program.initial_index, device, planar,
-                           n_traj)
-    record = []
-    overrides = None
-    n_windows = len(spec.windows)
-    for w in range(n_windows + 1):
-        seg = spec.segments[w]
-        operands = build_group_operands_batched(seg, plans[w], params,
-                                                n_traj, device, overrides)
-        x = execute_group_plan(plans[w], operands, seg, params, x, planar,
-                               plain, batched=True)
-        del operands
-        if w == n_windows:
-            break
-        forced = draws[w] if draws is not None else (None, None)
-        idxs, nsq = _sample_axes(x, planar, layout, generator, forced[0])
-        overrides, branches = _window_draws(spec, spec.windows[w], idxs,
-                                            nsq, layout, generator,
-                                            forced[1])
-        record.append((idxs, branches))
+                         "fold body (bigtraj.fold_trajectory_body)")
+    planar = _body_planar(spec)
+    x = layout_basis_state(GroupLayout.for_qubits(program.num_qubits),
+                           program.initial_index, device, planar, n_traj)
+    x, _, record = _run_windows(spec, params, x, planar, generator, draws,
+                                plain)
     return finalize(x, planar), record
+
+
+def monomial_monitored_body(program, noise_model, events, params,
+                            n_traj: int, device, generator=None, draws=None,
+                            plain: bool = False):
+    """``n_traj`` monitored trajectories through the group plan:
+    projective collapse at the static ``(op_position, qubit)`` events,
+    with optional monomial noise (``monomial_traj.py:592-610``). Returns
+    ``(states (T, 2^n) complex64, outcomes (T, M) int64, draws)``."""
+    spec = monomial_spec(program, noise_model, tuple(events))
+    if spec is None:
+        raise ValueError("noise model has non-monomial channels; "
+                         "monitored group path unavailable")
+    planar = _body_planar(spec)
+    x = layout_basis_state(GroupLayout.for_qubits(program.num_qubits),
+                           program.initial_index, device, planar, n_traj)
+    x, outcomes, record = _run_windows(spec, params, x, planar, generator,
+                                       draws, plain)
+    return finalize(x, planar), outcomes, record
+
+
+# ---------------------------------------------------------------------------
+# The n >= 30 forms: a provided grouped state, no complex result
+# ---------------------------------------------------------------------------
+
+def _generic_free(spec: MonomialSpec | None) -> bool:
+    return spec is not None and not any(
+        isinstance(s, GenericStep)
+        for seg in spec.segments for s in get_group_plan(seg).steps)
+
+
+def monomial_insert_evolve_ok(program, noise_model) -> bool:
+    """Gate of the n >= 30 monomial splice route: monomial channels and no
+    ``GenericStep`` in any segment plan (``monomial_traj.py:472-485``; see
+    ``unitary_traj.unitary_insert_evolve_ok``)."""
+    return _generic_free(monomial_spec(program, noise_model))
+
+
+def monomial_monitored_evolve_ok(program, noise_model,
+                                 events: tuple) -> bool:
+    """Gate of the n >= 30 monitored route: monomial (or no) noise and no
+    ``GenericStep`` in any segment plan."""
+    return _generic_free(monomial_spec(program, noise_model, tuple(events)))
+
+
+def monomial_insert_evolve(program, noise_model, params, x: torch.Tensor,
+                           generator=None, draws=None, plain: bool = False):
+    """Monomial-splice evolution of a provided batched grouped state (real
+    or planar as ``trajectory_is_real`` says), normalized once in place:
+    ``(x, draws)`` (``monomial_traj.py:536-552``)."""
+    spec = monomial_spec(program, noise_model)
+    if spec is None:
+        raise ValueError("noise model has non-monomial channels; use "
+                         "bigtraj.huge_trajectory_evolve")
+    x, _, record = _run_windows(spec, params, x, not spec.real, generator,
+                                draws, plain)
+    return normalize_(x), record
+
+
+def monomial_monitored_evolve(program, noise_model, events, params,
+                              x: torch.Tensor, generator=None, draws=None,
+                              plain: bool = False):
+    """Monitored evolution of a provided batched grouped state: the
+    n >= 30 form of ``monomial_monitored_body``
+    (``monomial_traj.py:570-589``). Returns ``(x, outcomes (T, M) int64,
+    draws)``."""
+    spec = monomial_spec(program, noise_model, tuple(events))
+    if spec is None:
+        raise ValueError("noise model has non-monomial channels; the "
+                         "huge monitored path needs the reference "
+                         "channel family (or no noise)")
+    x, outcomes, record = _run_windows(spec, params, x, not spec.real,
+                                       generator, draws, plain)
+    return normalize_(x), outcomes, record

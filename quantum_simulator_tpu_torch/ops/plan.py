@@ -1221,6 +1221,113 @@ def build_group_operands_batched(program: prog.CircuitProgram,
 # Execution
 # ---------------------------------------------------------------------------
 
+# A state of at least this many bytes (a planar n = 29 or a real n = 30
+# one) runs its non-kernel steps chunk by chunk over views, each result
+# copied over its chunk: the kernels write in place, and at n >= 30 no
+# step may allocate a second state (planar: 8 / 16 / 32 GiB at n = 30 /
+# 31 / 32 on an 80 GB card).
+INPLACE_MIN_BYTES = 4 << 30
+# Elements of one chunk of such a pass, and of the chunked reductions of
+# ``ops/bigstate.py`` and ``ops/bigtraj.py`` (256 MiB of float32).
+CHUNK_ELEMS = 1 << 26
+
+
+def is_big(x: torch.Tensor) -> bool:
+    return x.numel() * x.element_size() >= INPLACE_MIN_BYTES
+
+
+def chunk_ranges(size: int, numel: int) -> list[tuple[int, int]]:
+    """(start, width) pieces of an axis of ``size`` such that a tensor of
+    ``numel`` elements cut along it has pieces of about ``CHUNK_ELEMS``
+    elements (sizes are powers of two; one piece for a small tensor)."""
+    chunks = max(1, min(size, numel // CHUNK_ELEMS))
+    while size % chunks:
+        chunks -= 1
+    width = size // chunks
+    return [(i * width, width) for i in range(chunks)]
+
+
+def apply_in_chunks(x: torch.Tensor, lead: int, involved, fn,
+                    sliced: bool = False) -> torch.Tensor:
+    """``x <- fn(x)`` over views of ``x`` cut along its largest data axis
+    outside ``involved`` (``lead`` = leading batch and plane dims), each
+    result copied over its view: the peak is the state plus one chunk's
+    temporaries. ``sliced``: ``fn(view, axis, start, width)``, for
+    transforms that slice an operand alongside. With no free axis the
+    whole state goes through ``fn`` at once."""
+    shape = tuple(x.shape[lead:])
+    free = [a for a, s in enumerate(shape) if a not in involved and s > 1]
+    if not free:
+        return fn(x, None, 0, 0) if sliced else fn(x)
+    ax = max(free, key=lambda a: shape[a])
+    for start, width in chunk_ranges(shape[ax], x.numel()):
+        view = x.narrow(lead + ax, start, width)
+        view.copy_(fn(view, ax, start, width) if sliced else fn(view))
+    return x
+
+
+def expose_bits(shape: tuple[int, ...], tbits) -> tuple[tuple, dict]:
+    """Reshape plan exposing each target bit ``(axis, MSB-first pos)`` of
+    a grouped data shape as its own size-2 dimension. Returns
+    ``(new_shape, {(axis, pos): new dim index})``
+    (``bigtraj.py:115-138``)."""
+    by_axis: dict[int, list[int]] = {}
+    for ax, p in tbits:
+        by_axis.setdefault(ax, []).append(p)
+    new_shape: list[int] = []
+    index: dict[tuple[int, int], int] = {}
+    for ax, size in enumerate(shape):
+        bits = size.bit_length() - 1
+        poss = sorted(by_axis.get(ax, []))
+        prev = 0
+        for p in poss:
+            if p - prev:
+                new_shape.append(1 << (p - prev))
+            index[(ax, p)] = len(new_shape)
+            new_shape.append(2)
+            prev = p + 1
+        rem = bits - prev
+        if rem > 0 or not poss:
+            new_shape.append(1 << max(rem, 0))
+    return tuple(new_shape), index
+
+
+def apply_gate_bits(x: torch.Tensor, u: torch.Tensor, tbits, planar: bool,
+                    batched: bool) -> torch.Tensor:
+    """A ``2^k`` gate contracted directly against the k exposed state
+    bits ``tbits`` (first = MSB of the gate index): the form for gates
+    spanning three axes, or two with no lone bit (``bigtraj.py:412-461``).
+    ``x`` is ``([T,] [2,] *data)``; ``u`` complex ``(D, D)``, or
+    ``(T, D, D)`` with one gate per trajectory. Out of place."""
+    b = int(batched)
+    lead = b + int(planar)
+    k = len(tbits)
+    new_shape, index = expose_bits(tuple(x.shape[lead:]), tbits)
+    bit_axes = [index[t] for t in tbits]
+    shared = [chr(ord("e") + i) for i in range(len(new_shape))]
+    P = [chr(ord("A") + i) for i in range(k)]
+    R = [chr(ord("N") + i) for i in range(k)]
+    xin, xout = list(shared), list(shared)
+    for t in range(k):
+        xin[bit_axes[t]] = R[t]
+        xout[bit_axes[t]] = P[t]
+    per_traj = u.ndim == 3
+    ut = u.reshape(tuple(u.shape[:-2]) + (2,) * (2 * k))
+    tz = "Z" if batched else ""
+    uz = "Z" if per_traj else ""
+    opsub = "".join(P) + "".join(R)
+    xr = x.reshape(tuple(x.shape[:lead]) + new_shape)
+    if planar:
+        d = int(per_traj)
+        opnd = _blocked(torch.stack([ut.real, ut.imag], dim=d).float(), d)
+        spec = (f"{uz}cd{opsub},{tz}d{''.join(xin)}"
+                f"->{tz}c{''.join(xout)}")
+    else:
+        opnd = ut.real.float()
+        spec = f"{uz}{opsub},{tz}{''.join(xin)}->{tz}{''.join(xout)}"
+    return torch.einsum(spec, opnd, xr).reshape(x.shape)
+
+
 def _diag_spec(rank: int, axis_a: int, axis_b: int, op_real: bool = False,
                planar: bool = True, batched: bool = False) -> str:
     t = "T" if batched else ""
@@ -1306,11 +1413,21 @@ def execute_group_plan(plan: GroupPlan, operands, program, params,
 
     Takes ownership of ``x``: on a CUDA tensor the kernels write in place,
     so ``x`` may be overwritten by the run; pass a state you no longer
-    need (or a clone)."""
+    need (or a clone). A state of ``INPLACE_MIN_BYTES`` or more also runs
+    its other steps in place, chunk by chunk (``apply_in_chunks``), so no
+    step holds a second state."""
     layout = plan.layout
     shape = tuple(layout.axis_sizes)
     rank = len(shape)
     b = int(batched)
+    lead = b + int(planar)
+    big = is_big(x)
+
+    def run(fn, involved, sliced=False):
+        if big:
+            return apply_in_chunks(x, lead, involved, fn, sliced)
+        return fn(x, None, 0, 0) if sliced else fn(x)
+
     axis_stacks, cross_ops, diag_ops, prod_ops, bitpair_ops = operands
     dense = cuda_exec.dense_axis_plain if plain else cuda_exec.dense_axis
     cross = (cuda_exec.cross_bit_axis_plain if plain
@@ -1331,18 +1448,20 @@ def execute_group_plan(plan: GroupPlan, operands, program, params,
                       step.slice_axis, step.slice_pos, step.op_axis, planar,
                       batched)
         elif isinstance(step, BitPairStep):
-            x = apply_bitpair(x, plan, step, bitpair_ops, planar, batched)
+            x = run(lambda v, step=step: apply_bitpair(
+                v, plan, step, bitpair_ops, planar, batched),
+                {step.slice_axis, step.op_axis})
         elif isinstance(step, DiagPairStep):
             real = plan.diag_real[step.index]
             d = diag_ops[step.index]
-            x = torch.einsum(
-                _diag_spec(rank, step.axis_a, step.axis_b, real, planar,
-                           batched),
-                d.select(b, 0) if real else _blocked(d, b), x)
+            d = d.select(b, 0) if real else _blocked(d, b)
+            spec = _diag_spec(rank, step.axis_a, step.axis_b, real, planar,
+                              batched)
+            x = run(lambda v, d=d, spec=spec: torch.einsum(spec, d, v),
+                    {step.axis_a, step.axis_b})
         elif isinstance(step, DiagProductStep):
-            facs, cre, cim = prod_ops[step.index]
-            x = apply_prod_diag(x, facs, cre, cim, rank, step.axes, planar,
-                                batched)
+            x = run(_prod_chunk_fn(prod_ops[step.index], rank, step.axes,
+                                   planar, batched), (), sliced=True)
         else:  # GenericStep (never in an all-real plan, never an override)
             op = program.ops[step.program_op]
             if isinstance(params, torch.Tensor) and params.ndim == 2 \
@@ -1350,13 +1469,35 @@ def execute_group_plan(plan: GroupPlan, operands, program, params,
                 u = program.op_matrix_torch(op, params)   # one per row
             else:
                 u = program.op_matrix(op, params, np.complex64)
-            lead = tuple(x.shape[:b])
+            if big:     # no complex copy of a state this size
+                tbits = tuple((layout.axis_of(q), layout.pos_in_axis(q))
+                              for q in op.targets)
+                ut = torch.as_tensor(u, dtype=_C64, device=x.device)
+                x = run(lambda v, ut=ut, tbits=tbits: apply_gate_bits(
+                    v, ut, tbits, planar, batched), {a for a, _ in tbits})
+                continue
+            lead_shape = tuple(x.shape[:b])
             flat = torch.complex(x.select(b, 0), x.select(b, 1)).reshape(
-                lead + (-1,))
+                lead_shape + (-1,))
             shaped = apply_gate(flat, u, op.targets,
-                                layout.num_qubits).reshape(lead + shape)
+                                layout.num_qubits).reshape(lead_shape + shape)
             x = torch.stack([shaped.real, shaped.imag], dim=b)
     return x
+
+
+def _prod_chunk_fn(prod_op, rank: int, axes: tuple[int, ...], planar: bool,
+                   batched: bool):
+    """``fn(view, axis, start, width)`` applying a product diagonal to a
+    chunk cut along ``axis``: that axis's indicator factor, if it has
+    one, is cut alongside."""
+    facs, cre, cim = prod_op
+
+    def fn(v, ax, start, width):
+        f = tuple(m.narrow(0, start, width) if a == ax else m
+                  for a, m in zip(axes, facs))
+        return apply_prod_diag(v, f, cre, cim, rank, axes, planar, batched)
+
+    return fn
 
 
 def basis_state(plan: GroupPlan, index: int, device, planar: bool = True,
@@ -1395,17 +1536,27 @@ def get_group_plan(program: prog.CircuitProgram) -> GroupPlan:
     return plan
 
 
-def group_forward_body(program: prog.CircuitProgram, params, device,
-                       plain: bool = False) -> torch.Tensor:
-    """Forward pass through the group plan: complex64 state ``(2^n,)`` on
-    ``device`` (``plan.py:1556-1572``, with the all-real branch)."""
-    plan = build_group_plan(program)
+def group_forward_state_body(program: prog.CircuitProgram, params, device,
+                             plain: bool = False
+                             ) -> tuple[torch.Tensor, bool]:
+    """Forward pass returning ``(x, planar)``: the executor's grouped
+    state as it is, planar ``(2, *axis_sizes)`` float32 or, for an
+    all-real plan, real ``(*axis_sizes,)``. No complex copy is built
+    (``bigstate.py:323-360``)."""
+    plan = get_group_plan(program)
     operands = operands_to(build_group_operands(program, plan, params),
                            device)
     planar = not plan.all_real
     x = basis_state(plan, program.initial_index, device, planar)
-    x = execute_group_plan(plan, operands, program, params, x, planar,
-                           plain)
+    return execute_group_plan(plan, operands, program, params, x, planar,
+                              plain), planar
+
+
+def group_forward_body(program: prog.CircuitProgram, params, device,
+                       plain: bool = False) -> torch.Tensor:
+    """Forward pass through the group plan: complex64 state ``(2^n,)`` on
+    ``device`` (``plan.py:1556-1572``, with the all-real branch)."""
+    x, planar = group_forward_state_body(program, params, device, plain)
     if planar:
         return torch.complex(x[0], x[1]).reshape(-1)
     return x.reshape(-1).to(torch.complex64)
@@ -1458,14 +1609,22 @@ def categorical(weights: torch.Tensor,
 
 def apply_gate_grouped(x: torch.Tensor, u: torch.Tensor,
                        targets: tuple[int, ...], layout: GroupLayout,
-                       plain: bool = False) -> torch.Tensor:
+                       plain: bool = False,
+                       planar: bool = True) -> torch.Tensor:
     """Apply a (B, 2^k, 2^k) complex gate (B = 1 shared, or one per
-    trajectory) to a planar batched state ``(T, 2, *axis_sizes)``
-    (``plan.py:1387-1440``): a one-axis gate embeds into a dense operator
-    (the ``dense_axis`` kernel), a two-axis gate with a lone bit becomes a
-    cross operator (``cross_bit_axis``), anything else the flat segmented
-    einsum."""
+    trajectory) to a batched grouped state, planar ``(T, 2, *axis_sizes)``
+    or real ``(T, *axis_sizes)`` (then ``u``'s real part acts)
+    (``plan.py:1387-1440``, ``bigtraj.py:333-461``): a one-axis gate
+    embeds into a dense operator (the ``dense_axis`` kernel), a two-axis
+    gate with a lone bit becomes a cross operator (``cross_bit_axis``),
+    anything else is contracted against its exposed bits
+    (``apply_gate_bits``; chunk by chunk in place for a big state)."""
     T = x.shape[0]
+
+    def planes(m: torch.Tensor) -> torch.Tensor:
+        p = _t_planes(m, T)
+        return p if planar else p.select(1, 0)
+
     axes = sorted({layout.axis_of(q) for q in targets})
     if len(axes) == 1:
         ax = axes[0]
@@ -1474,13 +1633,15 @@ def apply_gate_grouped(x: torch.Tensor, u: torch.Tensor,
                                 tuple(layout.pos_in_axis(q) for q in qubits),
                                 layout.axis_bits[ax])
         dense = cuda_exec.dense_axis_plain if plain else cuda_exec.dense_axis
-        return dense(x.contiguous(), _t_planes(full, T), ax, True, True)
+        return dense(x.contiguous(), planes(full), ax, planar, True)
     by_axis: dict[int, list[int]] = {}
     for q in targets:
         by_axis.setdefault(layout.axis_of(q), []).append(q)
     lone = [ax for ax in axes if len(by_axis[ax]) == 1]
     if len(axes) == 2 and lone:
-        slice_axis = lone[0]
+        # both lone: the operator goes on the smaller axis, as the planner
+        # puts it
+        slice_axis = max(lone, key=lambda ax: layout.axis_sizes[ax])
         op_axis = axes[0] if axes[0] != slice_axis else axes[1]
         slice_q = by_axis[slice_axis][0]
         op_qubits = sorted(by_axis[op_axis],
@@ -1495,28 +1656,35 @@ def apply_gate_grouped(x: torch.Tensor, u: torch.Tensor,
         C = torch.stack([torch.stack(row, dim=1) for row in blocks], dim=1)
         cross = (cuda_exec.cross_bit_axis_plain if plain
                  else cuda_exec.cross_bit_axis)
-        return cross(x.contiguous(), _t_planes(C.permute(0, 1, 3, 2, 4), T),
-                     slice_axis, layout.pos_in_axis(slice_q), op_axis, True,
+        return cross(x.contiguous(), planes(C.permute(0, 1, 3, 2, 4)),
+                     slice_axis, layout.pos_in_axis(slice_q), op_axis, planar,
                      True)
-    flat = torch.complex(x[:, 0], x[:, 1]).reshape(T, -1)
-    if u.shape[0] != 1:
-        raise ValueError("a per-trajectory gate on three or more axes has "
-                         "no grouped form")
-    shaped = apply_gate(flat, u[0], targets, layout.num_qubits).reshape(
-        (T,) + tuple(layout.axis_sizes))
-    return torch.stack([shaped.real, shaped.imag], dim=1)
+    tbits = tuple((layout.axis_of(q), layout.pos_in_axis(q))
+                  for q in targets)
+    ub = u[0] if u.shape[0] == 1 else u
+
+    def fn(v):
+        return apply_gate_bits(v, ub, tbits, planar, True)
+
+    if is_big(x):
+        return apply_in_chunks(x, 1 + int(planar), set(axes), fn)
+    return fn(x)
 
 
 def apply_cphase_grouped(x: torch.Tensor, targets: tuple[int, ...],
-                         v: complex, layout: GroupLayout) -> torch.Tensor:
-    """Controlled-phase-form diagonal on a planar batched state: one
-    broadcast pass (``plan.py:1134-1150``)."""
+                         v: complex, layout: GroupLayout,
+                         planar: bool = True) -> torch.Tensor:
+    """Controlled-phase-form diagonal on a batched grouped state, planar
+    or real (then ``v`` is real): one broadcast pass
+    (``plan.py:1134-1150``), chunk by chunk in place for a big state."""
     facs = tuple(torch.from_numpy(m).to(x.device)
                  for _, m in _indicator_masks(targets, layout))
     axes = tuple(sorted({layout.axis_of(q) for q in targets}))
-    return apply_prod_diag(x, facs, float(np.real(v)) - 1.0,
-                           float(np.imag(v)), len(layout.axis_sizes), axes,
-                           True, True)
+    fn = _prod_chunk_fn((facs, float(np.real(v)) - 1.0, float(np.imag(v))),
+                        len(layout.axis_sizes), axes, planar, True)
+    if is_big(x):
+        return apply_in_chunks(x, 1 + int(planar), (), fn, sliced=True)
+    return fn(x, None, 0, 0)
 
 
 def _rho_q_grouped(x: torch.Tensor, q: int,

@@ -7,7 +7,9 @@ per-structure compile, so ``forward_fn`` always routes to the group
 executor (``ops/plan.py``) at every n; the JAX package routes there only
 on a TPU (``program.py:342``). The trajectory entry points
 (``batched_trajectories``, ``trajectory_fn``, ``steps_fn``) route noise
-to the splice bodies or the per-gate body (``trajectory_route``).
+to the splice bodies, the fold body or the per-gate body
+(``trajectory_route``), and ``monitored_trajectories`` routes mid-circuit
+measurement to the monomial splice or to the per-gate monitored body.
 
 The variational path has two bodies. ``forward_body`` is the per-gate
 body (``program.py:175-180, 351-354``): one ``apply_gate`` per op on a
@@ -29,7 +31,8 @@ import torch
 from ..config import CONFIG
 from ..gates import GateType
 from ..registry import GateRegistry
-from .apply import apply_cphase, apply_gate, basis_state_index
+from .apply import (apply_cphase, apply_gate, basis_state_index,
+                    collapse_qubit, prob_qubit_zero, probabilities)
 
 
 @dataclass(frozen=True)
@@ -233,14 +236,16 @@ def trajectory_route(program: CircuitProgram, noise_model) -> str:
       relaxation, any mix with the mixed-unitary family) splice as
       classical draws given one basis sample per window
       (``ops/monomial_traj.py``);
-    * ``"per-gate"``: ``plan.group_trajectory_body``. The JAX package
-      sends these channels to its per-gate fold executor (``bigtraj``,
-      ROADMAP Queue 1 item 6); the per-gate body draws from the same
-      sequential stochastic-Kraus law.
+    * ``"fold"``: any other channel, when every op has a fold applier:
+      one state pass per gate with its draws folded into the operator
+      (``bigtraj.fold_trajectory_body``);
+    * ``"per-gate"``: ``plan.group_trajectory_body``, for ops without a
+      fold applier (and for column snapshots, ``trajectory_fn``).
 
     The port takes the group path at every n, as its forward does; the
     JAX package's per-gate einsum body below n = 19 is a TPU compile-time
     choice with the same law (``program.py:329-336``)."""
+    from .bigtraj import fold_supported
     from .monomial_traj import monomial_insert_supported
     from .unitary_traj import unitary_insert_supported
 
@@ -248,6 +253,8 @@ def trajectory_route(program: CircuitProgram, noise_model) -> str:
         return "unitary"
     if monomial_insert_supported(program, noise_model):
         return "monomial"
+    if fold_supported(program):
+        return "fold"
     return "per-gate"
 
 
@@ -260,21 +267,18 @@ def batched_trajectories(program: CircuitProgram, noise_model, params,
     an earlier call with the same arguments replays its branches."""
     route = trajectory_route(program, noise_model)
     if route == "unitary":
-        from .unitary_traj import unitary_insert_trajectory_body
+        from .unitary_traj import unitary_insert_trajectory_body as body
+    elif route == "monomial":
+        from .monomial_traj import monomial_trajectory_body as body
+    elif route == "fold":
+        from .bigtraj import fold_trajectory_body as body
+    else:
+        from .plan import group_trajectory_body
 
-        return unitary_insert_trajectory_body(
-            program, noise_model, params, n_traj, device, generator, draws,
-            plain)
-    if route == "monomial":
-        from .monomial_traj import monomial_trajectory_body
-
-        return monomial_trajectory_body(program, noise_model, params,
-                                        n_traj, device, generator, draws,
-                                        plain)
-    from .plan import group_trajectory_body
-
-    return group_trajectory_body(program, noise_model, params, n_traj,
-                                 device, generator, draws, plain=plain)
+        return group_trajectory_body(program, noise_model, params, n_traj,
+                                     device, generator, draws, plain=plain)
+    return body(program, noise_model, params, n_traj, device, generator,
+                draws, plain)
 
 
 def batched_trajectories_fn(program: CircuitProgram, noise_model,
@@ -307,3 +311,104 @@ def steps_fn(program: CircuitProgram, device) -> Callable:
 
     return lambda params: group_trajectory_body(
         program, _NoNoise, params, 1, device, record_columns=True)[0][0]
+
+
+# ---------------------------------------------------------------------------
+# Monitored trajectories (mid-circuit measurement that collapses)
+# ---------------------------------------------------------------------------
+
+# From this many qubits on the JAX package's monitored path is the group
+# plan only (``program.py:336``); the port refuses the same inputs there.
+MONITORED_SPLICE_ONLY_MIN_QUBITS = 19
+
+
+def _apply_channel_stochastic(state: torch.Tensor, kraus: torch.Tensor,
+                              qubit: int, n: int, generator) -> torch.Tensor:
+    """One stochastic Kraus draw per row of a ``(T, 2^n)`` state: branch
+    probabilities from the qubit's reduced density matrix, one categorical
+    per trajectory, the drawn operator applied and the row rescaled
+    (``program.py:199-219``)."""
+    from .plan import categorical
+
+    st = state.reshape(state.shape[0], 1 << qubit, 2, -1)
+    rho = torch.einsum("taib,tajb->tij", st, st.conj())
+    norms = torch.einsum("mij,tjk,mik->tm", kraus, rho, kraus.conj()).real
+    idx = categorical(norms + 1e-30, generator)
+    out = torch.einsum("tij,tajb->taib", kraus[idx], st).reshape(state.shape)
+    p = norms.gather(1, idx[:, None]).clamp(min=1e-30)
+    return out * torch.rsqrt(p)
+
+
+def monitored_body(program: CircuitProgram, noise_model, events, params,
+                   n_traj: int, device, generator=None):
+    """``n_traj`` monitored trajectories gate by gate on the flat complex
+    state (``program.py:229-276``). ``events`` is a static list of
+    ``(op_position, qubit)``: the measurement fires after exactly
+    ``op_position`` ops, with one uniform per event and trajectory, and
+    collapses its qubit; each gate's channels are drawn after it. Returns
+    ``(states (T, 2^n) complex64, outcomes (T, M) int64)``. No kernel is
+    involved: this body serves what the monomial splice cannot (other
+    channels), at small n."""
+    n = program.num_qubits
+    channels_for = noise_model.kraus_stacks_for_gate
+    state = torch.zeros((n_traj, 1 << n), dtype=torch.complex64,
+                        device=device)
+    state[:, program.initial_index] = 1.0
+    outcomes = torch.zeros((n_traj, len(events)), dtype=torch.long,
+                           device=device)
+    ev_i = 0
+    for pos in range(len(program.ops) + 1):
+        while ev_i < len(events) and events[ev_i][0] == pos:
+            q = events[ev_i][1]
+            p0 = prob_qubit_zero(state, q, n)
+            total = probabilities(state).sum(-1).clamp(min=1e-30)
+            u = torch.rand(n_traj, device=device, generator=generator)
+            bit = (u >= p0 / total).long()
+            state = collapse_qubit(state, q, bit, n)
+            outcomes[:, ev_i] = bit
+            ev_i += 1
+        if pos == len(program.ops):
+            break
+        op = program.ops[pos]
+        if op.cphase_value is not None:
+            state = apply_cphase(state, op.targets, op.cphase_value, n)
+        else:
+            state = apply_gate(state, program.op_matrix(
+                op, params, np.complex64), op.targets, n)
+        for kraus_np in channels_for(op.gate_name):
+            kraus = torch.from_numpy(np.asarray(
+                kraus_np, dtype=np.complex64)).to(device)
+            for q in op.targets:
+                state = _apply_channel_stochastic(state, kraus, q, n,
+                                                  generator)
+    return state, outcomes
+
+
+def monitored_trajectories(program: CircuitProgram, noise_model, events,
+                           params, n_traj: int, device, generator=None,
+                           plain: bool = False):
+    """``(states (T, 2^n) complex64, outcomes (T, M) int64)`` of
+    ``n_traj`` monitored trajectories in one batch
+    (``program.py:453-492``): the monomial splice through the group plan,
+    every dense and cross step one batched kernel launch, wherever the
+    noise channels are monomial (always for the reference channel family
+    and for noise-free circuits); the per-gate body otherwise, which the
+    JAX package offers below n = 19 only."""
+    from .monomial_traj import (monomial_insert_supported,
+                                monomial_monitored_body)
+
+    nm = noise_model if noise_model is not None else _NoNoise
+    events = tuple(events)
+    if monomial_insert_supported(program, nm, events):
+        states, outcomes, _ = monomial_monitored_body(
+            program, nm, events, params, n_traj, device, generator,
+            plain=plain)
+        return states, outcomes
+    if program.num_qubits >= MONITORED_SPLICE_ONLY_MIN_QUBITS:
+        raise ValueError(
+            "monitored group path needs monomial Kraus channels "
+            "(the reference channel family); this noise model has "
+            "a non-monomial custom channel — use MPSSimulator / "
+            "Clifford monitored engines or n <= 18")
+    return monitored_body(program, nm, events, params, n_traj, device,
+                          generator)

@@ -18,9 +18,9 @@ operands are built on the device with a leading trajectory axis
 is one batched kernel launch. ``branch`` replays given draws (the tests
 feed the JAX package's).
 
-Left behind: the interactive skeleton path (``interactive_trajectory_fn``)
-and the chunked n >= 30 path (``unitary_insert_evolve``, ROADMAP Queue 1
-item 6).
+``unitary_insert_evolve`` is the n >= 30 form: it evolves a provided
+grouped state and builds no complex result. Left behind: the interactive
+skeleton path (``interactive_trajectory_fn``).
 """
 
 from __future__ import annotations
@@ -33,6 +33,7 @@ import torch
 from . import program as prog
 from .bigtraj import phase_real_stack, trajectory_is_real
 from .plan import (
+    GenericStep,
     OperandOverrides,
     basis_state,
     build_group_operands_batched,
@@ -272,3 +273,43 @@ def unitary_insert_trajectory_body(program, noise_model, params,
     x = execute_group_plan(plan, operands, aug, params, x, planar, plain,
                            batched=True)
     return finalize(x, planar), branch
+
+
+def unitary_insert_evolve_ok(program, noise_model) -> bool:
+    """Gate of the n >= 30 splice route: mixed-unitary noise and no
+    ``GenericStep`` in the spliced plan (``unitary_traj.py:206-222``). A
+    ``GenericStep`` would make the plan planar while the caller built the
+    state from ``trajectory_is_real``; such circuits stay on the fold
+    executor, whose bit contraction serves dense gates across three
+    groups."""
+    spec = unitary_insert_spec(program, noise_model)
+    if spec is None:
+        return False
+    return not any(isinstance(s, GenericStep)
+                   for s in get_group_plan(spec.aug).steps)
+
+
+def unitary_insert_evolve(program, noise_model, params, x: torch.Tensor,
+                          generator: torch.Generator | None = None,
+                          branch: torch.Tensor | None = None,
+                          plain: bool = False):
+    """Splice evolution of a provided batched grouped state, real ``(T,
+    *axes)`` or planar ``(T, 2, *axes)`` as the spliced plan says: the
+    n >= 30 form of ``unitary_insert_trajectory_body``
+    (``unitary_traj.py:379-418``). Returns ``(x, branch)`` and builds no
+    complex result. No renormalization: every spliced operator is exactly
+    unitary, so the norm drifts by fp32 rounding only."""
+    spec = unitary_insert_spec(program, noise_model)
+    if spec is None:
+        raise ValueError("noise model has channels that are not "
+                         "mixed-unitary; use bigtraj.huge_trajectory_evolve")
+    n_traj = x.shape[0]
+    if branch is None:
+        branch = draw_branches(spec, n_traj, x.device, generator)
+    plan = get_group_plan(spec.aug)
+    operands = build_group_operands_batched(
+        spec.aug, plan, params, n_traj, x.device,
+        branch_overrides(spec, branch))
+    x = execute_group_plan(plan, operands, spec.aug, params, x,
+                           not plan.all_real, plain, batched=True)
+    return x, branch

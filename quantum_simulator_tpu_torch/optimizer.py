@@ -48,6 +48,7 @@ from .config import CONFIG
 from .gates import I_MATRIX, X_MATRIX, Y_MATRIX, Z_MATRIX
 from .ops import program as prog
 from .ops.apply import apply_gate
+from .ops.bigstate import HUGE_MIN_QUBITS
 from .ops.plan import group_batched_forward
 from .registry import GateRegistry
 from .simulator import Simulator, param_rows_per_batch
@@ -55,9 +56,10 @@ from .state import StateVector
 
 _PAULI_NP = {"I": I_MATRIX, "X": X_MATRIX, "Y": Y_MATRIX, "Z": Z_MATRIX}
 
-# From this size on costs take one row at a time through Simulator.run,
-# and reverse mode is refused (several whole states would be resident).
-HUGE_QUBITS = 30
+# From the huge threshold on costs take one row at a time through
+# Simulator.run (whose state is then a PlanarStateVector), and reverse
+# mode is refused (several whole states would be resident).
+HUGE_QUBITS = HUGE_MIN_QUBITS
 
 
 # ---------------------------------------------------------------------------

@@ -14,9 +14,17 @@ kernel launch (``ops/program.batched_trajectories``). Batches are cut to
 ``TRAJECTORY_MEMORY_BYTES``, a budget on the card covering the batch's
 states, results and batched operands (``_chunk_size``).
 
-Not ported yet: ``monitored_trajectories`` (ROADMAP Queue 1, item 5b) and
-noisy runs at the sizes where the JAX package takes its chunked huge-state
-path, n >= 30 (item 6).
+``monitored_trajectories`` collapses mid-circuit ``Measure`` gates, in
+batches through the monomial splice wherever the noise allows it.
+
+From n = 30 on (``ops/bigstate.HUGE_MIN_QUBITS``) a state is never copied
+into complex form: ``run`` returns a ``PlanarStateVector`` over the
+executor's grouped float32 tensor and samples it with the two-level
+sampler, ``run_step_by_step`` yields ``MarginalStateSummary`` snapshots,
+``run_with_noise`` returns counts with ``final_state=None``, and
+``monitored_trajectories`` returns count dicts in place of states. What
+would keep a state per column or per trajectory there is refused with a
+``ValueError`` before anything is allocated.
 """
 
 from __future__ import annotations
@@ -29,15 +37,16 @@ import torch
 
 from .circuit import QuantumCircuit
 from .config import CONFIG
+from .gates import GateType
 from .measurement import (MeasurementBasis, MeasurementEngine,
                           counts_from_array, sample_rows)
+from .ops import bigstate
 from .ops import program as prog
+from .ops.bigstate import (MarginalStateSummary, PlanarStateVector,
+                           indices_to_counts)
+from .registry import GateRegistry
 from .state import StateVector
 from .utils.seeding import generator_from_rng
-
-# Noisy runs stop below the JAX package's huge-state regime: its
-# ``bigstate.auto_chunks`` chunks a planar state from n = 30 on.
-NOISY_MAX_QUBITS = 29
 
 # Device bytes a batch of trajectories or of parameter rows may take at
 # its peak (states, results and batched operands): a fifth of an 80 GB
@@ -49,12 +58,18 @@ TRAJECTORY_MEMORY_BYTES = 16 * 2**30
 class SimulationResult:
     """Result of a full simulation run."""
 
-    final_state: StateVector
+    final_state: StateVector | PlanarStateVector | None
     measurement_counts: dict[str, int]
     step_states: list[StateVector] | None = None
     num_shots: int = 1024
     seed: int | None = None
     reference_state: StateVector | None = None
+
+
+def _is_huge(circuit: QuantumCircuit) -> bool:
+    """The one routing predicate of the n >= 30 regime, shared by ``run``
+    and by the guards of what keeps whole states."""
+    return bigstate.is_huge(circuit.num_qubits)
 
 
 def _check_amplitude_cap(circuit: QuantumCircuit) -> None:
@@ -87,7 +102,10 @@ def _chunk_size(program, noise_model, n_traj: int) -> int:
     temporary (basis sampling, reductions), its complex64 result, and
     four times its operands: the batched build holds the kron chains and
     compositions beside the finished operands (3.2x measured at n=16
-    depth-40 on an H100, ``chip_smoke.py`` phase 4b)."""
+    depth-40 on an H100, ``chip_smoke.py`` phase 4b). Its regime ends at
+    n = 29, where it has long returned 1 (a planar n = 28 trajectory
+    already reckons 6 GiB): the n >= 30 paths run one trajectory at a time
+    on one grouped state and do not come here."""
     from .ops import plan as gplan
 
     route = prog.trajectory_route(program, noise_model)
@@ -141,12 +159,19 @@ class Simulator:
     def _readout_error(self):
         return getattr(self._noise_model, "readout_error", None)
 
-    def _check_noisy_size(self, circuit: QuantumCircuit, what: str) -> None:
-        if circuit.num_qubits > NOISY_MAX_QUBITS:
-            raise NotImplementedError(
-                f"{what} at n = {circuit.num_qubits} is not ported yet: the "
-                f"chunked huge-state trajectory paths (n > "
-                f"{NOISY_MAX_QUBITS}) are ROADMAP Queue 1 item 6")
+    @staticmethod
+    def _reject_huge(circuit: QuantumCircuit, what: str) -> None:
+        """A state per column or per trajectory is a whole complex buffer
+        each: refused at n >= 30, before anything is allocated."""
+        if _is_huge(circuit):
+            raise ValueError(
+                f"{what} retains whole-state complex buffers and cannot "
+                f"fit a {circuit.num_qubits}-qubit state on one chip; "
+                "use Simulator.run (chunked huge-state path) or the "
+                "sharded engine (parallel.DistributedSimulator)")
+
+    def _generator(self, rng: np.random.Generator) -> torch.Generator:
+        return generator_from_rng(rng, self._device)
 
     # ------------------------------------------------------------------
     # Core runs
@@ -160,15 +185,15 @@ class Simulator:
             ) -> SimulationResult:
         """Apply all gates, then sample. With noise channels this follows
         ONE stochastic trajectory (use ``run_with_noise`` for a trajectory
-        per shot); ``record_steps`` keeps the state after each column."""
+        per shot); ``record_steps`` keeps the state after each column.
+        At n >= 30 ``final_state`` is a ``PlanarStateVector``."""
         _check_amplitude_cap(circuit)
-        noisy = self._noisy()
-        if noisy:
-            self._check_noisy_size(circuit, "a noisy run")
-        if record_steps:
-            self._check_noisy_size(circuit, "record_steps")
         if rng is None:
             rng = np.random.default_rng(seed)
+        if _is_huge(circuit):
+            return self._run_huge(circuit, shots, record_steps, seed, rng,
+                                  measurement_basis)
+        noisy = self._noisy()
         n = circuit.num_qubits
         program = prog.compile_circuit(circuit)
         params = program.initial_params
@@ -177,8 +202,7 @@ class Simulator:
             if noisy:
                 stacked = prog.trajectory_fn(
                     program, self._noise_model, self._device,
-                    record_columns=True)(
-                        params, generator_from_rng(rng, self._device))
+                    record_columns=True)(params, self._generator(rng))
             else:
                 stacked = prog.steps_fn(program, self._device)(params)
             step_states = [StateVector.from_tensor(stacked[i], n)
@@ -187,7 +211,7 @@ class Simulator:
         elif noisy:
             final_arr = prog.trajectory_fn(
                 program, self._noise_model, self._device)(
-                    params, generator_from_rng(rng, self._device))
+                    params, self._generator(rng))
         else:
             final_arr = prog.forward_fn(program, self._device)(params)
         final = StateVector.from_tensor(final_arr, n)
@@ -203,21 +227,130 @@ class Simulator:
                                 step_states=step_states, num_shots=shots,
                                 seed=seed)
 
+    def _run_huge(self, circuit: QuantumCircuit, shots: int,
+                  record_steps: bool, seed: int | None,
+                  rng: np.random.Generator,
+                  measurement_basis: MeasurementBasis) -> SimulationResult:
+        """The n >= 30 path (``simulator.py:209-299``): the executor's
+        grouped state as it is, the two-level sampler, a
+        ``PlanarStateVector`` result. An X or Y basis is sampled first, on
+        a run of the circuit with the rotation gates appended, and that
+        state freed before the final state is made."""
+        from .ops.plan import group_forward_state_body
+
+        if record_steps:
+            raise ValueError(
+                f"record_steps would retain one {circuit.num_qubits}-qubit "
+                "state per column; not supported on the single-chip "
+                "huge-state path (run_step_by_step yields marginal "
+                "snapshots instead).")
+        program = prog.compile_circuit(circuit)
+        if self._noisy():
+            return self._run_huge_noisy(circuit, program, shots, seed, rng,
+                                        measurement_basis)
+        n = circuit.num_qubits
+
+        def forward(p):
+            return group_forward_state_body(p, p.initial_params,
+                                            self._device)
+
+        counts: dict[str, int] = {}
+        if shots > 0 and measurement_basis != MeasurementBasis.Z:
+            rotated = circuit.copy()
+            col = rotated.get_column_count()
+            for q in range(n):
+                if measurement_basis == MeasurementBasis.Y:
+                    rotated.add("S_DAG", [q], [], col)
+                    rotated.add("H", [q], [], col + 1)
+                else:
+                    rotated.add("H", [q], [], col)
+            xs, rplanar = forward(prog.compile_circuit(rotated))
+            counts = indices_to_counts(bigstate.sample_state_indices(
+                xs, shots, rplanar, self._generator(rng)), n)
+            del xs
+        x, planar = forward(program)
+        if shots > 0 and measurement_basis == MeasurementBasis.Z:
+            counts = indices_to_counts(bigstate.sample_state_indices(
+                x, shots, planar, self._generator(rng)), n)
+        final = PlanarStateVector(
+            x, n, planar=planar,
+            axis_marginals=bigstate.state_axis_marginals(x, planar))
+        readout = self._readout_error()
+        if counts and readout is not None:
+            # shot mode works on the sparse counts; the distribution
+            # transform would need the dense 2^n vector
+            counts = readout.corrupt_counts(counts, rng)
+        return SimulationResult(final_state=final, measurement_counts=counts,
+                                step_states=None, num_shots=shots, seed=seed)
+
+    def _run_huge_noisy(self, circuit: QuantumCircuit, program, shots: int,
+                        seed: int | None, rng: np.random.Generator,
+                        measurement_basis: MeasurementBasis
+                        ) -> SimulationResult:
+        """One stochastic trajectory at n >= 30 (``simulator.py:301-354``)
+        through the splice or fold evolution of ``ops/bigtraj.py``. An X
+        or Y basis is sampled on the rotated state first; the same draws
+        then give the unrotated state."""
+        from .ops.bigtraj import huge_trajectory_sample_fn
+
+        params = program.initial_params
+        traj_gen = self._generator(rng)
+        sample_gen = self._generator(rng)
+        basis = measurement_basis.name
+        n = circuit.num_qubits
+        nm = self._noise_model
+        counts: dict[str, int] = {}
+        draws = None
+        if shots > 0 and basis != "Z":
+            fn, _ = huge_trajectory_sample_fn(program, nm, shots,
+                                              self._device, basis=basis)
+            out = fn(params, traj_gen, sample_gen)
+            counts = indices_to_counts(out.indices, n)
+            draws = out.draws
+            del out
+            shots_z = 0
+        else:
+            shots_z = shots
+        fn, planar = huge_trajectory_sample_fn(program, nm, shots_z,
+                                               self._device, keep_state=True)
+        out = fn(params, traj_gen, sample_gen, draws)
+        if out.indices is not None:
+            counts = indices_to_counts(out.indices, n)
+        readout = self._readout_error()
+        if counts and readout is not None:
+            counts = readout.corrupt_counts(counts, rng)
+        final = PlanarStateVector(out.state, n, planar=planar,
+                                  axis_marginals=out.marginals)
+        return SimulationResult(final_state=final, measurement_counts=counts,
+                                step_states=None, num_shots=shots, seed=seed)
+
     def run_step_by_step(self, circuit: QuantumCircuit,
                          rng: np.random.Generator | None = None
                          ) -> Generator[tuple[StateVector, int], None, None]:
         """Yields (state, column_index), the initial state at -1; with
-        noise, the columns of one stochastic trajectory."""
+        noise, the columns of one stochastic trajectory. At n >= 30 the
+        snapshots are ``MarginalStateSummary`` objects (per-axis
+        probability marginals, hence per-qubit P(1)): the state evolves in
+        place and only the marginals leave the device."""
         _check_amplitude_cap(circuit)
-        self._check_noisy_size(circuit, "run_step_by_step")
+        if _is_huge(circuit):
+            if self._noisy():
+                raise ValueError(
+                    "step-by-step with noise retains per-column "
+                    "trajectory state; at n >= 30 use Simulator.run "
+                    "(single noisy trajectory) or run_with_noise")
+            program = prog.compile_circuit(circuit)
+            fn, _ = bigstate.huge_step_marginals_fn(program, self._device)
+            for i, marg in enumerate(fn(program.initial_params)):
+                yield MarginalStateSummary(marg, circuit.num_qubits), i - 1
+            return
         program = prog.compile_circuit(circuit)
         params = program.initial_params
         if self._noisy():
             rng = rng or np.random.default_rng()
             stacked = prog.trajectory_fn(
                 program, self._noise_model, self._device,
-                record_columns=True)(
-                    params, generator_from_rng(rng, self._device))
+                record_columns=True)(params, self._generator(rng))
         else:
             stacked = prog.steps_fn(program, self._device)(params)
         for i in range(stacked.shape[0]):
@@ -235,7 +368,7 @@ class Simulator:
         ``n_traj`` trajectories; without channels, the ideal state
         repeated (``simulator.py:475-477``)."""
         _check_amplitude_cap(circuit)
-        self._check_noisy_size(circuit, "noisy trajectories")
+        self._reject_huge(circuit, "trajectory_states")
         program = prog.compile_circuit(circuit)
         params = program.initial_params
         if not self._noisy():
@@ -245,7 +378,7 @@ class Simulator:
             for start in range(0, n_traj, chunk):
                 yield state.expand(min(chunk, n_traj - start), -1)
             return
-        gen = generator_from_rng(rng, self._device)
+        gen = self._generator(rng)
         fn = prog.batched_trajectories_fn(program, self._noise_model,
                                           self._device)
         chunk = _chunk_size(program, self._noise_model, n_traj)
@@ -276,10 +409,96 @@ class Simulator:
                                n_trajectories: int = 16,
                                seed: int | None = None,
                                final_shots: int | None = None):
-        raise NotImplementedError(
-            "monitored_trajectories is not ported yet: mid-circuit "
-            "collapse (the monomial events path, program._monitored_body, "
-            "apply.collapse_qubit) is ROADMAP Queue 1 item 5b")
+        """T independent monitored trajectories: ``Measure`` gates
+        collapse mid-circuit (projective draw and renormalization) instead
+        of being skipped, with this simulator's noise channels between
+        them (``simulator.py:484-574``). Returns ``(outcomes (T, M) int
+        array in Measure column order, sites [(column, qubit)] * M, a list
+        of T final StateVectors)``.
+
+        The collapses run as spliced projectors through the group plan, in
+        batches with one kernel launch per dense and cross step, whenever
+        the noise channels are monomial; other channels take the per-gate
+        body below n = 19. At n >= 30 the third element is a list of T
+        Z-basis count dicts of ``final_shots`` shots each (``[]`` without
+        ``final_shots``), and noise must be monomial; ``final_shots`` is
+        rejected below n = 30, where the returned states carry the
+        amplitudes."""
+        _check_amplitude_cap(circuit)
+        if final_shots is not None and not _is_huge(circuit):
+            raise ValueError(
+                "final_shots is the n >= 30 replacement for returned "
+                "states; below the huge threshold sample the returned "
+                "StateVectors instead")
+        program = prog.compile_circuit(circuit)
+        registry = GateRegistry.instance()
+        events: list[tuple[int, int]] = []
+        sites: list[tuple[int, int]] = []
+        pos = 0
+        for column in circuit.get_ordered_gates():
+            for gate in column:
+                gtype = registry.get(gate.gate_name).gate_type
+                if gtype == GateType.MEASUREMENT:
+                    events.append((pos, gate.target_qubits[0]))
+                    sites.append((gate.column, gate.target_qubits[0]))
+                elif gtype != GateType.BARRIER:
+                    pos += 1
+        noise = self._noise_model if self._noisy() else None
+        if _is_huge(circuit):
+            return self._monitored_huge(circuit, program, noise,
+                                        tuple(events), sites,
+                                        n_trajectories, seed,
+                                        final_shots or 0)
+        rng = np.random.default_rng(seed)
+        gen = self._generator(rng)
+        params = program.initial_params
+        chunk = _chunk_size(program, noise or prog._NoNoise, n_trajectories)
+        n = circuit.num_qubits
+        states_out: list[StateVector] = []
+        outs_parts: list[np.ndarray] = []
+        for start in range(0, n_trajectories, chunk):
+            take = min(chunk, n_trajectories - start)
+            states, outs = prog.monitored_trajectories(
+                program, noise, events, params, take, self._device, gen)
+            outs_parts.append(outs.cpu().numpy())
+            states_out.extend(StateVector.from_tensor(states[i], n)
+                              for i in range(take))
+        outcomes = (np.concatenate(outs_parts, axis=0) if outs_parts
+                    else np.zeros((0, len(events)), np.int64))
+        return outcomes, sites, states_out
+
+    def _monitored_huge(self, circuit: QuantumCircuit, program, noise,
+                        events: tuple, sites, n_trajectories: int,
+                        seed: int | None, final_shots: int):
+        """n >= 30 monitored trajectories, one at a time
+        (``simulator.py:356-391``): collapse through the monomial splice,
+        then Z-basis sampling; only the outcomes and the shot indices
+        leave the device. Third element: one counts dict per
+        trajectory."""
+        from .ops.bigtraj import huge_monitored_sample_fn
+        from .ops.monomial_traj import monomial_monitored_evolve_ok
+
+        nm = noise if noise is not None else prog._NoNoise
+        if not monomial_monitored_evolve_ok(program, nm, events):
+            raise ValueError(
+                "huge (n >= 30) monitored trajectories need monomial "
+                "noise channels (the reference family) or no noise; "
+                "use MPSSimulator / CliffordSimulator monitored engines "
+                "for other channels")
+        fn, _ = huge_monitored_sample_fn(program, nm, events, final_shots,
+                                         self._device)
+        rng = np.random.default_rng(seed)
+        params = program.initial_params
+        outs_rows: list[np.ndarray] = []
+        counts_list: list[dict[str, int]] = []
+        for _ in range(n_trajectories):
+            outs, idx = fn(params, self._generator(rng),
+                           self._generator(rng))
+            if idx is not None:
+                counts_list.append(indices_to_counts(idx,
+                                                     circuit.num_qubits))
+            outs_rows.append(outs.cpu().numpy())
+        return np.stack(outs_rows), sites, counts_list
 
     def run_with_noise(self, circuit: QuantumCircuit, shots: int = 1024,
                        seed: int | None = None,
@@ -290,13 +509,18 @@ class Simulator:
         batches on the device (``simulator.py:576-642``); with
         ``trajectories < shots``, T trajectories each sampled about
         shots / T times. Counts are readout-corrupted; ``final_state`` is
-        the initial basis state, as in the reference."""
+        the initial basis state, as in the reference. At n >= 30 one
+        trajectory is a run of whole-state passes, so ``trajectories``
+        defaults to ``min(shots, 16)`` there, and ``final_state`` is None
+        (even the placeholder would be a state)."""
         _check_amplitude_cap(circuit)
         if self._noise_model is None:
             return self.run(circuit, shots, seed=seed, rng=rng)
-        self._check_noisy_size(circuit, "run_with_noise")
         if rng is None:
             rng = np.random.default_rng(seed)
+        if _is_huge(circuit) and self._noisy():
+            return self._run_with_noise_huge(circuit, shots, seed, rng,
+                                             trajectories)
         T = shots if trajectories is None \
             else max(1, min(shots, trajectories))
         n = circuit.num_qubits
@@ -307,7 +531,7 @@ class Simulator:
         start = 0
         for states in self._trajectory_batches(circuit, T, rng):
             if gen is None:
-                gen = generator_from_rng(rng, self._device)
+                gen = self._generator(rng)
             probs = states.real.square() + states.imag.square()
             probs = probs / probs.sum(-1, keepdim=True)
             take = base + (1 if extra else 0)
@@ -329,6 +553,38 @@ class Simulator:
                 circuit.initial_states, device=self._device),
             measurement_counts=all_counts, num_shots=shots, seed=seed)
 
+    def _run_with_noise_huge(self, circuit: QuantumCircuit, shots: int,
+                             seed: int | None, rng: np.random.Generator,
+                             trajectories: int | None) -> SimulationResult:
+        """n >= 30 (``simulator.py:644-687``): T trajectories one after
+        the other, the shots spread over all of them (the first
+        ``shots % T`` take one more); only shot indices leave the
+        device."""
+        from .ops.bigtraj import huge_trajectory_sample_fn
+
+        program = prog.compile_circuit(circuit)
+        params = program.initial_params
+        T = max(1, min(shots, trajectories or min(shots, 16)))
+        base, extra = divmod(shots, T)
+        all_idx: list[np.ndarray] = []
+        for i in range(T if shots > 0 else 0):
+            take = base + (1 if i < extra else 0)
+            if take == 0:
+                break
+            fn, _ = huge_trajectory_sample_fn(program, self._noise_model,
+                                              take, self._device)
+            out = fn(params, self._generator(rng), self._generator(rng))
+            all_idx.append(out.indices.cpu().numpy())
+        counts: dict[str, int] = {}
+        if all_idx:
+            counts = indices_to_counts(torch.from_numpy(
+                np.concatenate(all_idx)), circuit.num_qubits)
+        readout = self._readout_error()
+        if counts and readout is not None:
+            counts = readout.corrupt_counts(counts, rng)
+        return SimulationResult(final_state=None, measurement_counts=counts,
+                                num_shots=shots, seed=seed)
+
     def ensemble_density_matrix(self, circuit: QuantumCircuit,
                                 n_trials: int = 50,
                                 seed: int | None = None) -> np.ndarray:
@@ -346,9 +602,27 @@ class Simulator:
                                         seed: int | None = None
                                         ) -> np.ndarray:
         """(n, 2, 2) ensemble-averaged single-qubit reduced density
-        matrices over N stochastic trajectories, complex128 on the host."""
+        matrices over N stochastic trajectories, complex128 on the host;
+        at n >= 30 from per-axis Gram reductions of one trajectory at a
+        time (``simulator.py:723-742``)."""
+        _check_amplitude_cap(circuit)
         rng = np.random.default_rng(seed)
         n = circuit.num_qubits
+        if _is_huge(circuit):
+            from .ops.bigtraj import (huge_trajectory_gram_fn,
+                                      qubit_rhos_from_grams)
+
+            nm = self._noise_model
+            if not self._noisy():
+                nm = prog._NoNoise   # a channel-free trajectory: the ideal run
+                n_trials = 1
+            program = prog.compile_circuit(circuit)
+            fn, _ = huge_trajectory_gram_fn(program, nm, self._device)
+            acc = np.zeros((n, 2, 2), np.complex128)
+            for _ in range(n_trials):
+                acc += qubit_rhos_from_grams(
+                    fn(program.initial_params, self._generator(rng)), n)
+            return acc / n_trials
         acc = torch.zeros((n, 2, 2), dtype=torch.complex64,
                           device=self._device)
         for states in self._trajectory_batches(circuit, n_trials, rng):

@@ -496,3 +496,100 @@ def test_gradients_on_cuda(cuda, kind):
     np.testing.assert_allclose(grad, plain, atol=1e-4)
     _, ad = topt.GradientEstimator.autodiff(cfg, cost, values, device="cuda")
     np.testing.assert_allclose(ad, grad, atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# Large states (n >= 30)
+# ---------------------------------------------------------------------------
+
+def test_simulator_run_n30_holds_under_two_states(cuda):
+    """``Simulator.run`` at n = 30 returns the executor's planar state as
+    it is: its peak stays under 1.75x the 8 GiB state (a complex copy, a
+    full probability vector or a 2^n histogram would each break that)."""
+    from quantum_simulator_tpu_torch import PlanarStateVector
+
+    circuit = QuantumCircuit.from_dict(
+        build_circuit_dict(30, 4, seed=1, mix_rz=True))
+    program = tprog.compile_circuit(circuit)
+    plan = tplan.get_group_plan(program)
+    assert not plan.all_real
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_exec.reset_launch_counts()
+    res = Simulator(device="cuda").run(circuit, shots=4096, seed=0)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    fs = res.final_state
+    assert isinstance(fs, PlanarStateVector) and fs.is_planar
+    assert peak < 1.75 * (8 << 30), peak / 2**30
+    assert sum(res.measurement_counts.values()) == 4096
+    assert abs(fs.norm_sq() - 1.0) < 1e-4
+    n_dense = sum(isinstance(s, tplan.AxisMatmulStep) for s in plan.steps)
+    n_cross = sum(isinstance(s, tplan.CrossStep) for s in plan.steps)
+    assert cuda_exec.dense_axis.launches == n_dense
+    assert cuda_exec.cross_bit_axis.launches == n_cross
+
+
+def test_sampler_returns_indices_beyond_int32(cuda):
+    """A real n = 32 state (2^32 amplitudes, 16 GiB) whose weight sits in
+    the upper half: every drawn index is above 2^31 - 1, lands on a
+    weighted entry, and follows the weights."""
+    from quantum_simulator_tpu_torch.ops import bigstate
+
+    shape = (16, 128, 128, 128, 128)
+    x = torch.zeros(shape, device=cuda)
+    flat = x.reshape(-1)
+    marks = torch.tensor([2**31, 2**31 + 12345, 3 * 2**30 + 7, 2**32 - 1],
+                         device=cuda)
+    flat[marks] = torch.tensor([1.0, -2.0, 0.5, 1.5], device=cuda)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    idx = bigstate.sample_state_indices(x, 20000, False, gen)
+    assert idx.dtype == torch.int64
+    assert int(idx.min()) >= 2**31
+    vals, counts = torch.unique(idx, return_counts=True)
+    assert vals.tolist() == marks.tolist()
+    want = torch.tensor([1.0, 4.0, 0.25, 2.25]) / 7.5
+    assert float((counts.cpu() / 20000 - want).abs().max()) < 0.02
+    assert bigstate.indices_to_counts(idx[:1], 32).popitem()[0][0] == "1"
+
+
+def test_fold_trajectory_n30_launches_one_kernel_per_gate(cuda):
+    """One fold-executor trajectory at n = 30 (a channel that is neither
+    mixed-unitary nor monomial): every gate with its draws is one launch,
+    on one 4 GiB real state."""
+    from quantum_simulator_tpu_torch import (AmplitudeDampingNoise,
+                                             NoiseChannel, NoiseModel)
+    from quantum_simulator_tpu_torch.ops import bigtraj
+
+    class XDamp(NoiseChannel):
+        @property
+        def probability(self):
+            return 0.05
+
+        def get_kraus_operators(self):
+            h = np.array([[1.0, 1.0], [1.0, -1.0]]) / np.sqrt(2.0)
+            return [h @ np.asarray(k) @ h for k in
+                    AmplitudeDampingNoise(0.05).get_kraus_operators()]
+
+    nm = NoiseModel()
+    nm.add_global_noise(XDamp())
+    program = tprog.compile_circuit(
+        QuantumCircuit.from_dict(build_circuit_dict(30, 2, seed=2)))
+    assert bigtraj.trajectory_evolve_route(program, nm) == "fold"
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_exec.reset_launch_counts()
+    x, planar, draws = bigtraj.huge_trajectory_state_body(
+        program, nm, program.initial_params, 1, "cuda", gen)
+    torch.cuda.synchronize()
+    launches = cuda_exec.dense_axis.launches + \
+        cuda_exec.cross_bit_axis.launches
+    assert launches == len(program.ops)
+    assert not planar and tuple(x.shape) == (1, 4, 128, 128, 128, 128)
+    assert torch.cuda.max_memory_allocated() < 1.75 * (4 << 30)
+    assert abs(float(bigtraj.batched_norm_sq(x)[0]) - 1.0) < 1e-4
+    # one draw per gate target (one one-qubit channel on every gate)
+    assert draws.shape == (1, sum(len(op.targets) for op in program.ops))

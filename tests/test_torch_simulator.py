@@ -24,6 +24,7 @@ from quantum_simulator_tpu_torch import (CONFIG, GateInstance,
                                          QuantumCircuit, Simulator,
                                          StateVector)
 from quantum_simulator_tpu_torch import measurement as tmeas
+from quantum_simulator_tpu_torch import simulator as tsim
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHOTS = 8192
@@ -162,9 +163,12 @@ def test_config_defaults_and_tf32_off():
 
 
 def test_noise_and_step_recording_not_ported_yet():
-    """Noise and step recording run below n = 30; at the sizes where the
-    JAX package takes its chunked huge-state paths they are refused, before
-    any state is allocated."""
+    """The name is from the slice that refused all of n >= 30. What is
+    still refused there is what the JAX package refuses
+    (``simulator.py:225-230, 401-412, 427-432``): a state kept per column
+    or per trajectory. It raises ``ValueError`` before anything is
+    allocated (an n = 30 state is no CPU test, so each call here must
+    fail fast)."""
     from quantum_simulator_tpu_torch import DepolarizingNoise, NoiseModel
 
     nm = NoiseModel()
@@ -173,24 +177,103 @@ def test_noise_and_step_recording_not_ported_yet():
     assert sim.device == "cpu"
     c = QuantumCircuit(30)
     c.add("H", [0])
-    for call in (lambda: sim.run(c, shots=4),
-                 lambda: sim.trajectory_states(c, 2, seed=0),
-                 lambda: sim.run_with_noise(c, shots=4, seed=0),
-                 lambda: sim.ensemble_qubit_density_matrices(c, 2, seed=0),
-                 lambda: next(sim.run_step_by_step(c)),
-                 lambda: Simulator(device="cpu").run(c, record_steps=True)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    refused = {
+        "trajectory_states": lambda: sim.trajectory_states(c, 2, seed=0),
+        "record_steps": lambda: Simulator(device="cpu").run(
+            c, record_steps=True),
+        "record_steps with noise": lambda: sim.run(c, record_steps=True),
+        "step-by-step with noise": lambda: next(sim.run_step_by_step(c)),
+        "ensemble_density_matrix": lambda: sim.ensemble_density_matrix(
+            c, 2, seed=0),
+    }
+    match = {"trajectory_states": "trajectory_states",
+             "record_steps": "record_steps",
+             "record_steps with noise": "record_steps",
+             "step-by-step with noise": "step-by-step with noise",
+             "ensemble_density_matrix": "trajectory_states"}
+    for name, call in refused.items():
+        with pytest.raises(ValueError, match=match[name]):
             call()
+    c5 = QuantumCircuit(5)
+    c5.add("Measure", [0], [], 0)
+    with pytest.raises(ValueError, match="final_shots"):
+        Simulator(device="cpu").monitored_trajectories(c5, 2, final_shots=4)
     with pytest.raises(ValueError, match="num_qubits"):
         sim.run(QuantumCircuit(CONFIG.max_qubits + 1), shots=1)
+    assert not hasattr(tsim, "NOISY_MAX_QUBITS")
+    assert not hasattr(tsim, "_check_noisy_size")
 
 
 def test_monitored_trajectories_not_ported_yet():
+    """The name is from the slice before monitored trajectories were
+    ported; they run now: a Bell pair measured on both qubits gives equal
+    outcomes, both values occur, and each final state is the collapsed
+    basis state."""
     c = QuantumCircuit(2)
     c.add("H", [0])
-    c.add("Measure", [0], [], 1)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5b"):
-        Simulator(device="cpu").monitored_trajectories(c, 4, seed=0)
+    c.add("CNOT", [0, 1], [], 1)
+    c.add("Measure", [0], [], 2)
+    c.add("Measure", [1], [], 2)
+    outs, sites, states = Simulator(device="cpu").monitored_trajectories(
+        c, 40, seed=0)
+    assert outs.shape == (40, 2) and sites == [(2, 0), (2, 1)]
+    assert (outs[:, 0] == outs[:, 1]).all() and 0 < outs[:, 0].sum() < 40
+    for t in range(40):
+        probs = states[t].device_data.abs().square().numpy()
+        assert probs[3 * int(outs[t, 0])] > 0.999
+
+
+def test_huge_threshold_routes_like_the_jax_package(monkeypatch):
+    """The routing predicate is API: from ``HUGE_MIN_QUBITS`` = 30 on
+    (where the JAX package's ``auto_chunks(n) > 1``), ``run`` returns a
+    ``PlanarStateVector``, ``run_step_by_step`` marginal summaries and
+    ``run_with_noise`` counts with no state. The threshold is lowered
+    here to drive the public methods at n = 10."""
+    from quantum_simulator_tpu.ops.bigstate import auto_chunks
+    from quantum_simulator_tpu_torch import (DepolarizingNoise,
+                                             MarginalStateSummary,
+                                             NoiseModel, PlanarStateVector)
+    from quantum_simulator_tpu_torch.ops import bigstate as tbig
+
+    for n in (16, 29, 30, 32):
+        assert tbig.is_huge(n) == (auto_chunks(n, planar=True) > 1)
+    c = port(brickwork_circuit(10, 3, seed=4))
+    dense = Simulator(device="cpu").run(c, shots=0).final_state
+    monkeypatch.setattr(tbig, "HUGE_MIN_QUBITS", 10)
+    sim = Simulator(device="cpu")
+    res = sim.run(c, shots=500, seed=1)
+    assert isinstance(res.final_state, PlanarStateVector)
+    assert sum(res.measurement_counts.values()) == 500
+    probs = dense.device_data.abs().square()
+    np.testing.assert_allclose(
+        res.final_state.qubit_probabilities(),
+        [float(probs.reshape(1 << q, 2, -1)[:, 1].sum()) for q in range(10)],
+        atol=1e-5)
+    steps = list(sim.run_step_by_step(c))
+    assert [i for _, i in steps] == list(range(-1, len(steps) - 1))
+    assert all(isinstance(s, MarginalStateSummary) for s, _ in steps)
+    np.testing.assert_allclose(steps[-1][0].qubit_probabilities(),
+                               res.final_state.qubit_probabilities(),
+                               atol=1e-5)
+    with pytest.raises(ValueError, match="record_steps"):
+        sim.run(c, record_steps=True)
+    nm = NoiseModel()
+    nm.add_global_noise(DepolarizingNoise(0.05))
+    noisy = Simulator(noise_model=nm, device="cpu")
+    one = noisy.run(c, shots=100, seed=2)
+    assert isinstance(one.final_state, PlanarStateVector)
+    np.testing.assert_allclose(one.final_state.norm_sq(), 1.0, atol=1e-4)
+    many = noisy.run_with_noise(c, shots=64, seed=3)
+    assert many.final_state is None
+    assert sum(many.measurement_counts.values()) == 64
+    mc = QuantumCircuit(10)
+    mc.add("H", [0])
+    mc.add("Measure", [0], [], 1)
+    outs, sites, counts = sim.monitored_trajectories(mc, 3, seed=0,
+                                                     final_shots=16)
+    assert outs.shape == (3, 1) and sites == [(1, 0)]
+    assert [sum(d.values()) for d in counts] == [16, 16, 16]
+    assert sim.monitored_trajectories(mc, 2, seed=0)[2] == []
 
 
 def test_state_vector_round_trip():

@@ -180,12 +180,18 @@ def test_routes_for_every_family():
     cases = {
         "unitary": tq.DepolarizingNoise(0.1),
         "monomial": tq.AmplitudeDampingNoise(0.1),
-        "per-gate": _TXDamp(0.3),
+        "fold": _TXDamp(0.3),
     }
     for route, ch in cases.items():
         tnm = tq.NoiseModel()
         tnm.add_global_noise(ch)
         assert tprog.trajectory_route(tp, tnm) == route
+    # rule 4: an op without a fold applier (four targets over three
+    # groups, not of controlled-phase form) leaves the per-gate body
+    shift = np.roll(np.eye(16, dtype=np.complex128), 1, axis=0)
+    wide = tprog.ProgramOp("Wide4", (0, 3, 9, 15), 0, 0, 0, shift, None, -1)
+    wp = tprog.CircuitProgram(16, 0, (wide,), 1, 0, np.zeros(0), ("wide4",))
+    assert tprog.trajectory_route(wp, tnm) == "per-gate"
 
 
 KEYS = [jax.random.PRNGKey(s) for s in range(3)]
