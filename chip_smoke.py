@@ -85,7 +85,8 @@ The large-state and monitored slice adds:
     the check holds two states and one slice's temporaries;
 6.  the n >= 30 ideal path through ``Simulator(device="cuda").run``:
     brickwork Ry/Rz (planar) at n = 30 and 32 and Ry+CNOT (real) at
-    n = 31, depth 8, 4096 shots in the Z basis, and the X basis at
+    n = 31, depth 8 (depth 4 at n = 32), 4096 shots in the Z basis, and
+    the X basis at
     n = 30: a ``PlanarStateVector`` of norm 1 +- 1e-4, launch counts equal
     to the plans' dense and cross steps, the shots adding up, the kernel
     executor within 1e-5 of the twin executor at n = 30 and 31, the peak
@@ -113,12 +114,39 @@ The large-state and monitored slice adds:
     shots, s per noisy trajectory at n = 30 by route, monitored
     trajectories/s at n = 20, and every peak.
 
+The open-system slice adds:
+
+8.  the exact open-system path. 8a: ``DensityMatrixSimulator(device=
+    "cuda").run(method="superop")`` on brickwork depth 8 (seed 42) with
+    depolarizing 0.05 after every gate and amplitude damping 0.05 after
+    each CNOT, Ry+CNOT (a real vec(rho)) and Ry/Rz (planar), and Ry/Rz
+    with no noise, at n = 12 and n = 14 (2n = 28, the widest vec(rho)
+    below the large-state regime): launches equal to the vec(rho) plan's
+    dense and cross steps, the kernel executor within 1e-5 of the twin
+    executor, the trace 1 +- 1e-4, the purity below 1 with noise and 1 +-
+    1e-4 without, at n = 12 rho within 2e-5 of the dense route's, and at
+    n = 8 the diagonal within 1e-5 of a NumPy complex128 density matrix;
+    8b: n = 15 (2n = 30, a ``SuperopDensityResult`` over the grouped
+    state): noise-free probabilities within 1e-5 of ``Simulator.run``'s,
+    noisy ``<Z_q>`` within 0.05 of the mean over 2000 trajectories, the
+    sample adding up, ``.rho`` raising ``MemoryError``, the peak under
+    1.75x the state; 8c: ``LindbladSimulator``: one qubit's decay among
+    10 against exp(-gamma t) within 1e-3, an Ising chain with dephasing
+    at n = 10 and 13 keeping trace 1 +- 1e-4, and at n = 4 the final rho
+    within 1e-4 of ``expm(dense_liouvillian() t)``; 8d: the second-order
+    ``trotter_circuit`` of ``heisenberg_chain(16)`` from the Neel state
+    through ``Simulator.run``: kernels within 1e-5 of the twins, launches
+    equal to the plan's steps, the energy kept within ``Lambda dt^2`` and
+    the drift at least halved at half the step. Timed: per 8a case the
+    executor (kernels and twins in turns) beside the dense route, the
+    n = 15 runs, ms per RK4 step at n = 10 and 13 with the peak.
+
 ``--phases 2c,6`` runs only the named phases (and then prints no summary
 and no result line): for bringing up one phase on the card.
 
 Launch counts in the summary are those of the main paths: phase 3 is
 driven with the counters set to 0 just before it and read just after; in
-phases 3b, 5, 6 and 7 each run, trajectory, gradient and optimizer run
+phases 3b, 5, 6, 7 and 8 each run, trajectory, gradient and optimizer run
 is. The comparison runs against the twins launch nothing (phase 5 checks
 it).
 
@@ -139,18 +167,24 @@ import numpy as np
 import torch
 
 from quantum_simulator_tpu_torch import (AmplitudeDampingNoise,
+                                         DensityMatrixSimulator,
                                          DepolarizingNoise,
+                                         LindbladSimulator,
                                          MarginalStateSummary,
                                          MeasurementBasis, NoiseChannel,
                                          NoiseModel, PlanarStateVector,
                                          QuantumCircuit, ReadoutError,
                                          Simulator,
                                          TwoQubitDepolarizingNoise)
+from quantum_simulator_tpu_torch import density as tdens
+from quantum_simulator_tpu_torch import lindblad as tlind
 from quantum_simulator_tpu_torch import models
 from quantum_simulator_tpu_torch import optimizer as topt
 from quantum_simulator_tpu_torch import simulator as tsim
+from quantum_simulator_tpu_torch.density import SuperopDensityResult
 from quantum_simulator_tpu_torch.ops import (_build, bigstate, bigtraj,
                                              cuda_exec)
+from quantum_simulator_tpu_torch.ops import apply as tapply
 from quantum_simulator_tpu_torch.ops import monomial_traj as tmono
 from quantum_simulator_tpu_torch.ops import plan as tplan
 from quantum_simulator_tpu_torch.ops import program as tprog
@@ -167,7 +201,7 @@ F64_SIZES = (16, 28)
 # (2 GiB) in place plus the complex result, with room to spare.
 RUN_PEAK_LIMIT = 6.1 * 2**30
 SEED = 42
-PHASES = ("2", "2b", "2c", "3", "3b", "4", "4b", "5", "6", "7")
+PHASES = ("2", "2b", "2c", "3", "3b", "4", "4b", "5", "6", "7", "8")
 
 # Layouts of n = 16, 28 and 30 qubits (GroupLayout.for_qubits).
 LAYOUTS = {16: (4, 128, 128), 28: (128,) * 4, 30: (4,) + (128,) * 4}
@@ -1307,6 +1341,9 @@ def phase_variational(report: dict, card: str) -> dict:
 
 HUGE_LAYOUTS = {31: (8,) + (128,) * 4, 32: (16,) + (128,) * 4}
 HUGE_DEPTH = 8
+# The widest state's run of phase 6 takes half the depth: the script
+# grew by the open-system phase and keeps its time.
+HUGE_DEPTH_WIDEST = 4
 # Elements of one slice of a twin that runs slice by slice (1 GiB).
 SLICE_ELEMS = 1 << 28
 
@@ -1542,9 +1579,9 @@ def phase_huge(report: dict, card: str) -> dict:
     huge_run(sim, brickwork(n1, HUGE_DEPTH, SEED, False),
              f"brickwork n={n1} depth-8 Ry+CNOT Z basis", Z, True, True,
              path, report, card)
-    huge_run(sim, brickwork(n2, HUGE_DEPTH, SEED, True),
-             f"brickwork n={n2} depth-8 Ry/Rz Z basis", Z, False, True, path,
-             report, card)
+    huge_run(sim, brickwork(n2, HUGE_DEPTH_WIDEST, SEED, True),
+             f"brickwork n={n2} depth-{HUGE_DEPTH_WIDEST} Ry/Rz Z basis", Z,
+             False, True, path, report, card)
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1986,6 +2023,384 @@ def phase_huge_noisy(report: dict, card: str) -> dict:
     return path
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the exact open-system path (density matrices, Lindblad, Trotter)
+# ---------------------------------------------------------------------------
+
+# Qubit counts of 8a: the reference check, the dense-route check and the
+# widest vec(rho) below the large-state regime (2n = 28).
+SUPEROP_SIZES = (8, 12, 14)
+SUPEROP_HUGE_N = 15          # 2n = 30: a SuperopDensityResult
+SUPEROP_DEPTH = 8
+RHO_TOL = 2e-5               # superop rho vs dense-route rho
+TRACE_TOL = 1e-4
+LINDBLAD_SMALL_N = 4         # final rho vs expm(dense_liouvillian * t)
+LINDBLAD_N = 10
+LINDBLAD_MAX_N = 13
+LINDBLAD_STEPS = 8
+TROTTER_N = 16
+TROTTER_TIME = 1.0
+TROTTER_STEPS = 4
+
+
+def open_noise() -> NoiseModel:
+    """Depolarizing 0.05 after every gate and amplitude damping 0.05
+    after each CNOT (the mix of ``tests/test_density.py:153-163``)."""
+    nm = NoiseModel()
+    nm.add_global_noise(DepolarizingNoise(0.05))
+    nm.add_gate_noise("CNOT", AmplitudeDampingNoise(0.05))
+    return nm
+
+
+def superop_case(n: int, mix_rz: bool, noisy: bool, path: dict,
+                 report: dict, card: str, time_dense: bool = True) -> None:
+    """One circuit through ``DensityMatrixSimulator.run(method="superop")``
+    below the large-state regime, with its checks and times
+    (``time_dense``: the dense route's beside the executor's)."""
+    circuit = brickwork(n, SUPEROP_DEPTH, SEED, mix_rz)
+    nm = open_noise() if noisy else None
+    label = (f"superop n={n} (2n={2 * n}) depth-{SUPEROP_DEPTH} "
+             f"{'Ry/Rz' if mix_rz else 'Ry+CNOT'} "
+             f"{'depol+amp-damp' if noisy else 'noise-free'}")
+    program = tprog.compile_circuit(circuit)
+    program2 = tdens.superop_program(program, nm)
+    params = program2.initial_params
+    plan = tplan.get_group_plan(program2)
+    planar = not plan.all_real
+    n_dense, n_cross, n_other = step_counts(program2)
+    check(planar == mix_rz, f"{label}: plan.all_real is {plan.all_real}")
+    sim = DensityMatrixSimulator(noise_model=nm, device="cuda")
+
+    torch.cuda.empty_cache()
+    cuda_exec.reset_launch_counts()
+    res = sim.run(circuit, method="superop")
+    delta = add_launches(path, NO_LAUNCHES)
+    check(delta == {"dense_axis": n_dense, "cross_bit_axis": n_cross},
+          f"{label}: launches {delta}, the plan has {n_dense} dense and "
+          f"{n_cross} cross steps")
+    trace, purity = res.trace(), res.purity()
+    check(abs(trace - 1.0) <= TRACE_TOL, f"{label}: tr(rho) = {trace}")
+    if noisy:
+        check(purity < 1.0 - 1e-3, f"{label}: purity {purity} with noise")
+    else:
+        check(abs(purity - 1.0) <= TRACE_TOL, f"{label}: purity {purity}")
+    want = tplan.group_forward_body(program2, params, "cuda", plain=True)
+    err = float((res.device_rho.reshape(-1) - want).abs().max())
+    del want
+    check(err <= STATE_TOL, f"{label}: max |kernel - plain vec(rho)| = {err}")
+    row = {"case": label, "n": n, "planar": planar, "noisy": noisy,
+           "dense_steps": n_dense, "cross_steps": n_cross,
+           "other_steps": n_other, "launches": delta, "trace": trace,
+           "purity": purity, "kernel_vs_plain": err, "card": card}
+    text = ""
+    if n == SUPEROP_SIZES[0] and nm is not None:
+        ref = density_reference(program, nm)
+        dev = float(np.abs(res.probabilities - ref).max())
+        check(dev <= STATE_TOL, f"{label}: diagonal vs the NumPy "
+              f"complex128 density matrix {dev}")
+        row["reference_err"] = dev
+        text += f", diagonal vs NumPy reference {dev:.2e}"
+
+    def dense_route():
+        return sim.run(circuit, method="dense")
+
+    if n <= SUPEROP_SIZES[1]:
+        dense = dense_route()
+        dev = float((res.device_rho - dense.device_rho).abs().max())
+        del dense
+        check(dev <= RHO_TOL, f"{label}: superop rho vs dense route {dev}")
+        row["dense_route_err"] = dev
+        text += f", rho vs dense route {dev:.2e}"
+    del res
+    torch.cuda.empty_cache()
+
+    if n > SUPEROP_SIZES[0]:
+        ops = tplan.operands_to(
+            tplan.build_group_operands(program2, plan, params), "cuda")
+
+        def fresh():
+            return tplan.basis_state(plan, program2.initial_index, "cuda",
+                                     planar)
+
+        def executor(plain):
+            return lambda x: tplan.execute_group_plan(
+                plan, ops, program2, params, x, planar, plain)
+
+        k_ms, p_ms = in_turns(executor(True), executor(False), fresh,
+                              reps=2 if n == SUPEROP_SIZES[2] else 3)
+        del ops
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sim.run(circuit, method="superop")
+        torch.cuda.synchronize()
+        run_ms = (time.perf_counter() - t0) * 1e3
+        del out
+        row.update(kernel_ms=k_ms, plain_ms=p_ms, superop_run_ms=run_ms)
+        text += (f"; executor kernel {k_ms:.3f} ms, twins {p_ms:.3f} ms, "
+                 f"superop run {run_ms:.1f} ms")
+        if time_dense:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = dense_route()
+            torch.cuda.synchronize()
+            dense_ms = (time.perf_counter() - t0) * 1e3
+            dense_peak = torch.cuda.max_memory_allocated()
+            del out
+            row.update(dense_route_ms=dense_ms,
+                       dense_route_peak_bytes=dense_peak)
+            text += (f", dense route {dense_ms:.1f} ms (peak "
+                     f"{dense_peak / 2**30:.3f} GiB)")
+    report.setdefault("superop", []).append(row)
+    print(f"open {label} [{card}]: {'planar' if planar else 'real'} "
+          f"vec(rho), steps dense {n_dense} cross {n_cross} other "
+          f"{n_other}, launches dense {delta['dense_axis']} cross "
+          f"{delta['cross_bit_axis']}, tr {trace:.6f}, purity "
+          f"{purity:.6f}, kernel vs plain {err:.2e}{text}", flush=True)
+
+
+def superop_huge_case(mix_rz: bool, noisy: bool, path: dict, report: dict,
+                      card: str) -> None:
+    """n = 15: vec(rho) is a 30-qubit grouped state that is never copied."""
+    n = SUPEROP_HUGE_N
+    circuit = brickwork(n, SUPEROP_DEPTH, SEED, mix_rz)
+    nm = open_noise() if noisy else None
+    label = (f"superop n={n} (2n={2 * n}) depth-{SUPEROP_DEPTH} "
+             f"{'Ry/Rz' if mix_rz else 'Ry+CNOT'} "
+             f"{'depol+amp-damp' if noisy else 'noise-free'}")
+    program2 = tdens.superop_program(tprog.compile_circuit(circuit), nm)
+    plan = tplan.get_group_plan(program2)
+    planar = not plan.all_real
+    size = state_bytes(2 * n, planar)
+    want_launches = plan_launches([program2])
+    sim = DensityMatrixSimulator(noise_model=nm, device="cuda")
+    walls = []
+    for attempt in range(2):        # cold, then warm
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_exec.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = sim.run(circuit)      # auto: superop at n = 15
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        delta = add_launches(path, NO_LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        if attempt == 0:
+            del res
+    check(isinstance(res, SuperopDensityResult)
+          and res.is_planar == planar,
+          f"{label}: result is a {type(res).__name__}")
+    check(delta == want_launches,
+          f"{label}: launches {delta}, the plan has {want_launches}")
+    check(peak <= HUGE_PEAK_RATIO * size, f"{label}: peak "
+          f"{peak / 2**30:.3f} GiB > {HUGE_PEAK_RATIO} x the state's "
+          f"{size / 2**30:.0f} GiB")
+    try:
+        res.rho
+    except MemoryError:
+        pass
+    else:
+        check(False, f"{label}: .rho did not raise MemoryError")
+    trace, purity = res.trace(), res.purity()
+    check(abs(trace - 1.0) <= TRACE_TOL, f"{label}: tr(rho) = {trace}")
+    row = {"case": label, "n": n, "planar": planar, "noisy": noisy,
+           "state_bytes": size, "peak_bytes": peak, "launches": delta,
+           "trace": trace, "purity": purity, "cold_run_s": walls[0],
+           "run_ms": walls[1] * 1e3, "card": card}
+    text = ""
+    if noisy:
+        check(purity < 1.0 - 1e-3, f"{label}: purity {purity} with noise")
+        counts = sim.sample(res, HUGE_SHOTS, rng=np.random.default_rng(SEED))
+        check(sum(counts.values()) == HUGE_SHOTS
+              and all(len(b) == n for b in counts),
+              f"{label}: sample returned {sum(counts.values())} shots")
+        exact_z = np.array([res.expectation_z(q) for q in range(n)])
+        del res
+        torch.cuda.empty_cache()
+        states = Simulator(noise_model=nm, device="cuda").trajectory_states(
+            circuit, LAW_TRAJ, seed=SEED)
+        p = states.abs().square().double().mean(0).cpu().numpy()
+        del states
+        idx = np.arange(1 << n)
+        mean_z = np.array([np.sum(p * (1.0 - 2.0 * ((idx >> (n - 1 - q))
+                                                    & 1)))
+                           for q in range(n)])
+        dev = float(np.abs(exact_z - mean_z).max())
+        check(dev <= LAW_TOL, f"{label}: <Z_q> vs the mean over "
+              f"{LAW_TRAJ} trajectories differs by {dev}")
+        row["ensemble_z_dev"] = dev
+        text = (f", {len(counts)} distinct strings of {HUGE_SHOTS} shots, "
+                f"max |<Z_q> - trajectory mean| {dev:.4f}")
+    else:
+        check(abs(purity - 1.0) <= TRACE_TOL, f"{label}: purity {purity}")
+        probs = res.probabilities
+        del res
+        torch.cuda.empty_cache()
+        psi = Simulator(device="cuda").run(circuit, shots=0).final_state
+        dev = float(np.abs(probs - psi.probabilities).max())
+        check(dev <= STATE_TOL, f"{label}: probabilities vs "
+              f"Simulator.run differ by {dev}")
+        row["statevector_err"] = dev
+        text = f", probabilities vs Simulator.run {dev:.2e}"
+    report.setdefault("superop", []).append(row)
+    print(f"open {label} [{card}]: {'planar' if planar else 'real'} "
+          f"vec(rho) {size / 2**30:.0f} GiB, peak {peak / 2**30:.3f} GiB "
+          f"({peak / size:.3f} x), launches dense {delta['dense_axis']} "
+          f"cross {delta['cross_bit_axis']}, tr {trace:.6f}, purity "
+          f"{purity:.6f}, run {walls[1] * 1e3:.1f} ms (cold "
+          f"{walls[0]:.3f} s){text}", flush=True)
+
+
+def dephased_ising(n: int, device: str = "cuda") -> LindbladSimulator:
+    """Transverse-field Ising chain with dephasing 0.1 on every qubit and
+    decay 0.05 on qubit 0."""
+    jumps = [(0.1, "z", q) for q in range(n)] + [(0.05, "sigma_minus", 0)]
+    return LindbladSimulator(n, models.tfim_chain(n), jumps, device=device)
+
+
+def phase_lindblad(report: dict, card: str) -> None:
+    from scipy.linalg import expm
+
+    rows = report.setdefault("lindblad", {})
+    # one qubit's decay among LINDBLAD_N: <Z_0>(t) = 1 - 2 exp(-gamma t)
+    n, gamma, t_final = LINDBLAD_N, 0.5, 1.0
+    sim = LindbladSimulator(n, [], [(gamma, "sigma_minus", 0)],
+                            device="cuda")
+    psi = np.zeros(1 << n, np.complex128)
+    psi[1 << (n - 1)] = 1.0                      # qubit 0 (the MSB) in |1>
+    out = sim.evolve(t_final, 40, initial=psi, observables=[("Z", [0])],
+                     record_every=10)
+    want = 1.0 - 2.0 * np.exp(-gamma * out.times)
+    dev = float(np.abs(out.expectations[0] - want).max())
+    check(dev <= 1e-3, f"Lindblad decay n={n}: <Z_0>(t) off exp(-gamma t) "
+          f"by {dev}")
+    rows["decay_dev"] = dev
+
+    sim = dephased_ising(n)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = sim.evolve(0.5, 10, observables=[("Z", [0]), ("XX", [0, 1])])
+    torch.cuda.synchronize()
+    ising_ms = (time.perf_counter() - t0) * 1e3 / 10
+    trace = out.final.trace()
+    check(abs(trace - 1.0) <= TRACE_TOL,
+          f"Lindblad Ising n={n}: tr(rho) = {trace}")
+    check(out.expectations.shape == (2, 11)
+          and np.all(np.isfinite(out.expectations)),
+          f"Lindblad Ising n={n}: expectations {out.expectations.shape}")
+    rows.update(ising_n=n, ising_trace=trace, ising_ms_per_step=ising_ms)
+
+    m = LINDBLAD_SMALL_N
+    small = dephased_ising(m)
+    rng = np.random.default_rng(SEED)
+    psi = rng.standard_normal(1 << m) + 1j * rng.standard_normal(1 << m)
+    psi /= np.linalg.norm(psi)
+    got = small.evolve(0.8, 80, initial=psi).final.rho
+    vec = expm(small.dense_liouvillian() * 0.8) @ np.outer(
+        psi, psi.conj()).reshape(-1)
+    exp_dev = float(np.abs(got.reshape(-1) - vec).max())
+    check(exp_dev <= 1e-4, f"Lindblad n={m}: final rho vs "
+          f"expm(dense_liouvillian t) {exp_dev}")
+    rows["expm_dev"] = exp_dev
+    print(f"open Lindblad [{card}]: decay n={n} max |<Z_0> - (1 - 2 "
+          f"exp(-gamma t))| {dev:.2e}; Ising+dephasing n={n} tr "
+          f"{trace:.6f}, {ising_ms:.1f} ms per RK4 step; n={m} final rho "
+          f"vs expm(L t) {exp_dev:.2e}", flush=True)
+
+    n = LINDBLAD_MAX_N
+    sim = dephased_ising(n)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = sim.evolve(0.2, LINDBLAD_STEPS, observables=[("Z", [0])],
+                     record_every=LINDBLAD_STEPS)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / LINDBLAD_STEPS
+    peak = torch.cuda.max_memory_allocated()
+    trace = out.final.trace()
+    check(abs(trace - 1.0) <= TRACE_TOL,
+          f"Lindblad Ising n={n}: tr(rho) = {trace}")
+    rho_bytes = 8 << (2 * n)
+    rows.update(max_n=n, max_n_ms_per_step=step_ms, max_n_peak_bytes=peak,
+                max_n_trace=trace, card=card)
+    print(f"open Lindblad n={n} [{card}]: Ising+dephasing "
+          f"({2 * n - 1} terms, {n + 1} jumps), {LINDBLAD_STEPS} RK4 steps, "
+          f"{step_ms:.1f} ms per step, peak {peak / 2**30:.3f} GiB "
+          f"({peak / rho_bytes:.2f} x the {rho_bytes / 2**20:.0f} MiB rho), "
+          f"tr {trace:.6f}", flush=True)
+    del out
+    torch.cuda.empty_cache()
+
+
+def pauli_energy(state: torch.Tensor, terms, n: int) -> float:
+    """<psi| sum_k c_k P_k |psi> of a flat complex state on its device."""
+    total = 0.0
+    for coeff, pstr, qubits in terms:
+        mat = tlind._pauli_term_matrix(pstr)
+        hpsi = tapply.apply_gate(state, mat, tuple(qubits), n)
+        total += coeff * float(torch.vdot(state, hpsi).real)
+    return total
+
+
+def phase_trotter(path: dict, report: dict, card: str) -> None:
+    """Second-order Trotter evolution of the Neel state under the
+    Heisenberg chain through ``Simulator.run``."""
+    n = TROTTER_N
+    terms = models.heisenberg_chain(n)
+    sim = Simulator(device="cuda")
+    drifts = []
+    for steps in (TROTTER_STEPS, 2 * TROTTER_STEPS):
+        circuit = models.trotter_circuit(n, terms, TROTTER_TIME, steps,
+                                         order=2)
+        circuit.initial_states = [q % 2 for q in range(n)]
+        label = (f"Trotter order-2 heisenberg_chain({n}) t={TROTTER_TIME} "
+                 f"steps={steps}")
+        before = launch_counts()
+        res = run_and_match(sim, circuit, label, 0, report)
+        add_launches(path, before)
+        energy = pauli_energy(res.final_state.device_data, terms, n)
+        drifts.append(abs(energy - float(n - 1)))
+        del res
+    # the Neel state's energy is -sum jz = n - 1; the exact evolution
+    # keeps it, a second-order formula drifts by O(dt^2): at most
+    # Lambda dt^2 with Lambda = sum |c_k|, and four times less at half dt
+    lam = sum(abs(c) for c, _, _ in terms)
+    bound = lam * (TROTTER_TIME / TROTTER_STEPS) ** 2
+    check(drifts[0] <= bound, f"Trotter n={n}: energy drift {drifts[0]} > "
+          f"Lambda dt^2 = {bound}")
+    check(drifts[1] <= 0.5 * drifts[0], f"Trotter n={n}: drift "
+          f"{drifts[1]} at half the step, {drifts[0]} at the full one")
+    report["trotter"] = {"n": n, "drifts": drifts, "bound": bound,
+                         "card": card}
+    print(f"open Trotter n={n} [{card}]: energy drift {drifts[0]:.3e} at "
+          f"{TROTTER_STEPS} steps (bound {bound:.3e}), {drifts[1]:.3e} at "
+          f"{2 * TROTTER_STEPS}", flush=True)
+
+
+def phase_open_system(report: dict, card: str) -> dict:
+    """8a-8d; every main-path run reads its launches from zero."""
+    path: dict = {}
+    small, mid, wide = SUPEROP_SIZES
+    superop_case(small, False, True, path, report, card)
+    for n in (mid, wide):
+        # at the widest size the dense route (20 s a run) is timed once
+        superop_case(n, False, True, path, report, card)
+        superop_case(n, True, True, path, report, card, n == mid)
+        superop_case(n, True, False, path, report, card, n == mid)
+    superop_huge_case(False, False, path, report, card)
+    superop_huge_case(False, True, path, report, card)
+    superop_huge_case(True, True, path, report, card)
+    phase_lindblad(report, card)
+    phase_trotter(path, report, card)
+    check(all(v > 0 for v in path.values()),
+          f"a kernel never launched on the open-system path: {path}")
+    report["open_launches"] = path
+    return path
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every measurement as JSON")
@@ -2037,7 +2452,8 @@ def main() -> int:
               "4b": lambda: phase_noisy_timing(card, report),
               "5": lambda: phase_variational(report, card),
               "6": lambda: phase_huge(report, card),
-              "7": lambda: phase_huge_noisy(report, card)}
+              "7": lambda: phase_huge_noisy(report, card),
+              "8": lambda: phase_open_system(report, card)}
     out = {}
     for name in PHASES:
         if name in chosen:
@@ -2064,7 +2480,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
             "launches": sum(out[p][name] for p in ("3", "3b", "5", "6",
-                                                   "7")),
+                                                   "7", "8")),
             "max_abs_err": max(out["2"]["max_err"][name], out["2b"][name],
                                out["2c"][name]),
             "ms": row["ms"], "plain_ms": row["plain_ms"],

@@ -8,14 +8,21 @@ trajectories batched on the device (``noise``, ``ops/unitary_traj``,
 ``ops/monomial_traj``), and hand-written CUDA kernels (``csrc/``) for
 every dense and cross group-plan step. The variational path
 (``optimizer``, ``analysis.StateAnalysis``, ``models``) runs parameter
-batches through the same kernels. It imports torch and NumPy, never JAX
-and never the JAX package.
+batches through the same kernels. The exact open-system path
+(``density.DensityMatrixSimulator``: dense rho, and the vec(rho)
+superoperator program through the same executor and kernels;
+``lindblad.LindbladSimulator``) and the Trotter circuits of
+``models/trotter.py`` complete it, with OpenQASM 2.0 import / export in
+``qasm.py``. It imports torch and NumPy, never JAX and never the JAX
+package.
 """
 
 from .analysis import StateAnalysis
 from .circuit import GateInstance, QuantumCircuit
 from .config import CONFIG, EngineConfig
+from .density import DensityMatrixResult, DensityMatrixSimulator
 from .gates import GateDefinition, GateType
+from .lindblad import LindbladResult, LindbladSimulator
 from .measurement import MeasurementBasis, MeasurementEngine
 from .noise import (AmplitudeDampingNoise, BitFlipNoise, DepolarizingNoise,
                     NoiseChannel, NoiseModel, PhaseFlipNoise, ReadoutError,
@@ -26,6 +33,7 @@ from .optimizer import (BarrenPlateauAnalysis, CircuitOptimizer,
                         OptimizationResult, ParameterBinding,
                         ParameterizedCircuitConfig)
 from .ops.bigstate import MarginalStateSummary, PlanarStateVector
+from .qasm import from_qasm, to_qasm
 from .registry import GateRegistry
 from .simulator import SimulationResult, Simulator
 from .state import StateVector
@@ -39,6 +47,8 @@ __all__ = [
     "CONFIG",
     "CircuitOptimizer",
     "CostFunction",
+    "DensityMatrixResult",
+    "DensityMatrixSimulator",
     "DepolarizingNoise",
     "DeviceCost",
     "EngineConfig",
@@ -47,6 +57,8 @@ __all__ = [
     "GateRegistry",
     "GateType",
     "GradientEstimator",
+    "LindbladResult",
+    "LindbladSimulator",
     "MPSParameterizedConfig",
     "MarginalStateSummary",
     "MeasurementBasis",
@@ -67,4 +79,6 @@ __all__ = [
     "StateVector",
     "ThermalRelaxationNoise",
     "TwoQubitDepolarizingNoise",
+    "from_qasm",
+    "to_qasm",
 ]

@@ -81,8 +81,44 @@ class QuantumCircuit:
         self.gates.append(inst)
         return inst
 
+    def remove_gate(self, gate: GateInstance) -> None:
+        if gate in self.gates:
+            self.gates.remove(gate)
+
+    def move_gate(self, gate: GateInstance, new_col: int,
+                  new_targets: list[int]) -> None:
+        if gate in self.gates:
+            gate.column = new_col
+            gate.target_qubits = new_targets
+
+    def clear(self) -> None:
+        self.gates.clear()
+
+    def set_num_qubits(self, n: int) -> None:
+        """Resize the register; gates that touch a removed qubit go."""
+        _validated_qubit_count(n)
+        self.gates = [g for g in self.gates
+                      if max(g.target_qubits, default=0) < n]
+        self.num_qubits = n
+        pad = n - len(self.initial_states)
+        if pad > 0:
+            self.initial_states += [0] * pad
+        else:
+            self.initial_states = self.initial_states[:n]
+
+    def toggle_qubit_initial_state(self, qubit: int) -> None:
+        if 0 <= qubit < self.num_qubits:
+            self.initial_states[qubit] ^= 1
+
+    def set_qubit_initial_state(self, qubit: int, state: int) -> None:
+        if 0 <= qubit < self.num_qubits and state in (0, 1):
+            self.initial_states[qubit] = state
+
     def get_column_count(self) -> int:
         return 0 if not self.gates else max(g.column for g in self.gates) + 1
+
+    def get_gates_at_column(self, col: int) -> list[GateInstance]:
+        return [g for g in self.gates if g.column == col]
 
     def get_ordered_gates(self) -> list[list[GateInstance]]:
         """Gates grouped by column, columns ascending, empty columns dropped;
@@ -107,6 +143,13 @@ class QuantumCircuit:
             for gi in indices:
                 mapping[gi] = layer_idx
         return mapping
+
+    def gate_count(self) -> int:
+        return len(self.gates)
+
+    def depth(self) -> int:
+        """Number of non-empty columns."""
+        return len({g.column for g in self.gates})
 
     def copy(self) -> "QuantumCircuit":
         c = QuantumCircuit(self.num_qubits,

@@ -4,13 +4,17 @@
 returns its complex operators in the blocked ``[[re, -im], [im, re]]``
 form that feeds the TPU's matrix unit. The port keeps the two planes
 ``(re, im)`` instead (``ops/plan.build_group_operands``). With these
-converters a test feeds identical operators to both executors. This
-module imports neither JAX nor the JAX package: it takes plain arrays.
+converters a test feeds identical operators to both executors;
+``density_result_from_numpy`` carries a density matrix across the same
+way. This module imports neither JAX nor the JAX package: it takes plain
+arrays. (The counterpart of the JAX package's ``interop.py``, the
+OpenQASM 2.0 import / export, is ``qasm.py``.)
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def _planes(blocked, axis: int = 0) -> np.ndarray:
@@ -34,3 +38,21 @@ def operands_from_numpy(jax_operands):
 def params_from_numpy(initial_params) -> np.ndarray:
     """A parameter vector (any array-like) -> the port's float64 vector."""
     return np.asarray(initial_params, dtype=np.float64).reshape(-1)
+
+
+def density_result_from_numpy(rho, device=None):
+    """A ``(2^n, 2^n)`` density matrix as a NumPy array (for instance the
+    JAX package's ``DensityMatrixResult.rho``) -> the port's
+    ``DensityMatrixResult`` on ``device`` (default ``CONFIG.device``), for
+    ``LindbladSimulator.evolve(initial=...)`` and the tests."""
+    from .config import CONFIG
+    from .density import DensityMatrixResult
+
+    arr = np.asarray(rho, dtype=np.complex128)
+    n = arr.shape[0].bit_length() - 1 if arr.ndim == 2 else -1
+    if n < 1 or arr.shape != (1 << n, 1 << n):
+        raise ValueError(f"expected a (2^n, 2^n) matrix, got {arr.shape}")
+    return DensityMatrixResult(
+        num_qubits=n,
+        device_rho=torch.from_numpy(np.ascontiguousarray(arr)).to(
+            device=device or CONFIG.device, dtype=CONFIG.dtype))

@@ -2,7 +2,8 @@
 
 Counterpart of ``quantum_simulator_tpu/measurement.py:29-165``: Z/X/Y
 bases (X rotates by H, Y by S-dagger then H), ``counts_from_array`` and
-``MeasurementEngine.sample`` / ``sample_with_basis``.
+``MeasurementEngine.measure_qubit`` / ``measure_all`` / ``sample`` /
+``sample_with_basis``.
 
 Below ``DEVICE_SAMPLING_MIN_DIM`` the probabilities go to the host and
 ``rng.multinomial`` draws the counts, the same NumPy seed stream as the
@@ -91,6 +92,23 @@ class MeasurementEngine:
     """Static measurement helpers over StateVector."""
 
     DEVICE_SAMPLING_MIN_DIM = 1 << 20
+
+    @staticmethod
+    def measure_qubit(state: StateVector, qubit: int,
+                      rng: np.random.Generator | None = None
+                      ) -> tuple[int, StateVector]:
+        """Outcome and collapsed copy; ``state`` is left as it was."""
+        collapsed = state.copy()
+        outcome = collapsed.measure_qubit(qubit, rng)
+        return outcome, collapsed
+
+    @staticmethod
+    def measure_all(state: StateVector,
+                    rng: np.random.Generator | None = None
+                    ) -> tuple[str, StateVector]:
+        collapsed = state.copy()
+        bitstring = collapsed.measure_all(rng)
+        return bitstring, collapsed
 
     @staticmethod
     def sample(state: StateVector, shots: int,

@@ -1,8 +1,6 @@
 """Model zoo: variational ansätze and Hamiltonian builders.
 
-Counterpart of ``quantum_simulator_tpu/models``. The Trotter circuits
-(``models/trotter.py``) wait for the MPS engine they import (ROADMAP
-Queue 1 item 10).
+Counterpart of ``quantum_simulator_tpu/models``.
 """
 
 from .ansatz import (
@@ -16,13 +14,16 @@ from .hamiltonians import (
     tfim_chain,
     zz_chain,
 )
+from .trotter import exp_pauli_gate, trotter_circuit
 
 __all__ = [
     "brickwork_circuit",
+    "exp_pauli_gate",
     "hardware_efficient_ansatz",
     "heisenberg_chain",
     "maxcut_edges_ring",
     "qaoa_maxcut_ansatz",
     "tfim_chain",
+    "trotter_circuit",
     "zz_chain",
 ]

@@ -5,7 +5,10 @@ einsum of ``apply_gate`` (``apply.py:47-112``), ``apply_cphase``,
 ``apply_gate_all_qubits``, ``probabilities``, and the mid-circuit
 measurement primitives ``prob_qubit_zero``, ``collapse_qubit`` and
 ``normalize`` (``apply.py:152-197``), which take a leading batch of
-trajectories. The group executor uses
+trajectories, and the host-facing ``make_basis_state``,
+``apply_gate_host`` and ``reduced_density_matrix_1q`` of ``StateVector``.
+Every function indexes the state's last dimension and takes leading
+batch dimensions. The group executor uses
 ``apply_gate`` only for a ``GenericStep`` (a non-diagonal gate on three or
 more axes); basis rotations use ``apply_gate_all_qubits``; the per-gate
 body (``program.forward_body``), the cost functions and ``StateAnalysis``
@@ -30,6 +33,16 @@ def basis_state_index(initial_states: list[int]) -> int:
         if bit:
             idx |= 1 << (n - 1 - i)
     return idx
+
+
+def make_basis_state(num_qubits: int, index, dtype=torch.complex64,
+                     device="cpu") -> torch.Tensor:
+    """|index> as a ``(2^n,)`` state; a sequence (or tensor) of indices
+    gives one basis state per row, ``(..., 2^n)``."""
+    idx = torch.as_tensor(index, dtype=torch.int64, device=device)
+    state = torch.zeros(tuple(idx.shape) + (1 << num_qubits,), dtype=dtype,
+                        device=device)
+    return state.scatter_(-1, idx[..., None], 1.0)
 
 
 def _segmented_view(targets: tuple[int, ...], n: int):
@@ -91,6 +104,14 @@ def apply_gate(state: torch.Tensor, matrix, targets: tuple[int, ...],
     return out.reshape(tuple(out.shape[:-len(shape)]) + (1 << n,))
 
 
+def apply_gate_host(state: torch.Tensor, matrix, targets,
+                    num_qubits: int) -> torch.Tensor:
+    """``apply_gate`` for host callers: a NumPy (or nested-list) matrix
+    of any complex width and targets of any integer type."""
+    return apply_gate(state, matrix, tuple(int(t) for t in targets),
+                      int(num_qubits))
+
+
 def apply_cphase(state: torch.Tensor, targets: tuple[int, ...],
                  value: complex, num_qubits: int) -> torch.Tensor:
     """Controlled-phase-form diagonal of any width on a ``(..., 2^n)``
@@ -141,6 +162,16 @@ def collapse_qubit(state: torch.Tensor, qubit: int, outcome,
     kept = torch.where(bits == outcome[..., None], state,
                        torch.zeros_like(state))
     return normalize(kept)
+
+
+def reduced_density_matrix_1q(state: torch.Tensor, qubit: int,
+                              num_qubits: int) -> torch.Tensor:
+    """``(..., 2, 2)`` reduced density matrix of one qubit of a
+    ``(..., 2^n)`` state by direct contraction on psi; the full rho is
+    never built."""
+    psi = state.reshape(tuple(state.shape[:-1])
+                        + (1 << qubit, 2, 1 << (num_qubits - qubit - 1)))
+    return torch.einsum("...aib,...ajb->...ij", psi, psi.conj())
 
 
 def normalize(state: torch.Tensor) -> torch.Tensor:

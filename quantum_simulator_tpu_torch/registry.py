@@ -1,9 +1,10 @@
 """Singleton gate registry.
 
 Counterpart of ``quantum_simulator_tpu/registry.py:62-223``: every built-in
-gate, runtime-registrable custom gates, and the on-demand ``MCZ<k>``
-family (dense up to k = 10, a matrix-less controlled phase above). The
-``ExpP[...]`` Trotter gates come with the port of ``models/``.
+gate, runtime-registrable custom gates, the on-demand ``MCZ<k>`` family
+(dense up to k = 10, a matrix-less controlled phase above) and the
+on-demand ``ExpP[<pauli string>]`` Trotter gates of up to 8 sites
+(``models/trotter.py``), plus the listings the editor palettes read.
 """
 
 from __future__ import annotations
@@ -182,5 +183,32 @@ class GateRegistry:
                     num_controls=k - 1, num_targets=1,
                     cphase_value=-1.0 + 0.0j))
                 return self._gates[name]
+            # ExpP[<pauli string>] evolution gates likewise synthesize on
+            # demand, so Trotter circuits deserialize in a fresh process.
+            # The length bound is trotter._MAX_SITES: longer names stay
+            # KeyError, not a ValueError from exp_pauli_gate.
+            m = re.fullmatch(r"ExpP\[([IXYZ]{1,8})\]", name)
+            if m:
+                from .models.trotter import exp_pauli_gate
+
+                exp_pauli_gate(m.group(1))  # registers `name`
+                return self._gates[name]
             raise KeyError(f"Gate '{name}' not found in registry")
         return self._gates[name]
+
+    def all_gates(self) -> list[GateDefinition]:
+        return list(self._gates.values())
+
+    def single_qubit_gates(self) -> list[GateDefinition]:
+        return [g for g in self._gates.values()
+                if g.gate_type == GateType.SINGLE]
+
+    def multi_qubit_gates(self) -> list[GateDefinition]:
+        return [g for g in self._gates.values()
+                if g.gate_type in (GateType.CONTROLLED, GateType.MULTI)]
+
+    def parameterized_gates(self) -> list[GateDefinition]:
+        return [g for g in self._gates.values() if g.num_params > 0]
+
+    def gate_names(self) -> list[str]:
+        return list(self._gates.keys())

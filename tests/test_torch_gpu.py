@@ -593,3 +593,86 @@ def test_fold_trajectory_n30_launches_one_kernel_per_gate(cuda):
     assert abs(float(bigtraj.batched_norm_sq(x)[0]) - 1.0) < 1e-4
     # one draw per gate target (one one-qubit channel on every gate)
     assert draws.shape == (1, sum(len(op.targets) for op in program.ops))
+
+
+# ---------------------------------------------------------------------------
+# The exact open-system path (density matrices, Lindblad)
+# ---------------------------------------------------------------------------
+
+def _open_noise():
+    from quantum_simulator_tpu_torch import (AmplitudeDampingNoise,
+                                             DepolarizingNoise, NoiseModel)
+
+    nm = NoiseModel()
+    nm.add_global_noise(DepolarizingNoise(0.05))
+    nm.add_gate_noise("CNOT", AmplitudeDampingNoise(0.05))
+    return nm
+
+
+@pytest.mark.parametrize("mix_rz", [False, True])
+def test_superop_program_goes_through_the_kernels(cuda, mix_rz):
+    """vec(rho) at 2n = 24 through ``DensityMatrixSimulator``: one launch
+    per dense and cross step of the vec(rho) plan, within 1e-5 of the
+    twin executor and 2e-5 of the dense route."""
+    from quantum_simulator_tpu_torch import DensityMatrixSimulator
+    from quantum_simulator_tpu_torch.density import superop_program
+
+    circuit = QuantumCircuit.from_dict(
+        build_circuit_dict(12, 4, seed=3, mix_rz=mix_rz))
+    nm = _open_noise()
+    program2 = superop_program(tprog.compile_circuit(circuit), nm)
+    plan = tplan.get_group_plan(program2)
+    assert plan.all_real == (not mix_rz)
+    sim = DensityMatrixSimulator(noise_model=nm, device="cuda")
+    cuda_exec.reset_launch_counts()
+    res = sim.run(circuit, method="superop")
+    n_dense = sum(isinstance(s, tplan.AxisMatmulStep) for s in plan.steps)
+    n_cross = sum(isinstance(s, tplan.CrossStep) for s in plan.steps)
+    assert cuda_exec.dense_axis.launches == n_dense
+    assert cuda_exec.cross_bit_axis.launches == n_cross
+    want = tplan.group_forward_body(program2, program2.initial_params,
+                                    "cuda", plain=True)
+    assert float((res.device_rho.reshape(-1) - want).abs().max()) <= 1e-5
+    dense = sim.run(circuit, method="dense")
+    assert float((res.device_rho - dense.device_rho).abs().max()) <= 2e-5
+    assert abs(res.trace() - 1.0) <= 1e-4
+    assert res.purity() < 0.999
+
+
+def test_superop_n15_is_a_grouped_state_under_two_states(cuda):
+    """n = 15: vec(rho) is a 30-qubit real grouped state (4 GiB) that is
+    never copied; ``.rho`` raises."""
+    from quantum_simulator_tpu_torch import DensityMatrixSimulator
+    from quantum_simulator_tpu_torch.density import SuperopDensityResult
+
+    circuit = QuantumCircuit.from_dict(build_circuit_dict(15, 4, seed=4))
+    sim = DensityMatrixSimulator(noise_model=_open_noise(), device="cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res = sim.run(circuit)
+    torch.cuda.synchronize()
+    assert isinstance(res, SuperopDensityResult) and not res.is_planar
+    assert torch.cuda.max_memory_allocated() < 1.75 * (4 << 30)
+    with pytest.raises(MemoryError):
+        res.rho
+    assert abs(res.trace() - 1.0) <= 1e-4
+    assert 0.0 < res.purity() < 0.999
+    counts = sim.sample(res, 1000, rng=np.random.default_rng(0))
+    assert sum(counts.values()) == 1000
+
+
+def test_lindblad_step_on_cuda(cuda):
+    """One qubit's decay among 8 on the card against exp(-gamma t)."""
+    from quantum_simulator_tpu_torch import LindbladSimulator
+
+    n, gamma = 8, 0.7
+    psi = np.zeros(1 << n, np.complex128)
+    psi[1 << (n - 1)] = 1.0
+    out = LindbladSimulator(n, [(0.3, "ZZ", [0, 1])],
+                            [(gamma, "sigma_minus", 0)],
+                            device="cuda").evolve(
+        1.0, 20, initial=psi, observables=[("Z", [0])], record_every=5)
+    assert out.final.device_rho.is_cuda
+    want = 1.0 - 2.0 * np.exp(-gamma * out.times)
+    assert np.abs(out.expectations[0] - want).max() <= 1e-3
+    assert abs(out.final.trace() - 1.0) <= 1e-4

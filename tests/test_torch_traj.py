@@ -13,7 +13,7 @@ The same circuits (carried over as dicts) and noise models (as
   fidelity > 1 - 1e-5 and norm 1 +- 1e-5, the bounds of
   ``tests/test_unitary_traj.py``.
 * Laws (ensembles against the exact density matrix of
-  ``DensityMatrixSimulator``): 0.05 per probability over 600-700
+  ``DensityMatrixSimulator``, the JAX package's and the port's own): 0.05 per probability over 600-700
   trajectories, the bound of the JAX package's own ensemble tests; one
   trajectory's probability lies in [0, 1], so the ensemble mean's standard
   error is at most 0.5 / sqrt(600) = 0.02.
@@ -302,6 +302,20 @@ def test_law_against_exact_density_matrix(name):
                                atol=0.05)
 
 
+@pytest.mark.parametrize("name", sorted(LAW_CASES))
+def test_law_against_the_ports_exact_density_matrix(name):
+    """The same ensembles against the port's ``DensityMatrixSimulator``
+    (dense route), which itself agrees with the JAX one to 2e-5."""
+    jc, jnm = LAW_CASES[name]()
+    _, _, tp, tnm, tc = both(jc, jnm)
+    dm = tq.DensityMatrixSimulator(noise_model=tnm, device="cpu").run(tc)
+    want = DensityMatrixSimulator(noise_model=jnm).run(jc)
+    np.testing.assert_allclose(dm.probabilities, want.probabilities,
+                               atol=2e-5)
+    np.testing.assert_allclose(_ensemble(tp, tnm), dm.probabilities,
+                               atol=0.05)
+
+
 class _XBasisDamping:
     """Amplitude damping conjugated by H: CPTP, neither mixed-unitary nor
     monomial, so it takes the per-gate body."""
@@ -347,6 +361,99 @@ def test_per_gate_body_law(channel):
     probs = _ensemble(tp, tnm, 600, seed=3,
                       body=tplan.group_trajectory_body)
     np.testing.assert_allclose(probs, dm.probabilities, atol=0.05)
+
+
+@pytest.mark.parametrize("channel", ["amplitude-damping", "x-basis-damping"])
+@pytest.mark.parametrize("method", ["dense", "superop"])
+def test_per_gate_body_law_against_the_ports_density_matrix(channel, method):
+    """The per-gate body's ensemble against the port's exact rho, by
+    either route (a custom channel's Kraus stack enters both)."""
+    jc = brickwork(4, 2)
+    if channel == "amplitude-damping":
+        tnm = tq.NoiseModel.from_dict(
+            model(jq.AmplitudeDampingNoise(0.25)).to_dict())
+    else:
+        _, tnm = _x_damping_models()
+    tc = tq.QuantumCircuit.from_dict(jc.to_dict())
+    tp = tprog.compile_circuit(tc)
+    dm = tq.DensityMatrixSimulator(noise_model=tnm, device="cpu").run(
+        tc, method=method)
+    probs = _ensemble(tp, tnm, 600, seed=3,
+                      body=tplan.group_trajectory_body)
+    np.testing.assert_allclose(probs, dm.probabilities, atol=0.05)
+
+
+# (channel family, the port's route, the JAX group-path body of that
+# route: the body the port's route is held against, draw for draw or by
+# its law). Below n = 19 the JAX package itself runs none of them by
+# default: it takes its per-gate einsum body ``_trajectory_body``, which
+# consumes the draws in another order, so below n = 19 the port is held
+# against a body that JAX reaches only through its group path.
+ROUTE_TABLE = [
+    ("depolarizing", "unitary", (jut, "unitary_insert_trajectory_body")),
+    ("bit-flip", "unitary", (jut, "unitary_insert_trajectory_body")),
+    ("phase-flip", "unitary", (jut, "unitary_insert_trajectory_body")),
+    ("2q-depolarizing-on-cnot", "unitary",
+     (jut, "unitary_insert_trajectory_body")),
+    ("amplitude-damping", "monomial", (jmt, "monomial_trajectory_body")),
+    ("thermal-relaxation", "monomial", (jmt, "monomial_trajectory_body")),
+    ("depolarizing+damping", "monomial", (jmt, "monomial_trajectory_body")),
+    ("x-basis-damping", "fold", ("bigtraj", "fold_trajectory_body")),
+]
+
+
+def _route_models(family):
+    """(JAX model, port model) of a channel family."""
+    if family == "x-basis-damping":
+        return _x_damping_models()
+    jnm = {
+        "depolarizing": lambda: model(jq.DepolarizingNoise(0.1)),
+        "bit-flip": lambda: model(jq.BitFlipNoise(0.1)),
+        "phase-flip": lambda: model(jq.PhaseFlipNoise(0.1)),
+        "2q-depolarizing-on-cnot": lambda: model(
+            gate=("CNOT", jq.TwoQubitDepolarizingNoise(0.1))),
+        "amplitude-damping": lambda: model(jq.AmplitudeDampingNoise(0.1)),
+        "thermal-relaxation": lambda: model(
+            jq.ThermalRelaxationNoise(30.0, 40.0, 8.0)),
+        "depolarizing+damping": lambda: model(
+            jq.DepolarizingNoise(0.1), jq.AmplitudeDampingNoise(0.1)),
+    }[family]()
+    return jnm, tq.NoiseModel.from_dict(jnm.to_dict())
+
+
+@pytest.mark.parametrize("n", [4, 12, 18, 19, 24])
+@pytest.mark.parametrize("family,route,held_against", ROUTE_TABLE,
+                         ids=[r[0] for r in ROUTE_TABLE])
+def test_route_names_the_jax_body_it_is_held_against(family, route,
+                                                     held_against, n):
+    """Per channel family and n: the port's route, the JAX body of the
+    same name that the JAX group path would pick (by the JAX package's
+    own predicates, in its own order), and what JAX runs by default."""
+    from quantum_simulator_tpu.ops import bigtraj as jbig
+
+    jnm, tnm = _route_models(family)
+    jc = brickwork(n, 1)
+    jp = jprog.compile_circuit(jc)
+    tp = tprog.compile_circuit(tq.QuantumCircuit.from_dict(jc.to_dict()))
+    assert tprog.trajectory_route(tp, tnm) == route
+    # the selection of program._group_traj_body, with JAX's predicates
+    if jut.unitary_insert_supported(jp, jnm):
+        jax_route = "unitary"
+    elif jmt.monomial_insert_supported(jp, jnm):
+        jax_route = "monomial"
+    elif jbig.fold_supported(jp):
+        jax_route = "fold"
+    else:
+        jax_route = "per-gate"
+    assert jax_route == route
+    module, name = held_against
+    assert callable(getattr(jbig if module == "bigtraj" else module, name))
+    # what the JAX package runs by default: its per-gate einsum body
+    # below 19 qubits on every backend, the group path from 19 on only
+    # on a TPU (never in these CPU tests)
+    assert jprog._PLAN_EXECUTOR_MIN_QUBITS == 19
+    assert not jprog._use_group_path(jp)
+    assert (n >= jprog._PLAN_EXECUTOR_MIN_QUBITS) == (n in (19, 24))
 
 
 def test_replayed_draws_reproduce_the_batch():
@@ -442,6 +549,23 @@ def test_ensemble_density_matrices_match_exact_rho():
         np.testing.assert_allclose(q[k], want, atol=0.05)
         # float32 sums over 600 trajectories
         np.testing.assert_allclose(np.trace(q[k]).real, 1.0, atol=1e-4)
+
+
+def test_ensemble_density_matrices_match_the_ports_exact_rho():
+    jc, jnm, tc, tnm = _sim_case(jq.DepolarizingNoise(0.1))
+    dm = tq.DensityMatrixSimulator(noise_model=tnm, device="cpu").run(tc)
+    sim = tq.Simulator(noise_model=tnm, device="cpu")
+    rho = sim.ensemble_density_matrix(tc, 600, seed=1)
+    np.testing.assert_allclose(rho, dm.rho, atol=0.05)
+    assert dm.purity() == pytest.approx(
+        np.real(np.trace(dm.rho @ dm.rho)), abs=1e-5)
+    # and readout in distribution mode on the exact diagonal
+    tnm.set_readout_error(tq.ReadoutError(0.2, 0.2))
+    dsim = tq.DensityMatrixSimulator(noise_model=tnm, device="cpu")
+    exact = dsim.sample(dm, 4000, np.random.default_rng(3))
+    got = tq.Simulator(noise_model=tnm, device="cpu").run_with_noise(
+        tc, shots=4000, seed=2).measurement_counts
+    assert tvd(got, exact, 4000) <= 0.06
 
 
 @pytest.mark.parametrize("name", ["bell-ghz", "brickwork-rz"])
