@@ -141,14 +141,39 @@ The open-system slice adds:
     executor (kernels and twins in turns) beside the dense route, the
     n = 15 runs, ms per RK4 step at n = 10 and 13 with the peak.
 
+The analysis slice adds:
+
+9.  the analysis layer. 9a: ``CircuitDebugger(device="cuda")`` on the
+    brickwork (seed 42, Ry + CNOT) at n = 16 depth 40 with 50 trials and
+    at n = 20 depth 8 with 256 trials (18 GiB as one stack, so cut into
+    batches), depolarizing 0.01 on every gate: ``run_full_debug`` ideal
+    (snapshots within 1e-5 of ``run_step_by_step`` and the final one of
+    ``Simulator.run``) and noisy, ``compute_noise_attribution`` (the
+    contributions telescope to gap_C - gap_0 within 1e-6, the peak within
+    one batch's reckoning plus 1 GiB, two batches or more at n = 20), and
+    8 trials' column stacks through the kernels and the twins on the same
+    draws within 1e-5; 9b: ``quantum_volume_at_scale`` at widths 4-20,
+    50 trials, depolarizing 0.002 (``scripts/quantum_volume_check.py``'s
+    defaults): the ideal heavy mean in [0.83, 0.89] from width 8 on, and
+    one width-20 chunk (parameter rows with splice draws) through the
+    kernels and the twins on the same draws within 1e-5; 9c:
+    ``collect_shadows`` of GHZ-16 (4096 snapshots, chunk 512: <Z0 Z1>
+    within 0.2 of 1) and of an n = 20 Ry/Rz brickwork (1024 snapshots),
+    its first chunk's rotated states through the kernels and the twins
+    within 1e-5; 9d: ZNE (scales 1, 3, 5) of <Z0> after a TFIM step with
+    depolarizing 0.02, on 256 trajectories per scale at n = 16 (errors
+    printed only) and on the superoperator density matrix at n = 8 (the
+    ZNE error below a fifth of the raw one). Timed: ms per debugger call
+    and its peak, seconds per QV width, snapshots/s, ZNE seconds.
+
 ``--phases 2c,6`` runs only the named phases (and then prints no summary
 and no result line): for bringing up one phase on the card.
 
 Launch counts in the summary are those of the main paths: phase 3 is
 driven with the counters set to 0 just before it and read just after; in
-phases 3b, 5, 6, 7 and 8 each run, trajectory, gradient and optimizer run
-is. The comparison runs against the twins launch nothing (phase 5 checks
-it).
+phases 3b, 5, 6, 7, 8 and 9 each run, trajectory, gradient, optimizer,
+debugger, quantum-volume, shadows and ZNE run is. The comparison runs
+against the twins launch nothing (phase 5 checks it).
 
 The line before the last is the JSON kernel summary; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits with an
@@ -201,7 +226,7 @@ F64_SIZES = (16, 28)
 # (2 GiB) in place plus the complex result, with room to spare.
 RUN_PEAK_LIMIT = 6.1 * 2**30
 SEED = 42
-PHASES = ("2", "2b", "2c", "3", "3b", "4", "4b", "5", "6", "7", "8")
+PHASES = ("2", "2b", "2c", "3", "3b", "4", "4b", "5", "6", "7", "8", "9")
 
 # Layouts of n = 16, 28 and 30 qubits (GroupLayout.for_qubits).
 LAYOUTS = {16: (4, 128, 128), 28: (128,) * 4, 30: (4,) + (128,) * 4}
@@ -2401,6 +2426,315 @@ def phase_open_system(report: dict, card: str) -> dict:
     return path
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the analysis layer
+# ---------------------------------------------------------------------------
+
+# (n, depth, trials) of the debugger: bench.py's n = 16 depth-40
+# brickwork, and n = 20 depth 8 whose 256 trials are 18 GiB as one stack.
+DEBUG_CASES = [(16, 40, 50), (20, 8, 256)]
+DEBUG_P = 0.01
+DEBUG_TWIN_TRIALS = 8       # trials held kernel vs twin on the same draws
+PEAK_SLACK = 2**30
+# scripts/quantum_volume_check.py's defaults (QV_r05.json's configuration)
+QV_WIDTHS = (4, 8, 12, 16, 20)
+QV_TRIALS = 50
+QV_NOISE = 0.002
+QV_CHUNK = 10
+# Porter-Thomas gives (1 + ln 2) / 2 = 0.847 for the ideal heavy mass
+QV_IDEAL_RANGE = (0.83, 0.89)
+SHADOW_GHZ = (16, 4096, 512)        # (n, snapshots, chunk), bench.py:400
+SHADOW_WIDE = (20, 1024, 512)
+SHADOW_ZZ_TOL = 0.2                 # 4.5 standard errors of sqrt(8/4096)
+ZNE_N, ZNE_T, ZNE_SCALES, ZNE_P = 16, 256, (1, 3, 5), 0.02
+ZNE_DM_N = 8
+
+
+def tfim_step(n: int, dt: float = 0.35) -> QuantumCircuit:
+    """bench.py:359-366: one Trotterized transverse-field Ising step."""
+    c = QuantumCircuit(n)
+    for q in range(n):
+        c.add("Rx", [q], [2 * dt])
+    for q in range(n - 1):
+        c.add("CNOT", [q, q + 1])
+        c.add("Rz", [q + 1], [2 * dt])
+        c.add("CNOT", [q, q + 1])
+    return c
+
+
+def timed(fn):
+    """(result, host seconds ending in a synchronize)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def debugger_case(n: int, depth: int, trials: int, path: dict,
+                  report: dict, card: str) -> None:
+    """9a: run_full_debug ideal and noisy, then the noise attribution over
+    ``trials`` trials, batch by batch."""
+    from quantum_simulator_tpu_torch.debugger import CircuitDebugger
+
+    circuit = brickwork(n, depth, SEED, False)
+    program = tprog.compile_circuit(circuit)
+    nm = noise_model("depol", DEBUG_P)
+    dbg = CircuitDebugger(device="cuda")
+    case = f"debugger n={n} depth-{depth}"
+    row: dict = {"case": case, "trials": trials}
+
+    cuda_exec.reset_launch_counts()
+    snaps, row["ideal_s"] = timed(lambda: dbg.run_full_debug(circuit))
+    add_launches(path, {k: 0 for k in launch_counts()})
+    check(len(snaps) == program.num_columns + 1,
+          f"{case}: {len(snaps)} snapshots for {program.num_columns} columns")
+    steps = Simulator(device="cuda").run_step_by_step(circuit)
+    err = max(float((s.state.device_data - t.device_data).abs().max())
+              for s, (t, _) in zip(snaps, steps))
+    final = Simulator(device="cuda").run(circuit, shots=0).final_state
+    err = max(err, float((snaps[-1].state.device_data
+                          - final.device_data).abs().max()))
+    check(err <= STATE_TOL, f"{case}: ideal snapshots vs run_step_by_step "
+          f"and run: {err}")
+    row["ideal_vs_steps"] = err
+    del snaps, final
+
+    cuda_exec.reset_launch_counts()
+    snaps, row["noisy_s"] = timed(
+        lambda: dbg.run_full_debug(circuit, nm, seed=SEED))
+    add_launches(path, {k: 0 for k in launch_counts()})
+    fids = [s.fidelity for s in snaps]
+    norm_err = max(abs(float(s.state.device_data.abs().square().sum()) - 1)
+                   for s in snaps)
+    check(all(-1e-6 <= f <= 1 + 1e-5 for f in fids) and norm_err <= 1e-4,
+          f"{case}: noisy snapshot fidelities {min(fids)}..{max(fids)}, "
+          f"max |norm - 1| {norm_err}")
+    del snaps
+
+    captured = {}
+    reduce = dbg._trial_reductions
+
+    def capturing(*args, **kwargs):
+        captured["r"] = reduce(*args, **kwargs)
+        return captured["r"]
+
+    dbg._trial_reductions = capturing
+    chunk = tsim.record_rows_per_batch(program, trials)
+    per = (program.num_columns + 5) * (8 << n)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_exec.reset_launch_counts()
+    attr, row["attribution_s"] = timed(lambda: dbg.compute_noise_attribution(
+        circuit, nm, n_trials=trials, seed=SEED))
+    delta = add_launches(path, {k: 0 for k in launch_counts()})
+    peak = torch.cuda.max_memory_allocated() - base
+    batches = -(-trials // chunk)
+    fid, _ = captured["r"]
+    gaps = 1.0 - fid
+    tele = abs(attr.total_fidelity_loss
+               - (gaps[:, -1].mean() - gaps[:, 0].mean()))
+    check(tele <= 1e-6, f"{case}: contributions sum to "
+          f"{attr.total_fidelity_loss}, gap_C - gap_0 differs by {tele}")
+    check(peak <= chunk * per + PEAK_SLACK,
+          f"{case}: attribution peak {peak} > one batch {chunk * per} + 1 GiB")
+    check(n < 20 or batches >= 2, f"{case}: {trials} trials in {batches} "
+          "batch(es); the stack must be cut")
+    check(delta["dense_axis"] > 0 and delta["cross_bit_axis"] > 0,
+          f"{case}: attribution launches {delta}")
+
+    # the same draws through the kernels and through the twins
+    u = tplan.draw_uniforms(program, nm, DEBUG_TWIN_TRIALS, "cuda",
+                            torch.Generator(device="cuda").manual_seed(SEED))
+    got, draws = tplan.group_trajectory_body(
+        program, nm, program.initial_params, DEBUG_TWIN_TRIALS, "cuda",
+        record_columns=True, uniforms=u)
+    want, _ = tplan.group_trajectory_body(
+        program, nm, program.initial_params, DEBUG_TWIN_TRIALS, "cuda",
+        draws=draws, record_columns=True, plain=True)
+    err = float((got - want).abs().max())
+    check(err <= STATE_TOL, f"{case}: max |kernel - plain| over every "
+          f"snapshot = {err}")
+    del got, want
+    row.update(kernel_vs_plain=err, batches=batches, batch_trials=chunk,
+               peak_bytes=peak, batch_bytes=chunk * per,
+               telescoping_err=tele, launches=delta,
+               total_fidelity_loss=attr.total_fidelity_loss)
+    report.setdefault("debugger", []).append(row)
+    print(f"analysis {case} [{card}]: run_full_debug ideal "
+          f"{row['ideal_s'] * 1e3:.1f} ms, noisy {row['noisy_s'] * 1e3:.1f} "
+          f"ms; compute_noise_attribution({trials} trials) "
+          f"{row['attribution_s'] * 1e3:.1f} ms in {batches} batch(es) of "
+          f"<= {chunk}, peak {peak / 2**30:.3f} GiB (batch reckoning "
+          f"{chunk * per / 2**30:.3f} GiB), launches {delta}, total loss "
+          f"{attr.total_fidelity_loss:.4f}, telescoping {tele:.1e}, kernel "
+          f"vs plain {err:.2e}", flush=True)
+
+
+def phase_qv(path: dict, report: dict, card: str) -> None:
+    """9b: quantum volume at scale, with the kernels-vs-twins check on one
+    chunk of the widest width."""
+    from quantum_simulator_tpu_torch.analysis import (BenchmarkAnalysis,
+                                                      heavy_output_chunk,
+                                                      qv_model_circuit)
+
+    nm = noise_model("depol", QV_NOISE)
+    rows_out = []
+    cuda_exec.reset_launch_counts()
+    res, wall = timed(lambda: BenchmarkAnalysis.quantum_volume_at_scale(
+        widths=QV_WIDTHS, num_trials=QV_TRIALS, noise_model=nm, seed=SEED,
+        chunk=QV_CHUNK, on_width=rows_out.append, device="cuda"))
+    delta = add_launches(path, {k: 0 for k in launch_counts()})
+    lo, hi = QV_IDEAL_RANGE
+    for r in res["results_per_width"]:
+        if r["width"] >= 8:
+            check(lo <= r["heavy_output_ideal_mean"] <= hi,
+                  f"QV width {r['width']}: ideal heavy mean "
+                  f"{r['heavy_output_ideal_mean']} outside [{lo}, {hi}]")
+        print(f"analysis QV width {r['width']} [{card}]: heavy "
+              f"{r['heavy_output_mean']:.4f} +- "
+              f"{r['heavy_output_stderr']:.4f} (ideal "
+              f"{r['heavy_output_ideal_mean']:.4f}) "
+              f"{'pass' if r['passed'] else 'fail'}, {r['seconds']:.3f} s",
+              flush=True)
+    m = QV_WIDTHS[-1]
+    program = tprog.compile_circuit(qv_model_circuit(m))
+    rows = torch.from_numpy(np.random.default_rng(SEED).uniform(
+        0, 2 * np.pi, (QV_CHUNK, program.num_params)).astype(
+            np.float32)).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    h_i, h_n, draws = heavy_output_chunk(program, nm, rows, "cuda", 1, gen)
+    p_i, p_n, _ = heavy_output_chunk(program, nm, rows, "cuda", 1,
+                                     draws=draws, plain=True)
+    err = max(float((h_n - p_n).abs().max()), float((h_i - p_i).abs().max()))
+    check(err <= STATE_TOL, f"QV width {m} chunk: heavy outputs kernel vs "
+          f"plain differ by {err}")
+    report["qv"] = {"result": res, "wall_s": wall, "launches": delta,
+                    "kernel_vs_plain": err}
+    print(f"analysis QV {QV_WIDTHS} x {QV_TRIALS} trials, depolarizing "
+          f"{QV_NOISE} [{card}]: QV {res['quantum_volume']}, {wall:.2f} s, "
+          f"launches {delta}, width-{m} chunk kernel vs plain {err:.2e}",
+          flush=True)
+
+
+def phase_shadows(path: dict, report: dict, card: str) -> None:
+    """9c: classical shadows of GHZ-16, and the n = 20 basis layer's
+    kernels against its twins."""
+    from quantum_simulator_tpu_torch import shadows as tsh
+
+    n, S, chunk = SHADOW_GHZ
+    circuit = ghz(n)
+    tsh.collect_shadows(circuit, chunk, seed=3, chunk=chunk, device="cuda")
+    cuda_exec.reset_launch_counts()
+    data, wall = timed(lambda: tsh.collect_shadows(circuit, S, seed=4,
+                                                   chunk=chunk,
+                                                   device="cuda"))
+    delta = add_launches(path, {k: 0 for k in launch_counts()})
+    zz = data.estimate_pauli("ZZ", [0, 1])
+    check(abs(zz - 1.0) <= SHADOW_ZZ_TOL, f"shadows GHZ-{n}: <Z0 Z1> = {zz}")
+    check(delta["dense_axis"] > 0, f"shadows launches {delta}")
+    print(f"analysis shadows GHZ-{n} [{card}]: {S / wall:.0f} snapshots/s "
+          f"({S} in {wall:.3f} s, chunk {chunk}), <Z0 Z1> {zz:+.3f}, "
+          f"launches {delta}", flush=True)
+
+    n2, S2, chunk2 = SHADOW_WIDE
+    wide = brickwork(n2, 8, SEED, True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    cuda_exec.reset_launch_counts()
+    data2, wall2 = timed(lambda: tsh.collect_shadows(wide, S2, seed=5,
+                                                     chunk=chunk2,
+                                                     device="cuda"))
+    delta2 = add_launches(path, {k: 0 for k in launch_counts()})
+    peak = torch.cuda.max_memory_allocated() - base
+    check(data2.outcomes.shape == (S2, n2), f"shadows n={n2}: outcomes of "
+          f"shape {data2.outcomes.shape}")
+    psi = Simulator(device="cuda").run(wide, shots=0).final_state.device_data
+    bases = data2.bases[:chunk2]
+    want = tsh.rotate_snapshots(psi, n2, bases, plain=True)
+    got = tsh.rotate_snapshots(psi, n2, bases)
+    err = float((got - want).abs().max())
+    check(err <= STATE_TOL, f"shadows n={n2}: rotated states kernel vs "
+          f"plain {err}")
+    del got, want
+    report["shadows"] = {"ghz_snapshots_per_s": S / wall, "zz": zz,
+                         "launches": delta, "wide_s": wall2,
+                         "wide_launches": delta2, "wide_peak_bytes": peak,
+                         "kernel_vs_plain": err}
+    print(f"analysis shadows n={n2} brickwork Ry/Rz depth 8 [{card}]: "
+          f"{S2 / wall2:.0f} snapshots/s ({S2} in {wall2:.3f} s), peak "
+          f"{peak / 2**30:.3f} GiB, launches {delta2}, rotated states "
+          f"kernel vs plain {err:.2e}", flush=True)
+
+
+def phase_mitigation(path: dict, report: dict, card: str) -> None:
+    """9d: ZNE of <Z0> after a TFIM step, on trajectory ensembles at n = 16
+    and on the superoperator density matrix at n = 8."""
+    from quantum_simulator_tpu_torch.mitigation import zne_expectation
+
+    nm = noise_model("depol", ZNE_P)
+    c = tfim_step(ZNE_N)
+    probs = Simulator(device="cuda").run(c, shots=0).final_state.probabilities
+    half = 1 << (ZNE_N - 1)
+    ideal = float(probs[:half].sum() - probs[half:].sum())
+    sim = Simulator(noise_model=nm, device="cuda")
+
+    def expect_z0(circ):
+        states = sim.trajectory_states(circ, ZNE_T, seed=7)
+        pr = states.abs().square().reshape(ZNE_T, 2, -1).sum(-1)
+        return float((pr[:, 0] - pr[:, 1]).mean())
+
+    cuda_exec.reset_launch_counts()
+    res, wall = timed(lambda: zne_expectation(expect_z0, c, ZNE_SCALES))
+    delta = add_launches(path, {k: 0 for k in launch_counts()})
+    raw_err = abs(res.raw_values[0] - ideal)
+    zne_err = abs(res.value - ideal)
+    print(f"analysis ZNE n={ZNE_N} TFIM <Z0>, depolarizing {ZNE_P}, "
+          f"{ZNE_T} trajectories per scale {ZNE_SCALES} [{card}]: raw err "
+          f"{raw_err:.4f}, ZNE err {zne_err:.4f} (within sampling noise at "
+          f"this T), {wall:.3f} s, launches {delta}", flush=True)
+
+    c8 = tfim_step(ZNE_DM_N)
+    ideal8 = tdens.DensityMatrixSimulator(device="cuda").run(
+        c8).expectation_z(0)
+    dm = tdens.DensityMatrixSimulator(noise_model=nm, device="cuda")
+    cuda_exec.reset_launch_counts()
+    res8, wall8 = timed(lambda: zne_expectation(
+        lambda circ: float(dm.run(circ, method="superop").expectation_z(0)),
+        c8, ZNE_SCALES))
+    delta8 = add_launches(path, {k: 0 for k in launch_counts()})
+    raw8 = abs(res8.raw_values[0] - ideal8)
+    zne8 = abs(res8.value - ideal8)
+    check(zne8 < raw8 / 5, f"ZNE n={ZNE_DM_N} density matrix: ZNE err "
+          f"{zne8} not below a fifth of the raw {raw8}")
+    check(delta8["dense_axis"] > 0 and delta8["cross_bit_axis"] > 0,
+          f"ZNE n={ZNE_DM_N} superop launches {delta8}")
+    report["zne"] = {"n16": {"raw_err": raw_err, "zne_err": zne_err,
+                             "s": wall, "launches": delta},
+                     "n8_dm": {"raw_err": raw8, "zne_err": zne8, "s": wall8,
+                               "launches": delta8}}
+    print(f"analysis ZNE n={ZNE_DM_N} TFIM <Z0>, superop density matrix "
+          f"[{card}]: raw err {raw8:.5f}, ZNE err {zne8:.6f} ({wall8:.3f} "
+          f"s, launches {delta8})", flush=True)
+
+
+def phase_analysis(report: dict, card: str) -> dict:
+    """9a-9d; every main-path run reads its launches from zero."""
+    path: dict = {}
+    for n, depth, trials in DEBUG_CASES:
+        debugger_case(n, depth, trials, path, report, card)
+    phase_qv(path, report, card)
+    phase_shadows(path, report, card)
+    phase_mitigation(path, report, card)
+    check(all(v > 0 for v in path.values()),
+          f"a kernel never launched on the analysis path: {path}")
+    report["analysis_launches"] = path
+    return path
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every measurement as JSON")
@@ -2453,7 +2787,8 @@ def main() -> int:
               "5": lambda: phase_variational(report, card),
               "6": lambda: phase_huge(report, card),
               "7": lambda: phase_huge_noisy(report, card),
-              "8": lambda: phase_open_system(report, card)}
+              "8": lambda: phase_open_system(report, card),
+              "9": lambda: phase_analysis(report, card)}
     out = {}
     for name in PHASES:
         if name in chosen:
@@ -2480,7 +2815,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
             "launches": sum(out[p][name] for p in ("3", "3b", "5", "6",
-                                                   "7", "8")),
+                                                   "7", "8", "9")),
             "max_abs_err": max(out["2"]["max_err"][name], out["2b"][name],
                                out["2c"][name]),
             "ms": row["ms"], "plain_ms": row["plain_ms"],

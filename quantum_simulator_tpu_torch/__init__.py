@@ -13,7 +13,12 @@ batches through the same kernels. The exact open-system path
 superoperator program through the same executor and kernels;
 ``lindblad.LindbladSimulator``) and the Trotter circuits of
 ``models/trotter.py`` complete it, with OpenQASM 2.0 import / export in
-``qasm.py``. It imports torch and NumPy, never JAX and never the JAX
+``qasm.py``. The analysis layer sits on top: the circuit debugger with
+batched noise attribution (``debugger``), quantum volume at scale
+(``analysis.BenchmarkAnalysis``), classical shadows (``shadows``), error
+mitigation (``mitigation``: ZNE, PEC, readout inversion), circuit
+comparison, reference states, algorithm templates and the acceptance
+benchmark suite. It imports torch and NumPy, never JAX and never the JAX
 package.
 """
 
@@ -24,6 +29,10 @@ from .density import DensityMatrixResult, DensityMatrixSimulator
 from .gates import GateDefinition, GateType
 from .lindblad import LindbladResult, LindbladSimulator
 from .measurement import MeasurementBasis, MeasurementEngine
+from .mitigation import (PECResult, ReadoutMitigator, ZNEResult,
+                         fold_circuit, pec_expectation,
+                         quasi_inverse_pauli, richardson_extrapolate,
+                         zne_expectation)
 from .noise import (AmplitudeDampingNoise, BitFlipNoise, DepolarizingNoise,
                     NoiseChannel, NoiseModel, PhaseFlipNoise, ReadoutError,
                     ThermalRelaxationNoise, TwoQubitDepolarizingNoise)
@@ -35,6 +44,7 @@ from .optimizer import (BarrenPlateauAnalysis, CircuitOptimizer,
 from .ops.bigstate import MarginalStateSummary, PlanarStateVector
 from .qasm import from_qasm, to_qasm
 from .registry import GateRegistry
+from .shadows import ShadowData, collect_shadows
 from .simulator import SimulationResult, Simulator
 from .state import StateVector
 
@@ -67,18 +77,28 @@ __all__ = [
     "NoiseChannel",
     "NoiseModel",
     "OptimizationResult",
+    "PECResult",
     "ParameterBinding",
     "ParameterizedCircuitConfig",
     "PhaseFlipNoise",
     "PlanarStateVector",
     "QuantumCircuit",
     "ReadoutError",
+    "ReadoutMitigator",
+    "ShadowData",
     "SimulationResult",
     "Simulator",
     "StateAnalysis",
     "StateVector",
     "ThermalRelaxationNoise",
     "TwoQubitDepolarizingNoise",
+    "ZNEResult",
+    "collect_shadows",
+    "fold_circuit",
     "from_qasm",
+    "pec_expectation",
+    "quasi_inverse_pauli",
+    "richardson_extrapolate",
     "to_qasm",
+    "zne_expectation",
 ]

@@ -167,11 +167,20 @@ def collapse_qubit(state: torch.Tensor, qubit: int, outcome,
 def reduced_density_matrix_1q(state: torch.Tensor, qubit: int,
                               num_qubits: int) -> torch.Tensor:
     """``(..., 2, 2)`` reduced density matrix of one qubit of a
-    ``(..., 2^n)`` state by direct contraction on psi; the full rho is
-    never built."""
+    ``(..., 2^n)`` state (a view is fine), the full rho never built:
+    rho_ij = sum psi[.., i, ..] conj(psi[.., j, ..]) as elementwise
+    products and sums over the two halves, each a pass over the state.
+    (An einsum here becomes a batched matmul with a 2 x 2 output, which
+    runs far below the card's memory rate.)"""
     psi = state.reshape(tuple(state.shape[:-1])
                         + (1 << qubit, 2, 1 << (num_qubits - qubit - 1)))
-    return torch.einsum("...aib,...ajb->...ij", psi, psi.conj())
+    a, b = psi[..., 0, :], psi[..., 1, :]
+    p0 = (a.real.square() + a.imag.square()).sum((-2, -1))
+    p1 = (b.real.square() + b.imag.square()).sum((-2, -1))
+    off = (a * b.conj()).sum((-2, -1))
+    return torch.stack([torch.stack([p0.to(off.dtype), off], -1),
+                        torch.stack([off.conj(), p1.to(off.dtype)], -1)],
+                       -2)
 
 
 def normalize(state: torch.Tensor) -> torch.Tensor:

@@ -1055,6 +1055,21 @@ def param_overrides(program: prog.CircuitProgram,
                             pool_map, per_op)
 
 
+def merge_overrides(first: OperandOverrides,
+                    second: OperandOverrides) -> OperandOverrides:
+    """One ``OperandOverrides`` from two that touch disjoint ops (a
+    parameter batch's rows and a splice's draws, ``analysis.py:693-743``;
+    spliced draw ops carry no parameters): the second's pool rows follow
+    the first's, its ``pool_map`` shifted past them."""
+    parts = [r for r in (first.pool_rows, second.pool_rows) if r is not None]
+    shift = 0 if first.pool_rows is None else first.pool_rows.shape[1]
+    pool_map = dict(first.pool_map)
+    pool_map.update({oi: shift + r for oi, r in second.pool_map.items()})
+    return OperandOverrides(
+        torch.cat([p.to(_C64) for p in parts], dim=1) if parts else None,
+        pool_map, {**first.per_op, **second.per_op})
+
+
 def build_group_operands_batched(program: prog.CircuitProgram,
                                  plan: GroupPlan, params, n_traj: int,
                                  device,
@@ -1063,9 +1078,11 @@ def build_group_operands_batched(program: prog.CircuitProgram,
     complex64 with the arithmetic of ``build_group_operands`` (TF32 stays
     off, ``config.py``). ``params`` is one parameter vector shared by the
     batch, or a ``(n_traj, P)`` tensor of parameter rows, whose
-    parameterized ops then take one matrix per row (``param_overrides``;
-    not combined with ``overrides``). Each operand has a leading
-    trajectory axis:
+    parameterized ops then take one matrix per row (``param_overrides``,
+    merged with ``overrides``: each row has its own parameters and its own
+    noise draws, as the JAX package's vmap over trials gives,
+    ``analysis.py:693-743``). Each operand has a leading trajectory
+    axis:
 
     * ``axis_stacks[ax][i]``: (T, 2, S, S);
     * ``cross_ops[i]``: (T, 2, 2, S, 2, S);
@@ -1079,11 +1096,12 @@ def build_group_operands_batched(program: prog.CircuitProgram,
     layout = plan.layout
     T = n_traj
     if isinstance(params, torch.Tensor) and params.ndim == 2:
-        if overrides is not None or params.shape[0] != T:
-            raise ValueError(
-                f"a parameter batch of shape {tuple(params.shape)} for "
-                f"{T} rows{' with overrides' if overrides else ''}")
-        overrides = param_overrides(program, params)
+        if params.shape[0] != T:
+            raise ValueError(f"a parameter batch of shape "
+                             f"{tuple(params.shape)} for {T} rows")
+        rows = param_overrides(program, params)
+        overrides = (rows if overrides is None
+                     else merge_overrides(rows, overrides))
         params = program.initial_params   # the host pool builds fixed ops
     pool = _DevicePool(program, params, device, overrides)
 
@@ -1595,16 +1613,38 @@ def group_batched_forward(program: prog.CircuitProgram, params_batch,
 # ---------------------------------------------------------------------------
 
 def categorical(weights: torch.Tensor,
-                generator: torch.Generator | None) -> torch.Tensor:
+                generator: torch.Generator | None,
+                uniforms: torch.Tensor | None = None) -> torch.Tensor:
     """One index per row of ``(T, m)`` non-negative weights, drawn by
     inverse CDF on float64 uniforms from ``generator`` (on the weights'
-    device). The law of ``jax.random.categorical(key, log(w))``; the
-    numbers differ."""
+    device), or on the given ``(T,)`` ``uniforms``. The law of
+    ``jax.random.categorical(key, log(w))``; the numbers differ."""
     cdf = torch.cumsum(weights.to(torch.float64), dim=-1)
-    u = torch.rand(cdf.shape[:-1] + (1,), dtype=torch.float64,
-                   device=cdf.device, generator=generator) * cdf[..., -1:]
+    if uniforms is None:
+        uniforms = torch.rand(cdf.shape[:-1], dtype=torch.float64,
+                              device=cdf.device, generator=generator)
+    u = uniforms[..., None] * cdf[..., -1:]
     idx = torch.searchsorted(cdf, u, right=True).squeeze(-1)
     return idx.clamp_(max=weights.shape[-1] - 1)
+
+
+def total_draws(program: prog.CircuitProgram, noise_model) -> int:
+    """Kraus draws of one trajectory of ``group_trajectory_body``: one per
+    channel and target of every op."""
+    return sum(len(noise_model.kraus_stacks_for_gate(op.gate_name))
+               * len(op.targets) for op in program.ops)
+
+
+def draw_uniforms(program: prog.CircuitProgram, noise_model, n_traj: int,
+                  device, generator: torch.Generator | None
+                  ) -> torch.Tensor:
+    """``(T, total_draws)`` float64 uniforms, one row per trajectory: fed
+    to ``group_trajectory_body``, they make each trajectory's branches
+    depend on its own row only, whatever batches the rows are cut into
+    (the port's form of one PRNG key per trajectory)."""
+    return torch.rand((n_traj, total_draws(program, noise_model)),
+                      dtype=torch.float64, device=device,
+                      generator=generator)
 
 
 def apply_gate_grouped(x: torch.Tensor, u: torch.Tensor,
@@ -1698,12 +1738,19 @@ def _rho_q_grouped(x: torch.Tensor, q: int,
     post = (shape[ax] >> (pos + 1)) * int(np.prod(shape[ax + 1:],
                                                   dtype=np.int64))
     y = x.reshape(x.shape[0], 2, pre, 2, post)
-    yr, yi = y[:, 0], y[:, 1]
-    rr = (torch.einsum("tabc,tadc->tbd", yr, yr)
-          + torch.einsum("tabc,tadc->tbd", yi, yi))
-    ri = (torch.einsum("tabc,tadc->tbd", yi, yr)
-          - torch.einsum("tabc,tadc->tbd", yr, yi))
-    return torch.complex(rr, ri)
+    # elementwise products and sums over the two halves of the qubit: an
+    # einsum becomes a batched matmul with a 2 x 2 output, which runs far
+    # below the card's memory rate and took most of the per-gate body
+    a, b = y[:, :, :, 0], y[:, :, :, 1]            # (T, plane, pre, post)
+    p0 = a.square().sum((1, 2, 3))
+    p1 = b.square().sum((1, 2, 3))
+    re = (a * b).sum((1, 2, 3))
+    im = (a[:, 1] * b[:, 0]).sum((1, 2)) - (a[:, 0] * b[:, 1]).sum((1, 2))
+    zero = torch.zeros_like(p0)
+    off = torch.complex(re, im)
+    return torch.stack([
+        torch.stack([torch.complex(p0, zero), off], -1),
+        torch.stack([off.conj(), torch.complex(p1, zero)], -1)], -2)
 
 
 def _combine(x: torch.Tensor) -> torch.Tensor:
@@ -1711,12 +1758,23 @@ def _combine(x: torch.Tensor) -> torch.Tensor:
     return torch.complex(x[:, 0], x[:, 1]).reshape(x.shape[0], -1)
 
 
+def _write_column(out: torch.Tensor, col: int, x: torch.Tensor) -> None:
+    """Copy a planar batched state into ``out[:, col]`` of a ``(T, C+1,
+    2^n)`` complex64 stack, plane by plane: no complex temporary."""
+    T = x.shape[0]
+    dst = torch.view_as_real(out[:, col])
+    dst[..., 0].copy_(x[:, 0].reshape(T, -1))
+    dst[..., 1].copy_(x[:, 1].reshape(T, -1))
+
+
 def group_trajectory_body(program: prog.CircuitProgram, noise_model,
                           params, n_traj: int, device,
                           generator: torch.Generator | None = None,
                           draws: torch.Tensor | None = None,
                           record_columns: bool = False,
-                          plain: bool = False):
+                          plain: bool = False,
+                          out: torch.Tensor | None = None,
+                          uniforms: torch.Tensor | None = None):
     """``n_traj`` stochastic-Kraus trajectories over the group layout
     (``plan.py:1457-1535``): after every gate, for each channel and each
     target, branch probabilities from the target's reduced density
@@ -1726,20 +1784,48 @@ def group_trajectory_body(program: prog.CircuitProgram, noise_model,
 
     Returns ``(states, draws)``: states ``(T, 2^n)`` complex64, or ``(T,
     columns + 1, 2^n)`` with ``record_columns`` (the initial state, then
-    one snapshot after each column); ``draws`` the ``(T, total_draws)``
-    branch indices. Passing ``draws`` replays those branches."""
+    one snapshot after each column), each column written as it is reached
+    into one stack allocated up front, or into ``out`` when given;
+    ``draws`` the ``(T, total_draws)`` branch indices. Passing ``draws``
+    replays those branches; passing ``uniforms`` (``draw_uniforms``)
+    draws them from those rows instead of ``generator``."""
     layout = GroupLayout.for_qubits(program.num_qubits)
     T = n_traj
-    total_draws = sum(len(noise_model.kraus_stacks_for_gate(op.gate_name))
-                      * len(op.targets) for op in program.ops)
+    if record_columns:
+        shape = (T, program.num_columns + 1, 1 << program.num_qubits)
+        if out is None:
+            out = torch.empty(shape, dtype=_C64, device=device)
+        elif tuple(out.shape) != shape or out.dtype != _C64 \
+                or not out.is_contiguous():
+            raise ValueError(f"out must be a contiguous complex64 tensor "
+                             f"of shape {shape}")
+    n_draws = total_draws(program, noise_model)
     if draws is None:
-        draws = torch.zeros((T, total_draws), dtype=torch.long,
-                            device=device)
+        draws = torch.zeros((T, n_draws), dtype=torch.long, device=device)
         replay = False
     else:
         replay = True
+    # Every gate matrix and Kraus stack goes to the device before the
+    # first step: a copy from pageable host memory waits for the stream,
+    # so one per gate would idle the card between gates.
+    mats = [None if op.cphase_value is not None else torch.from_numpy(
+        program.op_matrix(op, params, np.complex64)).to(device)[None]
+        for op in program.ops]
+    stacks: dict[str, list[torch.Tensor]] = {}
+    for op in program.ops:
+        if op.gate_name in stacks:
+            continue
+        raw = noise_model.kraus_stacks_for_gate(op.gate_name)
+        if any(k.shape[1] != 2 for k in raw):
+            raise ValueError(
+                "the per-gate trajectory body applies one-qubit Kraus "
+                "stacks; a multi-qubit stack needs the splice executors "
+                "(ops/unitary_traj.py, ops/monomial_traj.py)")
+        stacks[op.gate_name] = [torch.from_numpy(np.asarray(
+            k, dtype=np.complex64)).to(device) for k in raw]
     x = layout_basis_state(layout, program.initial_index, device, True, T)
-    snapshots = [_combine(x)] if record_columns else None
+    if record_columns:
+        _write_column(out, 0, x)
     d = 0
     op_i = 0
     for col in range(program.num_columns):
@@ -1750,18 +1836,9 @@ def group_trajectory_body(program: prog.CircuitProgram, noise_model,
                 x = apply_cphase_grouped(x, op.targets, op.cphase_value,
                                          layout)
             else:
-                u = torch.from_numpy(program.op_matrix(
-                    op, params, np.complex64)).to(device)[None]
-                x = apply_gate_grouped(x, u, op.targets, layout, plain)
-            for kraus_np in noise_model.kraus_stacks_for_gate(op.gate_name):
-                if kraus_np.shape[1] != 2:
-                    raise ValueError(
-                        "the per-gate trajectory body applies one-qubit "
-                        "Kraus stacks; a multi-qubit stack needs the "
-                        "splice executors (ops/unitary_traj.py, "
-                        "ops/monomial_traj.py)")
-                kraus = torch.from_numpy(np.asarray(
-                    kraus_np, dtype=np.complex64)).to(device)
+                x = apply_gate_grouped(x, mats[op_i], op.targets, layout,
+                                       plain)
+            for kraus in stacks[op.gate_name]:
                 for q in op.targets:
                     rho = _rho_q_grouped(x, q, layout)
                     norms = torch.einsum("mij,tjk,mik->tm", kraus, rho,
@@ -1769,23 +1846,25 @@ def group_trajectory_body(program: prog.CircuitProgram, noise_model,
                     if replay:
                         idx = draws[:, d]
                     else:
-                        idx = categorical(norms + 1e-30, generator)
+                        idx = categorical(
+                            norms + 1e-30, generator,
+                            None if uniforms is None else uniforms[:, d])
                         draws[:, d] = idx
                     x = apply_gate_grouped(x, kraus[idx], (q,), layout,
                                            plain)
                     p = norms.gather(1, idx[:, None]).squeeze(1)
                     inv = torch.rsqrt(p.clamp(min=1e-30))
-                    x = x * inv.reshape((T,) + (1,) * (x.ndim - 1))
+                    x.mul_(inv.reshape((T,) + (1,) * (x.ndim - 1)))
                     d += 1
             op_i += 1
         if record_columns:
-            snapshots.append(_combine(x))
-    if total_draws:
+            _write_column(out, col + 1, x)
+    if n_draws:
         # one exact division restores ||psi|| = 1; it changes no branch
         nsq = x.square().reshape(T, -1).sum(-1)
         x = x * torch.rsqrt(nsq).reshape((T,) + (1,) * (x.ndim - 1))
         if record_columns:
-            snapshots[-1] = _combine(x)
+            _write_column(out, program.num_columns, x)
     if record_columns:
-        return torch.stack(snapshots, dim=1), draws
+        return out, draws
     return _combine(x), draws

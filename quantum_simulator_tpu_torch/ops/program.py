@@ -282,8 +282,21 @@ def batched_trajectories(program: CircuitProgram, noise_model, params,
 
 
 def batched_trajectories_fn(program: CircuitProgram, noise_model,
-                            device) -> Callable:
-    """``f(params, n_traj, generator) -> states (T, 2^n)``."""
+                            device, record_columns: bool = False
+                            ) -> Callable:
+    """``f(params, n_traj, generator) -> states (T, 2^n)``. With
+    ``record_columns`` (``program.py:495-531``, served by the per-gate
+    body as the JAX selector does, ``program.py:561-573``): ``f(params,
+    uniforms, out=None) -> (T, columns + 1, 2^n)`` column snapshots, one
+    trajectory per row of ``uniforms`` (``plan.draw_uniforms``), written
+    into ``out`` when given."""
+    if record_columns:
+        from .plan import group_trajectory_body
+
+        return lambda params, uniforms, out=None: group_trajectory_body(
+            program, noise_model, params, uniforms.shape[0],
+            uniforms.device, record_columns=True, out=out,
+            uniforms=uniforms)[0]
     return lambda params, n_traj, generator: batched_trajectories(
         program, noise_model, params, n_traj, device, generator)[0]
 

@@ -141,6 +141,35 @@ def param_rows_per_batch(program, n_rows: int) -> int:
     return max(1, min(n_rows, TRAJECTORY_MEMORY_BYTES // per))
 
 
+def record_rows_per_batch(program, n_traj: int) -> int:
+    """Trajectories per batch of a column-recording run (the debugger's
+    trials): ``TRAJECTORY_MEMORY_BYTES`` over one trajectory's peak, which
+    is its ``columns + 1`` complex64 snapshots and four state-sized
+    buffers: the planar state, and the permuted and conjugated copies that
+    the reduced density matrices take (of the state in the body, of one
+    column in the reductions)."""
+    per = (program.num_columns + 5) * (8 << program.num_qubits)
+    return max(1, min(n_traj, TRAJECTORY_MEMORY_BYTES // per))
+
+
+def run_batched_trajectories(traj_fn, params, uniforms: torch.Tensor,
+                             row_shape: tuple, chunk: int) -> torch.Tensor:
+    """``(T, *row_shape)`` complex64 results of a batched trajectory
+    function ``traj_fn(params, uniforms, out=...)`` (``program.
+    batched_trajectories_fn(..., record_columns=True)``) over the ``T``
+    rows of ``uniforms`` (``simulator.py:77-104``), in batches of
+    ``chunk`` rows, each written into its rows of one result allocated up
+    front: the peak is the result plus one batch's temporaries. The rows
+    carry the draws, so the result does not depend on ``chunk``."""
+    T = uniforms.shape[0]
+    out = torch.empty((T,) + tuple(row_shape), dtype=torch.complex64,
+                      device=uniforms.device)
+    for start in range(0, T, chunk):
+        stop = min(T, start + chunk)
+        traj_fn(params, uniforms[start:stop], out=out[start:stop])
+    return out
+
+
 class Simulator:
     """Runs a QuantumCircuit on ``device`` (default ``CONFIG.device``)."""
 

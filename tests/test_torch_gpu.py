@@ -676,3 +676,113 @@ def test_lindblad_step_on_cuda(cuda):
     want = 1.0 - 2.0 * np.exp(-gamma * out.times)
     assert np.abs(out.expectations[0] - want).max() <= 1e-3
     assert abs(out.final.trace() - 1.0) <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# The analysis layer: debugger, quantum volume, shadows
+# ---------------------------------------------------------------------------
+
+def _depol(p):
+    from quantum_simulator_tpu_torch import DepolarizingNoise, NoiseModel
+
+    nm = NoiseModel()
+    nm.add_global_noise(DepolarizingNoise(p))
+    return nm
+
+
+def test_debugger_noisy_stack_kernels_match_twins(cuda):
+    """The column stack of noisy trials at n = 16 (per-gate body, one
+    operator per trial for every draw) through the kernels and through
+    the twins on the same draws, in every snapshot."""
+    c = QuantumCircuit.from_dict(build_circuit_dict(16, 8, 42, False))
+    p = tprog.compile_circuit(c)
+    nm = _depol(0.01)
+    u = tplan.draw_uniforms(p, nm, 6, cuda,
+                            torch.Generator(device="cuda").manual_seed(3))
+    cuda_exec.reset_launch_counts()
+    got, draws = tplan.group_trajectory_body(
+        p, nm, p.initial_params, 6, cuda, record_columns=True, uniforms=u)
+    assert cuda_exec.dense_axis.launches > 0
+    assert cuda_exec.cross_bit_axis.launches > 0
+    want, _ = tplan.group_trajectory_body(
+        p, nm, p.initial_params, 6, cuda, draws=draws, record_columns=True,
+        plain=True)
+    assert got.shape == (6, p.num_columns + 1, 1 << 16)
+    assert float((got - want).abs().max()) <= 1e-5
+    norms = got.abs().square().sum(-1)
+    assert float((norms - 1).abs().max()) <= 1e-4
+
+
+def test_qv_chunk_with_param_rows_and_splice_kernels_match_twins(cuda):
+    """One quantum-volume chunk at width 16: a (B, P) parameter batch with
+    unitary-splice draws through the kernels and the twins on the same
+    draws, states and heavy-output values."""
+    from quantum_simulator_tpu_torch import analysis as tan
+
+    p = tprog.compile_circuit(tan.qv_model_circuit(16))
+    nm = _depol(0.002)
+    rows = torch.from_numpy(np.random.default_rng(7).uniform(
+        0, 2 * np.pi, (4, p.num_params)).astype(np.float32)).to(cuda)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    cuda_exec.reset_launch_counts()
+    states, draws = tan.noisy_param_rows(p, nm, rows, cuda, gen)
+    assert cuda_exec.dense_axis.launches > 0
+    assert cuda_exec.cross_bit_axis.launches > 0
+    want, _ = tan.noisy_param_rows(p, nm, rows, cuda, draws=draws,
+                                   plain=True)
+    assert float((states - want).abs().max()) <= 1e-5
+    hi, hn, d = tan.heavy_output_chunk(p, nm, rows, cuda, 1, gen)
+    hi2, hn2, _ = tan.heavy_output_chunk(p, nm, rows, cuda, 1, draws=d,
+                                         plain=True)
+    assert float((hn - hn2).abs().max()) <= 1e-5
+    assert float((hi - hi2).abs().max()) <= 1e-5
+
+
+def test_shadows_basis_layer_n20_kernels_match_twins(cuda):
+    from quantum_simulator_tpu_torch import shadows as tsh
+
+    n = 20
+    rng = np.random.default_rng(9)
+    psi = torch.from_numpy((rng.standard_normal(1 << n)
+                            + 1j * rng.standard_normal(1 << n)).astype(
+                                np.complex64)).to(cuda)
+    psi = psi / psi.abs().square().sum().sqrt()
+    bases = rng.integers(0, 3, size=(128, n)).astype(np.int8)
+    want = tsh.rotate_snapshots(psi, n, bases, plain=True)
+    cuda_exec.reset_launch_counts()
+    got = tsh.rotate_snapshots(psi, n, bases)
+    torch.cuda.synchronize()
+    layout = tplan.GroupLayout.for_qubits(n)
+    assert cuda_exec.dense_axis.launches == len(layout.axis_sizes)
+    assert float((got - want).abs().max()) <= 1e-5
+    bits = tsh.sample_rotated(got, n, torch.Generator(device="cuda"))
+    assert bits.shape == (128, n) and set(np.unique(bits)) <= {0, 1}
+
+
+def test_chunked_attribution_peak_n20(cuda, monkeypatch):
+    """The trials' reduction at n = 20 runs batch by batch: with the
+    budget cut to 512 MiB, 64 trials of a depth-4 brickwork take ten
+    batches and the peak stays within one batch's reckoning plus 1 GiB
+    (1.5 GiB); the whole stack alone would be 2.5 GiB."""
+    from quantum_simulator_tpu_torch import simulator as tsim
+    from quantum_simulator_tpu_torch.debugger import CircuitDebugger
+
+    monkeypatch.setattr(tsim, "TRAJECTORY_MEMORY_BYTES", 512 << 20)
+    c = QuantumCircuit.from_dict(build_circuit_dict(20, 4, 42, False))
+    p = tprog.compile_circuit(c)
+    chunk = tsim.record_rows_per_batch(p, 64)
+    assert -(-64 // chunk) >= 3
+    dbg = CircuitDebugger(device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fids, pq = dbg._trial_reductions(c, _depol(0.01), 64, seed=1)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    per = (p.num_columns + 5) * (8 << 20)
+    assert peak <= chunk * per + (1 << 30), (peak, chunk, per)
+    assert peak < 64 * (p.num_columns + 1) * (8 << 20)
+    assert fids.shape == (64, p.num_columns + 1)
+    assert pq.shape == (p.num_columns, 20)
+    assert np.all((fids >= 0) & (fids <= 1 + 1e-5))

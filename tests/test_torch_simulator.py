@@ -143,7 +143,15 @@ def test_import_pulls_in_no_jax():
             "quantum_simulator_tpu_torch.noise, "
             "quantum_simulator_tpu_torch.ops.unitary_traj, "
             "quantum_simulator_tpu_torch.ops.monomial_traj, "
-            "quantum_simulator_tpu_torch.ops.bigtraj; "
+            "quantum_simulator_tpu_torch.ops.bigtraj, "
+            "quantum_simulator_tpu_torch.analysis, "
+            "quantum_simulator_tpu_torch.debugger, "
+            "quantum_simulator_tpu_torch.reference, "
+            "quantum_simulator_tpu_torch.comparison, "
+            "quantum_simulator_tpu_torch.algorithms, "
+            "quantum_simulator_tpu_torch.benchmarks, "
+            "quantum_simulator_tpu_torch.mitigation, "
+            "quantum_simulator_tpu_torch.shadows; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'quantum_simulator_tpu' "
             "or m.startswith('quantum_simulator_tpu.')]; "
