@@ -166,13 +166,45 @@ The analysis slice adds:
     ZNE error below a fifth of the raw one). Timed: ms per debugger call
     and its peak, seconds per QV width, snapshots/s, ZNE seconds.
 
+The bit-engine slice adds:
+
+10. the bit engines. 10a: ``CliffordSimulator(device="cuda")`` on GHZ-100
+    with 256 shots (``bench.py:438-453``, shots/s): only 0^100 and 1^100,
+    each 40-60 %, the tableau equal to the CPU's and 32 shots equal to
+    the CPU's from the same coin flips, half-chain entropy 1 bit; a
+    random Clifford brickwork at n = 12 depth 10 (4096 samples inside the
+    statevector's support; with H on 3 qubits TVD <= 0.05 against
+    ``Simulator``); noisy GHZ-6 against the density matrix (TVD <= 0.05,
+    16384 shots); ``monitored_trajectories`` at n = 128, T = 64 and
+    ``run_with_noise`` at n = 64 with depolarizing 0.01 and 1024 shots
+    (trajectories/s, shots/s). 10b: the repetition d = 25
+    ``throughput_sweep`` at 2^20 trials (``bench.py:424-434``, trials/s);
+    the four codes' ``QECSimulator`` (bit-flip and phase-flip encode
+    through ``Simulator``, the main path's ``dense_axis`` launches on one
+    K = 32 axis: each encode circuit's launches held to its plan and its
+    state to the plain twin's at 1e-5, the encoded states the cycles use
+    equal to those) against ``FrameQECSimulator.from_code`` on 1000 trials
+    and one seed, per-trial flags identical; surface d = 5 (LUT) and
+    d = 7 (union-find, which must decode in C) sweeps at 10^5 trials, the
+    C and Python decoders equal;
+    ML memory (repetition d = 9, R = 9, 4096 trials; surface d = 3) not
+    above its single-shot baseline; matching memory d = 7, R = 7. 10c:
+    ``circuit_level_memory`` on the surface code at d = 5, R = 5 and d = 7,
+    R = 7, p = 0.003, 20,000 trials (``scripts/circuit_threshold.py``'s
+    defaults; linear engine, DEM decoder): one cold call end to end, then
+    DEM extraction, signature probe, sampling and host decode apart (the
+    sampling+decode rate leaves the set-up out), logical failure < 0.02;
+    the three engines' detection events identical at d = 3, R = 3 on 256
+    rows; the port's native module built (before any timed region) and
+    used.
+
 ``--phases 2c,6`` runs only the named phases (and then prints no summary
 and no result line): for bringing up one phase on the card.
 
 Launch counts in the summary are those of the main paths: phase 3 is
 driven with the counters set to 0 just before it and read just after; in
-phases 3b, 5, 6, 7, 8 and 9 each run, trajectory, gradient, optimizer,
-debugger, quantum-volume, shadows and ZNE run is. The comparison runs
+phases 3b, 5, 6, 7, 8, 9 and 10 each run, trajectory, gradient, optimizer,
+debugger, quantum-volume, shadows, ZNE and QEC encode is. The comparison runs
 against the twins launch nothing (phase 5 checks it).
 
 The line before the last is the JSON kernel summary; the last line is
@@ -201,7 +233,14 @@ from quantum_simulator_tpu_torch import (AmplitudeDampingNoise,
                                          QuantumCircuit, ReadoutError,
                                          Simulator,
                                          TwoQubitDepolarizingNoise)
+from quantum_simulator_tpu_torch import clifford as tclif
 from quantum_simulator_tpu_torch import density as tdens
+from quantum_simulator_tpu_torch import native as tnative
+from quantum_simulator_tpu_torch import qec as tqec
+from quantum_simulator_tpu_torch import qec_circuit as tqc
+from quantum_simulator_tpu_torch import qec_dem as tqd
+from quantum_simulator_tpu_torch import qec_frame as tqf
+from quantum_simulator_tpu_torch import qec_matching as tqm
 from quantum_simulator_tpu_torch import lindblad as tlind
 from quantum_simulator_tpu_torch import models
 from quantum_simulator_tpu_torch import optimizer as topt
@@ -226,7 +265,8 @@ F64_SIZES = (16, 28)
 # (2 GiB) in place plus the complex result, with room to spare.
 RUN_PEAK_LIMIT = 6.1 * 2**30
 SEED = 42
-PHASES = ("2", "2b", "2c", "3", "3b", "4", "4b", "5", "6", "7", "8", "9")
+PHASES = ("2", "2b", "2c", "3", "3b", "4", "4b", "5", "6", "7", "8", "9",
+          "10")
 
 # Layouts of n = 16, 28 and 30 qubits (GroupLayout.for_qubits).
 LAYOUTS = {16: (4, 128, 128), 28: (128,) * 4, 30: (4,) + (128,) * 4}
@@ -2735,6 +2775,359 @@ def phase_analysis(report: dict, card: str) -> dict:
     return path
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the bit engines
+# ---------------------------------------------------------------------------
+
+GHZ_CLIFF = (100, 256)               # (n, shots), bench.py:438-453
+CLIFF_LAW = (12, 10, 4096)           # brickwork (n, depth, shots)
+CLIFF_TVD = 0.05
+CLIFF_NOISY_LAW = (6, 0.05, 16384)   # GHZ (n, depolarizing p, shots)
+CLIFF_MONITORED = (128, 8, 64)       # (n, depth, trajectories)
+CLIFF_NOISY = (64, 8, 0.01, 1024)    # (n, depth, depolarizing p, shots)
+FRAME_CELL = (25, 1 << 20, 0.05)     # repetition d, trials, p (bench.py:424)
+ENGINE_TRIALS = 1000
+UF_TRIALS = 100_000
+ML_CELL = (9, 9, 4096, 0.05)         # repetition d, R, trials, p = q
+MATCHING_CELL = (7, 7, 10_000, 0.02)
+CIRCUIT_CASES = ((5, 5), (7, 7))     # scripts/circuit_threshold.py:39-44
+CIRCUIT_P = 0.003
+CIRCUIT_TRIALS = 20_000
+ENGINE_ROWS = (3, 3, 256)            # d, R, uniform rows
+
+
+def clifford_brickwork(n: int, depth: int, seed: int,
+                       measure: bool = False,
+                       h_qubits: tuple | None = None) -> QuantumCircuit:
+    """Random one-qubit Cliffords on every qubit, then a CNOT / CZ brick,
+    per layer; with ``measure``, a ``Measure`` on every fourth qubit
+    after each second layer. With ``h_qubits``, H acts only on those
+    qubits of the first layer, so the outcomes span at most
+    2^len(h_qubits) bit strings (a law that 4096 shots resolve)."""
+    rng = np.random.default_rng(seed)
+    c = QuantumCircuit(n)
+    col = 0
+    one_q = ["H", "S", "S_DAG", "X", "Y", "Z", "I"]
+    for layer in range(depth):
+        for q in range(n):
+            names = one_q if h_qubits is None else one_q[1:]
+            name = str(rng.choice(names))
+            if h_qubits is not None and layer == 0 and q in h_qubits:
+                name = "H"
+            c.add(name, [q], [], col)
+        col += 1
+        for q in range(layer % 2, n - 1, 2):
+            c.add("CNOT" if rng.random() < 0.7 else "CZ", [q, q + 1], [],
+                  col)
+        col += 1
+        if measure and layer % 2:
+            for q in range(layer % 4, n, 4):
+                c.add("Measure", [q], [], col)
+            col += 1
+    return c
+
+
+def tvd_counts(counts: dict, probs: np.ndarray, n: int) -> float:
+    shots = sum(counts.values())
+    emp = np.zeros(1 << n)
+    for k, v in counts.items():
+        emp[int(k, 2)] = v / shots
+    return 0.5 * float(np.abs(emp - probs).sum())
+
+
+def phase_clifford(report: dict, card: str) -> None:
+    """10a: the tableau engine."""
+    sim = tclif.CliffordSimulator(device="cuda")
+    n, shots = GHZ_CLIFF
+    c = ghz(n)
+    sim.run(c, shots=shots, seed=0)
+    (counts, tab), s = timed(lambda: sim.run(c, shots=shots, seed=1))
+    zeros, ones = "0" * n, "1" * n
+    check(set(counts) <= {zeros, ones}, f"GHZ-{n} outcomes {set(counts)}")
+    check(all(0.4 <= counts.get(k, 0) / shots <= 0.6 for k in (zeros, ones)),
+          f"GHZ-{n} split {counts}")
+    cpu_tab = tclif.CliffordSimulator(device="cpu")._final_tableau(c)
+    check(all(torch.equal(a.cpu(), b) for a, b in zip(tab, cpu_tab)),
+          f"GHZ-{n} tableau differs between the card and the CPU")
+    gen = torch.Generator().manual_seed(SEED)
+    rb = torch.randint(0, 2, (32, n), generator=gen, dtype=torch.int8)
+    bits_card = tclif.sample_bits(tab, rb.cuda()).cpu()
+    check(torch.equal(bits_card, tclif.sample_bits(cpu_tab, rb)),
+          f"GHZ-{n} samples differ between the card and the CPU")
+    ent = tclif.CliffordSimulator.entanglement_entropy(tab,
+                                                       list(range(n // 2)))
+    check(ent == 1.0, f"GHZ-{n} half-chain entropy {ent} bits, not 1")
+    report["clifford"] = {"ghz_shots_per_s": shots / s, "ghz_s": s}
+    print(f"bit engines: Clifford GHZ-{n} {shots} shots {s * 1e3:.1f} ms, "
+          f"{shots / s:.1f} shots/s; tableau and 32 samples equal to the "
+          f"CPU's; half-chain entropy {ent} bit [{card}]", flush=True)
+
+    ln, depth, lshots = CLIFF_LAW
+    cl = clifford_brickwork(ln, depth, SEED)
+    counts, _ = sim.run(cl, shots=lshots, seed=2)
+    probs = Simulator(device="cuda").run(cl, shots=0).final_state \
+        .probabilities
+    support = int((probs > 1e-9).sum())
+    check(all(probs[int(k, 2)] > 1e-9 for k in counts),
+          f"Clifford brickwork n={ln}: a sample outside the support")
+    cl = clifford_brickwork(ln, depth, SEED, h_qubits=(0, 5, 9))
+    counts, _ = sim.run(cl, shots=lshots, seed=2)
+    probs = Simulator(device="cuda").run(cl, shots=0).final_state \
+        .probabilities
+    tvd = tvd_counts(counts, probs, ln)
+    check(tvd <= CLIFF_TVD, f"Clifford brickwork n={ln} TVD {tvd}")
+    gn, gp, gshots = CLIFF_NOISY_LAW
+    nm = NoiseModel()
+    nm.add_global_noise(DepolarizingNoise(gp))
+    counts = sim.run_with_noise(ghz(gn), nm, shots=gshots, seed=3)
+    rho = DensityMatrixSimulator(noise_model=nm, device="cuda").run(
+        ghz(gn), method="dense")
+    exact = np.clip(rho.probabilities, 0, None)
+    ntvd = tvd_counts(counts, exact / exact.sum(), gn)
+    check(ntvd <= CLIFF_TVD, f"noisy Clifford GHZ-{gn} TVD {ntvd}")
+    print(f"bit engines: Clifford brickwork n={ln} depth {depth}: "
+          f"{lshots} samples inside the statevector's support of "
+          f"{support}; with H on 3 qubits TVD {tvd:.4f} vs the "
+          f"statevector; noisy GHZ-{gn} p={gp} TVD {ntvd:.4f} vs the "
+          f"density matrix ({gshots} shots)", flush=True)
+
+    mn, mdepth, T = CLIFF_MONITORED
+    cm = clifford_brickwork(mn, mdepth, SEED + 1, measure=True)
+    sim.monitored_trajectories(cm, 2, seed=4)
+    (outs, sites, tabs), ms = timed(
+        lambda: sim.monitored_trajectories(cm, T, seed=5))
+    check(outs.shape == (T, len(sites)) and set(np.unique(outs)) <= {0, 1},
+          f"monitored n={mn} outcomes {outs.shape}")
+    nn, ndepth, np_, nshots = CLIFF_NOISY
+    nmn = NoiseModel()
+    nmn.add_global_noise(DepolarizingNoise(np_))
+    cn = clifford_brickwork(nn, ndepth, SEED + 2)
+    sim.run_with_noise(cn, nmn, shots=8, seed=6)
+    ncounts, ns = timed(lambda: sim.run_with_noise(cn, nmn, shots=nshots,
+                                                   seed=7))
+    check(sum(ncounts.values()) == nshots, "noisy Clifford shots")
+    report["clifford"].update({"monitored_traj_per_s": T / ms,
+                               "noisy_shots_per_s": nshots / ns,
+                               "law_tvd": tvd, "noisy_law_tvd": ntvd})
+    print(f"bit engines: Clifford monitored n={mn} depth {mdepth} "
+          f"({len(sites)} measurements) T={T} {ms * 1e3:.1f} ms, "
+          f"{T / ms:.1f} trajectories/s; run_with_noise n={nn} depth "
+          f"{ndepth} p={np_} {nshots} shots {ns * 1e3:.1f} ms, "
+          f"{nshots / ns:.1f} shots/s [{card}]", flush=True)
+
+
+def phase_frame_qec(path: dict, report: dict, card: str) -> None:
+    """10b: the frame and statevector QEC engines and the matchers."""
+    d, T, p = FRAME_CELL
+    fr = tqf.FrameQECSimulator(tqf.repetition_frame_spec(d), device="cuda")
+    fr.throughput_sweep(p, T, seed=0)
+    (rate, succ), s = timed(lambda: fr.throughput_sweep(p, T, seed=1))
+    check(rate < 1e-3 and succ > 0, f"repetition d={d} rate {rate}")
+    report["frame"] = {"rep25_trials_per_s": T / s, "rep25_s": s}
+    print(f"bit engines: frame-QEC repetition d={d} {T} trials "
+          f"{s * 1e3:.1f} ms, {T / s:.4g} trials/s, logical rate {rate} "
+          f"[{card}]", flush=True)
+
+    signs = np.where(np.arange(ENGINE_TRIALS) % 2 == 0, 1.0, -1.0)
+    for code in (tqec.BitFlipCode(), tqec.PhaseFlipCode(),
+                 tqec.SteaneCode(), tqec.RotatedSurfaceCode()):
+        cuda_exec.reset_launch_counts()
+        sv = tqec.QECSimulator(code, device="cuda")
+        encoded = {}
+        if hasattr(code, "_encoding_circuit"):
+            for b in (0, 1):
+                encoded[b] = run_and_match(
+                    Simulator(device="cuda"), code._encoding_circuit(b),
+                    f"{code.name} encode |{b}>_L", 0, report
+                ).final_state.device_data
+        ideals = sv._ideals(ENGINE_TRIALS)
+        delta = add_launches(path, {k: 0 for k in launch_counts()})
+        check(all(torch.equal(sv._encoded(b).device_data, v)
+                  for b, v in encoded.items()),
+              f"{code.name}: the cycles' encoded states differ from the "
+              f"checked encodes")
+        frs = tqf.FrameQECSimulator.from_code(code, device="cuda")
+        u = tqec.trial_uniforms(np.random.default_rng(SEED), ENGINE_TRIALS,
+                                code.data_qubits, "cuda")
+        (fb, fa, z_exp, *_), cs = timed(
+            lambda: sv.cycles("depolarizing", 0.05, ideals, u))
+        ok_b, ok_a, flip = frs.sweep_raw(0.05, ENGINE_TRIALS, "depolarizing",
+                                         uniforms=u)
+        z = z_exp.cpu().numpy()
+        same = (torch.equal((fb > 0.5).int(), ok_b)
+                and torch.equal((fa > 0.5).int(), ok_a)
+                and np.array_equal((z * signs < 0).astype(np.int32),
+                                   flip.cpu().numpy()))
+        check(same, f"{code.name}: statevector and frame flags differ")
+        a = sv.threshold_sweep([0.05], ENGINE_TRIALS, "depolarizing", SEED)
+        b = frs.threshold_sweep([0.05], ENGINE_TRIALS, "depolarizing", SEED)
+        check(a[0].success_rate == b[0].success_rate
+              and a[0].decoder_success_rate == b[0].decoder_success_rate,
+              f"{code.name}: sweeps differ under one seed")
+        print(f"bit engines: {code.name} statevector vs frame, "
+              f"{ENGINE_TRIALS} trials: per-trial flags identical; "
+              f"statevector cycles {cs * 1e3:.1f} ms; encode launches "
+              f"{delta}", flush=True)
+
+    calls = dict(tqm.DECODE_CALLS)
+    sweeps = {}
+    for dist in (5, 7):
+        frs = tqf.FrameQECSimulator(tqf.surface_code_frame_spec(dist),
+                                    device="cuda")
+        pts, ss = timed(lambda: frs.threshold_sweep(
+            [0.01, 0.03], UF_TRIALS, "depolarizing", seed=SEED))
+        sweeps[dist] = {"s": ss, "logical": [q.logical_rate for q in pts]}
+        print(f"bit engines: surface d={dist} "
+              f"({'exact LUT' if dist == 5 else 'union-find'}) "
+              f"{UF_TRIALS} trials x 2 p: {ss:.3f} s, logical rates "
+              f"{[round(q.logical_rate, 5) for q in pts]} [{card}]",
+              flush=True)
+    check(tqm.DECODE_CALLS["native"] > calls["native"]
+          and tqm.DECODE_CALLS["python"] == calls["python"],
+          f"the d=7 union-find sweep did not decode in C: "
+          f"{tqm.DECODE_CALLS} (before {calls})")
+    spec7 = tqf.surface_code_frame_spec(7)
+    g = tqm.MatchingGraph.from_checks(spec7.comp_checks)
+    syn = np.random.default_rng(SEED).integers(
+        0, 2, (2000, g.n_checks)).astype(np.uint8)
+    check(np.array_equal(tqm.decode_batch(g, syn),
+                         tqm.decode_batch(g, syn, force_python=True)),
+          "C and Python union-find decoders differ")
+
+    dm, rm, tm, pm = ML_CELL
+    (ml, mls) = timed(lambda: tqf.FrameQECSimulator.ml_memory_experiment(
+        dm, pm, rm, tm, pm, seed=SEED, device="cuda"))
+    mlsurf, mlss = timed(
+        lambda: tqf.FrameQECSimulator.ml_surface_memory_experiment(
+            pm, 3, tm, pm, seed=SEED, device="cuda"))
+    check(ml["ml_failure_probability"]
+          <= ml["final_syndrome_failure_probability"]
+          and mlsurf["ml_failure_probability"]
+          <= mlsurf["final_syndrome_failure_probability"],
+          f"ML memory above its single-shot baseline: {ml}, {mlsurf}")
+    dmt, rmt, tmt, pmt = MATCHING_CELL
+    mt, mts = timed(lambda: tqf.FrameQECSimulator.matching_memory_experiment(
+        pmt, rmt, tmt, pmt, dmt, seed=SEED, device="cuda"))
+    check(mt["matching_failure_probability"] < 0.5, f"matching {mt}")
+    report["frame"].update({"surface_sweeps": sweeps, "ml": ml,
+                            "ml_s": mls, "ml_surface": mlsurf,
+                            "ml_surface_s": mlss, "matching": mt,
+                            "matching_s": mts})
+    print(f"bit engines: ML repetition d={dm} R={rm} {tm} trials "
+          f"{mls:.3f} s (ML {ml['ml_failure_probability']:.4f} vs "
+          f"single-shot {ml['final_syndrome_failure_probability']:.4f}); "
+          f"ML surface d=3 R=3 {mlss:.3f} s "
+          f"({mlsurf['ml_failure_probability']:.4f} vs "
+          f"{mlsurf['final_syndrome_failure_probability']:.4f}); matching "
+          f"d={dmt} R={rmt} {tmt} trials {mts:.3f} s "
+          f"({mt['matching_failure_probability']:.4f}) [{card}]",
+          flush=True)
+
+
+def phase_circuit_qec(report: dict, card: str) -> None:
+    """10c: circuit-level memory, its detector error model and decode."""
+    calls = dict(tqm.DECODE_CALLS)
+    out = {}
+    for d, R in CIRCUIT_CASES:
+        clear_circuit_caches()
+        cold, cold_s = timed(lambda: tqc.circuit_level_memory(
+            d, R, CIRCUIT_P, CIRCUIT_TRIALS, seed=SEED, device="cuda"))
+        check(cold["logical_failure_probability"] < 0.02,
+              f"cold circuit_level_memory d={d}: {cold}")
+        clear_circuit_caches()
+        dem, dem_s = timed(lambda: tqd.extract_dem(d, R, "z", device="cuda"))
+        (run, lay), probe_s = timed(lambda: tqc._trajectory_fn(
+            d, R, CIRCUIT_P, "z", "linear", device="cuda"))
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        u = torch.rand((CIRCUIT_TRIALS, run.schedule_length), generator=gen,
+                       device="cuda")
+        run(u[:64])
+        outs, sample_s = timed(lambda: run(u).cpu().numpy().astype(np.uint8))
+        t0 = time.perf_counter()
+        det = tqc.detection_events(lay, outs)
+        raw = ((lay.data_outcomes(outs) @ lay.sector_support) % 2
+               ).astype(np.int32)
+        pred = dem.decode(det.reshape(CIRCUIT_TRIALS, -1), CIRCUIT_P)
+        decode_s = time.perf_counter() - t0
+        p_fail = float((raw ^ pred).mean())
+        res, warm_s = timed(lambda: tqc.circuit_level_memory(
+            d, R, CIRCUIT_P, CIRCUIT_TRIALS, device="cuda", uniforms=u))
+        check(res["logical_failure_probability"] == p_fail,
+              f"circuit_level_memory d={d} differs from its pieces")
+        check(p_fail < 0.02, f"circuit-level d={d} R={R} p={CIRCUIT_P}: "
+              f"logical failure {p_fail}")
+        rate = CIRCUIT_TRIALS / (sample_s + decode_s)
+        out[f"d{d}"] = {"cold_s": cold_s,
+                        "cold_trials_per_s": CIRCUIT_TRIALS / cold_s,
+                        "warm_s": warm_s,
+                        "warm_trials_per_s": CIRCUIT_TRIALS / warm_s,
+                        "dem_s": dem_s, "probe_s": probe_s,
+                        "sample_s": sample_s, "decode_s": decode_s,
+                        "sample_decode_trials_per_s": rate, "p_fail": p_fail,
+                        "dem_edges": int(dem.edges.shape[0]),
+                        "n_faults": dem.n_faults}
+        print(f"bit engines: circuit-level surface d={d} R={R} "
+              f"p={CIRCUIT_P} {CIRCUIT_TRIALS} trials (linear, dem): one "
+              f"cold circuit_level_memory call end to end {cold_s:.3f} s, "
+              f"{CIRCUIT_TRIALS / cold_s:.1f} end-to-end trials/s; DEM "
+              f"extraction {dem_s:.3f} s ({dem.n_faults} faults, "
+              f"{dem.edges.shape[0]} edges), signature probe "
+              f"{probe_s:.3f} s, sampling {sample_s * 1e3:.1f} ms, host "
+              f"decode {decode_s * 1e3:.1f} ms, {rate:.1f} sampling+decode "
+              f"trials/s; warm call (DEM and signatures cached) "
+              f"{warm_s:.3f} s, {CIRCUIT_TRIALS / warm_s:.1f} trials/s; "
+              f"logical failure {p_fail:.5f} [{card}]", flush=True)
+    check(tqm.DECODE_CALLS["native"] > calls["native"]
+          and tqm.DECODE_CALLS["python"] == calls["python"],
+          f"circuit-level decoding did not run in C: {tqm.DECODE_CALLS}")
+
+    d, R, rows = ENGINE_ROWS
+    records = {}
+    for engine in ("linear", "frame", "clifford"):
+        run, lay = tqc._trajectory_fn(d, R, 0.01, "z", engine,
+                                      device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        u = torch.rand((rows, run.schedule_length), generator=gen,
+                       device="cuda")
+        records[engine] = tqc.detection_events(
+            lay, run(u).cpu().numpy().astype(np.uint8))
+    check(all(np.array_equal(records["linear"], v)
+              for v in records.values()),
+          f"d={d} R={R}: the three engines' detection events differ")
+    report["circuit"] = out
+    print(f"bit engines: d={d} R={R} linear / frame / clifford detection "
+          f"events identical on {rows} rows; native module "
+          f"{tnative.build_dir()} decoded {tqm.DECODE_CALLS['native']} "
+          f"batches in C [{card}]", flush=True)
+
+
+def clear_circuit_caches() -> None:
+    """Forget cached DEMs, samplers and signatures: the next
+    ``circuit_level_memory`` call pays its whole set-up."""
+    tqd._dem_cache.clear()
+    tqc._traj_cache.clear()
+    tqc._sig_cache.clear()
+
+
+def phase_bit_engines(report: dict, card: str) -> dict:
+    """10a-10c; the main path's launches are the QEC encodes'. The native
+    module is built first, outside every timed region (and the phase
+    fails if it does not build)."""
+    t0 = time.perf_counter()
+    tnative.native_module(required=True)
+    report["native_build_s"] = time.perf_counter() - t0
+    print(f"bit engines: native module {tnative.build_dir()} ready in "
+          f"{report['native_build_s']:.3f} s", flush=True)
+    path = {k: 0 for k in launch_counts()}
+    phase_clifford(report, card)
+    phase_frame_qec(path, report, card)
+    phase_circuit_qec(report, card)
+    check(path["dense_axis"] > 0, f"no kernel launched by the QEC encodes: "
+          f"{path}")
+    report["bit_engine_launches"] = path
+    return path
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every measurement as JSON")
@@ -2788,7 +3181,8 @@ def main() -> int:
               "6": lambda: phase_huge(report, card),
               "7": lambda: phase_huge_noisy(report, card),
               "8": lambda: phase_open_system(report, card),
-              "9": lambda: phase_analysis(report, card)}
+              "9": lambda: phase_analysis(report, card),
+              "10": lambda: phase_bit_engines(report, card)}
     out = {}
     for name in PHASES:
         if name in chosen:
@@ -2815,7 +3209,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
             "launches": sum(out[p][name] for p in ("3", "3b", "5", "6",
-                                                   "7", "8", "9")),
+                                                   "7", "8", "9", "10")),
             "max_abs_err": max(out["2"]["max_err"][name], out["2b"][name],
                                out["2c"][name]),
             "ms": row["ms"], "plain_ms": row["plain_ms"],

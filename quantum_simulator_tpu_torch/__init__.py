@@ -18,12 +18,17 @@ batched noise attribution (``debugger``), quantum volume at scale
 (``analysis.BenchmarkAnalysis``), classical shadows (``shadows``), error
 mitigation (``mitigation``: ZNE, PEC, readout inversion), circuit
 comparison, reference states, algorithm templates and the acceptance
-benchmark suite. It imports torch and NumPy, never JAX and never the JAX
-package.
+benchmark suite. The bit engines run beyond the statevector wall: the
+batched Clifford tableau (``clifford``), the statevector and Pauli-frame
+QEC engines (``qec``, ``qec_frame``), circuit-level QEC with its detector
+error model (``qec_circuit``, ``qec_dem``) and the union-find matcher
+(``qec_matching``) over the port's own host C (``native``). It imports
+torch and NumPy, never JAX and never the JAX package.
 """
 
 from .analysis import StateAnalysis
 from .circuit import GateInstance, QuantumCircuit
+from .clifford import CliffordSimulator
 from .config import CONFIG, EngineConfig
 from .density import DensityMatrixResult, DensityMatrixSimulator
 from .gates import GateDefinition, GateType
@@ -56,6 +61,7 @@ __all__ = [
     "BitFlipNoise",
     "CONFIG",
     "CircuitOptimizer",
+    "CliffordSimulator",
     "CostFunction",
     "DensityMatrixResult",
     "DensityMatrixSimulator",

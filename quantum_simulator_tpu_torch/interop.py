@@ -6,9 +6,10 @@ form that feeds the TPU's matrix unit. The port keeps the two planes
 ``(re, im)`` instead (``ops/plan.build_group_operands``). With these
 converters a test feeds identical operators to both executors;
 ``density_result_from_numpy`` carries a density matrix across the same
-way. This module imports neither JAX nor the JAX package: it takes plain
-arrays. (The counterpart of the JAX package's ``interop.py``, the
-OpenQASM 2.0 import / export, is ``qasm.py``.)
+way, and ``tableau_from_numpy`` a stabilizer tableau. This module imports
+neither JAX nor the JAX package: it takes plain arrays. (The counterpart
+of the JAX package's ``interop.py``, the OpenQASM 2.0 import / export, is
+``qasm.py``.)
 """
 
 from __future__ import annotations
@@ -56,3 +57,20 @@ def density_result_from_numpy(rho, device=None):
         num_qubits=n,
         device_rho=torch.from_numpy(np.ascontiguousarray(arr)).to(
             device=device or CONFIG.device, dtype=CONFIG.dtype))
+
+
+def tableau_from_numpy(x, z, r, device=None):
+    """A CHP tableau as NumPy arrays (for instance the JAX package's
+    ``Tableau``: ``(2n, n)`` x and z, ``(2n,)`` r, int32 0/1, or a batch
+    of them) -> the port's ``clifford.Tableau`` (int8) on ``device``
+    (default ``CONFIG.device``)."""
+    from .clifford import Tableau
+    from .config import CONFIG
+
+    x, z, r = (np.asarray(a) for a in (x, z, r))
+    if x.shape != z.shape or x.shape[-2] != 2 * x.shape[-1] \
+            or r.shape != x.shape[:-1]:
+        raise ValueError(f"expected (..., 2n, n) x and z and (..., 2n) r, "
+                         f"got {x.shape}, {z.shape}, {r.shape}")
+    return Tableau(*(torch.from_numpy(np.ascontiguousarray(a & 1).astype(
+        np.int8)).to(device or CONFIG.device) for a in (x, z, r)))

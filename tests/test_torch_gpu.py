@@ -786,3 +786,179 @@ def test_chunked_attribution_peak_n20(cuda, monkeypatch):
     assert fids.shape == (64, p.num_columns + 1)
     assert pq.shape == (p.num_columns, 20)
     assert np.all((fids >= 0) & (fids <= 1 + 1e-5))
+
+
+# --- the bit engines: the card against the CPU on the same draws ----------
+
+def _clifford_circuit(n, depth, seed, measure=False):
+    rng = np.random.default_rng(seed)
+    c = QuantumCircuit(n)
+    col = 0
+    for layer in range(depth):
+        for q in range(n):
+            c.add(str(rng.choice(["H", "S", "S_DAG", "X", "Y", "Z"])), [q],
+                  [], col)
+        col += 1
+        for q in range(layer % 2, n - 1, 2):
+            c.add(str(rng.choice(["CNOT", "CZ", "SWAP"])), [q, q + 1], [],
+                  col)
+        col += 1
+        if measure:
+            c.add("Measure", [int(rng.integers(n))], [], col)
+            col += 1
+    return c
+
+
+def _rows(shape, seed, device="cpu"):
+    gen = torch.Generator().manual_seed(seed)
+    return torch.rand(shape, generator=gen).to(device)
+
+
+def test_clifford_sampler_card_equals_cpu(cuda):
+    from quantum_simulator_tpu_torch import clifford
+    from quantum_simulator_tpu_torch.noise import (DepolarizingNoise,
+                                                   NoiseModel,
+                                                   TwoQubitDepolarizingNoise)
+    c = _clifford_circuit(20, 8, 1)
+    card, cpu = (clifford.CliffordSimulator(device=d)
+                 for d in ("cuda", "cpu"))
+    gen = torch.Generator().manual_seed(2)
+    rb = torch.randint(0, 2, (512, 20), generator=gen, dtype=torch.int8)
+    counts_g, tab_g = card.run(c, 512, rand_bits=rb.cuda())
+    counts_c, tab_c = cpu.run(c, 512, rand_bits=rb)
+    assert counts_g == counts_c
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(tab_g, tab_c))
+    cm = _clifford_circuit(24, 8, 3, measure=True)
+    L = clifford.compile_clifford_monitored(cm)[0].schedule_length
+    u = _rows((64, L), 4)
+    og, _, tg = card.monitored_trajectories(cm, uniforms=u.cuda(),
+                                            feedforward=[(0, "Y", 1)])
+    oc, _, tc = cpu.monitored_trajectories(cm, uniforms=u,
+                                           feedforward=[(0, "Y", 1)])
+    assert np.array_equal(og, oc)
+    assert all(torch.equal(a.cpu(), b) for t1, t2 in zip(tg, tc)
+               for a, b in zip(t1, t2))
+    nm = NoiseModel()
+    nm.add_global_noise(DepolarizingNoise(0.05))
+    nm.add_gate_noise("CNOT", TwoQubitDepolarizingNoise(0.05))
+    L = len(clifford._lower(c, noise_model=nm)[0])
+    u = _rows((256, L), 5)
+    rb = rb[:256]
+    assert (card.run_with_noise(c, nm, 256, uniforms=u.cuda(),
+                                rand_bits=rb.cuda())
+            == cpu.run_with_noise(c, nm, 256, uniforms=u, rand_bits=rb))
+
+
+def test_frame_sweeps_card_equal_cpu(cuda):
+    from quantum_simulator_tpu_torch import qec, qec_frame as qf
+    specs = [qf.frame_spec_from_code(qec.SteaneCode()),
+             qf.repetition_frame_spec(9, "phase_flip"),
+             qf.surface_code_frame_spec(5),
+             qf.surface_code_frame_spec(7, "union_find")]
+    for spec in specs:
+        dq = spec.data_qubits
+        u = _rows((4096, dq), 6)
+        for nt in ("bit_flip", "phase_flip", "depolarizing"):
+            got = qf.build_frame_sweep_fn(spec, nt, "cuda")(0.08, u.cuda())
+            want = qf.build_frame_sweep_fn(spec, nt, "cpu")(0.08, u)
+            assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+        nc, nh = spec.comp_checks.shape[0], spec.h_checks.shape[0]
+        us = [_rows((1024, 3, w), 7 + w) for w in (dq, nc, nh)]
+        fns = [qf.build_memory_fn(spec, "depolarizing", 3, 0.02, d)
+               for d in ("cuda", "cpu")]
+        assert torch.equal(fns[0](0.03, *[a.cuda() for a in us]).cpu(),
+                           fns[1](0.03, *us))
+    # float32 posteriors: at d = 7, R = 4, p = q = 0.05 each device's
+    # masses are within 1.1e-4 of the larger mass against float64 (CPU
+    # measurement), so the two devices agree within 5e-4 of it, and the
+    # decisions wherever the margin exceeds that.
+    run = qf.build_ml_memory_fn(7, 4, return_masses=True)
+    ud, um = _rows((2048, 4, 7), 8), _rows((2048, 4, 6), 9)
+    fg = run(0.05, 0.05, ud.cuda(), um.cuda())
+    fc = run(0.05, 0.05, ud, um)
+    a0, a1 = fc[2].numpy(), fc[3].numpy()
+    top = np.maximum(a0, a1)
+    for k in (2, 3):
+        assert np.all(np.abs(fg[k].cpu().numpy() - fc[k].numpy())
+                      <= 5e-4 * top)
+    clear = np.abs(a0 - a1) > 5e-4 * top
+    assert clear.mean() > 0.9
+    assert np.array_equal(fg[0].cpu().numpy()[clear], fc[0].numpy()[clear])
+    assert torch.equal(fg[1].cpu(), fc[1])
+
+
+def test_linear_sampler_and_dem_card_equal_cpu(cuda):
+    from quantum_simulator_tpu_torch import qec_circuit as qc, qec_dem
+    ref = _rows((1, 200), 10)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        run, lay = qc._trajectory_fn(3, 2, 0.02, "z", "linear", device=dev,
+                                     ref_uniforms=ref[:, :qc._lower(
+                                         qc._extraction_circuit(
+                                             "surface", 3, 2, "z")[0],
+                                         collapse_measures=True)[0].size])
+        u = _rows((512, run.schedule_length), 11)
+        outs[dev] = run(u.to(dev)).cpu()
+    assert torch.equal(outs["cuda"], outs["cpu"])
+    dg = qec_dem.extract_dem(3, 3, "z", device="cuda")
+    dc = qec_dem.extract_dem(3, 3, "z", device="cpu")
+    assert np.array_equal(dg.edges, dc.edges)
+    assert np.array_equal(dg.logicals, dc.logicals)
+    assert np.array_equal(dg.counts, dc.counts)
+
+
+def test_native_module_loads_on_the_card_machine(cuda):
+    from quantum_simulator_tpu_torch import native, qec_matching as qm
+    from quantum_simulator_tpu_torch.qec_frame import surface_code_frame_spec
+    assert native.native_module(required=True) is not None
+    g = qm.MatchingGraph.from_checks(surface_code_frame_spec(9).comp_checks)
+    syn = np.random.default_rng(0).integers(
+        0, 2, (500, g.n_checks)).astype(np.uint8)
+    before = qm.DECODE_CALLS["native"]
+    c_out = qm.decode_batch(g, syn)
+    assert qm.DECODE_CALLS["native"] == before + 1
+    assert np.array_equal(c_out, qm.decode_batch(g, syn, force_python=True))
+
+
+def _pauli_string_np(psi, pauli, qubits, n):
+    mats = {"X": np.array([[0, 1], [1, 0]], complex),
+            "Y": np.array([[0, -1j], [1j, 0]]),
+            "Z": np.array([[1, 0], [0, -1]], complex)}
+    phi = psi.reshape((2,) * n)
+    for p, q in zip(pauli, qubits):
+        phi = np.moveaxis(np.tensordot(mats[p], phi, axes=([1], [q])), 0, q)
+    return float(np.vdot(psi, phi.reshape(-1)).real)
+
+
+def test_flip_mask_cost_holds_per_string_cost_n20(cuda):
+    """The Hamiltonian cost (flip masks, ``optimizer._pauli_terms_device``)
+    against a per-string complex128 NumPy cost, with Y terms and strings
+    of 6-10 qubits, at n = 20 on the card."""
+    from quantum_simulator_tpu_torch.optimizer import CostFunction
+    n = 20
+    rng = np.random.default_rng(12)
+    terms = []
+    for _ in range(24):
+        k = int(rng.integers(6, 11))
+        qubits = [int(q) for q in rng.choice(n, k, replace=False)]
+        pauli = "".join(rng.choice(list("XYZ"), k))
+        if "Y" not in pauli:
+            pauli = "Y" + pauli[1:]
+        terms.append((float(rng.normal()), pauli, qubits))
+    terms.append((0.7, "ZZ", [3, 4]))
+    # A product state with every Bloch vector at (+-1, +-1, +-1) / sqrt 3
+    # (so each term's value is far from 0), plus an entangled remainder.
+    psi = np.ones(1)
+    for b in rng.choice([-1.0, 1.0], (n, 3)) / np.sqrt(3):
+        theta, phi = np.arccos(b[2]), np.arctan2(b[1], b[0])
+        psi = np.kron(psi, [np.cos(theta / 2),
+                            np.exp(1j * phi) * np.sin(theta / 2)])
+    noise = rng.normal(size=1 << n) + 1j * rng.normal(size=1 << n)
+    psi = psi + 0.2 * noise / np.linalg.norm(noise)
+    psi /= np.linalg.norm(psi)
+    want = sum(c * _pauli_string_np(psi, p, qs, n) for c, p, qs in terms)
+    cost = CostFunction.vqe_hamiltonian(terms)
+    got = float(cost.device_fn(torch.from_numpy(psi.astype(np.complex64))
+                               .cuda(), n))
+    assert abs(want) > 0.1
+    assert abs(got - want) <= 1e-5

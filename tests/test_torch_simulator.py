@@ -151,7 +151,16 @@ def test_import_pulls_in_no_jax():
             "quantum_simulator_tpu_torch.algorithms, "
             "quantum_simulator_tpu_torch.benchmarks, "
             "quantum_simulator_tpu_torch.mitigation, "
-            "quantum_simulator_tpu_torch.shadows; "
+            "quantum_simulator_tpu_torch.shadows, "
+            "quantum_simulator_tpu_torch.clifford, "
+            "quantum_simulator_tpu_torch.qec, "
+            "quantum_simulator_tpu_torch.qec_frame, "
+            "quantum_simulator_tpu_torch.qec_circuit, "
+            "quantum_simulator_tpu_torch.qec_dem, "
+            "quantum_simulator_tpu_torch.qec_matching, "
+            "quantum_simulator_tpu_torch.native; "
+            "q.CliffordSimulator; "
+            "quantum_simulator_tpu_torch.native.native_module(required=True); "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'quantum_simulator_tpu' "
             "or m.startswith('quantum_simulator_tpu.')]; "
