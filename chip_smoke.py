@@ -198,13 +198,44 @@ The bit-engine slice adds:
     rows; the port's native module built (before any timed region) and
     used.
 
+The MPS slice adds:
+
+11. the MPS family (no kernel of its own; every factorisation is a
+    ``torch.linalg`` call, timed apart by ``LinalgClock``). 11a:
+    ``MPSSimulator(device="cuda")`` on a Ry/Rz brickwork at n = 12, depth
+    8, chi = 64 (``to_statevector`` within 2e-5 of ``Simulator.run``,
+    truncation 0), the ``bench.py:461-483`` cell (Rx + CNOT, n = 48,
+    depth 4, chi = 16, 64 shots: ms/run, gates/s, every <Z_q> within 1e-4
+    of the CPU's) and the same brickwork at n = 128, depth 8, chi = 64,
+    1024 shots in the Z and X bases. 11b: one batched SVD of 1024
+    matrices at chi 16, 32 and 64 per driver (time, error against
+    float64), ``run_with_noise`` on the bench brickwork (1024 shots,
+    depolarizing and amplitude damping 0.01, chi 16 and 64) and on a deep
+    n = 16 brickwork whose bonds reach 64 (32 shots), the law at n = 4
+    (TVD < 0.06 against ``DensityMatrixSimulator``), and
+    ``monitored_trajectories`` at n = 48, T = 64 (8 trajectories equal to
+    the CPU's on the same draws). 11c: a 300-row parameter-shift
+    gradient of ``hardware_efficient_ansatz(50, 2)`` on ``tfim_chain(50)``
+    at chi = 16, and at n = 10, chi = 32 within 1e-4 of the statevector
+    gradient. 11d: ``collect_shadows(GHZ-40, 4096, engine="mps", chi=32,
+    chunk=512)``: every pair of neighbours read in Z agrees, the mean
+    nearest-neighbour <ZZ> within 0.1 of 1 and each within 5 standard
+    errors. 11e: ``bench.py:485-509``'s DMRG (TFIM n = 64, chi = 16, 5
+    sweeps, K = 10, warm; relative error < 1e-4 against free fermions)
+    and ``dmrg_excited_states`` at n = 8 within 5e-4 of ``eigvalsh``.
+    11f: the README's MPS Lindblad run (n = 40, chi = 16, 40 steps, 16
+    trajectories) and n = 3 against the dense ``LindbladSimulator``
+    (4 standard errors + 0.025). 11g: a TFIM quench correlator at n = 40,
+    chi = 32, 40 steps, and at n = 8 against ``expm`` within 5e-4.
+
 ``--phases 2c,6`` runs only the named phases (and then prints no summary
 and no result line): for bringing up one phase on the card.
 
 Launch counts in the summary are those of the main paths: phase 3 is
 driven with the counters set to 0 just before it and read just after; in
 phases 3b, 5, 6, 7, 8, 9 and 10 each run, trajectory, gradient, optimizer,
-debugger, quantum-volume, shadows, ZNE and QEC encode is. The comparison runs
+debugger, quantum-volume, shadows, ZNE and QEC encode is, and in phase 11
+the two statevector references (11a, 11c). The comparison runs
 against the twins launch nothing (phase 5 checks it).
 
 The line before the last is the JSON kernel summary; the last line is
@@ -234,7 +265,9 @@ from quantum_simulator_tpu_torch import (AmplitudeDampingNoise,
                                          Simulator,
                                          TwoQubitDepolarizingNoise)
 from quantum_simulator_tpu_torch import clifford as tclif
+from quantum_simulator_tpu_torch import correlators as tcorr
 from quantum_simulator_tpu_torch import density as tdens
+from quantum_simulator_tpu_torch import dmrg as tdmrg
 from quantum_simulator_tpu_torch import native as tnative
 from quantum_simulator_tpu_torch import qec as tqec
 from quantum_simulator_tpu_torch import qec_circuit as tqc
@@ -242,7 +275,9 @@ from quantum_simulator_tpu_torch import qec_dem as tqd
 from quantum_simulator_tpu_torch import qec_frame as tqf
 from quantum_simulator_tpu_torch import qec_matching as tqm
 from quantum_simulator_tpu_torch import lindblad as tlind
+from quantum_simulator_tpu_torch import lindblad_mps as tlmps
 from quantum_simulator_tpu_torch import models
+from quantum_simulator_tpu_torch import mps as tmps
 from quantum_simulator_tpu_torch import optimizer as topt
 from quantum_simulator_tpu_torch import simulator as tsim
 from quantum_simulator_tpu_torch.density import SuperopDensityResult
@@ -266,7 +301,7 @@ F64_SIZES = (16, 28)
 RUN_PEAK_LIMIT = 6.1 * 2**30
 SEED = 42
 PHASES = ("2", "2b", "2c", "3", "3b", "4", "4b", "5", "6", "7", "8", "9",
-          "10")
+          "10", "11")
 
 # Layouts of n = 16, 28 and 30 qubits (GroupLayout.for_qubits).
 LAYOUTS = {16: (4, 128, 128), 28: (128,) * 4, 30: (4,) + (128,) * 4}
@@ -3128,6 +3163,482 @@ def phase_bit_engines(report: dict, card: str) -> dict:
     return path
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the MPS family
+# ---------------------------------------------------------------------------
+
+MPS_EXACT = (12, 8, 64)              # Ry/Rz brickwork (n, depth, chi)
+MPS_SV_TOL = 2e-5                    # tests/test_mps.py:12
+MPS_BENCH = (48, 4, 16, 64)          # bench.py:461-483 (n, depth, chi, shots)
+MPS_Z_TOL = 1e-4                     # <Z_q>, card vs CPU
+MPS_WIDE = (128, 8, 64, 1024)        # (n, depth, chi, shots)
+MPS_NOISY = (48, 4, (16, 64), 1024, 0.01)   # (n, depth, chis, shots, p)
+MPS_DEEP = (16, 12, (16, 64), 32, 0.01)     # bonds that reach chi = 64
+MPS_LAW = (4, 8, 4000, 0.06)         # (n, chi, shots, TVD bound), test_mps:217
+MPS_MONITORED = (48, 4, 16, 64)      # (n, depth, chi, T)
+MPS_SVD_BATCH = (1024, (16, 32, 64))  # one batched split per chi
+VQE_MPS = (50, 2, 16)                # hardware_efficient_ansatz(50, 2), chi
+VQE_MPS_EXACT = (10, 2, 32)          # exact: held to the statevector grad
+MPS_GRAD_TOL = 1e-4
+SHADOW_MPS = (40, 4096, 32, 512)     # GHZ (n, snapshots, chi, chunk)
+SHADOW_MEAN_TOL = 0.1
+DMRG_BENCH = (64, -1.0, -0.8, 16, 5, 10)   # bench.py:485-509
+DMRG_REL_TOL = 1e-4                  # tests/test_dmrg.py:66
+DMRG_EXCITED = (8, 3, 8, 5, 5e-4)    # (n, states, chi, sweeps, tol)
+LINDBLAD_MPS = (40, 16, 40, 16)      # README.md:297-305 (n, chi, steps, T)
+CORR_WIDE = (40, 32, 2.0, 40)        # TFIM quench (n, chi, t, steps)
+CORR_DENSE = (8, 16, 1.0, 200, 5e-4)  # (n, chi, t, steps, tol)
+
+
+class LinalgClock:
+    """Host seconds and calls of ``torch.linalg.svd`` / ``qr`` / ``eigh``
+    / ``svdvals`` inside the ``with`` block. Each wrapped call is
+    bracketed by synchronizes (the queue before it is drained outside the
+    count); these calls wait for the device anyway, so what is counted is
+    the factorisation and its round trip."""
+
+    NAMES = ("svd", "qr", "eigh", "svdvals")
+
+    def __init__(self):
+        self.seconds = {k: 0.0 for k in self.NAMES}
+        self.calls = {k: 0 for k in self.NAMES}
+        self._real = {}
+
+    def __enter__(self):
+        for name in self.NAMES:
+            real = getattr(torch.linalg, name)
+            self._real[name] = real
+
+            def wrapped(*a, _real=real, _name=name, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = _real(*a, **kw)
+                torch.cuda.synchronize()
+                self.seconds[_name] += time.perf_counter() - t0
+                self.calls[_name] += 1
+                return out
+
+            setattr(torch.linalg, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for name, real in self._real.items():
+            setattr(torch.linalg, name, real)
+
+    def share(self, wall: float) -> str:
+        parts = [f"{k} {self.calls[k]} calls {self.seconds[k]:.3f} s "
+                 f"({100 * self.seconds[k] / wall:.1f} %)"
+                 for k in self.NAMES if self.calls[k]]
+        return ", ".join(parts)
+
+
+def clocked(fn):
+    """(output and wall of a plain run, LinalgClock of a second,
+    instrumented run)."""
+    out, wall = timed(fn)
+    with LinalgClock() as clock:
+        _, wall_i = timed(fn)
+    clock.wall = wall_i
+    return out, wall, clock
+
+
+def rx_brickwork(n: int, depth: int) -> QuantumCircuit:
+    """bench.py:461-473: Rx(0.3 + 0.01 q) on every qubit, then a CNOT
+    brick, per layer."""
+    c = QuantumCircuit(n)
+    col = 0
+    for d in range(depth):
+        for q in range(n):
+            c.add("Rx", [q], [0.3 + 0.01 * q], col)
+        col += 1
+        for q in range(d % 2, n - 1, 2):
+            c.add("CNOT", [q, q + 1], [], col)
+        col += 1
+    return c
+
+
+def with_measures(c: QuantumCircuit) -> QuantumCircuit:
+    """A ``Measure`` on every fourth qubit after every second CNOT
+    layer (phase 7's monitored pattern), shifting later columns."""
+    out = QuantumCircuit(c.num_qubits)
+    shift, layer = 0, 0
+    for col in range(c.get_column_count()):
+        gates = c.get_gates_at_column(col)
+        for g in gates:
+            out.add(g.gate_name, list(g.target_qubits), list(g.params),
+                    col + shift)
+        if gates and len(gates[0].target_qubits) == 2:
+            if layer % 2:
+                shift += 1
+                for q in range(layer % 4, c.num_qubits, 4):
+                    out.add("Measure", [q], [], col + shift)
+            layer += 1
+    return out
+
+
+def dense_ham(n: int, terms) -> np.ndarray:
+    h = np.zeros((1 << n, 1 << n), complex)
+    for coeff, pstr, qubits in terms:
+        full = ["I"] * n
+        for p, q in zip(pstr, qubits):
+            full[q] = p
+        h += coeff * tlind._pauli_term_matrix("".join(full))
+    return h
+
+
+def tfim_exact_open(n: int, j: float, h: float) -> float:
+    """Open TFIM ground energy by Jordan-Wigner free fermions."""
+    m = np.diag(np.full(n, -h)) + np.diag(np.full(n - 1, -j), 1)
+    return -float(np.sum(np.linalg.svd(m, compute_uv=False)))
+
+
+def z_profile(state) -> np.ndarray:
+    return np.array([tmps.expectation_pauli_string(state, {q: "Z"})
+                     for q in range(state.num_qubits)])
+
+
+def phase_mps_ideal(path: dict, report: dict, card: str) -> None:
+    """11a: exactness against Simulator, the bench cell, the width case."""
+    n, depth, chi = MPS_EXACT
+    c = brickwork(n, depth, SEED, True)
+    _, st = tmps.MPSSimulator(chi, device="cuda").run(c, shots=0)
+    before = launch_counts()
+    psi = Simulator(device="cuda").run(c, shots=0).final_state.device_data
+    add_launches(path, before)
+    err = float(np.abs(tmps.to_statevector(st) - psi.cpu().numpy()).max())
+    check(err <= MPS_SV_TOL and st.truncation_weight == 0.0,
+          f"MPS n={n} chi={chi}: state vs Simulator {err}, truncation "
+          f"{st.truncation_weight}")
+    print(f"mps exact n={n} depth {depth} chi={chi} [{card}]: state vs "
+          f"Simulator {err:.2e}, truncation {st.truncation_weight}",
+          flush=True)
+
+    n, depth, chi, shots = MPS_BENCH
+    c = rx_brickwork(n, depth)
+    sim = tmps.MPSSimulator(chi, device="cuda")
+    sim.run(c, shots=shots, seed=0)
+    (counts, st), wall, clock = clocked(lambda: sim.run(c, shots=shots,
+                                                       seed=1))
+    _, st_cpu = tmps.MPSSimulator(chi, device="cpu").run(c, shots=0)
+    zerr = float(np.abs(z_profile(st) - z_profile(st_cpu)).max())
+    check(zerr <= MPS_Z_TOL and sum(counts.values()) == shots,
+          f"MPS bench cell: <Z_q> card vs CPU {zerr}, shots {counts}")
+    gates = len(c.gates)
+    report["mps_bench"] = {"ms": 1e3 * wall, "gates_per_s": gates / wall,
+                           "truncation": st.truncation_weight,
+                           "z_err": zerr, "linalg": clock.seconds,
+                           "linalg_calls": clock.calls}
+    print(f"mps bench n={n} depth-{depth} chi={chi} {shots} shots "
+          f"[{card}]: {1e3 * wall:.1f} ms/run, {gates / wall:.0f} gates/s, "
+          f"truncation {st.truncation_weight:.3e}, <Z_q> card vs CPU "
+          f"{zerr:.2e}; instrumented {clock.wall:.3f} s: "
+          f"{clock.share(clock.wall)}", flush=True)
+
+    n, depth, chi, shots = MPS_WIDE
+    c = rx_brickwork(n, depth)
+    sim = tmps.MPSSimulator(chi, device="cuda")
+    for basis in ("Z", "X"):
+        sim.run(c, shots=shots, seed=0, basis=basis)
+        (counts, st), wall, clock = clocked(lambda: sim.run(
+            c, shots=shots, seed=1, basis=basis))
+        check(sum(counts.values()) == shots
+              and all(len(k) == n for k in counts),
+              f"MPS n={n} basis {basis}: counts")
+        report[f"mps_wide_{basis}"] = {"ms": 1e3 * wall,
+                                       "truncation": st.truncation_weight,
+                                       "linalg": clock.seconds}
+        print(f"mps width n={n} depth-{depth} chi={chi} {shots} shots "
+              f"{basis} basis [{card}]: {1e3 * wall:.1f} ms/run, "
+              f"{len(c.gates) / wall:.0f} gates/s, truncation "
+              f"{st.truncation_weight:.3e}, max bond "
+              f"{max(t.shape[2] for t in st.tensors)}; instrumented "
+              f"{clock.wall:.3f} s: {clock.share(clock.wall)}", flush=True)
+
+
+def phase_mps_noisy(report: dict, card: str) -> None:
+    """11b: noisy shots/s at chi 16 and 64, the law, monitored."""
+    B, chis = MPS_SVD_BATCH
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for chi in chis:
+        m = torch.randn((B, 2 * chi, 2 * chi), dtype=torch.complex64,
+                        device="cuda", generator=gen)
+        ref = torch.linalg.svdvals(m[:8].cpu().to(torch.complex128))
+        row = {}
+        for driver in (None, "gesvdj", "gesvda"):
+            f = lambda: torch.linalg.svd(m, full_matrices=False,
+                                         driver=driver)
+            f()
+            (u, s, vh), t = timed(f)
+            recon = (u[:8] * s[:8, None, :].to(u.dtype)) @ vh[:8]
+            err_s = float((s[:8].cpu().double() - ref).abs().max())
+            err_r = float((recon - m[:8]).abs().max())
+            row[str(driver)] = {"ms": 1e3 * t, "s_err": err_s,
+                                "recon_err": err_r}
+            print(f"mps batched SVD {B} x ({2 * chi}, {2 * chi}) complex64 "
+                  f"driver {driver} [{card}]: {1e3 * t:.2f} ms, singular "
+                  f"values vs float64 {err_s:.2e}, reconstruction "
+                  f"{err_r:.2e}", flush=True)
+            del u, s, vh, recon
+        report[f"svd_batch_{chi}"] = row
+        del m
+
+    for label, (n, depth, chis, shots, p) in (("bench", MPS_NOISY),
+                                              ("deep", MPS_DEEP)):
+        c = (rx_brickwork(n, depth) if label == "bench"
+             else brickwork(n, 2 * depth, SEED, True))
+        channels = [DepolarizingNoise(p)]
+        if label == "bench":
+            channels.append(AmplitudeDampingNoise(p))
+        for ch in channels:
+            nm = NoiseModel()
+            nm.add_global_noise(ch)
+            for chi in chis:
+                sim = tmps.MPSSimulator(chi, device="cuda")
+                sim.run_with_noise(c, nm, shots=min(shots, 64), seed=0)
+                (counts, disc), wall, clock = clocked(
+                    lambda: sim.run_with_noise(c, nm, shots=shots, seed=1))
+                check(sum(counts.values()) == shots and np.isfinite(disc),
+                      f"MPS noisy {label} {type(ch).__name__} chi={chi}")
+                key = f"mps_noisy_{label}_{type(ch).__name__}_{chi}"
+                report[key] = {"shots_per_s": shots / wall,
+                               "truncation": disc,
+                               "linalg": clock.seconds}
+                print(f"mps run_with_noise {label} n={n} depth-{depth} "
+                      f"{type(ch).__name__}({p}) chi={chi} {shots} shots "
+                      f"[{card}]: {shots / wall:.1f} shots/s ({wall:.3f} "
+                      f"s), mean truncation {disc:.3e}; instrumented "
+                      f"{clock.wall:.3f} s: {clock.share(clock.wall)}",
+                      flush=True)
+
+    n, chi, shots, bound = MPS_LAW
+    c = QuantumCircuit(n)
+    for q in range(n):
+        c.add("H", [q], [], 0)
+    c.add("CNOT", [0, 2], [], 1)
+    c.add("Rx", [1], [0.8], 2)
+    c.add("CZ", [2, 3], [], 3)
+    nm = NoiseModel()
+    nm.add_global_noise(DepolarizingNoise(0.08))
+    nm.add_global_noise(AmplitudeDampingNoise(0.1))
+    counts, disc = tmps.MPSSimulator(chi, device="cuda").run_with_noise(
+        c, nm, shots=shots, seed=9)
+    probs = DensityMatrixSimulator(nm, device="cuda").run(
+        c, method="dense").probabilities
+    tvd = tvd_counts(counts, probs, n)
+    check(tvd < bound and disc < 1e-6, f"MPS noisy law n={n}: TVD {tvd}, "
+          f"truncation {disc}")
+    print(f"mps noisy law n={n} [{card}]: TVD {tvd:.4f} against the "
+          f"density matrix ({shots} shots)", flush=True)
+
+    n, depth, chi, T = MPS_MONITORED
+    c = with_measures(rx_brickwork(n, depth))
+    sim = tmps.MPSSimulator(chi, device="cuda")
+    sim.monitored_trajectories(c, 4, seed=0)
+    (outs, sites, states), wall = timed(
+        lambda: sim.monitored_trajectories(c, T, seed=1))
+    check(outs.shape == (T, len(sites)) and set(np.unique(outs)) <= {0, 1},
+          f"MPS monitored n={n}: outcomes {outs.shape}")
+    branches = tmps.draw_branches(c, None, True)
+    g = tmps.draw_gumbels(8, branches, torch.Generator().manual_seed(SEED),
+                          "cpu")
+    o_card, _, _ = sim.monitored_trajectories(c, 8, gumbels=g)
+    o_cpu, _, _ = tmps.MPSSimulator(chi, device="cpu").monitored_trajectories(
+        c, 8, gumbels=g)
+    check(np.array_equal(o_card, o_cpu), "MPS monitored: card and CPU "
+          "outcomes differ on the same draws")
+    report["mps_monitored"] = {"traj_per_s": T / wall, "measures":
+                               len(sites)}
+    print(f"mps monitored n={n} depth-{depth} chi={chi} T={T} "
+          f"({len(sites)} measurements) [{card}]: {T / wall:.1f} "
+          f"trajectories/s ({wall:.3f} s); 8 trajectories card == CPU on "
+          f"the same draws", flush=True)
+
+
+def phase_mps_variational(path: dict, report: dict, card: str) -> None:
+    """11c: a 2P-row gradient at n = 50, and the exact n = 10 gradient
+    against the statevector one."""
+    n, layers, chi = VQE_MPS
+    cfg = topt.MPSParameterizedConfig.auto_detect(
+        models.hardware_efficient_ansatz(n, layers), chi=chi)
+    cost = topt.CostFunction.vqe_hamiltonian(models.tfim_chain(n))
+    v = np.random.default_rng(SEED).uniform(-np.pi, np.pi, cfg.num_params)
+    topt.GradientEstimator.parameter_shift(cfg, cost, v, device="cuda")
+    g, wall, clock = clocked(lambda: topt.GradientEstimator.parameter_shift(
+        cfg, cost, v, device="cuda"))
+    check(np.isfinite(g).all(), "MPS gradient n=50 not finite")
+    rows = 2 * cfg.num_params
+    report["mps_gradient"] = {"ms": 1e3 * wall, "rows_per_s": rows / wall,
+                              "linalg": clock.seconds}
+    print(f"mps gradient hardware_efficient_ansatz({n}, {layers}) on "
+          f"tfim_chain({n}) chi={chi}, {rows} rows [{card}]: "
+          f"{1e3 * wall:.1f} ms, {rows / wall:.0f} rows/s; instrumented "
+          f"{clock.wall:.3f} s: {clock.share(clock.wall)}", flush=True)
+
+    n, layers, chi = VQE_MPS_EXACT
+    c = models.hardware_efficient_ansatz(n, layers)
+    cost = topt.CostFunction.vqe_hamiltonian(models.tfim_chain(n))
+    mcfg = topt.MPSParameterizedConfig.auto_detect(c, chi=chi)
+    scfg = topt.ParameterizedCircuitConfig.auto_detect(c)
+    v = np.random.default_rng(SEED + 1).uniform(-np.pi, np.pi,
+                                                mcfg.num_params)
+    g_mps = topt.GradientEstimator.parameter_shift(mcfg, cost, v,
+                                                   device="cuda")
+    before = launch_counts()
+    g_sv = topt.GradientEstimator.parameter_shift(scfg, cost, v,
+                                                  device="cuda")
+    add_launches(path, before)
+    err = float(np.abs(g_mps - g_sv).max())
+    check(err <= MPS_GRAD_TOL, f"MPS gradient n={n}: vs statevector {err}")
+    print(f"mps gradient n={n} chi={chi} (exact) [{card}]: vs the "
+          f"statevector gradient {err:.2e}", flush=True)
+
+
+def phase_mps_shadows(report: dict, card: str) -> None:
+    """11d: GHZ-40 shadows on the MPS engine."""
+    from quantum_simulator_tpu_torch import shadows as tsh
+
+    n, S, chi, chunk = SHADOW_MPS
+    c = ghz(n)
+    tsh.collect_shadows(c, chunk, seed=3, engine="mps", chi=chi,
+                        chunk=chunk, device="cuda")
+    data, wall = timed(lambda: tsh.collect_shadows(
+        c, S, seed=4, engine="mps", chi=chi, chunk=chunk, device="cuda"))
+    zz = np.array([data.estimate_pauli("ZZ", [q, q + 1])
+                   for q in range(n - 1)])
+    # GHZ: wherever two neighbours were both read in Z they agree.
+    both_z = (data.bases[:, :-1] == 2) & (data.bases[:, 1:] == 2)
+    agree = data.outcomes[:, :-1] == data.outcomes[:, 1:]
+    check(bool(agree[both_z].all()), "MPS shadows: GHZ Z outcomes differ")
+    se = np.sqrt(8.0 / S)        # one ZZ estimate's standard error
+    check(abs(zz.mean() - 1.0) <= SHADOW_MEAN_TOL
+          and np.abs(zz - 1.0).max() <= 5 * se,
+          f"MPS shadows GHZ-{n}: ZZ estimates {zz}")
+    report["mps_shadows"] = {"snapshots_per_s": S / wall,
+                             "zz_mean": float(zz.mean()),
+                             "zz_max_dev": float(np.abs(zz - 1).max())}
+    print(f"mps shadows GHZ-{n} chi={chi} {S} snapshots chunk {chunk} "
+          f"[{card}]: {S / wall:.0f} snapshots/s ({wall:.3f} s); NN ZZ "
+          f"mean {zz.mean():.4f}, max |ZZ - 1| {np.abs(zz - 1).max():.4f} "
+          f"(5 standard errors {5 * se:.3f}); {int(both_z.sum())} Z-Z "
+          f"neighbour reads all agree", flush=True)
+
+
+def phase_dmrg(report: dict, card: str) -> None:
+    """11e: the bench DMRG cell, and excited states against eigvalsh."""
+    n, j, h, chi, sweeps, k = DMRG_BENCH
+    terms = models.tfim_chain(n, j=j, h=h)
+    run = lambda: tdmrg.dmrg_ground_state(terms, n, chi=chi, sweeps=sweeps,
+                                          lanczos_k=k, device="cuda")
+    run()
+    res, wall, clock = clocked(run)
+    exact = tfim_exact_open(n, j, h)
+    rel = abs(res.energy - exact) / abs(exact)
+    check(rel < DMRG_REL_TOL, f"DMRG n={n}: rel err {rel}")
+    report["dmrg_bench"] = {"s": wall, "rel_err": rel,
+                            "linalg": clock.seconds,
+                            "linalg_calls": clock.calls}
+    print(f"dmrg TFIM n={n} chi={chi} {sweeps} sweeps k={k} [{card}]: "
+          f"{wall:.3f} s warm, E {res.energy:.6f} vs free fermions "
+          f"{exact:.6f} (rel err {rel:.2e}), truncation "
+          f"{res.truncation_weight:.2e}; instrumented {clock.wall:.3f} s: "
+          f"{clock.share(clock.wall)}", flush=True)
+
+    n, states, chi, sweeps, tol = DMRG_EXCITED
+    terms = models.tfim_chain(n, j=-1.0, h=-0.9)
+    (res, wall) = timed(lambda: tdmrg.dmrg_excited_states(
+        terms, n, n_states=states, chi=chi, sweeps=sweeps, device="cuda"))
+    want = np.linalg.eigvalsh(dense_ham(n, terms))[:states]
+    err = float(np.abs(np.array([r.energy for r in res]) - want).max())
+    check(err <= tol, f"DMRG excited n={n}: {err}")
+    print(f"dmrg excited n={n} {states} states chi={chi} [{card}]: "
+          f"{wall:.3f} s, max |E - eigvalsh| {err:.2e}", flush=True)
+
+
+def phase_mps_dynamics(report: dict, card: str) -> None:
+    """11f: MPS Lindblad trajectories; 11g: correlators."""
+    n, chi, steps, T = LINDBLAD_MPS
+    H = ([(1.0, "ZZ", [i, i + 1]) for i in range(n - 1)]
+         + [(0.5, "X", [i]) for i in range(n)])
+    jumps = [(0.1, "sigma_minus", q) for q in range(n)]
+    sim = tlmps.MPSLindbladSimulator(n, H, jumps, chi=chi, device="cuda")
+    sim.evolve(1.0, 4, n_trajectories=2, observables=[("Z", [n // 2])])
+    res, wall = timed(lambda: sim.evolve(
+        1.0, steps, n_trajectories=T, observables=[("Z", [n // 2])]))
+    check(np.isfinite(res.expectations).all()
+          and np.abs(res.expectations).max() <= 1 + 1e-5,
+          f"MPS Lindblad n={n}: {res.expectations}")
+    report["lindblad_mps"] = {"s": wall, "traj_per_s": T / wall}
+    print(f"mps lindblad n={n} chi={chi} {steps} steps T={T} [{card}]: "
+          f"{wall:.3f} s, {T / wall:.2f} trajectories/s, <Z_{n // 2}>(t=1) "
+          f"{res.expectations[0, -1]:+.4f} +- {res.stderr[0, -1]:.4f}, "
+          f"truncation {res.truncation_weight:.2e}", flush=True)
+
+    H3 = [(1.0, "ZZ", [0, 1]), (1.0, "ZZ", [1, 2]),
+          (0.7, "X", [0]), (0.7, "X", [1]), (0.7, "X", [2])]
+    J3 = [(0.3, "sigma_minus", 0), (0.2, "z", 2)]
+    obs = [("Z", [0]), ("X", [1]), ("ZZ", [0, 1])]
+    dense = LindbladSimulator(3, H3, J3, device="cuda").evolve(
+        1.0, 100, observables=obs, record_every=25)
+    traj = tlmps.MPSLindbladSimulator(3, H3, J3, chi=8, device="cuda"
+                                      ).evolve(1.0, 100, n_trajectories=300,
+                                               initial=[0, 0, 0],
+                                               observables=obs,
+                                               record_every=25, seed=2)
+    dev = np.abs(dense.expectations - traj.expectations)
+    lim = 4.0 * np.maximum(traj.stderr, 1e-6) + 0.025
+    check(bool((dev <= lim).all()), f"MPS Lindblad n=3 vs dense: {dev}")
+    print(f"mps lindblad n=3 vs dense RK4 [{card}]: max dev "
+          f"{dev.max():.4f} (bound 4 stderr + 0.025)", flush=True)
+
+    n, chi, t, steps = CORR_WIDE
+    terms = models.tfim_chain(n, j=-1.0, h=-1.0)
+    run = lambda: tcorr.mps_two_point_correlator(
+        n, terms, t, steps, n // 2, n // 2, chi=chi, record_every=steps // 4,
+        device="cuda")
+    run()
+    (times, C), wall = timed(run)
+    check(np.isfinite(C).all() and np.abs(C).max() <= 1 + 1e-4,
+          f"correlator n={n}: {C}")
+    report["correlator"] = {"s": wall}
+    print(f"mps correlator TFIM quench n={n} chi={chi} t={t} {steps} "
+          f"steps [{card}]: {wall:.3f} s, |C(t)| "
+          f"{np.round(np.abs(C), 4).tolist()}", flush=True)
+
+    n, chi, t, steps, tol = CORR_DENSE
+    terms = ([(1.0, "ZZ", [i, i + 1]) for i in range(n - 1)]
+             + [(0.7, "X", [i]) for i in range(n)])
+    times, C = tcorr.mps_two_point_correlator(
+        n, terms, t, steps, 1, 2, pauli_i="Z", pauli_j="Y", chi=chi,
+        record_every=steps // 4, device="cuda")
+    w, v = np.linalg.eigh(dense_ham(n, terms))
+    psi0 = np.zeros(1 << n, complex)
+    psi0[0] = 1.0
+    Pi = dense_ham(n, [(1.0, "Z", [1])])
+    Pj = dense_ham(n, [(1.0, "Y", [2])])
+    err = 0.0
+    for k_, tk in enumerate(times):
+        U = (v * np.exp(-1j * w * tk)) @ v.conj().T
+        exact = (U @ psi0).conj() @ Pi @ (U @ (Pj @ psi0))
+        err = max(err, abs(C[k_] - exact))
+    check(err <= tol, f"correlator n={n} vs dense: {err}")
+    print(f"mps correlator n={n} vs dense expm [{card}]: max err "
+          f"{err:.2e} (bound {tol})", flush=True)
+
+
+def phase_mps(report: dict, card: str) -> dict:
+    """11a-11g. The MPS family launches no kernel of its own; its launch
+    counts are those of the statevector references (11a, 11c)."""
+    path = {k: 0 for k in launch_counts()}
+    phase_mps_ideal(path, report, card)
+    phase_mps_noisy(report, card)
+    phase_mps_variational(path, report, card)
+    phase_mps_shadows(report, card)
+    phase_dmrg(report, card)
+    phase_mps_dynamics(report, card)
+    report["mps_launches"] = path
+    return path
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every measurement as JSON")
@@ -3182,7 +3693,8 @@ def main() -> int:
               "7": lambda: phase_huge_noisy(report, card),
               "8": lambda: phase_open_system(report, card),
               "9": lambda: phase_analysis(report, card),
-              "10": lambda: phase_bit_engines(report, card)}
+              "10": lambda: phase_bit_engines(report, card),
+              "11": lambda: phase_mps(report, card)}
     out = {}
     for name in PHASES:
         if name in chosen:
@@ -3209,7 +3721,8 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
             "launches": sum(out[p][name] for p in ("3", "3b", "5", "6",
-                                                   "7", "8", "9", "10")),
+                                                   "7", "8", "9", "10",
+                                                   "11")),
             "max_abs_err": max(out["2"]["max_err"][name], out["2b"][name],
                                out["2c"][name]),
             "ms": row["ms"], "plain_ms": row["plain_ms"],

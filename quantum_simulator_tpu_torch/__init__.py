@@ -22,8 +22,12 @@ benchmark suite. The bit engines run beyond the statevector wall: the
 batched Clifford tableau (``clifford``), the statevector and Pauli-frame
 QEC engines (``qec``, ``qec_frame``), circuit-level QEC with its detector
 error model (``qec_circuit``, ``qec_dem``) and the union-find matcher
-(``qec_matching``) over the port's own host C (``native``). It imports
-torch and NumPy, never JAX and never the JAX package.
+(``qec_matching``) over the port's own host C (``native``). The MPS
+family runs arbitrary gates past the 2^n wall: ``mps.MPSSimulator``
+(ideal, noisy, monitored and variational batches of MPS), DMRG
+(``dmrg``), MPS Lindblad trajectories (``lindblad_mps``), two-point
+correlators (``correlators``) and MPS shadows. It imports torch and
+NumPy, never JAX and never the JAX package.
 """
 
 from .analysis import StateAnalysis
@@ -31,6 +35,7 @@ from .circuit import GateInstance, QuantumCircuit
 from .clifford import CliffordSimulator
 from .config import CONFIG, EngineConfig
 from .density import DensityMatrixResult, DensityMatrixSimulator
+from .dmrg import DMRGResult, dmrg_excited_states, dmrg_ground_state
 from .gates import GateDefinition, GateType
 from .lindblad import LindbladResult, LindbladSimulator
 from .measurement import MeasurementBasis, MeasurementEngine
@@ -38,6 +43,7 @@ from .mitigation import (PECResult, ReadoutMitigator, ZNEResult,
                          fold_circuit, pec_expectation,
                          quasi_inverse_pauli, richardson_extrapolate,
                          zne_expectation)
+from .mps import MPSSimulator, MPSState
 from .noise import (AmplitudeDampingNoise, BitFlipNoise, DepolarizingNoise,
                     NoiseChannel, NoiseModel, PhaseFlipNoise, ReadoutError,
                     ThermalRelaxationNoise, TwoQubitDepolarizingNoise)
@@ -64,6 +70,7 @@ __all__ = [
     "CliffordSimulator",
     "CostFunction",
     "DensityMatrixResult",
+    "DMRGResult",
     "DensityMatrixSimulator",
     "DepolarizingNoise",
     "DeviceCost",
@@ -76,6 +83,8 @@ __all__ = [
     "LindbladResult",
     "LindbladSimulator",
     "MPSParameterizedConfig",
+    "MPSSimulator",
+    "MPSState",
     "MarginalStateSummary",
     "MeasurementBasis",
     "MeasurementEngine",
@@ -100,6 +109,8 @@ __all__ = [
     "TwoQubitDepolarizingNoise",
     "ZNEResult",
     "collect_shadows",
+    "dmrg_excited_states",
+    "dmrg_ground_state",
     "fold_circuit",
     "from_qasm",
     "pec_expectation",

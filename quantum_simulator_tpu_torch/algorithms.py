@@ -247,7 +247,7 @@ class AlgorithmTemplate:
         (no reference analog): |0...0 1...1> evolved by second-order
         Trotter circuits (``models/trotter.py``).  Runs on every
         engine — at reference widths on the statevector engine, at
-        100+ qubits on the MPS engine."""
+        100+ qubits on the MPS engine (``mps.MPSSimulator``)."""
         if num_qubits < 2:
             raise ValueError("tfim_quench needs at least 2 qubits")
         from .models.hamiltonians import tfim_chain

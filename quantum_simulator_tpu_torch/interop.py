@@ -6,7 +6,8 @@ form that feeds the TPU's matrix unit. The port keeps the two planes
 ``(re, im)`` instead (``ops/plan.build_group_operands``). With these
 converters a test feeds identical operators to both executors;
 ``density_result_from_numpy`` carries a density matrix across the same
-way, and ``tableau_from_numpy`` a stabilizer tableau. This module imports
+way, ``tableau_from_numpy`` a stabilizer tableau and
+``mps_state_from_numpy`` a matrix-product state. This module imports
 neither JAX nor the JAX package: it takes plain arrays. (The counterpart
 of the JAX package's ``interop.py``, the OpenQASM 2.0 import / export, is
 ``qasm.py``.)
@@ -74,3 +75,26 @@ def tableau_from_numpy(x, z, r, device=None):
                          f"got {x.shape}, {z.shape}, {r.shape}")
     return Tableau(*(torch.from_numpy(np.ascontiguousarray(a & 1).astype(
         np.int8)).to(device or CONFIG.device) for a in (x, z, r)))
+
+
+def mps_state_from_numpy(tensors, num_qubits: int, chi: int,
+                         truncation_weight: float = 0.0, device=None):
+    """An MPS as NumPy site tensors (for instance the JAX package's
+    ``MPSState.tensors``, each ``(l, 2, r)``, centre at site 0) -> the
+    port's ``mps.MPSState`` on ``device`` (default ``CONFIG.device``), in
+    ``CONFIG.dtype``."""
+    from .config import CONFIG
+    from .mps import MPSState
+
+    arrs = [np.asarray(t) for t in tensors]
+    if len(arrs) != num_qubits or any(
+            a.ndim != 3 or a.shape[1] != 2 for a in arrs):
+        raise ValueError(f"expected {num_qubits} (l, 2, r) site tensors")
+    if any(a.shape[2] != b.shape[0] for a, b in zip(arrs, arrs[1:])) \
+            or arrs[0].shape[0] != 1 or arrs[-1].shape[2] != 1:
+        raise ValueError("site tensors' bonds do not chain (edge bonds 1)")
+    return MPSState(
+        tuple(torch.from_numpy(np.ascontiguousarray(a, np.complex128)).to(
+            device=device or CONFIG.device, dtype=CONFIG.dtype)
+            for a in arrs),
+        int(num_qubits), int(chi), float(truncation_weight))

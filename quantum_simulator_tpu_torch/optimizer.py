@@ -22,6 +22,9 @@ Where the JAX package compiles, the port runs batches:
   no kernel is involved. ``multi_start`` replaces ``lax.scan`` + ``vmap``
   with a loop over iterations on a batch of starts, in float32 on the
   device.
+* **MPS configs** (``MPSParameterizedConfig``): the rows run as one
+  batch of MPS through ``mps.build_batched_cost_fn`` (parameter shift
+  and finite differences only; reverse mode is refused, as in JAX).
 * **Hamiltonian costs**: JAX applies every Pauli string one qubit at a
   time; the port evaluates the same sum by flip mask
   (``_pauli_terms_device``): one state-sized product per set of flipped
@@ -140,22 +143,40 @@ class ParameterizedCircuitConfig:
 
 
 class MPSParameterizedConfig(ParameterizedCircuitConfig):
-    """Variational optimization on the MPS engine
-    (``quantum_simulator_tpu/optimizer.py:128-164``): not ported yet."""
+    """A parameterized circuit whose cost evaluations run on the MPS
+    engine (``mps.build_batched_cost_fn``) instead of a dense 2^n state:
+    variational optimization at 50+ qubits
+    (``quantum_simulator_tpu/optimizer.py:128-164``).
+
+    Works with every ``CircuitOptimizer`` surface that evaluates costs in
+    batch: ``run`` / ``step`` with ``gradient_method`` "parameter_shift"
+    or "finite_difference", and the barren-plateau detectors. The cost
+    must be Hamiltonian-shaped (``CostFunction.vqe_hamiltonian`` /
+    ``qaoa_maxcut`` / ``z_expectation`` carry their Pauli terms).
+    Reverse-mode paths ("autodiff", ``multi_start``) are refused:
+    differentiating through truncated SVDs divides by Schmidt-value gaps
+    that circuits started from product states routinely make zero."""
 
     engine = "mps"
 
     def __init__(self, circuit: QuantumCircuit,
                  bindings: list[ParameterBinding], chi: int = 64):
-        raise NotImplementedError(
-            "MPSParameterizedConfig needs the MPS engine, which is not "
-            "ported yet (ROADMAP Queue 1 item 10)")
+        super().__init__(circuit, bindings)
+        if chi < 1:
+            raise ValueError("chi must be >= 1")
+        self.chi = chi
 
     @classmethod
     def auto_detect(cls, circuit: QuantumCircuit,
                     chi: int = 64) -> "MPSParameterizedConfig":
         base = ParameterizedCircuitConfig.auto_detect(circuit)
         return cls(base.circuit, base.bindings, chi=chi)
+
+    def compiled(self):
+        raise ValueError(
+            "MPSParameterizedConfig has no dense compiled program; use "
+            "gradient_method='parameter_shift' or 'finite_difference' "
+            "(autodiff/multi_start need the statevector engine)")
 
 
 # ---------------------------------------------------------------------------
@@ -435,8 +456,21 @@ class GradientEstimator:
         """The cost at each row of ``values_batch``: through the batched
         group executor when the circuit and cost have a torch form, else
         one ``Simulator.run`` per row (n >= 30, custom gates, host-only
-        costs)."""
+        costs). MPS-engine configs evaluate on the MPS variational path
+        (no 2^n state exists to fall back to)."""
         device = device or CONFIG.device
+        if getattr(config, "engine", None) == "mps":
+            if not isinstance(cost_fn, DeviceCost) or cost_fn.terms is None:
+                raise ValueError(
+                    "the MPS engine evaluates Hamiltonian-shaped costs "
+                    "only (CostFunction.vqe_hamiltonian / qaoa_maxcut / "
+                    "z_expectation carry their Pauli terms; there is no "
+                    "dense state for host-callable costs)")
+            from . import mps
+            fn = mps.build_batched_cost_fn(
+                config.circuit, config.bindings, cost_fn.terms,
+                config.chi, constant=cost_fn.constant, device=device)
+            return fn(values_batch).double().cpu().numpy()
         if config.circuit.num_qubits < HUGE_QUBITS:
             program, offsets = config.compiled()
             if _torch_form(program, offsets, cost_fn):

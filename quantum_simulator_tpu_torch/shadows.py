@@ -1,7 +1,7 @@
 """Classical shadows: randomized-measurement estimation of many
 observables (Huang-Kueng-Preskill random single-qubit Pauli protocol).
 
-Counterpart of ``quantum_simulator_tpu/shadows.py:1-147, 179-257``. Each
+Counterpart of ``quantum_simulator_tpu/shadows.py``. Each
 snapshot draws a uniform basis in {X, Y, Z} per qubit, rotates by the
 single-qubit Clifford that maps that basis to Z (X -> H, Y -> H S^dag, the
 rotations of ``MeasurementEngine`` basis sampling), and records one joint
@@ -23,7 +23,12 @@ per row, on ``chunk`` real copies of the state (the kernels write in
 place). Each row then draws one basis index (``plan.categorical``, qubit
 0 = MSB). Peak memory: the state, the batch (``chunk x 2^n x 8`` bytes,
 4 GiB at n = 20 with ``chunk = 512``) and 1 GiB of sampling temporaries.
-The MPS collector is not ported yet (ROADMAP Queue 1 item 6).
+
+The MPS collector evolves the circuit once (``mps.MPSSimulator``) and
+folds each snapshot's per-site rotation into the right-canonical sampling
+cascade (one-site unitaries commute with the canonical form), ``chunk``
+snapshots per cascade: O(n chi^2) per snapshot, no 2^n anywhere, so
+shadows run at 100+ qubits.
 """
 
 from __future__ import annotations
@@ -181,23 +186,49 @@ def sample_rotated(x: torch.Tensor, n: int,
     return ((idx[:, None] >> shifts) & 1).to(torch.int8).cpu().numpy()
 
 
+def _mps_outcomes(circuit: QuantumCircuit, bases: np.ndarray,
+                  rng: np.random.Generator, chi: int, chunk: int, device,
+                  uniforms) -> np.ndarray:
+    """The MPS collector: one evolution, then ``chunk`` snapshots per
+    cascade, each site rotated into its snapshot's basis."""
+    from .mps import MPSSimulator, sample_cascade
+    from .utils.seeding import generator_from_rng
+
+    state = MPSSimulator(chi, device=device)._final_state(circuit, chi)
+    gen = generator_from_rng(rng, device)
+    t0 = state.tensors[0]
+    rots = torch.from_numpy(_ROTATIONS).to(t0.device, t0.dtype)
+    codes = torch.from_numpy(bases.astype(np.int64)).to(t0.device)
+    outs = []
+    for lo in range(0, bases.shape[0], chunk):
+        hi = min(lo + chunk, bases.shape[0])
+        u = (torch.rand((hi - lo, bases.shape[1]), generator=gen,
+                        device=t0.device) if uniforms is None
+             else torch.as_tensor(uniforms[lo:hi], dtype=torch.float32,
+                                  device=t0.device))
+        outs.append(sample_cascade(state.tensors, u, rots[codes[lo:hi]])
+                    .to(torch.int8).cpu().numpy())
+    return np.concatenate(outs, axis=0)
+
+
 def collect_shadows(circuit: QuantumCircuit | StateVector,
                     n_snapshots: int,
                     seed: int | None = None,
                     engine: str = "auto",
                     chi: int = 32,
                     chunk: int = 256,
-                    device=None) -> ShadowData:
+                    device=None, uniforms=None) -> ShadowData:
     """Collect a classical-shadow pool from a circuit (or a prepared
     ``StateVector``, on its device; a circuit runs on ``device``, default
     ``CONFIG.device``).
 
-    ``engine``: "statevector" (n <= 20), or "auto" (the statevector
-    engine when it fits). ``chunk`` bounds device memory: snapshots run
-    ``chunk`` rows at a time. The bases are the JAX package's for the
-    same seed; the outcomes are drawn from a ``torch.Generator`` seeded
-    where it forks its key. ``engine="mps"`` (and ``chi``) waits for the
-    MPS engine (ROADMAP Queue 1 item 6).
+    ``engine``: "statevector" (n <= 20), "mps" (any width the bond
+    dimension ``chi`` supports), or "auto" (statevector when it fits).
+    ``chunk`` bounds device memory: snapshots run ``chunk`` rows at a
+    time. The bases are the JAX package's for the same seed; the outcomes
+    are drawn from a ``torch.Generator`` seeded where it forks its key,
+    or, on the MPS engine, from ``uniforms`` ((n_snapshots, n) float32,
+    one per snapshot and site, as the JAX cascade draws them).
     """
     from .utils.seeding import generator_from_rng
 
@@ -215,12 +246,7 @@ def collect_shadows(circuit: QuantumCircuit | StateVector,
                       if n <= MAX_STATEVECTOR_SHADOW_QUBITS else "mps")
     if engine not in ("statevector", "mps"):
         raise ValueError(f"unknown engine {engine!r}")
-    if engine == "mps":
-        raise NotImplementedError(
-            "MPS shadows wait for the MPS engine of the port (ROADMAP "
-            "Queue 1 item 6); use engine='statevector' up to "
-            f"n={MAX_STATEVECTOR_SHADOW_QUBITS}")
-    if n > MAX_STATEVECTOR_SHADOW_QUBITS:
+    if engine == "statevector" and n > MAX_STATEVECTOR_SHADOW_QUBITS:
         raise ValueError(
             f"statevector shadows cap at n={MAX_STATEVECTOR_SHADOW_QUBITS} "
             "(each chunk row holds a 2^n state); use engine='mps'")
@@ -228,6 +254,10 @@ def collect_shadows(circuit: QuantumCircuit | StateVector,
         raise ValueError("n_snapshots must be >= 1")
 
     bases = rng.integers(0, 3, size=(n_snapshots, n)).astype(np.int8)
+    if engine == "mps":
+        return ShadowData(num_qubits=n, bases=bases, outcomes=_mps_outcomes(
+            circuit, bases, rng, chi, chunk, device or CONFIG.device,
+            uniforms))
     if isinstance(circuit, StateVector):
         sv = circuit
     else:

@@ -962,3 +962,143 @@ def test_flip_mask_cost_holds_per_string_cost_n20(cuda):
                                .cuda(), n))
     assert abs(want) > 0.1
     assert abs(got - want) <= 1e-5
+
+
+# --- the MPS family: the card against the CPU on the same draws ------------
+
+def _mps_brick(n, depth, seed, measure=False):
+    """Ry/Rz + CNOT brickwork; ``measure``: a Measure on every fourth
+    qubit after every second layer."""
+    rng = np.random.default_rng(seed)
+    c = QuantumCircuit(n)
+    col = 0
+    for layer in range(depth):
+        for q in range(n):
+            c.add("Ry" if (q + layer) % 2 else "Rz", [q],
+                  [float(rng.uniform(0, 2 * np.pi))], col)
+        col += 1
+        for q in range(layer % 2, n - 1, 2):
+            c.add("CNOT", [q, q + 1], [], col)
+        col += 1
+        if measure and layer % 2:
+            for q in range(layer % 4, n, 4):
+                c.add("Measure", [q], [], col)
+            col += 1
+    return c
+
+
+def _mps_on(dev, chi=16):
+    from quantum_simulator_tpu_torch import mps as tm
+    return tm.MPSSimulator(chi, device=dev)
+
+
+def test_mps_ideal_card_equals_cpu(cuda):
+    """A truncating n = 24 run: the same truncation weight and <Z_q>, and
+    a state the statevector engine holds at n = 12."""
+    from quantum_simulator_tpu_torch import mps as tm
+    c = _mps_brick(24, 8, 1)
+    states = {dev: _mps_on(dev, 8).run(c, shots=0)[1]
+              for dev in ("cuda", "cpu")}
+    assert states["cuda"].truncation_weight == pytest.approx(
+        states["cpu"].truncation_weight, abs=1e-6)
+    for q in range(0, 24, 5):
+        assert tm.expectation_pauli_string(states["cuda"], {q: "Z"}) == \
+            pytest.approx(tm.expectation_pauli_string(states["cpu"],
+                                                      {q: "Z"}), abs=1e-5)
+    c12 = _mps_brick(12, 8, 2)
+    psi = Simulator(device="cuda").run(c12, shots=0).final_state.data
+    _, st = _mps_on("cuda", 64).run(c12, shots=0)
+    np.testing.assert_allclose(tm.to_statevector(st), psi, atol=2e-5)
+
+
+def test_mps_noisy_and_monitored_card_equal_cpu(cuda):
+    """The same Gumbel rows and uniforms: identical counts (batched SVD
+    centre moves on the card, QR on the CPU: another gauge, the same
+    draws), identical monitored outcomes."""
+    from quantum_simulator_tpu_torch import (AmplitudeDampingNoise,
+                                             DepolarizingNoise, NoiseModel)
+    from quantum_simulator_tpu_torch import mps as tm
+    c = _mps_brick(16, 4, 3)
+    nm = NoiseModel()
+    nm.add_global_noise(AmplitudeDampingNoise(0.05))
+    nm.add_global_noise(DepolarizingNoise(0.02))
+    gen = torch.Generator().manual_seed(5)
+    g = tm.draw_gumbels(64, tm.draw_branches(c, nm), gen, "cpu")
+    u = torch.rand((64, 16), generator=gen)
+    out = {dev: _mps_on(dev).run_with_noise(c, nm, shots=64, seed=1,
+                                            gumbels=g, uniforms=u)
+           for dev in ("cuda", "cpu")}
+    assert out["cuda"][0] == out["cpu"][0]
+    cm = _mps_brick(16, 4, 4, measure=True)
+    gm = tm.draw_gumbels(32, tm.draw_branches(cm, nm, True), gen, "cpu")
+    outs = {dev: _mps_on(dev).monitored_trajectories(
+        cm, 32, noise_model=nm, gumbels=gm)[0] for dev in ("cuda", "cpu")}
+    assert np.array_equal(outs["cuda"], outs["cpu"])
+
+
+def test_mps_dmrg_correlator_lindblad_card_equal_cpu(cuda):
+    from quantum_simulator_tpu_torch import correlators as tc
+    from quantum_simulator_tpu_torch import dmrg as td
+    from quantum_simulator_tpu_torch import lindblad_mps as tl
+    from quantum_simulator_tpu_torch import mps as tm
+    from quantum_simulator_tpu_torch.models import tfim_chain
+    # Both exact (chi covers every bond) and converged: intermediate
+    # sweeps keep zero-singular-value columns neither solver defines.
+    terms = tfim_chain(8, j=-1.0, h=-0.8)
+    res = {dev: td.dmrg_ground_state(terms, 8, chi=16, sweeps=4,
+                                     lanczos_k=10, device=dev)
+           for dev in ("cuda", "cpu")}
+    assert res["cuda"].energy == pytest.approx(res["cpu"].energy, abs=1e-5)
+    corr = {dev: tc.mps_two_point_correlator(
+        10, tfim_chain(10), 1.0, 20, 4, 5, pauli_j="X", pauli_i="X",
+        chi=32, record_every=5, device=dev)[1] for dev in ("cuda", "cpu")}
+    np.testing.assert_allclose(corr["cuda"], corr["cpu"], atol=1e-5)
+    jumps = [(0.2, "sigma_minus", q) for q in range(8)]
+    g = tm.gumbel_from_uniform(torch.rand(
+        (32, 10, 8, 2), generator=torch.Generator().manual_seed(3)))
+    recs = {dev: tl.MPSLindbladSimulator(8, tfim_chain(8), jumps, chi=8,
+                                         device=dev).evolve(
+        1.0, 10, n_trajectories=32, observables=[("Z", [3]), ("XX", [1, 2])],
+        record_every=5, gumbels=g) for dev in ("cuda", "cpu")}
+    np.testing.assert_allclose(recs["cuda"].expectations,
+                               recs["cpu"].expectations, atol=1e-5)
+
+
+def test_mps_gradient_through_looped_svd(cuda):
+    """A 2P-row gradient whose bonds reach 64 (two-site splits of 128 x
+    128, past the batched solver's 32: the looped SVD path), exact at
+    chi = 64, against the statevector gradient."""
+    from quantum_simulator_tpu_torch import models
+    from quantum_simulator_tpu_torch import optimizer as topt
+    c = models.hardware_efficient_ansatz(12, 6)
+    cost = topt.CostFunction.vqe_hamiltonian(models.tfim_chain(12))
+    v = np.random.default_rng(2).uniform(-np.pi, np.pi, 12 * 7)
+    g_mps = topt.GradientEstimator.parameter_shift(
+        topt.MPSParameterizedConfig.auto_detect(c, chi=64), cost, v,
+        device="cuda")
+    g_sv = topt.GradientEstimator.parameter_shift(
+        topt.ParameterizedCircuitConfig.auto_detect(c), cost, v,
+        device="cuda")
+    np.testing.assert_allclose(g_mps, g_sv, atol=1e-4)
+
+
+def test_mps_amplitude_and_entropy_hold_float64(cuda):
+    """``amplitude`` and ``entanglement_entropy`` of a random n = 10 MPS
+    on the card against a float64 NumPy contraction of its tensors."""
+    from quantum_simulator_tpu_torch import mps as tm
+    _, st = _mps_on("cuda", 32).run(_mps_brick(10, 10, 6), shots=0)
+    psi = np.ones((1, 1), complex)
+    for t in st.tensors:
+        a = t.cpu().numpy().astype(np.complex128)
+        psi = np.einsum("dl,lpr->dpr", psi, a).reshape(-1, a.shape[2])
+    psi = psi[:, 0]
+    for bits in ("0000000000", "1011001110", "1111111111", "0101010101"):
+        assert abs(tm.amplitude(st, bits) - psi[int(bits, 2)]) <= 1e-6
+    for bond in (2, 4, 6):
+        s = np.linalg.svd(psi.reshape(2 ** (bond + 1), -1),
+                          compute_uv=False)
+        p = s ** 2 / np.sum(s ** 2)
+        p = p[p > 1e-12]
+        want = float(-np.sum(p * np.log2(p)))
+        assert tm.entanglement_entropy(st, bond) == pytest.approx(
+            want, abs=1e-5)

@@ -18,8 +18,9 @@ on the same inputs. Tolerances and why:
 * outcome frequencies against the rotated probabilities: 0.05 over 4000
   snapshots per basis pair (standard error at most 0.008).
 
-The MPS collector is not ported (ROADMAP Queue 1 item 6): its tests have
-no counterpart; the port raises ``NotImplementedError`` for it.
+The MPS collector's checks are in ``tests/test_torch_mps.py``; here the
+engine routing runs it (``engine="mps"``, and ``"auto"`` above 20
+qubits).
 """
 
 import math
@@ -602,8 +603,8 @@ def _shadow_engine_routing():
         tq.collect_shadows(_ghz(2), 0, device="cpu")
     for kw in ({"engine": "mps"}, {"engine": "auto"}):
         n = 2 if kw["engine"] == "mps" else 21
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            tq.collect_shadows(_ghz(n), 10, device="cpu", **kw)
+        data = tq.collect_shadows(_ghz(n), 10, device="cpu", **kw)
+        assert data.outcomes.shape == (10, n)
 
 
 def _shadow_pool_equals_jax():

@@ -579,10 +579,21 @@ def test_reverse_mode_needs_device_cost():
 
 
 def test_mps_config_not_ported_yet():
+    """The name is from the slice before the MPS engine was ported; the
+    config runs now (``tests/test_torch_mps.py`` holds it): it binds the
+    circuit's parameters, evaluates Hamiltonian costs on the MPS engine
+    and refuses a dense program (reverse mode) with JAX's message."""
     c = tq.QuantumCircuit(2)
     c.add("Ry", [0], [0.3], 0)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        topt.MPSParameterizedConfig.auto_detect(c)
+    c.add("CNOT", [0, 1], [], 1)
+    cfg = topt.MPSParameterizedConfig.auto_detect(c, chi=4)
+    assert cfg.engine == "mps" and cfg.chi == 4 and cfg.num_params == 1
+    cost = topt.CostFunction.z_expectation(1)
+    got = topt.GradientEstimator._batched_costs(cfg, cost, np.array([[0.3]]),
+                                                device=CPU)
+    assert got[0] == pytest.approx(np.cos(0.3), abs=1e-6)
+    with pytest.raises(ValueError, match="parameter_shift"):
+        cfg.compiled()
 
 
 def test_host_cost_takes_the_simulator_path():

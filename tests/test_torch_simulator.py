@@ -158,8 +158,12 @@ def test_import_pulls_in_no_jax():
             "quantum_simulator_tpu_torch.qec_circuit, "
             "quantum_simulator_tpu_torch.qec_dem, "
             "quantum_simulator_tpu_torch.qec_matching, "
-            "quantum_simulator_tpu_torch.native; "
-            "q.CliffordSimulator; "
+            "quantum_simulator_tpu_torch.native, "
+            "quantum_simulator_tpu_torch.mps, "
+            "quantum_simulator_tpu_torch.dmrg, "
+            "quantum_simulator_tpu_torch.lindblad_mps, "
+            "quantum_simulator_tpu_torch.correlators; "
+            "q.CliffordSimulator; q.MPSSimulator; q.dmrg_ground_state; "
             "quantum_simulator_tpu_torch.native.native_module(required=True); "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'quantum_simulator_tpu' "
