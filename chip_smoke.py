@@ -228,15 +228,47 @@ The MPS slice adds:
     (4 standard errors + 0.025). 11g: a TFIM quench correlator at n = 40,
     chi = 32, 40 steps, and at n = 8 against ``expm`` within 5e-4.
 
+The parallel slice adds:
+
+12. the shard mesh (``quantum_simulator_tpu_torch.parallel``), 8 shards
+    stacked on the card (one rank). 12a: n = 30 Ry/Rz brickwork, depth
+    8, and ``hardware_efficient_ansatz(30, 4)`` (27 local qubits: mini
+    plans, each dense and cross step one launch for all shards), each
+    within 2e-5 of ``Simulator.run`` and within 1e-5 of the same run
+    through the twins, exchanges equal to the schedule's, launches equal
+    to the mini plans' steps, dense and cross launches both > 0 (the
+    brickwork's plans hold no cross step, the ansatz's do), peak <= 1.75x
+    the 8 GiB state. 12b: QFT-32 on a basis input (32 GiB): fidelity against the
+    analytic DFT row > 1 - 1e-4 (shard by shard, on the card), no CPhase
+    schedules an exchange, every <Z_q> within 1e-4 of 0, 1000 shard-local
+    shots, peak <= 1.75x. 12c: ``scripts/mesh_stretch_check.py``'s n = 32
+    Ry+CNOT brickwork, depth 40, through ``run_segmented(4)``: norm
+    within 1e-4, finite <Z> probes, seeded counts repeat; wall time and
+    the exchanges' share (each exchange between synchronizes). 12d:
+    ``run_with_noise`` at n = 24 (depolarizing 0.05, 16 trajectories,
+    1024 shots; trajectories/s) and at n = 10 the card's trajectories
+    equal the CPU's on the same Gumbel rows (1e-5, draws clear of ties).
+    12e: ``sharded_vqe_step`` (traj 2 x amp 4) on
+    ``hardware_efficient_ansatz(20, 4)`` at random angles with a ZZ-chain
+    cost: cost and gradient within 1e-4 of the one-device parameter-shift
+    rows, then 3 Adam steps timed. 12f: a checkpointed ``run_segmented``
+    at n = 26 stopped from its progress callback and resumed equals an
+    uninterrupted one. 12g: the ``mesh=`` engines (Steane ``sweep_raw``,
+    surface d = 5, R = 5 circuit-level memory, MPS Lindblad with 16
+    trajectories) identical to ``mesh=None`` (on one rank only the
+    Lindblad case takes another path; the gloo test splits the trials).
+
 ``--phases 2c,6`` runs only the named phases (and then prints no summary
 and no result line): for bringing up one phase on the card.
 
 Launch counts in the summary are those of the main paths: phase 3 is
 driven with the counters set to 0 just before it and read just after; in
 phases 3b, 5, 6, 7, 8, 9 and 10 each run, trajectory, gradient, optimizer,
-debugger, quantum-volume, shadows, ZNE and QEC encode is, and in phase 11
-the two statevector references (11a, 11c). The comparison runs
-against the twins launch nothing (phase 5 checks it).
+debugger, quantum-volume, shadows, ZNE and QEC encode is, in phase 11
+the two statevector references (11a, 11c), and in phase 12 the mesh runs
+of 12a-12c, the VQE steps of 12e and the segmented runs of 12f. The
+comparison runs against the twins launch nothing (phases 5 and 12 check
+it).
 
 The line before the last is the JSON kernel summary; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits with an
@@ -279,6 +311,7 @@ from quantum_simulator_tpu_torch import lindblad_mps as tlmps
 from quantum_simulator_tpu_torch import models
 from quantum_simulator_tpu_torch import mps as tmps
 from quantum_simulator_tpu_torch import optimizer as topt
+from quantum_simulator_tpu_torch import parallel as tpar
 from quantum_simulator_tpu_torch import simulator as tsim
 from quantum_simulator_tpu_torch.density import SuperopDensityResult
 from quantum_simulator_tpu_torch.ops import (_build, bigstate, bigtraj,
@@ -288,6 +321,7 @@ from quantum_simulator_tpu_torch.ops import monomial_traj as tmono
 from quantum_simulator_tpu_torch.ops import plan as tplan
 from quantum_simulator_tpu_torch.ops import program as tprog
 from quantum_simulator_tpu_torch.ops import unitary_traj as tunit
+from quantum_simulator_tpu_torch.parallel import distributed as tdist
 
 DENSE_TOL = 2e-4
 CROSS_TOL = 2e-3
@@ -301,7 +335,7 @@ F64_SIZES = (16, 28)
 RUN_PEAK_LIMIT = 6.1 * 2**30
 SEED = 42
 PHASES = ("2", "2b", "2c", "3", "3b", "4", "4b", "5", "6", "7", "8", "9",
-          "10", "11")
+          "10", "11", "12")
 
 # Layouts of n = 16, 28 and 30 qubits (GroupLayout.for_qubits).
 LAYOUTS = {16: (4, 128, 128), 28: (128,) * 4, 30: (4,) + (128,) * 4}
@@ -3639,6 +3673,501 @@ def phase_mps(report: dict, card: str) -> dict:
     return path
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the parallel layer (a shard mesh on the card)
+# ---------------------------------------------------------------------------
+
+MESH_SHARDS = 8
+MESH_BRICK = (30, 8)                  # 12a: Ry/Rz brickwork (n, depth)
+MESH_ANSATZ = 4                       # 12a: hardware_efficient_ansatz layers
+MESH_GROUPED_TOL = 2e-5               # tests/test_multihost.py:78
+MESH_PEAK_RATIO = 1.75
+MESH_QFT_N = 32                       # scripts/mesh_stretch_check.py
+MESH_SHOTS = 1000                     # scripts/mesh_stretch_check.py:51
+MESH_QFT_Z_TOL = 1e-4
+MESH_STRETCH = (32, 40, 4)            # 12c: Ry+CNOT (n, depth, segment cols)
+MESH_NOISY = (24, 8, 0.05, 16, 1024)  # 12d: (n, depth, p, trajectories, shots)
+MESH_NOISY_SMALL = 10
+MESH_NOISY_MARGIN = 1e-4              # draws nearer a tie may part
+MESH_VQE = (20, 4)                    # 12e: hardware_efficient_ansatz
+MESH_VQE_STEPS = 3
+MESH_VQE_TOL = 1e-4
+MESH_CKPT = (26, 8, 2, 1)             # 12f: (n, depth, segment cols, stop)
+MESH_CIRCUIT = (5, 5)                 # 12g: surface (d, R), bench cell
+MESH_LINDBLAD = (8, 16, 10, 16)       # 12g: (n, chi, steps, trajectories)
+
+
+class ExchangeClock:
+    """Counts the mesh exchanges (``distributed._swap_global_local``)
+    while in use and, with ``timed``, times each between synchronizes."""
+
+    def __init__(self, timed: bool = False):
+        self.timed = timed
+        self.calls = 0
+        self.s = 0.0
+
+    def __enter__(self):
+        self._orig = tdist._swap_global_local
+
+        def wrapped(*args):
+            if self.timed:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            self._orig(*args)
+            if self.timed:
+                torch.cuda.synchronize()
+                self.s += time.perf_counter() - t0
+            self.calls += 1
+
+        tdist._swap_global_local = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        tdist._swap_global_local = self._orig
+
+
+def mesh_vs_single(stack: torch.Tensor, single: torch.Tensor,
+                   planar: bool) -> float:
+    """max |mesh - single| of an ``(L, 2, N)`` shard stack and the
+    one-device planar ``(2, *axes)`` or real ``(*axes,)`` state (an
+    all-real evolution: the mesh's imaginary plane must be 0), shard by
+    shard."""
+    L = stack.shape[0]
+    if planar:
+        flat = single.reshape(2, L, -1)
+        return max(grouped_max_diff(stack[l], flat[:, l]) for l in range(L))
+    flat = single.reshape(L, -1)
+    return max(max(grouped_max_diff(stack[l, 0], flat[l]),
+                   float(stack[l, 1].abs().max())) for l in range(L))
+
+
+def mesh_run(label: str, fn, size: int, path: dict, clock: ExchangeClock):
+    """``fn()`` on a fresh peak counter, launch counts from zero; returns
+    (result, wall s, launches, peak bytes above what was allocated)."""
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_exec.reset_launch_counts()
+    with clock:
+        out, wall = timed(fn)
+    delta = add_launches(path, NO_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() - base
+    check(peak <= MESH_PEAK_RATIO * size, f"{label}: peak "
+          f"{peak / 2**30:.3f} GiB > {MESH_PEAK_RATIO} x the state's "
+          f"{size / 2**30:.0f} GiB")
+    return out, wall, delta, peak
+
+
+def mesh_plan_launches(body) -> dict:
+    """Dense and cross steps of a shard body's mini plans: one launch
+    each for all the shards."""
+    counts = [step_counts(seg[1]) for seg in body.segments
+              if seg[0] == "run"]
+    return {"dense_axis": sum(c[0] for c in counts),
+            "cross_bit_axis": sum(c[1] for c in counts)}
+
+
+def random_ansatz(n: int, layers: int) -> QuantumCircuit:
+    """``hardware_efficient_ansatz(n, layers)`` at seeded random angles."""
+    d = models.hardware_efficient_ansatz(n, layers).to_dict()
+    rng = np.random.default_rng(SEED)
+    for gd in d["gates"]:
+        gd["params"] = [float(rng.uniform(-np.pi, np.pi))
+                        for _ in gd.get("params", [])]
+    return QuantumCircuit.from_dict(d)
+
+
+def mesh_against_single(c: QuantumCircuit, label: str, path: dict) -> dict:
+    """One grouped mesh run of ``c`` over 8 shards against one device
+    and against the same body through the twins; its exchanges equal the
+    schedule's and its launches the mini plans' dense and cross steps."""
+    n = c.num_qubits
+    mesh = tpar.make_mesh(MESH_SHARDS, device="cuda")
+    sim = tpar.DistributedSimulator(mesh)
+    program = tprog.compile_circuit(c)
+    body = tdist._ShardBody(program, mesh)
+    check(body.grouped, f"{label}: not the grouped route")
+    size = state_bytes(n, True)
+    torch.cuda.empty_cache()
+    fs = Simulator(device="cuda").run(c, shots=0).final_state
+    planar = not isinstance(fs, PlanarStateVector) or fs.is_planar
+    single = (fs.state_data if isinstance(fs, PlanarStateVector) else
+              torch.stack([fs.device_data.real, fs.device_data.imag]))
+    del fs
+    clock = ExchangeClock()
+    st, wall, delta, peak = mesh_run(label, lambda: sim.run(c), size, path,
+                                     clock)
+    err = mesh_vs_single(st.device_data, single, planar)
+    del single
+    check(err <= MESH_GROUPED_TOL, f"{label} vs Simulator.run: {err}")
+    check(clock.calls == body.swaps, f"{label}: {clock.calls} exchanges, "
+          f"the schedule has {body.swaps}")
+    want = mesh_plan_launches(body)
+    check(delta == want, f"{label}: launches {delta}, the mini plans have "
+          f"{want}")
+    torch.cuda.empty_cache()
+    before = launch_counts()
+    twin = body.forward(program.initial_params, plain=True)
+    check(launch_counts() == before, "mesh twins launched a kernel")
+    twin_err = max(grouped_max_diff(st.device_data[l], twin[l])
+                   for l in range(MESH_SHARDS))
+    del twin, st
+    check(twin_err <= STATE_TOL, f"{label} kernels vs twins: {twin_err}")
+    return {"n": n, "shards": MESH_SHARDS, "run_s": wall, "launches": delta,
+            "exchanges": clock.calls, "peak_bytes": peak,
+            "state_bytes": size, "err_vs_single": err,
+            "err_vs_twins": twin_err}
+
+
+def phase_mesh_brickwork(path: dict, report: dict, card: str) -> None:
+    """12a: n = 30 over 8 shards (27 local qubits: mini plans, one launch
+    per step for all shards) against one device and the twins: the Ry/Rz
+    brickwork, whose plans have only dense steps (the exchange before a
+    cross-axis CNOT closes the run, so the planner emits a K = 4 bit
+    pair), and ``hardware_efficient_ansatz(30, 4)``, whose CNOT chains
+    fold into cross steps. Both kernels must launch."""
+    n, depth = MESH_BRICK
+    cases = [("brickwork", f"Ry/Rz brickwork depth {depth}",
+              brickwork(n, depth, SEED, mix_rz=True)),
+             ("ansatz", f"hardware_efficient_ansatz({n}, {MESH_ANSATZ})",
+              random_ansatz(n, MESH_ANSATZ))]
+    rec = {}
+    for key, name, c in cases:
+        r = mesh_against_single(c, f"mesh n={n} {key}", path)
+        rec[key] = r
+        print(f"mesh 12a {name} n={n} over {MESH_SHARDS} shards [{card}]: "
+              f"run {r['run_s']:.3f} s, launches dense "
+              f"{r['launches']['dense_axis']} cross "
+              f"{r['launches']['cross_bit_axis']}, {r['exchanges']} "
+              f"exchanges (= schedule), peak {r['peak_bytes'] / 2**30:.3f} "
+              f"GiB ({r['peak_bytes'] / r['state_bytes']:.3f} x), vs "
+              f"Simulator.run {r['err_vs_single']:.2e}, vs twins "
+              f"{r['err_vs_twins']:.2e}", flush=True)
+    for k in ("dense_axis", "cross_bit_axis"):
+        total = sum(r["launches"][k] for r in rec.values())
+        check(total > 0, f"mesh 12a: no {k} launch")
+    report["mesh_brickwork"] = {"depth": depth, **rec["brickwork"]}
+    report["mesh_ansatz"] = {"layers": MESH_ANSATZ, **rec["ansatz"]}
+
+
+def qft_overlap(stack: torch.Tensor, b: int, n: int) -> complex:
+    """<DFT row b | psi> of an ``(L, 2, N)`` stack, the analytic
+    amplitudes 2^(-n/2) exp(2 pi i b k / 2^n) built chunk by chunk on the
+    card (b k mod 2^32 exactly in int64: k split in 16-bit halves)."""
+    L, _, N = stack.shape
+    acc = torch.zeros(2, dtype=torch.float64, device=stack.device)
+    for l in range(L):
+        for s in range(0, N, tplan.CHUNK_ELEMS):
+            k = torch.arange(l * N + s, l * N + min(N, s + tplan.CHUNK_ELEMS),
+                             device=stack.device, dtype=torch.int64)
+            m = (b * (k & 0xFFFF) + (((b * (k >> 16)) & 0xFFFF) << 16)) \
+                & ((1 << n) - 1)
+            ph = m.double() * (2 * np.pi / 2.0 ** n)
+            ar, ai = torch.cos(ph), torch.sin(ph)
+            xr = stack[l, 0, s:s + k.numel()].double()
+            xi = stack[l, 1, s:s + k.numel()].double()
+            acc[0] += (ar * xr + ai * xi).sum()
+            acc[1] += (ar * xi - ai * xr).sum()
+    re, im = (float(v) * 2.0 ** (-n / 2) for v in acc)
+    return complex(re, im)
+
+
+def phase_mesh_qft(path: dict, report: dict, card: str) -> None:
+    """12b: QFT-32 on a basis input over 8 shards (a 32 GiB state)."""
+    n = MESH_QFT_N
+    b = int(np.random.default_rng(SEED).integers(0, 1 << n))
+    c = qft(n)
+    c.initial_states = [(b >> (n - 1 - q)) & 1 for q in range(n)]
+    no_cphase = QuantumCircuit.from_dict({**c.to_dict(), "gates": [
+        gd for gd in c.to_dict()["gates"] if gd["name"] != "CPhase"]})
+    mesh = tpar.make_mesh(MESH_SHARDS, device="cuda")
+    sim = tpar.DistributedSimulator(mesh)
+    g = MESH_SHARDS.bit_length() - 1
+    kinds: dict = {}
+    body = tdist._ShardBody(tprog.compile_circuit(c), mesh)
+    for it in body.schedule:
+        kinds[it[0]] = kinds.get(it[0], 0) + 1
+    bare = tdist._ShardBody(tprog.compile_circuit(no_cphase), mesh).swaps
+    check(kinds.get("cphase", 0) > 0 and kinds.get("swap", 0) == bare
+          and bare <= 4 * g, f"QFT-{n} schedule {kinds}: CPhases must "
+          f"schedule no exchange ({bare} without them, bound {4 * g})")
+    size = state_bytes(n, True)
+    clock = ExchangeClock()
+    st, wall, delta, peak = mesh_run(f"QFT-{n}", lambda: sim.run(c), size,
+                                     path, clock)
+    want = mesh_plan_launches(body)
+    check(delta == want, f"QFT-{n}: launches {delta}, plans {want}")
+    ov = qft_overlap(st.device_data, b, n)
+    norm = st.norm()
+    fid = abs(ov) ** 2 / max(norm, 1e-30)
+    check(fid > 1 - 1e-4, f"QFT-{n} fidelity vs the DFT row: {fid}")
+    rho = sim.qubit_density_matrices(st)
+    zs = (rho[:, 0, 0] - rho[:, 1, 1]).real
+    check(float(np.abs(zs).max()) <= MESH_QFT_Z_TOL,
+          f"QFT-{n} <Z>: {zs}")
+    counts = sim.sample(st, MESH_SHOTS, np.random.default_rng(SEED))
+    check(sum(counts.values()) == MESH_SHOTS
+          and all(len(k) == n for k in counts), f"QFT-{n} shots")
+    del st
+    report["mesh_qft"] = {"n": n, "b": b, "run_s": wall, "fidelity": fid,
+                          "max_abs_z": float(np.abs(zs).max()),
+                          "schedule": kinds, "launches": delta,
+                          "exchanges": clock.calls, "peak_bytes": peak,
+                          "state_bytes": size}
+    print(f"mesh 12b QFT-{n} over {MESH_SHARDS} shards [{card}]: run "
+          f"{wall:.3f} s, fidelity vs the DFT row {fid:.7f}, max |<Z>| "
+          f"{np.abs(zs).max():.2e}, schedule {kinds}, launches dense "
+          f"{delta['dense_axis']} cross {delta['cross_bit_axis']}, peak "
+          f"{peak / 2**30:.3f} GiB ({peak / size:.3f} x), "
+          f"{len(counts)} strings of {MESH_SHOTS} shots", flush=True)
+
+
+def phase_mesh_stretch(path: dict, report: dict, card: str) -> None:
+    """12c: n = 32 Ry+CNOT brickwork depth 40 through ``run_segmented``
+    (the JAX package's mesh stretch configuration)."""
+    n, depth, cols = MESH_STRETCH
+    c = brickwork(n, depth, SEED, mix_rz=False)
+    sim = tpar.DistributedSimulator(
+        tpar.make_mesh(MESH_SHARDS, device="cuda"))
+    size = state_bytes(n, True)
+    segs: list = []
+    clock = ExchangeClock(timed=True)
+    st, wall, delta, peak = mesh_run(
+        f"stretch n={n}", lambda: sim.run_segmented(
+            c, cols, progress=lambda i, ns, w: segs.append(w)), size, path,
+        clock)
+    norm = st.norm()
+    check(abs(norm - 1.0) <= 1e-4, f"stretch n={n}: |psi|^2 = {norm}")
+    zs = [sim.expectation_z(st, q) for q in (0, n // 2, n - 1)]
+    check(all(np.isfinite(z) and abs(z) <= 1 + 1e-4 for z in zs),
+          f"stretch n={n} <Z> probes {zs}")
+    c1 = sim.sample(st, MESH_SHOTS, np.random.default_rng(7))
+    c2 = sim.sample(st, MESH_SHOTS, np.random.default_rng(7))
+    check(c1 == c2 and sum(c1.values()) == MESH_SHOTS,
+          f"stretch n={n}: seeded sampling")
+    del st
+    share = clock.s / wall
+    report["mesh_stretch"] = {
+        "n": n, "depth": depth, "segment_columns": cols, "wall_s": wall,
+        "segments": len(segs), "segment_s": segs, "exchanges": clock.calls,
+        "exchange_s": clock.s, "exchange_share": share, "launches": delta,
+        "peak_bytes": peak, "state_bytes": size, "norm": norm,
+        "z_probes": zs}
+    print(f"mesh 12c brickwork n={n} depth {depth} Ry+CNOT, "
+          f"run_segmented({cols}) over {MESH_SHARDS} shards [{card}]: "
+          f"{wall:.3f} s ({len(segs)} segments), {clock.calls} exchanges "
+          f"{clock.s:.3f} s = {100 * share:.1f} % (synchronized), launches "
+          f"dense {delta['dense_axis']} cross {delta['cross_bit_axis']}, "
+          f"peak {peak / 2**30:.3f} GiB ({peak / size:.3f} x), |psi|^2 "
+          f"{norm:.6f}, <Z> probes {np.round(zs, 4).tolist()}", flush=True)
+
+
+def phase_mesh_noisy(report: dict, card: str) -> None:
+    """12d: ``run_with_noise`` over 8 shards at n = 24 (trajectories/s),
+    and at n = 10 the card's trajectories equal the CPU's on the same
+    Gumbel rows."""
+    n, depth, p, T, shots = MESH_NOISY
+    nm = NoiseModel()
+    nm.add_global_noise(DepolarizingNoise(p))
+    sim = tpar.DistributedSimulator(
+        tpar.make_mesh(MESH_SHARDS, device="cuda"))
+    c = brickwork(n, depth, SEED, mix_rz=False)
+    sim.run_with_noise(brickwork(MESH_NOISY_SMALL, 2, SEED, False), nm, 8,
+                       trajectories=2, seed=SEED)
+    counts, wall = timed(lambda: sim.run_with_noise(
+        c, nm, shots, trajectories=T, seed=SEED))
+    check(sum(counts.values()) == shots, f"mesh noisy n={n}: shots")
+    small = brickwork(MESH_NOISY_SMALL, depth, SEED, mix_rz=True)
+    prog_s = tprog.compile_circuit(small)
+    draws, width = tdist.noisy_draw_shape(prog_s, nm)
+    gen = torch.Generator()
+    gen.manual_seed(SEED)
+    g = tdist.draw_gumbels((T, draws, width), gen, "cpu")
+    rec: list = []
+    want = tdist.sharded_trajectory_fn(
+        prog_s, nm, tpar.make_mesh(MESH_SHARDS, device="cpu"))(
+            prog_s.initial_params, g, rec)
+    got = tdist.sharded_trajectory_fn(
+        prog_s, nm, tpar.make_mesh(MESH_SHARDS, device="cuda"))(
+            prog_s.initial_params, g.cuda()).cpu()
+    margins = torch.stack([m for _, m in rec], 1).min(1).values
+    clear = margins > MESH_NOISY_MARGIN
+    err = float((got - want).abs().amax((1, 2, 3))[clear].max())
+    check(int(clear.sum()) >= T // 2 and err <= STATE_TOL,
+          f"mesh noisy n={MESH_NOISY_SMALL}: card vs CPU {err} over "
+          f"{int(clear.sum())} trajectories")
+    report["mesh_noisy"] = {"n": n, "depth": depth, "p": p,
+                            "trajectories": T, "shots": shots, "s": wall,
+                            "traj_per_s": T / wall, "small_err": err,
+                            "small_compared": int(clear.sum())}
+    print(f"mesh 12d run_with_noise n={n} depth {depth} depol {p} over "
+          f"{MESH_SHARDS} shards, T={T}, {shots} shots [{card}]: "
+          f"{wall:.3f} s, {T / wall:.2f} trajectories/s; n="
+          f"{MESH_NOISY_SMALL} card vs CPU on the same draws {err:.2e} "
+          f"({int(clear.sum())} of {T} clear of ties)", flush=True)
+
+
+def phase_mesh_vqe(path: dict, report: dict, card: str) -> None:
+    """12e: the sharded VQE step (traj 2 x amp 4) on
+    ``hardware_efficient_ansatz(20, 4)`` with a ZZ chain: cost and
+    gradient against the one-device parameter-shift rows."""
+    n, layers = MESH_VQE
+    c = random_ansatz(n, layers)
+    ham = [(1.0, [i, i + 1]) for i in range(n - 1)]
+    mesh = tpar.make_vqe_mesh(MESH_SHARDS, device="cuda")
+    check(mesh.shape["traj"] == 2 and mesh.shape["amp"] == 4,
+          f"vqe mesh {mesh.shape}")
+    step = tpar.sharded_vqe_step(c, mesh, observable=ham)
+    before = launch_counts()
+    (state, cost), first_s = timed(lambda: step.step(step.init))
+    add_launches(path, before)
+    grad = (state.m / 0.1).cpu().numpy()           # Adam's m after step 1
+    program = tprog.compile_circuit(c)
+    P = program.num_params
+    v = torch.as_tensor(program.initial_params, dtype=torch.float32,
+                        device="cuda")
+    eye = torch.eye(P, device="cuda") * (np.pi / 2)
+    rows = torch.cat([v[None], v[None] + eye, v[None] - eye])
+    psi = tplan.group_batched_forward(program, rows, "cuda")
+    probs = psi.real.square() + psi.imag.square()
+    idx = torch.arange(1 << n, device="cuda")
+    costs = torch.zeros(rows.shape[0], dtype=torch.float64, device="cuda")
+    for coeff, qs in ham:
+        sign = torch.ones(1 << n, device="cuda")
+        for q in qs:
+            sign = sign * (1 - 2 * ((idx >> (n - 1 - q)) & 1)).float()
+        costs += coeff * (probs * sign).sum(1, dtype=torch.float64)
+    del psi, probs
+    want_grad = ((costs[1:1 + P] - costs[1 + P:]) / 2).cpu().numpy()
+    cost_err = abs(float(cost) - float(costs[0]))
+    grad_err = float(np.abs(grad - want_grad).max())
+    check(cost_err <= MESH_VQE_TOL and grad_err <= MESH_VQE_TOL,
+          f"mesh VQE: cost {cost_err}, gradient {grad_err}")
+    before = launch_counts()
+    st, costs_run, ms = state, [], []
+    for _ in range(MESH_VQE_STEPS):
+        (st, cst), s = timed(lambda st=st: step.step(st))
+        costs_run.append(float(cst))
+        ms.append(s * 1e3)
+    add_launches(path, before)
+    check(all(np.isfinite(costs_run)), f"mesh VQE costs {costs_run}")
+    report["mesh_vqe"] = {"n": n, "layers": layers, "params": P,
+                          "rows": 1 + 2 * P, "first_step_s": first_s,
+                          "step_ms": ms, "costs": costs_run,
+                          "cost_err": cost_err, "grad_err": grad_err}
+    print(f"mesh 12e sharded VQE hardware_efficient_ansatz({n}, {layers}) "
+          f"ZZ chain, traj 2 x amp 4 [{card}]: {1 + 2 * P} rows, cost "
+          f"{float(cost):+.6f} (one-device {cost_err:.1e}), gradient "
+          f"{grad_err:.1e}; {MESH_VQE_STEPS} Adam steps "
+          f"{np.round(ms, 1).tolist()} ms", flush=True)
+
+
+def phase_mesh_checkpoint(path: dict, report: dict, card: str) -> None:
+    """12f: stop a checkpointed ``run_segmented`` after segment k from the
+    progress callback, resume, and match an uninterrupted run."""
+    import shutil
+    from pathlib import Path
+
+    n, depth, cols, stop = MESH_CKPT
+    c = brickwork(n, depth, SEED, mix_rz=True)
+    sim = tpar.DistributedSimulator(
+        tpar.make_mesh(MESH_SHARDS, device="cuda"))
+    root = Path(__file__).resolve().parent / "build" / "mesh_checkpoint"
+    shutil.rmtree(root, ignore_errors=True)
+
+    class Stop(Exception):
+        pass
+
+    def stopper(i, ns, w):
+        if i == stop:
+            raise Stop()
+
+    before = launch_counts()
+    whole = sim.run_segmented(c, cols)
+    try:
+        sim.run_segmented(c, cols, progress=stopper, checkpoint_dir=str(root))
+        check(False, "checkpointed run did not stop")
+    except Stop:
+        pass
+    done: list = []
+    (res, wall) = timed(lambda: sim.run_segmented(
+        c, cols, progress=lambda i, ns, w: done.append(i),
+        checkpoint_dir=str(root)))
+    add_launches(path, before)
+    shutil.rmtree(root, ignore_errors=True)
+    n_seg = -(-depth // cols)
+    # the progress call of segment `stop` comes before its checkpoint
+    # (as in the JAX package), so the resume reruns that segment
+    check(done == list(range(stop, n_seg)),
+          f"resume ran segments {done}, expected from {stop}")
+    err = max(grouped_max_diff(whole.device_data[l], res.device_data[l])
+              for l in range(MESH_SHARDS))
+    check(err <= 1e-6, f"resumed vs uninterrupted: {err}")
+    report["mesh_checkpoint"] = {"n": n, "segments": n_seg, "stopped_after":
+                                 stop, "resumed": done, "resume_s": wall,
+                                 "err": err}
+    print(f"mesh 12f checkpoint n={n}, {n_seg} segments, stopped after "
+          f"segment {stop} [{card}]: resumed segments {done} in {wall:.3f} "
+          f"s, vs uninterrupted {err:.1e}", flush=True)
+
+
+def phase_mesh_engines(report: dict, card: str) -> None:
+    """12g: the ``mesh=`` engines identical to ``mesh=None`` on the same
+    draws. On one rank ``ShardMesh.map_trials`` is the call itself, so
+    the Steane sweep and the circuit-level memory check only that the
+    mesh route reaches the same engine and repeats; the MPS Lindblad case
+    alone takes another path (its Gumbel rows drawn up front). Splits
+    over ranks are held by ``tests/test_torch_two_process.py``."""
+    mesh = tpar.make_mesh(MESH_SHARDS, device="cuda")
+    fr = tqf.FrameQECSimulator.from_code(tqec.SteaneCode(), "cuda")
+    a = fr.sweep_raw(0.05, 4096, "depolarizing", seed=SEED)
+    b = fr.sweep_raw(0.05, 4096, "depolarizing", seed=SEED, mesh=mesh)
+    check(all(torch.equal(x, y) for x, y in zip(a, b)),
+          "Steane sweep_raw with mesh=")
+    d, rounds = MESH_CIRCUIT
+    kw = dict(n_trials=CIRCUIT_TRIALS, seed=SEED, device="cuda")
+    m0 = tqc.circuit_level_memory(d, rounds, CIRCUIT_P, **kw)
+    m1 = tqc.circuit_level_memory(d, rounds, CIRCUIT_P, mesh=mesh, **kw)
+    check(m0 == m1, f"circuit-level memory with mesh=: {m0} vs {m1}")
+    n, chi, steps, T = MESH_LINDBLAD
+    lsim = tlmps.MPSLindbladSimulator(
+        n, [(1.0, "ZZ", [i, i + 1]) for i in range(n - 1)]
+        + [(0.7, "X", [i]) for i in range(n)],
+        [(0.1, "sigma_minus", q) for q in range(n)], chi=chi, device="cuda")
+    kw = dict(n_trajectories=T, observables=[("Z", [0]), ("Z", [n // 2])],
+              seed=SEED)
+    r0 = lsim.evolve(1.0, steps, **kw)
+    r1 = lsim.evolve(1.0, steps, mesh=mesh, **kw)
+    check(np.array_equal(r0.expectations, r1.expectations)
+          and r0.truncation_weight == r1.truncation_weight,
+          "lindblad_mps with mesh=")
+    report["mesh_engines"] = {"steane_trials": 4096,
+                              "circuit_memory": m1["logical_failure_probability"],
+                              "lindblad_T": T}
+    print(f"mesh 12g mesh= engines [{card}]: Steane sweep (4096 trials), "
+          f"surface d={d} R={rounds} circuit-level memory ({CIRCUIT_TRIALS} "
+          f"trials, "
+          f"P_L {m1['logical_failure_probability']:.4f}), MPS Lindblad "
+          f"n={n} T={T}: identical to mesh=None", flush=True)
+
+
+def phase_mesh(report: dict, card: str) -> dict:
+    """12a-12g. Launch counts: the mesh runs of 12a-12c, the VQE steps
+    of 12e and the segmented runs of 12f, each read from zero."""
+    path = {k: 0 for k in launch_counts()}
+    phase_mesh_brickwork(path, report, card)
+    phase_mesh_qft(path, report, card)
+    phase_mesh_stretch(path, report, card)
+    phase_mesh_noisy(report, card)
+    phase_mesh_vqe(path, report, card)
+    phase_mesh_checkpoint(path, report, card)
+    phase_mesh_engines(report, card)
+    torch.cuda.empty_cache()
+    report["mesh_launches"] = path
+    return path
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every measurement as JSON")
@@ -3694,7 +4223,8 @@ def main() -> int:
               "8": lambda: phase_open_system(report, card),
               "9": lambda: phase_analysis(report, card),
               "10": lambda: phase_bit_engines(report, card),
-              "11": lambda: phase_mps(report, card)}
+              "11": lambda: phase_mps(report, card),
+              "12": lambda: phase_mesh(report, card)}
     out = {}
     for name in PHASES:
         if name in chosen:
@@ -3722,7 +4252,7 @@ def main() -> int:
             "replaces": replaces,
             "launches": sum(out[p][name] for p in ("3", "3b", "5", "6",
                                                    "7", "8", "9", "10",
-                                                   "11")),
+                                                   "11", "12")),
             "max_abs_err": max(out["2"]["max_err"][name], out["2b"][name],
                                out["2c"][name]),
             "ms": row["ms"], "plain_ms": row["plain_ms"],

@@ -26,7 +26,9 @@ error model (``qec_circuit``, ``qec_dem``) and the union-find matcher
 family runs arbitrary gates past the 2^n wall: ``mps.MPSSimulator``
 (ideal, noisy, monitored and variational batches of MPS), DMRG
 (``dmrg``), MPS Lindblad trajectories (``lindblad_mps``), two-point
-correlators (``correlators``) and MPS shadows. It imports torch and
+correlators (``correlators``) and MPS shadows. The parallel layer
+(``parallel``) shards a state over a mesh of ``torch.distributed`` ranks,
+each holding a stack of shards on its device. It imports torch and
 NumPy, never JAX and never the JAX package.
 """
 

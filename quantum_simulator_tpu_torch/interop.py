@@ -6,11 +6,12 @@ form that feeds the TPU's matrix unit. The port keeps the two planes
 ``(re, im)`` instead (``ops/plan.build_group_operands``). With these
 converters a test feeds identical operators to both executors;
 ``density_result_from_numpy`` carries a density matrix across the same
-way, ``tableau_from_numpy`` a stabilizer tableau and
-``mps_state_from_numpy`` a matrix-product state. This module imports
-neither JAX nor the JAX package: it takes plain arrays. (The counterpart
-of the JAX package's ``interop.py``, the OpenQASM 2.0 import / export, is
-``qasm.py``.)
+way, ``tableau_from_numpy`` a stabilizer tableau,
+``mps_state_from_numpy`` a matrix-product state and
+``distributed_state_from_numpy`` a state onto a shard mesh. This module
+imports neither JAX nor the JAX package: it takes plain arrays. (The
+counterpart of the JAX package's ``interop.py``, the OpenQASM 2.0 import /
+export, is ``qasm.py``.)
 """
 
 from __future__ import annotations
@@ -98,3 +99,23 @@ def mps_state_from_numpy(tensors, num_qubits: int, chi: int,
             device=device or CONFIG.device, dtype=CONFIG.dtype)
             for a in arrs),
         int(num_qubits), int(chi), float(truncation_weight))
+
+
+def distributed_state_from_numpy(array, mesh):
+    """A ``(2^n,)`` complex state as a NumPy array (for instance the JAX
+    package's ``DistributedStateVector.data``) -> the port's
+    ``parallel.DistributedStateVector`` on ``mesh``: this rank's shards,
+    planar float32 on the mesh's device."""
+    from .parallel.distributed import DistributedStateVector, check_mesh
+
+    mesh = check_mesh(mesh)
+    arr = np.asarray(array, dtype=np.complex128).reshape(-1)
+    n = arr.size.bit_length() - 1
+    if arr.size != 1 << n or arr.size < 2 * mesh.n_devices:
+        raise ValueError(f"expected 2^n amplitudes with at least 2 per "
+                         f"shard of {mesh.n_devices}, got {arr.size}")
+    blocks = arr.reshape(mesh.n_devices, -1)[
+        mesh.first_shard:mesh.first_shard + mesh.local]
+    planar = np.stack([blocks.real, blocks.imag], axis=1).astype(np.float32)
+    return DistributedStateVector(torch.from_numpy(planar).to(mesh.device),
+                                  n, mesh)

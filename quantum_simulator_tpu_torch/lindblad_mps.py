@@ -133,12 +133,12 @@ class MPSLindbladSimulator:
 
         ``initial``: computational-basis bit list (product states only);
         ``observables``: ``[(pauli_string, qubits)]`` recorded at t = 0
-        and every ``record_every``-th step. ``mesh=`` (trajectories
-        sharded over devices) belongs to the parallel layer."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= shards trajectories over devices: the parallel "
-                "layer of the port (ROADMAP Queue 1 item 7)")
+        and every ``record_every``-th step. ``mesh=`` (a
+        ``parallel.ShardMesh``) splits the trajectories over its ranks,
+        each rank running its contiguous block, and gathers the records:
+        on the same draws the result is the one without a mesh (the
+        generator's draws are then made for all trajectories first, in
+        the order the steps would draw them)."""
         if n_steps < 1:
             raise ValueError("n_steps must be >= 1")
         if record_every < 1 or n_steps % record_every:
@@ -162,36 +162,55 @@ class MPSLindbladSimulator:
                for pstr, qubits in obs_key]
         T, n_jump = n_trajectories, len(kstacks)
         gen = None
-        if gumbels is None:
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed(int(seed))
-        else:
+        if gumbels is not None:
             gumbels = torch.as_tensor(gumbels, dtype=torch.float32,
                                       device=self.device)
+        else:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(int(seed))
+            if mesh is not None and n_jump:
+                gumbels = torch.stack([gumbel_from_uniform(torch.rand(
+                    (T, n_jump, 2), generator=gen, device=self.device))
+                    for _ in range(n_steps)], dim=1)
 
-        mps = _BatchMPS.product(bits, self.chi, T, self.device, dtype)
+        def trajectories(rows: torch.Tensor, g=None):
+            """Records ``(B, n_records, K)`` and discarded weights ``(B,)``
+            of the ``B = len(rows)`` trajectories with Gumbel rows ``g``
+            (None: the generator's, step by step)."""
+            B = rows.shape[0]
+            mps = _BatchMPS.product(bits, self.chi, B, self.device, dtype)
 
-        def measure():
-            if not obs:
-                return torch.zeros((T, 0), dtype=torch.float32,
-                                   device=self.device)
-            return torch.stack([_expectation_pstr(mps.tensors, o)
-                                for o in obs], dim=1)
+            def measure():
+                if not obs:
+                    return torch.zeros((B, 0), dtype=torch.float32,
+                                       device=self.device)
+                return torch.stack([_expectation_pstr(mps.tensors, o)
+                                    for o in obs], dim=1)
 
-        recs = [measure()]
-        for s in range(n_steps):
-            for positions, g in gates:
-                mps.apply(positions, g)
-            if n_jump:
-                g_step = (gumbels[:, s] if gen is None else
-                          gumbel_from_uniform(torch.rand(
-                              (T, n_jump, 2), generator=gen,
-                              device=self.device)))
-                for j, (q, kstack) in enumerate(kstacks):
-                    mps.apply_kraus_1q(q, kstack, g_step[:, j])
-            if (s + 1) % record_every == 0:
-                recs.append(measure())
-        recs = torch.stack(recs, dim=1).double().cpu().numpy()  # (T, R, K)
+            recs = [measure()]
+            for s in range(n_steps):
+                for positions, gate in gates:
+                    mps.apply(positions, gate)
+                if n_jump:
+                    g_step = (g[:, s] if g is not None else
+                              gumbel_from_uniform(torch.rand(
+                                  (B, n_jump, 2), generator=gen,
+                                  device=self.device)))
+                    for j, (q, kstack) in enumerate(kstacks):
+                        mps.apply_kraus_1q(q, kstack, g_step[:, j])
+                if (s + 1) % record_every == 0:
+                    recs.append(measure())
+            return torch.stack(recs, dim=1).double(), mps.discarded.double()
+
+        rows = torch.arange(T, device=self.device)
+        inputs = (rows,) if gumbels is None else (rows, gumbels)
+        if mesh is None:
+            recs, discarded = trajectories(*inputs)
+        else:
+            from .parallel.distributed import check_mesh
+            recs, discarded = check_mesh(mesh).map_trials(trajectories,
+                                                          *inputs)
+        recs = recs.cpu().numpy()                             # (T, R, K)
         mean = recs.mean(axis=0).T
         err = (recs.std(axis=0, ddof=1).T / np.sqrt(T)
                if T > 1 else np.zeros_like(mean))
@@ -202,4 +221,4 @@ class MPSLindbladSimulator:
             stderr=err,
             observable_labels=[f"{p}@{list(q)}" for p, q in obs_key],
             n_trajectories=T,
-            truncation_weight=float(mps.discarded.double().mean()))
+            truncation_weight=float(discarded.mean()))

@@ -595,11 +595,10 @@ def circuit_level_memory(distance: int, n_rounds: int, noise_prob: float,
     ``split(PRNGKey(seed), T)``) and ``ref_uniforms[1, L_clean]`` for the
     frame engines' reference; by default a generator seeded with
     ``seed`` on ``device`` draws the ``(T, L)`` block. Given uniforms set
-    the number of trials."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (trials sharded over several cards) comes with the "
-            "port's parallel layer, ROADMAP Queue 1 item 7")
+    the number of trials. ``mesh=`` (a ``parallel.ShardMesh``) splits the
+    trials over its ranks, each sampling its contiguous block, and
+    gathers the outcomes for the host decode: on the same draws the
+    result is the one without a mesh."""
     device = device or CONFIG.device
     run, lay = _trajectory_fn(distance, n_rounds, noise_prob, basis,
                               engine, two_qubit_depol, code, device,
@@ -610,7 +609,12 @@ def circuit_level_memory(distance: int, n_rounds: int, noise_prob: float,
         uniforms = torch.rand((n_trials, run.schedule_length),
                               generator=gen, device=device)
     uniforms = torch.as_tensor(uniforms, dtype=torch.float32, device=device)
-    outcomes = run(uniforms).cpu().numpy().astype(np.uint8)
+    if mesh is None:
+        outcomes = run(uniforms)
+    else:
+        from .parallel.distributed import check_mesh
+        outcomes = check_mesh(mesh).map_trials(run, uniforms)
+    outcomes = outcomes.cpu().numpy().astype(np.uint8)
     n_trials = outcomes.shape[0]
     if decoder == "phenomenological":
         fail, raw, det = decode_memory_record(lay, outcomes)

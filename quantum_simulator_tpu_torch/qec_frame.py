@@ -30,9 +30,12 @@ exact below 2^24. R-round memories run per-round decoding
 Walsh-Hadamard transform (``build_ml_memory_fn``,
 ``build_ml_css_memory_fn``; float32 posteriors, so an ML decision may
 differ from JAX's on a near-tie), or union-find matching on the
-space-time graph (``build_matching_memory_fn``, host C). ``mesh=``
-arguments raise ``NotImplementedError``: sharding trials over several
-cards comes with the parallel layer (ROADMAP Queue 1 item 7).
+space-time graph (``build_matching_memory_fn``, host C). ``mesh=`` (a
+``parallel.ShardMesh``) splits a batch's trials over the mesh's ranks,
+each running its contiguous block, and gathers the per-trial results: on
+the same draws a mesh run's results are those of one device, whatever
+the decoder (a host decoder included: each rank calls the same sweep on
+its block).
 """
 
 from __future__ import annotations
@@ -51,12 +54,13 @@ from .qec_matching import (MatchingGraph, decode_batch,
                            union_find_host_decode_fn)
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (trials sharded over several cards) comes with the "
-            "port's parallel layer, ROADMAP Queue 1 item 7; run on one "
-            "device")
+def _on_mesh(mesh, fn, *inputs):
+    """``fn(*inputs)``, split over the trials (dim 0) of a mesh's ranks
+    when ``mesh`` is given (``ShardMesh.map_trials``)."""
+    if mesh is None:
+        return fn(*inputs)
+    from .parallel.distributed import check_mesh
+    return check_mesh(mesh).map_trials(fn, *inputs)
 
 
 # ---------------------------------------------------------------------------
@@ -738,12 +742,12 @@ class FrameQECSimulator:
     def device(self):
         return self._device
 
-    def _sweep_fn(self, noise_type: str):
+    def _sweep(self, noise_type: str, p, u, mesh=None):
         fn = self._sweep_fns.get(noise_type)
         if fn is None:
             fn = build_frame_sweep_fn(self._spec, noise_type, self._device)
             self._sweep_fns[noise_type] = fn
-        return fn
+        return _on_mesh(mesh, lambda uu: fn(p, uu), u)
 
     def _uniforms(self, rng, n_trials: int, uniforms) -> torch.Tensor:
         if uniforms is None:
@@ -758,9 +762,8 @@ class FrameQECSimulator:
         """One batch -> per-trial (ok_before, ok_after, flip) int32
         tensors. ``uniforms[T, dq]`` overrides the seeded draws (those of
         ``threshold_sweep``'s first p)."""
-        _no_mesh(mesh)
         u = self._uniforms(np.random.default_rng(seed), n_trials, uniforms)
-        return self._sweep_fn(noise_type)(noise_prob, u)
+        return self._sweep(noise_type, noise_prob, u, mesh)
 
     def threshold_sweep(self, noise_probs: list[float], n_trials: int = 100,
                         noise_type: str = "bit_flip",
@@ -769,16 +772,14 @@ class FrameQECSimulator:
         """Physical vs logical error rate, |0>_L / |1>_L alternating;
         one ``(T, dq)`` draw per p from the seed's stream (as
         ``QECSimulator.threshold_sweep``), or ``uniforms[k]``."""
-        _no_mesh(mesh)
         rng = np.random.default_rng(seed)
-        fn = self._sweep_fn(noise_type)
         logicals = np.arange(n_trials) % 2
         expected_signs = np.where(logicals == 0, 1.0, -1.0)
         results = []
         for k, p in enumerate(noise_probs):
             u = self._uniforms(rng, n_trials,
                                None if uniforms is None else uniforms[k])
-            _, ok_after, flip = fn(p, u)
+            _, ok_after, flip = self._sweep(noise_type, p, u, mesh)
             ok_after = ok_after.cpu().numpy().astype(np.float64)
             flip = flip.cpu().numpy().astype(np.float64)
             z_exp = expected_signs * (1.0 - 2.0 * flip)
@@ -802,7 +803,7 @@ class FrameQECSimulator:
         """Mirror of ``QECSimulator.projection_logical_error``: same draw
         stream, same report keys."""
         u = self._uniforms(np.random.default_rng(seed), n_trials, uniforms)
-        _, ok_after, flip = self._sweep_fn(noise_type)(noise_prob, u)
+        _, ok_after, flip = self._sweep(noise_type, noise_prob, u)
         ok_after = ok_after.cpu().numpy().astype(np.float64)
         flip = flip.cpu().numpy().astype(np.float64)
         expected_sign = 1.0 if logical_state == 0 else -1.0
@@ -824,7 +825,6 @@ class FrameQECSimulator:
         failure probability and the per-round rate ``1 - (1 - P)**(1/R)``.
         ``uniforms = (u_data, u_meas_c, u_meas_h)`` overrides the draws
         of ``round_uniforms(seed, ...)``."""
-        _no_mesh(mesh)
         key = (n_rounds, noise_type, float(meas_error_prob))
         fn = self._memory_fns.get(key)
         if fn is None:
@@ -839,7 +839,14 @@ class FrameQECSimulator:
                  spec.h_checks.shape[0]), self._device)
         u = [None if a is None else torch.as_tensor(a, device=self._device)
              for a in uniforms]
-        p_fail = _mean(fn(noise_prob, *u))
+
+        def run(*given):
+            it = iter(given)
+            return fn(noise_prob, *[None if a is None else next(it)
+                                    for a in u])
+
+        p_fail = _mean(_on_mesh(mesh, run,
+                                *[a for a in u if a is not None]))
         return {
             "logical_failure_probability": p_fail,
             "per_round_logical_rate": _rate(p_fail, n_rounds),
@@ -850,7 +857,10 @@ class FrameQECSimulator:
 
     @staticmethod
     def _ml_run(key, build, p, q, widths, n_trials, n_rounds, seed,
-                device, uniforms):
+                device, uniforms, mesh=None):
+        if mesh is not None:   # a bad mesh fails before the draws
+            from .parallel.distributed import check_mesh
+            check_mesh(mesh)
         fn = _ml_fn_cache.get(key)
         if fn is None:
             fn = build()
@@ -860,7 +870,7 @@ class FrameQECSimulator:
             uniforms = round_uniforms(seed, n_trials, n_rounds, widths,
                                       device)
         u = [torch.as_tensor(a, device=device) for a in uniforms]
-        return fn(p, q, *u)
+        return _on_mesh(mesh, lambda *uu: fn(p, q, *uu), *u)
 
     @staticmethod
     def ml_memory_experiment(distance: int, noise_prob: float,
@@ -872,12 +882,11 @@ class FrameQECSimulator:
         decoder (``build_ml_memory_fn``), with the single-shot
         final-syndrome baseline on the SAME trials. ``uniforms =
         (u_data[T, R, d], u_meas[T, R, d-1])``."""
-        _no_mesh(mesh)
         fail_ml, fail_final = FrameQECSimulator._ml_run(
             ("rep", distance, n_rounds),
             lambda: build_ml_memory_fn(distance, n_rounds),
             noise_prob, meas_error_prob, (distance, distance - 1),
-            n_trials, n_rounds, seed, device, uniforms)
+            n_trials, n_rounds, seed, device, uniforms, mesh)
         p_ml = _mean(fail_ml)
         return {
             "ml_failure_probability": p_ml,
@@ -901,7 +910,6 @@ class FrameQECSimulator:
         (``build_ml_css_memory_fn``), with the single-shot coset-leader
         baseline on the same trials. ``uniforms = (u_data[T, R, 9],
         u_meas[T, R, 4])``."""
-        _no_mesh(mesh)
         if distance != 3:
             raise ValueError("ML surface memory is capped at d=3 "
                              "(posterior state is 2^(d^2))")
@@ -910,7 +918,7 @@ class FrameQECSimulator:
             ("surface", distance, n_rounds),
             lambda: build_ml_css_memory_fn(checks, support, n_rounds),
             noise_prob, meas_error_prob, checks.shape[::-1], n_trials,
-            n_rounds, seed, device, uniforms)
+            n_rounds, seed, device, uniforms, mesh)
         p_ml = _mean(fail_ml)
         return {
             "ml_failure_probability": p_ml,
@@ -970,13 +978,13 @@ class FrameQECSimulator:
         """Max-rate variant for benchmarking: one ``(T, dq)`` draw on the
         device from a generator seeded with ``seed`` (or ``uniforms``).
         -> (logical_error_rate, success_count)."""
-        _no_mesh(mesh)
         if uniforms is None:
             gen = torch.Generator(device=self._device)
             gen.manual_seed(int(seed))
             uniforms = torch.rand((n_trials, self._spec.data_qubits),
                                   generator=gen, device=self._device)
-        _, ok_after, _ = self._sweep_fn(noise_type)(
-            noise_prob, torch.as_tensor(uniforms, device=self._device))
+        _, ok_after, _ = self._sweep(
+            noise_type, noise_prob,
+            torch.as_tensor(uniforms, device=self._device), mesh)
         successes = int(ok_after.sum())
         return 1.0 - successes / n_trials, successes

@@ -197,7 +197,8 @@ class Simulator:
                 f"{what} retains whole-state complex buffers and cannot "
                 f"fit a {circuit.num_qubits}-qubit state on one chip; "
                 "use Simulator.run (chunked huge-state path) or the "
-                "sharded engine (parallel.DistributedSimulator)")
+                "sharded engine (quantum_simulator_tpu_torch.parallel."
+                "DistributedSimulator)")
 
     def _generator(self, rng: np.random.Generator) -> torch.Generator:
         return generator_from_rng(rng, self._device)

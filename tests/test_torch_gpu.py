@@ -1102,3 +1102,66 @@ def test_mps_amplitude_and_entropy_hold_float64(cuda):
         want = float(-np.sum(p * np.log2(p)))
         assert tm.entanglement_entropy(st, bond) == pytest.approx(
             want, abs=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# The parallel layer: a shard mesh on the card
+# ---------------------------------------------------------------------------
+
+def _mesh_brick(n, depth, seed=5):
+    return QuantumCircuit.from_dict(build_circuit_dict(n, depth, seed,
+                                                       mix_rz=True))
+
+
+def test_mesh_card_equals_cpu_mesh_n12(cuda):
+    """The per-gate route (9 local qubits over 8 shards): the card's
+    stacked shards against the CPU mesh, every exchange in place."""
+    from quantum_simulator_tpu_torch.parallel import (DistributedSimulator,
+                                                      make_mesh)
+    c = _mesh_brick(12, 8)
+    got = DistributedSimulator(make_mesh(8, device="cuda")).run(c).data
+    want = DistributedSimulator(make_mesh(8, device="cpu")).run(c).data
+    np.testing.assert_allclose(got, want, atol=1e-5)
+
+
+def test_mesh_grouped_equals_single_device_n20(cuda):
+    """n = 20 over 8 shards (17 local qubits): mini plans, each dense and
+    cross step one kernel launch for all shards, against one device."""
+    from quantum_simulator_tpu_torch.parallel import (DistributedSimulator,
+                                                      make_mesh)
+    c = _mesh_brick(20, 8)
+    cuda_exec.reset_launch_counts()
+    got = DistributedSimulator(make_mesh(8, device="cuda")).run(c).data
+    assert cuda_exec.dense_axis.launches > 0
+    want = Simulator(device="cuda").run(c, shots=0).final_state.data
+    np.testing.assert_allclose(got, want, atol=2e-5)
+
+
+@pytest.mark.parametrize("n", [31, 32])
+def test_mesh_exchange_in_place_equals_twin_on_a_slice(cuda, n):
+    """The in-place chunked exchange on the 8-shard stacks of n = 31 and
+    32 (8 / 32 GiB planar) against its transpose twin on the slice of
+    the innermost 64 amplitudes of every (shard, plane, bit) row: a
+    shard bit with the top local bit and with one in the middle."""
+    from quantum_simulator_tpu_torch.parallel import distributed as tdist
+    from quantum_simulator_tpu_torch.parallel import make_mesh
+    mesh = make_mesh(8, device="cuda")
+    N = 1 << (n - 3)
+    torch.cuda.empty_cache()
+    x = torch.empty((1, 8, 2, N), device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(n)
+    for l in range(8):
+        x[0, l].normal_(generator=gen)
+    W = 64
+    for g_pos, l_pos in ((0, 3), (2, 17)):
+        a = 1 << (l_pos - 3)
+        before = x.reshape(1, 8, 2, a, 2, -1)[..., :W].clone()
+        tdist._swap_global_local(x, g_pos, l_pos, 3, mesh)
+        after = x.reshape(1, 8, 2, a, 2, -1)[..., :W]
+        want = tdist.swap_global_local_plain(
+            before.reshape(1, 8, 2, -1), g_pos, l_pos, 3)
+        assert torch.equal(after.reshape(1, 8, 2, -1), want)
+        del before, after, want
+    del x
+    torch.cuda.empty_cache()

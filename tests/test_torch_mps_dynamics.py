@@ -202,7 +202,7 @@ def _law_kraus_pair_and_validation():
         sim.evolve(1.0, 10, initial=[0, 1, 0])
     with pytest.raises(ValueError, match="order"):
         tl.MPSLindbladSimulator(2, order=3)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(TypeError, match="ShardMesh"):
         sim.evolve(1.0, 10, mesh=object())
 
 

@@ -32,6 +32,7 @@ from quantum_simulator_tpu import qec as jq
 from quantum_simulator_tpu import qec_frame as jf
 from quantum_simulator_tpu_torch import qec as tq
 from quantum_simulator_tpu_torch import qec_frame as tf
+from quantum_simulator_tpu_torch.parallel import make_mesh
 from tests import torch_jax_draws as nd
 
 CODES = list(jq.AVAILABLE_CODES)
@@ -381,8 +382,12 @@ def test_throughput_and_mesh():
     fr = tf.FrameQECSimulator(tf.repetition_frame_spec(9), "cpu")
     rate, succ = fr.throughput_sweep(0.02, 5000, seed=1)
     assert rate == 1.0 - succ / 5000 and rate < 0.01
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    # mesh= runs the same trials over a shard mesh: the same result
+    mesh = make_mesh(4, device="cpu")
+    assert fr.throughput_sweep(0.02, 5000, seed=1, mesh=mesh) == (rate,
+                                                                   succ)
+    with pytest.raises(TypeError, match="ShardMesh"):
         fr.sweep_raw(0.1, 10, mesh=object())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(TypeError, match="ShardMesh"):
         tf.FrameQECSimulator.ml_memory_experiment(5, 0.1, 2, 10,
                                                   mesh=object())

@@ -294,3 +294,11 @@ def jax_chained_table(uniforms):
         return uniforms[k[1]]
 
     return _patched_random(split=split_, uniform=uniform_)
+
+
+def mesh_trajectory_gumbels(seeds, n_draws: int, width: int) -> np.ndarray:
+    """The sharded trajectory body's draws (``parallel/distributed.py``:
+    ``keys = split(key, total_draws)``, one ``categorical`` per key) for
+    trajectory keys ``key_from_seed(s)``. -> (T, n_draws, width)."""
+    keys = np.stack([key_from_seed(int(s)) for s in seeds])
+    return gumbel(split(keys, n_draws), width)
