@@ -258,6 +258,37 @@ The parallel slice adds:
     trajectories) identical to ``mesh=None`` (on one rank only the
     Lindblad case takes another path; the gloo test splits the trials).
 
+The front-end slice adds:
+
+13. the front ends. 13a: ``BridgeServer(BridgeCommandHandler(device=
+    "cuda"), port=0)`` and a ``SimulatorClient`` over a localhost socket:
+    ping; the headline n = 16 depth-40 Ry+CNOT brickwork, ``run`` with
+    4096 shots twice (dense and cross launches equal to the plan's steps
+    each time), the full ``get_state`` within 1e-5 of the plain-twin
+    executor, ``get_analysis`` (fidelity, entropy, purity, every qubit's
+    Paulis) within 1e-5 of direct ``StateAnalysis`` calls; n = 28 depth-8
+    Ry/Rz ``run`` with 1024 shots (launches = the plan's, peak <= 6.1
+    GiB) and three windows of 2^16 amplitudes (offsets 0, 2^27 and
+    2^28 - 2^16) within 1e-5 of the twin state; depolarizing 0.05 +
+    readout through ``set_noise``, then ``run_with_noise`` at n = 16 with
+    1024 shots (launches = the trajectory plans' steps x batches);
+    ``sweep_parameter`` (depolarizing 0, 0.01, 0.05, 256 trials) on the
+    n = 20 depth-8 brickwork of ``bench.py:221-226``: launches = the
+    plans' steps x batches, fidelity in (0, 1] and falling with p, purity
+    within 1e-5 of tr(rho^2) of the same trajectory states in float64
+    (and below 1 - 1e-3 at p = 0.05); the MPS engine at the
+    ``bench.py:457-483`` cell (n = 48, chi = 16, 64 shots: counts add up,
+    finite truncation weight, no kernel launch); an unknown action comes
+    back as an error reply and the server answers on. 13b:
+    ``SimulationController(device="cuda")`` (``on_error`` recorded and
+    checked): ``run_simulation`` at n = 28 within 1e-5 of a direct
+    ``Simulator.run``, ``run_step_by_step`` at n = 16 depth 8 (9 steps,
+    the last within 1e-5 of ``run``); ``FidelitySweepModel.sweep`` at
+    n = 16 (64 trials); ``DensityMatrixModel(device="cuda")`` at n = 8:
+    ``exact`` within 2e-5 of a NumPy Kraus-sum rho, ``ensemble`` (1000
+    trials) within 0.05 of it. Printed: each bridge request's round trip
+    and each controller / view-model wall time, with the card.
+
 ``--phases 2c,6`` runs only the named phases (and then prints no summary
 and no result line): for bringing up one phase on the card.
 
@@ -265,8 +296,9 @@ Launch counts in the summary are those of the main paths: phase 3 is
 driven with the counters set to 0 just before it and read just after; in
 phases 3b, 5, 6, 7, 8, 9 and 10 each run, trajectory, gradient, optimizer,
 debugger, quantum-volume, shadows, ZNE and QEC encode is, in phase 11
-the two statevector references (11a, 11c), and in phase 12 the mesh runs
-of 12a-12c, the VQE steps of 12e and the segmented runs of 12f. The
+the two statevector references (11a, 11c), in phase 12 the mesh runs
+of 12a-12c, the VQE steps of 12e and the segmented runs of 12f, and in
+phase 13 every bridge request and controller or view-model run. The
 comparison runs against the twins launch nothing (phases 5 and 12 check
 it).
 
@@ -294,7 +326,8 @@ from quantum_simulator_tpu_torch import (AmplitudeDampingNoise,
                                          MeasurementBasis, NoiseChannel,
                                          NoiseModel, PlanarStateVector,
                                          QuantumCircuit, ReadoutError,
-                                         Simulator,
+                                         Simulator, StateAnalysis,
+                                         StateVector,
                                          TwoQubitDepolarizingNoise)
 from quantum_simulator_tpu_torch import clifford as tclif
 from quantum_simulator_tpu_torch import correlators as tcorr
@@ -335,7 +368,7 @@ F64_SIZES = (16, 28)
 RUN_PEAK_LIMIT = 6.1 * 2**30
 SEED = 42
 PHASES = ("2", "2b", "2c", "3", "3b", "4", "4b", "5", "6", "7", "8", "9",
-          "10", "11", "12")
+          "10", "11", "12", "13")
 
 # Layouts of n = 16, 28 and 30 qubits (GroupLayout.for_qubits).
 LAYOUTS = {16: (4, 128, 128), 28: (128,) * 4, 30: (4,) + (128,) * 4}
@@ -950,11 +983,11 @@ def _kraus_sum(rho, kraus, targets, n: int):
     return out
 
 
-def density_reference(program, nm) -> np.ndarray:
-    """Exact probabilities of the noisy circuit: rho evolved gate by gate
-    in NumPy complex128, each gate's channels applied after it as Kraus
-    sums (one-qubit stacks on each target, two-qubit stacks on the
-    gate's pair)."""
+def density_rho_reference(program, nm) -> np.ndarray:
+    """rho of the noisy circuit, evolved gate by gate in NumPy
+    complex128, each gate's channels applied after it as Kraus sums
+    (one-qubit stacks on each target, two-qubit stacks on the gate's
+    pair)."""
     n = program.num_qubits
     rho = np.zeros((1 << n, 1 << n), np.complex128)
     rho[program.initial_index, program.initial_index] = 1.0
@@ -969,7 +1002,13 @@ def density_reference(program, nm) -> np.ndarray:
                     rho = _kraus_sum(rho, stack, (q,), n)
             else:
                 rho = _kraus_sum(rho, stack, op.targets, n)
-    return np.real(np.diagonal(rho.reshape(1 << n, 1 << n)))
+    return rho.reshape(1 << n, 1 << n)
+
+
+def density_reference(program, nm) -> np.ndarray:
+    """Exact probabilities of the noisy circuit (the diagonal of
+    ``density_rho_reference``)."""
+    return np.real(np.diagonal(density_rho_reference(program, nm)))
 
 
 def phase_noisy(report: dict, card: str) -> dict:
@@ -4168,6 +4207,404 @@ def phase_mesh(report: dict, card: str) -> dict:
     return path
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the front ends (bridge, controllers, view models)
+# ---------------------------------------------------------------------------
+
+FRONT_HEADLINE = (16, 40)            # Ry+CNOT brickwork, the headline
+FRONT_HEADLINE_SHOTS = 4096
+FRONT_WIDE = (28, 8)                 # Ry/Rz brickwork
+FRONT_WIDE_SHOTS = 1024
+FRONT_WINDOW = 1 << 16
+FRONT_NOISY_SHOTS = 1024
+FRONT_SWEEP = (20, 8, (0.0, 0.01, 0.05), 256)   # bench.py:221-226
+FRONT_PURITY_MAX = 1 - 1e-3          # the sweep's purity at p = 0.05
+FRONT_STEPS = (16, 8)                # run_step_by_step (n, depth)
+FRONT_SWEEP_MODEL = (16, 8, (0.0, 0.01, 0.05), 64)
+FRONT_DM = (8, 8, 1000)              # (n, depth, ensemble trials)
+FRONT_DM_TOL = 2e-5                  # exact rho vs NumPy Kraus sums
+FRONT_TIMEOUT = 600.0                # client socket timeout, s
+FRONT_JOIN = 120.0
+
+
+def bridge_amps(payload: dict) -> np.ndarray:
+    return np.array([a["re"] + 1j * a["im"] for a in payload["amplitudes"]])
+
+
+def batch_launches(program, nm, T: int) -> dict:
+    """Dense and cross launches of T trajectories: the plans of one batch
+    times the batches ``simulator._chunk_size`` cuts."""
+    plans = noisy_plans(program, nm)
+    batches = -(-T // tsim._chunk_size(program, nm, T))
+    return {"dense_axis": batches * sum(isinstance(s, tplan.AxisMatmulStep)
+                                        for p in plans for s in p.steps),
+            "cross_bit_axis": batches * sum(isinstance(s, tplan.CrossStep)
+                                            for p in plans for s in p.steps)}
+
+
+class RoundTrips:
+    """Host milliseconds of each bridge request, from the client's send to
+    its parsed reply: the server copies its results to the host before it
+    replies, so the device work is inside."""
+
+    def __init__(self):
+        self.ms: dict[str, float] = {}
+
+    def __call__(self, label: str, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        self.ms[label] = (time.perf_counter() - t0) * 1e3
+        return out
+
+
+def front_headline(c, path: dict, trips: RoundTrips, report: dict) -> None:
+    """13a, n = 16 run (launches = the plan's steps), the full state
+    against the plain-twin executor, the analysis against direct calls."""
+    n, depth = FRONT_HEADLINE
+    circuit = brickwork(n, depth, SEED, False)
+    program = tprog.compile_circuit(circuit)
+    steps = plan_launches([program])
+    info = c.set_circuit(circuit.to_dict())
+    check(info == {"num_qubits": n, "gate_count": circuit.gate_count()},
+          f"set_circuit n={n}: {info}")
+    for label in (f"run n={n} (first)", f"run n={n}"):
+        before = launch_counts()
+        run = trips(label, lambda: c.run(shots=FRONT_HEADLINE_SHOTS,
+                                         seed=SEED))
+        delta = add_launches(path, before)
+        check(delta == steps, f"bridge {label}: launches {delta}, plan "
+              f"{steps}")
+        check(sum(run["measurement_counts"].values()) == FRONT_HEADLINE_SHOTS
+              and run["num_shots"] == FRONT_HEADLINE_SHOTS
+              and run["seed"] == SEED, f"bridge {label}: {run['num_shots']}")
+    state = trips(f"get_state n={n}", c.get_state)
+    want = tplan.group_forward_body(program, program.initial_params, "cuda",
+                                    plain=True)
+    want_np = want.cpu().numpy().astype(np.complex128)
+    err = float(np.abs(bridge_amps(state) - want_np).max())
+    perr = float(np.abs(np.asarray(state["probabilities"])
+                        - np.abs(want_np) ** 2).max())
+    check(err <= STATE_TOL and perr <= STATE_TOL,
+          f"bridge get_state n={n}: |amp - plain| {err}, |p - plain| {perr}")
+    metrics = ["fidelity", "entropy", "purity", "pauli"]
+    got = trips(f"get_analysis n={n}", lambda: c.get_analysis(metrics))
+    sv = StateVector.from_tensor(want, n)
+    direct = {"fidelity": StateAnalysis.process_fidelity(sv, sv),
+              "entropy": StateAnalysis.von_neumann_entropy(sv),
+              "purity": StateAnalysis.purity(sv),
+              "pauli": {f"q{q}": {p: StateAnalysis.pauli_expectation(sv, p, q)
+                                  for p in "XYZ"} for q in range(n)}}
+    aerr = max([abs(got[k] - direct[k]) for k in ("fidelity", "entropy",
+                                                  "purity")]
+               + [abs(got["pauli"][q][p] - v)
+                  for q, row in direct["pauli"].items()
+                  for p, v in row.items()])
+    check(set(got) == set(direct) and aerr <= STATE_TOL,
+          f"bridge get_analysis n={n}: max |bridge - direct| {aerr}")
+    report["front_headline"] = {"launches": steps, "state_err": err,
+                                "analysis_err": aerr}
+    print(f"front 13a n={n} depth-{depth}: launches {steps} per run, state "
+          f"err {err:.2e}, analysis err {aerr:.2e}", flush=True)
+    del want, sv
+
+
+def front_wide(c, path: dict, trips: RoundTrips, report: dict) -> tuple:
+    """13a, n = 28 run with its peak, three windows of 2^16 amplitudes
+    against the plain-twin state."""
+    n, depth = FRONT_WIDE
+    circuit = brickwork(n, depth, SEED, True)
+    program = tprog.compile_circuit(circuit)
+    steps = plan_launches([program])
+    c.set_circuit(circuit.to_dict())
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = launch_counts()
+    run = trips(f"run n={n}", lambda: c.run(shots=FRONT_WIDE_SHOTS,
+                                            seed=SEED))
+    delta = add_launches(path, before)
+    peak = torch.cuda.max_memory_allocated()
+    check(delta == steps, f"bridge run n={n}: launches {delta}, plan "
+          f"{steps}")
+    check(sum(run["measurement_counts"].values()) == FRONT_WIDE_SHOTS,
+          f"bridge run n={n}: shots")
+    check(peak <= RUN_PEAK_LIMIT, f"bridge run n={n}: peak "
+          f"{peak / 2**30:.3f} GiB > {RUN_PEAK_LIMIT / 2**30:.1f}")
+    want = tplan.group_forward_body(program, program.initial_params, "cuda",
+                                    plain=True)
+    errs = []
+    for offset in (0, 1 << (n - 1), (1 << n) - FRONT_WINDOW):
+        label = f"window {FRONT_WINDOW} at n={n}" + ("" if offset
+                                                       else " (first)")
+        win = trips(label, lambda: c.get_state(offset=offset,
+                                               length=FRONT_WINDOW))
+        ref = want[offset:offset + FRONT_WINDOW].cpu().numpy()
+        check(win["offset"] == offset and win["total"] == 1 << n
+              and len(win["amplitudes"]) == FRONT_WINDOW,
+              f"window at {offset}: {win['offset']}, {win['total']}")
+        errs.append(float(np.abs(bridge_amps(win) - ref).max()))
+    check(max(errs) <= STATE_TOL, f"bridge windows n={n}: {errs}")
+    report["front_wide"] = {"launches": steps, "peak_bytes": peak,
+                            "window_errs": errs}
+    print(f"front 13a n={n} depth-{depth}: launches {steps}, run peak "
+          f"{peak / 2**30:.3f} GiB, window errs "
+          f"{', '.join(f'{e:.2e}' for e in errs)}", flush=True)
+    del want
+    torch.cuda.empty_cache()
+    return peak, errs
+
+
+def front_noisy_run(c, path: dict, trips: RoundTrips) -> int:
+    """13a, depolarizing 0.05 + readout, run_with_noise at n = 16."""
+    n, depth = FRONT_HEADLINE
+    circuit = brickwork(n, depth, SEED, False)
+    nm = noise_model("depol")
+    nm.set_readout_error(ReadoutError(0.01, 0.02))
+    program = tprog.compile_circuit(circuit)
+    want = batch_launches(program, nm, FRONT_NOISY_SHOTS)
+    c.set_circuit(circuit.to_dict())
+    check(c.set_noise(nm.to_dict()) == {}, "set_noise")
+    before = launch_counts()
+    run = trips(f"run n={n} noisy", lambda: c.run(shots=FRONT_NOISY_SHOTS,
+                                                  seed=SEED))
+    delta = add_launches(path, before)
+    check(delta == want, f"bridge noisy run: launches {delta}, plans x "
+          f"batches {want}")
+    shots = sum(run["measurement_counts"].values())
+    check(shots == FRONT_NOISY_SHOTS, f"bridge noisy run: {shots} shots")
+    check(c.clear_noise() == {}, "clear_noise")
+    print(f"front 13a noisy n={n}: {shots} shots, launches {delta}",
+          flush=True)
+    return shots
+
+
+def front_sweep(c, path: dict, trips: RoundTrips, report: dict) -> dict:
+    """13a, sweep_parameter at n = 20: launches, fidelity falling, the
+    purity against tr(rho^2) of the same states in float64."""
+    n, depth, values, trials = FRONT_SWEEP
+    circuit = brickwork(n, depth, SEED, False)
+    program = tprog.compile_circuit(circuit)
+    want = plan_launches([program])
+    for p in values:
+        if p:
+            for k, v in batch_launches(
+                    program, global_noise(DepolarizingNoise(p)),
+                    trials).items():
+                want[k] += v
+    c.set_circuit(circuit.to_dict())
+    before = launch_counts()
+    sweep = trips(f"sweep_parameter n={n}", lambda: c.sweep_parameter(
+        "noise_p", list(values), trials=trials, seed=SEED))["sweep"]
+    delta = add_launches(path, before)
+    check(delta == want, f"bridge sweep: launches {delta}, plans {want}")
+    fids = [pt["fidelity"] for pt in sweep]
+    check(all(0 < f <= 1 for f in fids)
+          and all(a > b for a, b in zip(fids, fids[1:])),
+          f"bridge sweep fidelities {fids}")
+    # the same trajectory states from the sweep's seed stream, in float64
+    rng = np.random.default_rng(SEED)
+    ideal = Simulator(device="cuda").run(
+        circuit, shots=0, rng=np.random.default_rng(rng.integers(0, 2**63))
+    ).final_state.device_data.to(torch.complex128)
+    rows = []
+    for pt, p in zip(sweep, values):
+        if not p:
+            check(pt == {"value": 0.0, "fidelity": 1.0, "purity": 1.0},
+                  f"sweep at p = 0: {pt}")
+            continue
+        states = Simulator(noise_model=global_noise(DepolarizingNoise(p)),
+                           device="cuda").trajectory_states(
+            circuit, trials, seed=int(rng.integers(0, 2**63))
+        ).to(torch.complex128)
+        purity = float((states.conj() @ states.T).abs().square().mean())
+        fid = float((states @ ideal.conj()).abs().square().mean())
+        del states
+        rows.append((p, pt["fidelity"], fid, pt["purity"], purity))
+        check(abs(pt["purity"] - purity) <= STATE_TOL
+              and abs(pt["fidelity"] - fid) <= STATE_TOL,
+              f"sweep p={p}: purity {pt['purity']} vs {purity}, fidelity "
+              f"{pt['fidelity']} vs {fid}")
+    check(rows[-1][3] < FRONT_PURITY_MAX,
+          f"sweep purity at p = {values[-1]}: {rows[-1][3]}")
+    report["front_sweep"] = {"launches": delta, "rows": rows}
+    del ideal
+    torch.cuda.empty_cache()
+    return {"launches": delta, "rows": rows}
+
+
+def front_mps(c, trips: RoundTrips) -> dict:
+    """13a, the MPS engine at the bench.py:457-483 cell."""
+    n, depth, chi, shots = MPS_BENCH
+    c.set_circuit(rx_brickwork(n, depth).to_dict())
+    before = launch_counts()
+    run = trips(f"run MPS n={n} chi={chi}", lambda: c.run(
+        shots=shots, seed=SEED, engine="mps", chi=chi))
+    check(launch_counts() == before, "the MPS engine launched a kernel")
+    total = sum(run["measurement_counts"].values())
+    check(total == shots and run["engine"] == "mps"
+          and np.isfinite(run["truncation_weight"]),
+          f"bridge MPS run: {total} shots, truncation "
+          f"{run['truncation_weight']}")
+    return run
+
+
+def phase_front_bridge(path: dict, report: dict, card: str) -> None:
+    """13a: the bridge over a socket, its handler on the card."""
+    from quantum_simulator_tpu_torch.bridge import (BridgeCommandHandler,
+                                                    BridgeServer,
+                                                    SimulatorClient)
+    from quantum_simulator_tpu_torch.bridge.client import BridgeError
+
+    srv = BridgeServer(BridgeCommandHandler(device="cuda"), port=0)
+    srv.start()
+    trips = RoundTrips()
+    try:
+        with SimulatorClient(port=srv.port, timeout=FRONT_TIMEOUT) as c:
+            check(trips("ping", c.ping), "ping")
+            front_headline(c, path, trips, report)
+            peak, errs = front_wide(c, path, trips, report)
+            shots = front_noisy_run(c, path, trips)
+            sweep = front_sweep(c, path, trips, report)
+            mps_run = front_mps(c, trips)
+            try:
+                c._send_request("no_such_action")
+            except BridgeError as e:
+                check("Unknown action" in str(e), f"bad request: {e}")
+            else:
+                raise RuntimeError("an unknown action came back ok")
+            check(c.ping(), "ping after a bad request")
+    finally:
+        srv.stop()
+    report["front_round_trip_ms"] = trips.ms
+    print(f"front 13a bridge [{card}]: n={FRONT_HEADLINE[0]} launches = "
+          f"plan, state and analysis within {STATE_TOL}; n={FRONT_WIDE[0]} "
+          f"peak {peak / 2**30:.3f} GiB, windows max err {max(errs):.2e}; "
+          f"noisy run {shots} shots; sweep n={FRONT_SWEEP[0]} launches "
+          f"{sweep['launches']}; MPS truncation "
+          f"{mps_run['truncation_weight']:.3e}; the bad request answered "
+          f"an error", flush=True)
+    for (p, fb, f64, pb, p64) in sweep["rows"]:
+        print(f"front 13a sweep n={FRONT_SWEEP[0]} p={p} [{card}]: fidelity "
+              f"{fb:.6f} "
+              f"(float64 {f64:.6f}), purity {pb:.6f} (float64 tr(rho^2) "
+              f"{p64:.6f})", flush=True)
+    for label, ms in trips.ms.items():
+        print(f"front bridge round trip {label} [{card}]: {ms:.3f} ms",
+              flush=True)
+
+
+def phase_front_controllers(path: dict, report: dict, card: str) -> None:
+    """13b: SimulationController, FidelitySweepModel and
+    DensityMatrixModel on the card."""
+    from quantum_simulator_tpu_torch.controller import SimulationController
+    from quantum_simulator_tpu_torch.viewmodels import (DensityMatrixModel,
+                                                        FidelitySweepModel)
+
+    walls = {}
+    errors: list[str] = []
+    finished, steps = [], []
+    ctl = SimulationController(device="cuda")
+    ctl.on_error = errors.append
+    ctl.on_finished = finished.append
+    ctl.on_step_updated = lambda s, col: steps.append((col, s))
+
+    n, depth = FRONT_WIDE
+    circuit = brickwork(n, depth, SEED, True)
+    before = launch_counts()
+    t0 = time.perf_counter()
+    ctl.run_simulation(circuit, shots=FRONT_WIDE_SHOTS, seed=SEED)
+    ctl.join(timeout=FRONT_JOIN)
+    walls[f"run_simulation n={n}"] = time.perf_counter() - t0
+    add_launches(path, before)
+    check(not errors and not ctl.is_running and len(finished) == 1,
+          f"controller run n={n}: errors {errors}, running {ctl.is_running}"
+          f", {len(finished)} results")
+    direct = Simulator(device="cuda").run(circuit, shots=0).final_state
+    err = float((finished[0].final_state.device_data
+                 - direct.device_data).abs().max())
+    check(err <= STATE_TOL, f"controller n={n} vs Simulator.run: {err}")
+    del direct
+    finished.clear()
+    torch.cuda.empty_cache()
+
+    n_s, depth_s = FRONT_STEPS
+    circuit = brickwork(n_s, depth_s, SEED, True)
+    before = launch_counts()
+    t0 = time.perf_counter()
+    ctl.run_step_by_step(circuit, shots=0)
+    ctl.join(timeout=FRONT_JOIN)
+    walls[f"run_step_by_step n={n_s}"] = time.perf_counter() - t0
+    add_launches(path, before)
+    check(not errors and len(finished) == 1
+          and [col for col, _ in steps] == list(range(-1, depth_s)),
+          f"step-by-step: errors {errors}, columns "
+          f"{[col for col, _ in steps]}")
+    ref = Simulator(device="cuda").run(circuit, shots=0).final_state
+    serr = float((steps[-1][1].device_data - ref.device_data).abs().max())
+    check(serr <= STATE_TOL, f"last step vs run: {serr}")
+    del ref
+    steps.clear()
+
+    n_f, depth_f, probs, trials = FRONT_SWEEP_MODEL
+    before = launch_counts()
+    t0 = time.perf_counter()
+    points = FidelitySweepModel.sweep(brickwork(n_f, depth_f, SEED, False),
+                                      list(probs), trials=trials, seed=SEED,
+                                      device="cuda")
+    walls[f"FidelitySweepModel.sweep n={n_f}"] = time.perf_counter() - t0
+    add_launches(path, before)
+    fids = [pt.fidelity for pt in points]
+    check(all(0 < f <= 1 for f in fids)
+          and all(a > b for a, b in zip(fids, fids[1:]))
+          and 0 < points[-1].purity < FRONT_PURITY_MAX,
+          f"sweep model: {points}")
+
+    n_d, depth_d, dm_trials = FRONT_DM
+    circuit = brickwork(n_d, depth_d, SEED, True)
+    nm = noise_model("depol")
+    model = DensityMatrixModel(device="cuda")
+    t0 = time.perf_counter()
+    exact = model.exact(circuit, nm)
+    walls[f"DensityMatrixModel.exact n={n_d}"] = time.perf_counter() - t0
+    rho = density_rho_reference(tprog.compile_circuit(circuit), nm)
+    derr = float(np.abs(exact.real + 1j * exact.imag - rho).max())
+    check(derr <= FRONT_DM_TOL, f"exact rho vs NumPy: {derr}")
+    before = launch_counts()
+    t0 = time.perf_counter()
+    ens = model.ensemble(circuit, nm, n_trials=dm_trials, seed=SEED)
+    walls[f"DensityMatrixModel.ensemble n={n_d}"] = time.perf_counter() - t0
+    add_launches(path, before)
+    eerr = float(np.abs(ens.real + 1j * ens.imag - rho).max())
+    check(eerr <= LAW_TOL, f"ensemble rho vs NumPy: {eerr}")
+    report["front_controllers"] = {
+        "controller_err": err, "step_err": serr, "sweep": [
+            (pt.noise_prob, pt.fidelity, pt.purity) for pt in points],
+        "exact_rho_err": derr, "ensemble_rho_err": eerr, "wall_s": walls}
+    print(f"front 13b controllers [{card}]: run n={n} vs Simulator.run "
+          f"{err:.2e}, {depth_s + 1} steps (last vs run {serr:.2e}), sweep "
+          f"model n={n_f} fidelities {[round(f, 6) for f in fids]} purity "
+          f"at p={probs[-1]} {points[-1].purity:.6f}, exact rho n={n_d} vs "
+          f"NumPy {derr:.2e}, ensemble ({dm_trials} trials) {eerr:.4f}",
+          flush=True)
+    for label, s in walls.items():
+        print(f"front controller wall {label} [{card}]: {s * 1e3:.3f} ms",
+              flush=True)
+
+
+def phase_front_ends(report: dict, card: str) -> dict:
+    """13a-13b. Launch counts: every bridge request and controller or
+    view-model run, each read from zero; the reference runs (plain twins,
+    direct ``Simulator`` runs, the sweep's float64 re-run) not counted."""
+    path = {k: 0 for k in launch_counts()}
+    phase_front_bridge(path, report, card)
+    phase_front_controllers(path, report, card)
+    torch.cuda.empty_cache()
+    check(all(v > 0 for v in path.values()),
+          f"a kernel never launched in the front ends: {path}")
+    report["front_launches"] = path
+    return path
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every measurement as JSON")
@@ -4224,7 +4661,8 @@ def main() -> int:
               "9": lambda: phase_analysis(report, card),
               "10": lambda: phase_bit_engines(report, card),
               "11": lambda: phase_mps(report, card),
-              "12": lambda: phase_mesh(report, card)}
+              "12": lambda: phase_mesh(report, card),
+              "13": lambda: phase_front_ends(report, card)}
     out = {}
     for name in PHASES:
         if name in chosen:
@@ -4252,7 +4690,7 @@ def main() -> int:
             "replaces": replaces,
             "launches": sum(out[p][name] for p in ("3", "3b", "5", "6",
                                                    "7", "8", "9", "10",
-                                                   "11", "12")),
+                                                   "11", "12", "13")),
             "max_abs_err": max(out["2"]["max_err"][name], out["2b"][name],
                                out["2c"][name]),
             "ms": row["ms"], "plain_ms": row["plain_ms"],

@@ -28,8 +28,14 @@ family runs arbitrary gates past the 2^n wall: ``mps.MPSSimulator``
 (``dmrg``), MPS Lindblad trajectories (``lindblad_mps``), two-point
 correlators (``correlators``) and MPS shadows. The parallel layer
 (``parallel``) shards a state over a mesh of ``torch.distributed`` ranks,
-each holding a stack of shards on its device. It imports torch and
-NumPy, never JAX and never the JAX package.
+each holding a stack of shards on its device. The host front ends sit
+on top of all of it: the Live Bridge (``bridge``: a JSON-over-TCP server
+and its client), the controller layer (``controller``: undoable edits and
+a simulation worker thread), the panels' view models (``viewmodels``), the
+circuit renderer (``render``, headless matplotlib) and
+``utils.seeding.SeedManager``; every entry point among them that simulates
+takes ``device=`` (default ``CONFIG.device``, the card). It imports torch
+and NumPy, never JAX and never the JAX package.
 """
 
 from .analysis import StateAnalysis

@@ -127,6 +127,20 @@ def _fidelity(psi: torch.Tensor, phi: torch.Tensor) -> float:
     return float(torch.sum(psi.conj() * phi).abs().square())
 
 
+def ensemble_fidelity_purity(ideal: torch.Tensor, states: torch.Tensor
+                             ) -> tuple[float, float]:
+    """Mean fidelity |<ideal|psi_t>|^2 and ensemble purity tr(rho^2) =
+    mean_{t,s} |<psi_t|psi_s>|^2 of rho = mean_t |psi_t><psi_t| over T
+    trajectory states ``(T, 2^n)``: two products on the states' device
+    in their dtype (float32 sums, TF32 off: ``config.py``), means in
+    float64. Each trajectory is renormalised, so its own norm says
+    nothing about mixedness; the Gram matrix does."""
+    overlaps = states @ ideal.conj()
+    gram = states.conj() @ states.T
+    return (float(overlaps.abs().square().double().mean()),
+            float(gram.abs().square().double().mean()))
+
+
 class StateAnalysis:
     """Static quantitative analysis of quantum states."""
 

@@ -16,6 +16,7 @@ held to float64 as tightly as an fp32 product (``csrc/fiber_matmul.cuh``).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
@@ -39,3 +40,24 @@ class EngineConfig:
 
 
 CONFIG = EngineConfig()
+
+
+def pinned_device(device=None) -> torch.device:
+    """``device`` (default ``CONFIG.device``) with its CUDA index fixed.
+
+    A bare ``"cuda"`` names the calling thread's current device, and every
+    thread starts on device 0: the front ends resolve it where they are
+    built and make it current on their worker threads (``device_scope``),
+    so work never moves to another card with the thread that runs it."""
+    dev = torch.device(device or CONFIG.device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def device_scope(device: torch.device):
+    """Make a CUDA ``device`` current on the calling thread (a no-op for
+    any other device)."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()

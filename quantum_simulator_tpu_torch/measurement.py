@@ -58,14 +58,15 @@ def counts_from_array(counts_array: np.ndarray, num_qubits: int
 def sample_counts_device(probs: torch.Tensor, shots: int,
                          generator: torch.Generator) -> dict[int, int]:
     """``shots`` draws from ``probs`` by inverse CDF on its device;
-    returns {basis index: count} for the indices drawn."""
-    cdf = torch.cumsum(probs.to(torch.float64), dim=0)
+    returns {basis index: count} for the indices drawn. Beside ``probs``
+    it holds one float64 array (the copy, summed in place) and arrays of
+    ``shots`` entries: no 2^n histogram."""
+    cdf = probs.to(torch.float64, copy=True).cumsum_(0)
     u = torch.rand(shots, dtype=torch.float64, device=probs.device,
                    generator=generator) * cdf[-1]
     idx = torch.searchsorted(cdf, u, right=True).clamp_(max=probs.numel() - 1)
-    counts = torch.bincount(idx, minlength=probs.numel())
-    nz = torch.nonzero(counts).flatten()
-    return dict(zip(nz.cpu().tolist(), counts[nz].cpu().tolist()))
+    vals, counts = torch.unique(idx, return_counts=True)
+    return dict(zip(vals.cpu().tolist(), counts.cpu().tolist()))
 
 
 # torch.multinomial takes at most 2^24 categories.

@@ -21,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -101,9 +102,19 @@ def build_log() -> str:
     return (BUILD_ROOT / source_hash() / "nvcc.log").read_text()
 
 
-@functools.cache
+_LOAD_LOCK = threading.Lock()
+
+
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first call."""
+    """The loaded kernel library, built on first call. Threads that launch
+    at once (the bridge's loop, a controller's worker) wait for one build:
+    two in one process would write the same pid-named files."""
+    with _LOAD_LOCK:
+        return _load()
+
+
+@functools.cache
+def _load() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     for name in _ENTRY_POINTS:
         fn = getattr(lib, name)

@@ -1165,3 +1165,78 @@ def test_mesh_exchange_in_place_equals_twin_on_a_slice(cuda, n):
         del before, after, want
     del x
     torch.cuda.empty_cache()
+
+
+def _front_end_circuit(n=16, depth=8):
+    """Ry/Rz brickwork (seed 42): a planar complex state."""
+    d = build_circuit_dict(n, depth, 42)
+    for g in d["gates"]:
+        if g["name"] == "Ry" and (g["targets"][0] + g["column"]) % 2:
+            g["name"] = "Rz"
+    return d
+
+
+def test_bridge_card_equals_cpu_over_a_socket(cuda):
+    """The bridge on the card answers as the bridge on the CPU at n = 16:
+    deterministic replies equal, states and analysis within 1e-5."""
+    from quantum_simulator_tpu_torch.bridge import (BridgeCommandHandler,
+                                                    BridgeServer,
+                                                    SimulatorClient)
+    circuit = _front_end_circuit()
+    replies = []
+    for device in ("cuda", "cpu"):
+        srv = BridgeServer(BridgeCommandHandler(device=device), port=0)
+        srv.start()
+        try:
+            with SimulatorClient(port=srv.port, timeout=120) as c:
+                info = c.set_circuit(circuit)
+                run = c.run(shots=0, seed=7)
+                state = c.get_state()
+                window = c.get_state(offset=1000, length=64)
+                analysis = c.get_analysis(["fidelity", "entropy", "purity",
+                                           "pauli"])
+                replies.append((c.ping(), info, c.get_circuit(), run, state,
+                                window, analysis))
+        finally:
+            srv.stop()
+    card, cpu = replies
+    assert card[:4] == cpu[:4]
+
+    def amps(d):
+        return np.array([a["re"] + 1j * a["im"] for a in d["amplitudes"]])
+
+    for i in (4, 5):
+        assert np.abs(amps(card[i]) - amps(cpu[i])).max() <= 1e-5
+    a, b = card[6], cpu[6]
+    assert set(a) == set(b)
+    for k in ("fidelity", "entropy", "purity"):
+        assert abs(a[k] - b[k]) <= 1e-5
+    for q, paulis in b["pauli"].items():
+        for p, v in paulis.items():
+            assert abs(a["pauli"][q][p] - v) <= 1e-5
+
+
+def test_simulation_controller_card_equals_cpu(cuda):
+    """SimulationController(device="cuda") runs on its worker thread to
+    the CPU controller's states (final and every step) within 1e-5."""
+    from quantum_simulator_tpu_torch.controller import SimulationController
+    circuit = QuantumCircuit.from_dict(_front_end_circuit())
+    out = []
+    for device in ("cuda", "cpu"):
+        ctl = SimulationController(device=device)
+        seen, errors, steps = [], [], []
+        ctl.on_finished = seen.append
+        ctl.on_error = errors.append
+        ctl.run_simulation(circuit, shots=1024, seed=3)
+        ctl.join(120)
+        ctl.on_step_updated = lambda s, col: steps.append((col, s.data))
+        ctl.run_step_by_step(circuit, shots=0)
+        ctl.join(120)
+        assert not errors and not ctl.is_running and len(seen) == 2
+        assert seen[0].final_state.device_data.device.type == device
+        out.append((seen[0].final_state.data, steps))
+    (card, card_steps), (cpu, cpu_steps) = out
+    assert np.abs(card - cpu).max() <= 1e-5
+    assert [c for c, _ in card_steps] == [c for c, _ in cpu_steps]
+    for (_, a), (_, b) in zip(card_steps, cpu_steps):
+        assert np.abs(a - b).max() <= 1e-5
