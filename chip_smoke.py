@@ -289,6 +289,18 @@ The front-end slice adds:
     trials) within 0.05 of it. Printed: each bridge request's round trip
     and each controller / view-model wall time, with the card.
 
+The entry-point slice adds:
+
+14. the command-line twins. ``quantum_simulator_tpu_torch.entry.entry
+    ("cuda")``'s forward (|psi|^2 of the 16-qubit flagship brickwork,
+    both kernels) within 1e-5 of the same forward through the twins,
+    then ``main`` of ``entry`` and of every script and example twin
+    (``quantum_simulator_tpu_torch/scripts``, ``.../examples``) at its
+    default arguments, except the two cuts named at ``ENTRY_TWINS``:
+    each must return 0, its own checks deciding (the QFT-32 fidelity
+    against the DFT row, the Grover-30 amplitude, norms, shot counts, GHZ
+    correlations). Printed per twin: seconds, peak memory and launches.
+
 ``--phases 2c,6`` runs only the named phases (and then prints no summary
 and no result line): for bringing up one phase on the card.
 
@@ -297,9 +309,10 @@ driven with the counters set to 0 just before it and read just after; in
 phases 3b, 5, 6, 7, 8, 9 and 10 each run, trajectory, gradient, optimizer,
 debugger, quantum-volume, shadows, ZNE and QEC encode is, in phase 11
 the two statevector references (11a, 11c), in phase 12 the mesh runs
-of 12a-12c, the VQE steps of 12e and the segmented runs of 12f, and in
-phase 13 every bridge request and controller or view-model run. The
-comparison runs against the twins launch nothing (phases 5 and 12 check
+of 12a-12c, the VQE steps of 12e and the segmented runs of 12f, in
+phase 13 every bridge request and controller or view-model run, and in
+phase 14 ``entry()``'s forward and each twin's ``main``. The
+comparison runs against the twins launch nothing (phases 5, 12 and 14 check
 it).
 
 The line before the last is the JSON kernel summary; the last line is
@@ -310,6 +323,10 @@ error and prints no result. ``--out`` also writes every measurement as JSON.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import gc
+import importlib
+import io
 import json
 import subprocess
 import sys
@@ -333,6 +350,7 @@ from quantum_simulator_tpu_torch import clifford as tclif
 from quantum_simulator_tpu_torch import correlators as tcorr
 from quantum_simulator_tpu_torch import density as tdens
 from quantum_simulator_tpu_torch import dmrg as tdmrg
+from quantum_simulator_tpu_torch import entry as tentry
 from quantum_simulator_tpu_torch import native as tnative
 from quantum_simulator_tpu_torch import qec as tqec
 from quantum_simulator_tpu_torch import qec_circuit as tqc
@@ -355,6 +373,7 @@ from quantum_simulator_tpu_torch.ops import plan as tplan
 from quantum_simulator_tpu_torch.ops import program as tprog
 from quantum_simulator_tpu_torch.ops import unitary_traj as tunit
 from quantum_simulator_tpu_torch.parallel import distributed as tdist
+from quantum_simulator_tpu_torch.scripts import mesh_stretch_check
 
 DENSE_TOL = 2e-4
 CROSS_TOL = 2e-3
@@ -368,7 +387,7 @@ F64_SIZES = (16, 28)
 RUN_PEAK_LIMIT = 6.1 * 2**30
 SEED = 42
 PHASES = ("2", "2b", "2c", "3", "3b", "4", "4b", "5", "6", "7", "8", "9",
-          "10", "11", "12", "13")
+          "10", "11", "12", "13", "14")
 
 # Layouts of n = 16, 28 and 30 qubits (GroupLayout.for_qubits).
 LAYOUTS = {16: (4, 128, 128), 28: (128,) * 4, 30: (4,) + (128,) * 4}
@@ -3890,28 +3909,6 @@ def phase_mesh_brickwork(path: dict, report: dict, card: str) -> None:
     report["mesh_ansatz"] = {"layers": MESH_ANSATZ, **rec["ansatz"]}
 
 
-def qft_overlap(stack: torch.Tensor, b: int, n: int) -> complex:
-    """<DFT row b | psi> of an ``(L, 2, N)`` stack, the analytic
-    amplitudes 2^(-n/2) exp(2 pi i b k / 2^n) built chunk by chunk on the
-    card (b k mod 2^32 exactly in int64: k split in 16-bit halves)."""
-    L, _, N = stack.shape
-    acc = torch.zeros(2, dtype=torch.float64, device=stack.device)
-    for l in range(L):
-        for s in range(0, N, tplan.CHUNK_ELEMS):
-            k = torch.arange(l * N + s, l * N + min(N, s + tplan.CHUNK_ELEMS),
-                             device=stack.device, dtype=torch.int64)
-            m = (b * (k & 0xFFFF) + (((b * (k >> 16)) & 0xFFFF) << 16)) \
-                & ((1 << n) - 1)
-            ph = m.double() * (2 * np.pi / 2.0 ** n)
-            ar, ai = torch.cos(ph), torch.sin(ph)
-            xr = stack[l, 0, s:s + k.numel()].double()
-            xi = stack[l, 1, s:s + k.numel()].double()
-            acc[0] += (ar * xr + ai * xi).sum()
-            acc[1] += (ar * xi - ai * xr).sum()
-    re, im = (float(v) * 2.0 ** (-n / 2) for v in acc)
-    return complex(re, im)
-
-
 def phase_mesh_qft(path: dict, report: dict, card: str) -> None:
     """12b: QFT-32 on a basis input over 8 shards (a 32 GiB state)."""
     n = MESH_QFT_N
@@ -3937,7 +3934,7 @@ def phase_mesh_qft(path: dict, report: dict, card: str) -> None:
                                      path, clock)
     want = mesh_plan_launches(body)
     check(delta == want, f"QFT-{n}: launches {delta}, plans {want}")
-    ov = qft_overlap(st.device_data, b, n)
+    ov = mesh_stretch_check.dft_overlap(st.device_data, mesh, b, n)
     norm = st.norm()
     fid = abs(ov) ** 2 / max(norm, 1e-30)
     check(fid > 1 - 1e-4, f"QFT-{n} fidelity vs the DFT row: {fid}")
@@ -4605,6 +4602,99 @@ def phase_front_ends(report: dict, card: str) -> dict:
     return path
 
 
+# Phase 14: every command-line twin at its default arguments (the full
+# width of its path), each from released cached blocks. (module under
+# quantum_simulator_tpu_torch, argv); ``quickstart`` skips its PNG
+# (matplotlib). Two cuts keep the phase near 200 s (their full-default
+# runs are timed in PERF.md): ``mesh_stretch_check`` runs QFT-32 alone
+# (its brickwork-32 repeats 12c), and ``error_mitigation`` runs n = 2, one
+# Trotter step (PEC by exact enumeration of 256 circuits, where the
+# defaults draw 2000 samples of n = 4 density matrices, about 265 s).
+ENTRY_TWINS = (
+    ("scripts.noise_sweep", []),
+    ("scripts.vqe_benchmark", []),
+    ("scripts.qec_threshold", []),
+    ("scripts.dmrg_solve", []),
+    ("scripts.circuit_threshold", []),
+    ("scripts.quantum_volume_check", []),
+    ("scripts.monitored_check", []),
+    ("scripts.huge_state_check", []),
+    ("scripts.sharded_run", []),
+    ("scripts.mesh_stretch_check", ["--config", "qft"]),
+    ("examples.quickstart", ["--no-export"]),
+    ("examples.error_mitigation", ["--n", "2", "--steps", "1"]),
+    ("examples.monitored_circuit", []),
+    ("examples.open_system", []),
+    ("examples.qec_memory", []),
+    ("examples.quench_dynamics", []),
+    ("examples.quench_spectroscopy", []),
+    ("examples.vqe_at_scale", []),
+)
+
+
+def run_entry_point(label: str, fn, path: dict, card: str) -> dict:
+    """``fn()`` (a twin's ``main``, which must return 0) from a fresh
+    peak counter with its stdout kept; launches counted from zero."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = launch_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    delta = add_launches(path, before)
+    peak = torch.cuda.max_memory_allocated()
+    lines = [ln for ln in buf.getvalue().splitlines()
+             if ln.strip(" \t{}[],")] or [""]
+    check(rc == 0, f"{label} exited {rc}: {lines[-1][:300]}")
+    print(f"entry point {label} [{card}]: {wall:.3f} s, peak "
+          f"{peak / 2**30:.3f} GiB, launches dense {delta['dense_axis']} "
+          f"cross {delta['cross_bit_axis']} | {lines[-1][:160]}",
+          flush=True)
+    return {"wall_s": wall, "peak_bytes": peak, "launches": delta,
+            "stdout": buf.getvalue()}
+
+
+def phase_entry_points(report: dict, card: str) -> dict:
+    """14. ``entry()``'s forward on the card against the plain twins',
+    then every script and example twin at its default arguments. Launch
+    counts: ``entry()``'s forward and each twin's ``main``, each from
+    zero; the plain forward launches nothing."""
+    path = {k: 0 for k in launch_counts()}
+    fn, args = tentry.entry("cuda")
+    plain_fn, _ = tentry.entry("cuda", plain=True)
+    before = launch_counts()
+    want = plain_fn(*args)
+    check(launch_counts() == before, "entry(plain=True) launched a kernel")
+    rec = {"entry": run_entry_point("entry", lambda: tentry.main([]), path,
+                                    card)}
+    before = launch_counts()
+    got = fn(*args)
+    delta = add_launches(path, before)
+    err = float((got - want).abs().max())
+    check(err <= STATE_TOL and all(v > 0 for v in delta.values()),
+          f"entry() forward vs the twins: {err}, launches {delta}")
+    print(f"entry() forward [{card}]: |psi|^2 of {got.numel()} amplitudes, "
+          f"max |kernels - twins| {err:.2e}, launches dense "
+          f"{delta['dense_axis']} cross {delta['cross_bit_axis']}",
+          flush=True)
+    del got, want
+    for label, argv in ENTRY_TWINS:
+        module = importlib.import_module(f"quantum_simulator_tpu_torch."
+                                         f"{label}")
+        rec[label] = run_entry_point(
+            label, lambda m=module, a=argv: m.main(a), path, card)
+    torch.cuda.empty_cache()
+    check(all(v > 0 for v in path.values()),
+          f"a kernel never launched in the entry points: {path}")
+    report["entry_points"] = {"entry_err": err, "runs": rec,
+                              "launches": path}
+    return path
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every measurement as JSON")
@@ -4662,7 +4752,8 @@ def main() -> int:
               "10": lambda: phase_bit_engines(report, card),
               "11": lambda: phase_mps(report, card),
               "12": lambda: phase_mesh(report, card),
-              "13": lambda: phase_front_ends(report, card)}
+              "13": lambda: phase_front_ends(report, card),
+              "14": lambda: phase_entry_points(report, card)}
     out = {}
     for name in PHASES:
         if name in chosen:
@@ -4690,7 +4781,8 @@ def main() -> int:
             "replaces": replaces,
             "launches": sum(out[p][name] for p in ("3", "3b", "5", "6",
                                                    "7", "8", "9", "10",
-                                                   "11", "12", "13")),
+                                                   "11", "12", "13",
+                                                   "14")),
             "max_abs_err": max(out["2"]["max_err"][name], out["2b"][name],
                                out["2c"][name]),
             "ms": row["ms"], "plain_ms": row["plain_ms"],

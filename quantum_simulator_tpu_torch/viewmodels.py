@@ -603,12 +603,13 @@ class ResourceMonitorModel:
             return 0.0
 
     def _proc_cpu_percent(self) -> float:
-        """Process CPU%% between consecutive calls, from os.times()
-        (utime+stime deltas over wall time, like psutil's estimator).
-        First call primes the baseline and reports 0.0."""
-        t = os.times()
+        """Process CPU%% between consecutive calls, from
+        ``time.process_time()`` (user + system CPU seconds at the clock's
+        full resolution, where ``os.times()`` moves in 10 ms ticks) over
+        wall time, like psutil's estimator. First call primes the baseline
+        and reports 0.0."""
         now = time.monotonic()
-        cpu_s = t.user + t.system
+        cpu_s = time.process_time()
         if self._last_cpu is None:
             self._last_cpu = (now, cpu_s)
             return 0.0

@@ -17,6 +17,7 @@ through both packages:
 - the renderer: the same text labels and patch positions.
 """
 
+import time
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -467,7 +468,12 @@ class TestViewModels:
         assert s1.rss_bytes > 1024 * 1024
         assert 0.0 < s1.system_memory_percent < 100.0
         assert s1.cpu_percent == 0.0  # first call primes the baseline
-        sum(i * i for i in range(200_000))  # burn some CPU
+        # Burn CPU until the process clock has moved 20 ms (a 5 s wall
+        # deadline), so the reading cannot fall between two clock ticks.
+        cpu0, deadline = time.process_time(), time.monotonic() + 5.0
+        while (time.process_time() - cpu0 < 0.02
+               and time.monotonic() < deadline):
+            sum(i * i for i in range(10_000))
         assert model.sample().cpu_percent > 0.0
         assert len(model.samples) == 2
 

@@ -1240,3 +1240,55 @@ def test_simulation_controller_card_equals_cpu(cuda):
     assert [c for c, _ in card_steps] == [c for c, _ in cpu_steps]
     for (_, a), (_, b) in zip(card_steps, cpu_steps):
         assert np.abs(a - b).max() <= 1e-5
+
+
+def test_entry_card_equals_cpu(cuda):
+    """``entry()`` on the card (both kernels through the group plan)
+    against the same forward on the CPU within 1e-5."""
+    from quantum_simulator_tpu_torch import entry
+    cuda_exec.reset_launch_counts()
+    fn, args = entry.entry("cuda")
+    got = fn(*args)
+    assert args[0].device.type == "cuda" and got.device.type == "cuda"
+    assert all(k.launches > 0 for k in cuda_exec.KERNELS)
+    cpu_fn, cpu_args = entry.entry("cpu")
+    want = cpu_fn(*cpu_args)
+    assert float((got.cpu() - want).abs().max()) <= 1e-5
+
+
+def _twin_json(module, argv, device, tmp_path):
+    import json
+    out = tmp_path / f"{device}.json"
+    assert module.main(argv + ["--device", device, "--output",
+                               str(out)]) == 0
+    return json.loads(out.read_text())
+
+
+def test_noise_sweep_card_equals_cpu_in_law(cuda, tmp_path):
+    """The noise-sweep twin on the card and on the CPU: each mean
+    fidelity within 5 standard errors of the other ([0, 1]-bounded
+    per-trajectory values), the p = 0 point 1 within 1e-5."""
+    from quantum_simulator_tpu_torch.scripts import noise_sweep
+    argv = ["--circuit", "ghz3", "--steps", "4", "--trials", "500"]
+    card = _twin_json(noise_sweep, argv, "cuda", tmp_path)
+    cpu = _twin_json(noise_sweep, argv, "cpu", tmp_path)
+    T = 500
+    for a, b in zip(card["results"], cpu["results"]):
+        fa, fb = a["mean_fidelity"], b["mean_fidelity"]
+        assert abs(fa - fb) <= 5 * np.sqrt(
+            (fa * (1 - fa) + fb * (1 - fb)) / T) + 1e-12
+        assert abs(a["mean_purity"] - 1.0) <= 1e-5
+    assert abs(card["results"][0]["mean_fidelity"] - 1.0) <= 1e-5
+
+
+def test_vqe_benchmark_card_equals_cpu(cuda, tmp_path):
+    """The VQE twin's cost trajectory on the card within 1e-4 of the
+    CPU's, for autodiff and for parameter shift (the kernels)."""
+    from quantum_simulator_tpu_torch.scripts import vqe_benchmark
+    for grad in ("autodiff", "parameter_shift"):
+        argv = ["--qubits", "6", "--layers", "2", "--hamiltonian",
+                "heisenberg", "--iters", "10", "--grad", grad]
+        card = _twin_json(vqe_benchmark, argv, "cuda", tmp_path)
+        cpu = _twin_json(vqe_benchmark, argv, "cpu", tmp_path)
+        np.testing.assert_allclose(card["result"]["cost_trace"],
+                                   cpu["result"]["cost_trace"], atol=1e-4)
