@@ -301,6 +301,33 @@ The entry-point slice adds:
     against the DFT row, the Grover-30 amplitude, norms, shot counts, GHZ
     correlations). Printed per twin: seconds, peak memory and launches.
 
+The GUI slice adds:
+
+15. the GUI (``quantum_simulator_tpu_torch.gui``) at its full width
+    (``AppConfig.max_qubits = 16``): ``MainWindow(AppConfig(),
+    device="cuda")`` over display stand-ins for the toolkits the machine
+    lacks (the functional PyQt6 stand-ins of ``tests/qt_stub.py``, else
+    real Qt on the offscreen platform; a recording matplotlib stand-in,
+    ``tests/torch_gui_stubs.py``), named on an output line and undone at
+    the end. 15a: one Run click (``_run_with_shots(4096)``) on the n = 16
+    depth-40 Ry+CNOT brickwork: launches twice the plan's steps (the
+    ideal pass, then the shots run), the final and the stored reference
+    state within 1e-5 of the plain-twin executor, 4096 shots, the panels
+    fed. 15b: depolarizing 0.01 + readout built through
+    ``NoiseConfigDialog``, a noisy Run click (launches = the ideal plan +
+    the trajectory batches' plans, the reference still within 1e-5), step
+    mode over all 41 states. 15c: the debugger panel (noisy, its 50
+    trials; the last ideal snapshot within 1e-5), the comparison panel
+    (the fidelity within 1e-5 of the twins' overlap), the optimizer (3
+    parameter-shift iterations) and the QEC sweep on real worker threads,
+    joined, each entering ``device_scope`` with the window's pinned
+    device, the QEC cycle, the benchmark suite (every benchmark passes).
+    15d: the bridge toggled on (an ephemeral port), one client run
+    (launches = the plan's), toggled off. A critical message box (the run
+    pipeline catches every error into one) or an exception on a worker
+    thread fails the phase. Printed per action: wall s, peak GiB from a
+    fresh counter, launches from zero.
+
 ``--phases 2c,6`` runs only the named phases (and then prints no summary
 and no result line): for bringing up one phase on the card.
 
@@ -310,8 +337,9 @@ phases 3b, 5, 6, 7, 8, 9 and 10 each run, trajectory, gradient, optimizer,
 debugger, quantum-volume, shadows, ZNE and QEC encode is, in phase 11
 the two statevector references (11a, 11c), in phase 12 the mesh runs
 of 12a-12c, the VQE steps of 12e and the segmented runs of 12f, in
-phase 13 every bridge request and controller or view-model run, and in
-phase 14 ``entry()``'s forward and each twin's ``main``. The
+phase 13 every bridge request and controller or view-model run, in
+phase 14 ``entry()``'s forward and each twin's ``main``, and in phase 15
+every GUI action. The
 comparison runs against the twins launch nothing (phases 5, 12 and 14 check
 it).
 
@@ -387,7 +415,7 @@ F64_SIZES = (16, 28)
 RUN_PEAK_LIMIT = 6.1 * 2**30
 SEED = 42
 PHASES = ("2", "2b", "2c", "3", "3b", "4", "4b", "5", "6", "7", "8", "9",
-          "10", "11", "12", "13", "14")
+          "10", "11", "12", "13", "14", "15")
 
 # Layouts of n = 16, 28 and 30 qubits (GroupLayout.for_qubits).
 LAYOUTS = {16: (4, 128, 128), 28: (128,) * 4, 30: (4,) + (128,) * 4}
@@ -4695,6 +4723,379 @@ def phase_entry_points(report: dict, card: str) -> dict:
     return path
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the GUI on the card
+# ---------------------------------------------------------------------------
+
+GUI_RUN = (16, 40)            # AppConfig.max_qubits: the GUI's full width
+GUI_SHOTS = 4096
+GUI_NOISE = (0.01, 0.01, 0.02)   # depolarizing p, readout P(1|0), P(0|1)
+GUI_OPT = (3, "zz_chain", "parameter_shift")   # iterations, cost, gradient
+GUI_QEC_P = 0.05
+GUI_COMPARE_SHOTS = 1024
+GUI_BRIDGE_SHOTS = 1024
+GUI_JOIN = 600.0
+
+
+class GuiToolkits:
+    """Display stand-ins for the toolkits this machine lacks, each named
+    on an output line: the functional PyQt6 stand-ins of
+    ``tests/qt_stub.py`` (else real Qt on the offscreen platform) and the
+    recording matplotlib stand-in of ``tests/torch_gui_stubs.py``. Every
+    engine call behind the widgets still runs on the card. Message boxes
+    are recorded (``qt_stub.QMessageBox.shown``), never shown."""
+
+    def __init__(self, mp):
+        from tests import qt_stub, torch_gui_stubs
+
+        self.boxes = qt_stub.QMessageBox.shown
+        self.used = []
+        self.app = None
+        if torch_gui_stubs.install_qt(mp):
+            self.used.append("PyQt6 absent: tests/qt_stub.py stand-ins")
+        else:
+            mp.setenv("QT_QPA_PLATFORM", "offscreen")
+            from PyQt6.QtWidgets import QApplication
+
+            self.app = (QApplication.instance()
+                        or QApplication(sys.argv[:1]))
+            self.used.append("PyQt6: real, offscreen platform")
+        if torch_gui_stubs.install_matplotlib(mp):
+            self.used.append("matplotlib absent: recording stand-in")
+        else:
+            self.used.append("matplotlib: real")
+        self.boxes.clear()
+        self._qt_stub = qt_stub
+
+    def patch_boxes(self, mp, module) -> None:
+        """Route ``module``'s message boxes to the recorder (real Qt's
+        would block on a modal dialog)."""
+        if self.app is not None:
+            mp.setattr(module, "QMessageBox", self._qt_stub.QMessageBox)
+
+    def pump(self) -> None:
+        """Deliver queued cross-thread signals (real Qt only; the
+        stand-ins call their slots at once)."""
+        if self.app is not None:
+            self.app.processEvents()
+
+    @staticmethod
+    def status(win) -> str:
+        bar = win.statusBar()
+        return (bar.messages[-1] if hasattr(bar, "messages")
+                else bar.currentMessage())
+
+
+class GuiRun:
+    """Runs one GUI action: wall seconds ending in a synchronize, peak GiB
+    from a fresh counter and launches from zero, printed with the card;
+    any critical message box or worker-thread exception fails the phase
+    (the run pipeline catches every error into a box and returns)."""
+
+    def __init__(self, path: dict, card: str, toolkits: GuiToolkits,
+                 thread_errors: list):
+        self.path = path
+        self.card = card
+        self.toolkits = toolkits
+        self.thread_errors = thread_errors
+        self.rows: dict[str, dict] = {}
+
+    def __call__(self, label: str, fn):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        self.toolkits.pump()
+        delta = add_launches(self.path, before)
+        peak = torch.cuda.max_memory_allocated()
+        critical = [b for b in self.toolkits.boxes if b[0] == "critical"]
+        check(not critical, f"gui {label}: critical message box {critical}")
+        check(not self.thread_errors,
+              f"gui {label}: a worker thread raised {self.thread_errors}")
+        self.rows[label] = {"wall_s": wall, "peak_bytes": peak,
+                            "launches": delta}
+        print(f"gui {label} [{self.card}]: {wall:.3f} s, peak "
+              f"{peak / 2**30:.3f} GiB, launches dense {delta['dense_axis']}"
+              f" cross {delta['cross_bit_axis']}", flush=True)
+        return out, delta
+
+
+def gui_workers(mp) -> tuple[list, list, list]:
+    """Record every thread started (to join the panels' workers), every
+    exception on one, and every ``device_scope`` the advanced panels
+    enter, with the thread that entered it."""
+    import threading
+
+    from quantum_simulator_tpu_torch.gui import advanced_panels as ap
+
+    started, errors, scopes = [], [], []
+
+    class RecordedThread(threading.Thread):
+        def start(self):
+            started.append(self)
+            super().start()
+
+    real_scope = ap.device_scope
+
+    def recorded_scope(device):
+        scopes.append((threading.current_thread(), device))
+        return real_scope(device)
+
+    mp.setattr(threading, "Thread", RecordedThread)
+    mp.setattr(threading, "excepthook",
+               lambda a: errors.append(f"{a.exc_type.__name__}: "
+                                       f"{a.exc_value}"))
+    mp.setattr(ap, "device_scope", recorded_scope)
+    return started, errors, scopes
+
+
+def join_all(started: list) -> None:
+    for t in list(started):
+        t.join(GUI_JOIN)
+        check(not t.is_alive(), f"gui worker {t.name} still running after "
+              f"{GUI_JOIN} s")
+
+
+def gui_run(win, run: GuiRun, report: dict) -> tuple:
+    """15a: one Run click at n = 16 depth 40 (the ideal pass, then the
+    shots run): launches twice the plan's steps, the final and the
+    reference state within 1e-5 of the plain-twin executor."""
+    n, depth = GUI_RUN
+    circuit = brickwork(n, depth, SEED, False)
+    program = tprog.compile_circuit(circuit)
+    steps = plan_launches([program])
+    win.circuit_controller.circuit = circuit
+    _, delta = run("15a run", lambda: win._run_with_shots(GUI_SHOTS))
+    check(delta == {k: 2 * v for k, v in steps.items()},
+          f"gui run: launches {delta}, plan {steps} twice")
+    res = win.last_result
+    ref = win.reference_manager.reference
+    check(res is not None and ref is not None
+          and sum(res.measurement_counts.values()) == GUI_SHOTS
+          and ref.circuit_hash == circuit.circuit_hash(),
+          "gui run: no result, no reference or shots missing")
+    want = tplan.group_forward_body(program, program.initial_params, "cuda",
+                                    plain=True)
+    err = max(float((res.final_state.device_data - want).abs().max()),
+              float((ref.state.device_data - want).abs().max()))
+    check(err <= STATE_TOL, f"gui run: final / reference state vs the "
+          f"plain twins {err}")
+    check(win.histogram_panel._last_counts == res.measurement_counts
+          and win.statevector_panel._last_state is not None
+          and GuiToolkits.status(win).startswith("Run complete"),
+          "gui run: panels not fed")
+    report["gui_run"] = {"launches": delta, "plan": steps, "state_err": err}
+    print(f"gui 15a n={n} depth-{depth}: launches {delta} (plan {steps} "
+          f"twice), final and reference state vs the twins {err:.2e}, "
+          f"{GUI_SHOTS} shots", flush=True)
+    return circuit, program, want, steps
+
+
+def gui_noisy(win, run: GuiRun, mp, circuit, program, want, steps) -> dict:
+    """15b: the noise model through ``NoiseConfigDialog``, a noisy Run
+    click (launches = the ideal plan + the trajectory batches' plans),
+    then step mode over every column."""
+    from quantum_simulator_tpu_torch.gui import main_window as mw
+    from quantum_simulator_tpu_torch.gui.dialogs import NoiseConfigDialog
+
+    p, p01, p10 = GUI_NOISE
+    dialog = NoiseConfigDialog()
+    dialog._rows[2][0].setChecked(True)          # Depolarizing
+    dialog._rows[2][1].setValue(p)
+    dialog.readout_check.setChecked(True)
+    dialog.p01_spin.setValue(p01)
+    dialog.p10_spin.setValue(p10)
+    dialog.exec = lambda: 1
+    mp.setattr(mw, "NoiseConfigDialog", lambda current, parent: dialog)
+    win._configure_noise()
+    nm = win.noise_model
+    check([type(c) for c in nm.global_channels] == [DepolarizingNoise]
+          and nm.readout_error is not None
+          and "Depolarizing" in win.noise_indicator.text(),
+          f"gui noise dialog: {nm.global_channels}")
+    traj = batch_launches(program, nm, GUI_SHOTS)
+    want_delta = {k: steps[k] + traj[k] for k in steps}
+    _, delta = run("15b noisy run", lambda: win._run_with_shots(GUI_SHOTS))
+    check(delta == want_delta, f"gui noisy run: launches {delta}, "
+          f"ideal plan + trajectory batches {want_delta}")
+    err = float((win.reference_manager.reference.state.device_data
+                 - want).abs().max())
+    check(sum(win.last_result.measurement_counts.values()) == GUI_SHOTS
+          and err <= STATE_TOL,
+          f"gui noisy run: shots, ideal reference vs twins {err}")
+
+    def step_mode():
+        win._on_step_mode()
+        for _ in range(program.num_columns + 2):   # the columns, then stop
+            win._advance_step()
+
+    _, sdelta = run("15b step mode", step_mode)
+    check(GuiToolkits.status(win) == "Step mode complete"
+          and len(win.entropy_panel.model.steps) == program.num_columns + 1
+          and sum(sdelta.values()) > 0,
+          f"gui step mode: {GuiToolkits.status(win)}, "
+          f"{len(win.entropy_panel.model.steps)} steps, launches {sdelta}")
+    print(f"gui 15b: noisy run launches {delta} (= ideal plan + "
+          f"trajectory batches), reference err {err:.2e}; step mode "
+          f"{program.num_columns + 1} states", flush=True)
+    return nm
+
+
+def gui_panels(win, run: GuiRun, nm, circuit, want, workers,
+               report: dict) -> None:
+    """15c: the debugger (noisy, the panel's trials), the comparison, the
+    optimizer and the QEC sweep on real worker threads, joined, and the
+    benchmark suite."""
+    started, _, scopes = workers
+    dp = win.debugger_panel
+    dp.breakpoints = set(win.editor_model.breakpoints)
+    trials = dp.trials_spin.value()
+    run(f"15c debugger ({trials} trials)",
+        lambda: dp.run_debug(circuit, nm, seed=SEED, block=True))
+    snaps = dp.debugger.snapshots
+    fids = [s.fidelity for s in snaps]
+    ideal_err = float((snaps[-1].ideal_state.device_data - want).abs().max())
+    check(len(snaps) == circuit.get_column_count() + 1
+          and dp._attribution is not None and len(dp._impacts) > 0
+          and all(-1e-6 <= f <= 1 + 1e-5 for f in fids)
+          and ideal_err <= STATE_TOL,
+          f"gui debugger: {len(snaps)} snapshots, fidelities "
+          f"{min(fids)}..{max(fids)}, ideal vs twins {ideal_err}")
+
+    n, depth = GUI_RUN
+    circuit_b = brickwork(n, depth, SEED, True)
+    program_b = tprog.compile_circuit(circuit_b)
+    cp = win.comparison_panel
+    run("15c comparison", lambda: cp.compare(
+        circuit, circuit_b, shots=GUI_COMPARE_SHOTS, seed=SEED))
+    want_b = tplan.group_forward_body(program_b, program_b.initial_params,
+                                      "cuda", plain=True)
+    fid = float((want.conj() * want_b).sum().abs().square())
+    ferr = abs(cp._last.output_fidelity - fid)
+    check(ferr <= STATE_TOL and cp.table.rowCount() == 9,
+          f"gui comparison: fidelity {cp._last.output_fidelity} vs twins "
+          f"{fid}")
+    del want_b
+
+    iters, cost, grad = GUI_OPT
+    op = win.optimizer_panel
+    op.iters_spin.setValue(iters)
+    op.cost_combo.setCurrentText(cost)
+    op.grad_combo.setCurrentText(grad)
+    first = len(started)
+    _, odelta = run("15c optimizer (worker thread)",
+                    lambda: (op._on_run_clicked(), join_all(started)))
+    worker_scopes = [(t, d) for t, d in scopes if t in started[first:]]
+    check(not op._busy and len(op._history) >= 1
+          and "optimal cost" in str(op.figure.gca().get_title())
+          and worker_scopes
+          and all(d == win.device for _, d in worker_scopes)
+          and odelta["dense_axis"] > 0,
+          f"gui optimizer: busy {op._busy}, {len(op._history)} costs, "
+          f"worker scopes {worker_scopes}, launches {odelta}")
+
+    qp = win.qec_panel
+    qp.p_spin.setValue(GUI_QEC_P)
+    run("15c QEC cycle", qp.run_cycle)
+    check("F=" in qp.status.text(), f"gui QEC cycle: {qp.status.text()}")
+    first = len(started)
+    run("15c QEC sweep (worker thread)",
+        lambda: (qp.run_sweep(), join_all(started)))
+    check(qp.figure.gca().get_xlabel() == "Physical error rate"
+          and any(t in started[first:] for t, _ in scopes),
+          "gui QEC sweep: no plot or no worker")
+
+    win.noise_model = None
+    win._refresh_noise_indicator()
+    run("15c benchmarks", win._run_benchmarks)
+    info = [b for b in run.toolkits.boxes
+            if b[:2] == ("information", "Benchmarks")]
+    lines = info[-1][2].splitlines() if info else []
+    check(lines and all(ln.startswith("✔") for ln in lines),
+          f"gui benchmarks: {lines}")
+    report["gui_panels"] = {"debugger_ideal_err": ideal_err,
+                            "comparison_fidelity_err": ferr,
+                            "optimizer_costs": list(op._history),
+                            "benchmarks": lines}
+    print(f"gui 15c: debugger {len(snaps)} snapshots (ideal vs twins "
+          f"{ideal_err:.2e}), comparison fidelity {fid:.6f} (err "
+          f"{ferr:.2e}), optimizer costs {[round(c, 6) for c in op._history]}"
+          f" on worker threads pinned to {win.device}, {len(lines)} "
+          f"benchmarks passed", flush=True)
+
+
+def gui_bridge(win, run: GuiRun, mp, steps: dict) -> None:
+    """15d: the bridge toggled on (an ephemeral port), one client run
+    (launches = the plan's steps), toggled off."""
+    import functools
+
+    from quantum_simulator_tpu_torch.bridge import SimulatorClient
+    from quantum_simulator_tpu_torch.gui import main_window as mw
+
+    mp.setattr(mw, "BridgeServer", functools.partial(mw.BridgeServer,
+                                                     port=0))
+    run("15d bridge start", win._toggle_bridge)
+    srv = win.bridge_server
+    try:
+        check(srv.is_running and srv.port > 0, "gui bridge did not start")
+        with SimulatorClient(port=srv.port, timeout=FRONT_TIMEOUT) as c:
+            reply, delta = run("15d bridge run", lambda: c.run(
+                shots=GUI_BRIDGE_SHOTS, seed=SEED))
+        check(delta == steps
+              and sum(reply["measurement_counts"].values())
+              == GUI_BRIDGE_SHOTS,
+              f"gui bridge run: launches {delta}, plan {steps}")
+        run("15d bridge stop", win._toggle_bridge)
+        check(not srv.is_running, "gui bridge did not stop")
+    finally:
+        srv.stop()
+
+
+def phase_gui(report: dict, card: str) -> dict:
+    """15a-15d. ``MainWindow(device="cuda")`` at the GUI's full width, the
+    display toolkits stood in where the machine lacks them and undone at
+    the end. Launch counts: every GUI action, each from zero; the
+    plain-twin references launch nothing."""
+    import pytest
+
+    from tests import torch_gui_stubs
+
+    path = {k: 0 for k in launch_counts()}
+    mp = pytest.MonkeyPatch()
+    try:
+        toolkits = GuiToolkits(mp)
+        print("gui toolkits: " + "; ".join(toolkits.used), flush=True)
+        from quantum_simulator_tpu_torch.gui import main_window as mw
+        from quantum_simulator_tpu_torch.utils.appconfig import AppConfig
+
+        toolkits.patch_boxes(mp, mw)
+        workers = gui_workers(mp)
+        run = GuiRun(path, card, toolkits, workers[1])
+        win, _ = run("15 window", lambda: mw.MainWindow(AppConfig(),
+                                                        device="cuda"))
+        check(win.device == torch.device("cuda", torch.cuda.current_device()),
+              f"gui window device {win.device}")
+        circuit, program, want, steps = gui_run(win, run, report)
+        nm = gui_noisy(win, run, mp, circuit, program, want, steps)
+        gui_panels(win, run, nm, circuit, want, workers, report)
+        gui_bridge(win, run, mp, steps)
+        report["gui"] = {"toolkits": toolkits.used, "steps": run.rows}
+        del win, want
+    finally:
+        mp.undo()
+        torch_gui_stubs.purge(torch_gui_stubs.PORT_RENDER)
+    torch.cuda.empty_cache()
+    check(all(v > 0 for v in path.values()),
+          f"a kernel never launched in the GUI: {path}")
+    report["gui_launches"] = path
+    return path
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every measurement as JSON")
@@ -4753,7 +5154,8 @@ def main() -> int:
               "11": lambda: phase_mps(report, card),
               "12": lambda: phase_mesh(report, card),
               "13": lambda: phase_front_ends(report, card),
-              "14": lambda: phase_entry_points(report, card)}
+              "14": lambda: phase_entry_points(report, card),
+              "15": lambda: phase_gui(report, card)}
     out = {}
     for name in PHASES:
         if name in chosen:
@@ -4782,7 +5184,7 @@ def main() -> int:
             "launches": sum(out[p][name] for p in ("3", "3b", "5", "6",
                                                    "7", "8", "9", "10",
                                                    "11", "12", "13",
-                                                   "14")),
+                                                   "14", "15")),
             "max_abs_err": max(out["2"]["max_err"][name], out["2b"][name],
                                out["2c"][name]),
             "ms": row["ms"], "plain_ms": row["plain_ms"],

@@ -21,6 +21,7 @@ from quantum_simulator_tpu.analysis import StateAnalysis as JSA
 import quantum_simulator_tpu_torch as tq
 from quantum_simulator_tpu_torch import models as tmodels
 from quantum_simulator_tpu_torch.analysis import StateAnalysis as TSA
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CPU = "cpu"
 TOL = 1e-5

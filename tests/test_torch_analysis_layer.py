@@ -43,6 +43,7 @@ from quantum_simulator_tpu_torch.ops import plan as tplan
 from quantum_simulator_tpu_torch.ops import program as tprog
 from quantum_simulator_tpu_torch.ops import unitary_traj as tut
 from tests.test_torch_traj import jax_branch
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 AMP_TOL = 1e-5
 OP_TOL = 1e-6

@@ -35,6 +35,7 @@ import quantum_simulator_tpu_torch as tq
 from quantum_simulator_tpu_torch.ops import bigstate as tbig
 from quantum_simulator_tpu_torch.ops import plan as tplan
 from quantum_simulator_tpu_torch.ops import program as tprog
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(params=[False, True], ids=["whole", "chunked"])

@@ -44,6 +44,7 @@ from quantum_simulator_tpu_torch.ops import program as tprog
 from quantum_simulator_tpu_torch.ops import unitary_traj as tut
 from tests.test_torch_traj import (_x_damping_models, both, jax_branch,
                                    model)
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(params=[False, True], ids=["whole", "chunked"])

@@ -37,6 +37,7 @@ from quantum_simulator_tpu_torch.noise import DepolarizingNoise, NoiseModel
 from quantum_simulator_tpu_torch.ops import bigstate
 from quantum_simulator_tpu_torch.ops import program as tprog
 from quantum_simulator_tpu_torch.simulator import Simulator
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 STATE_TOL = 1e-5
 TVD_TOL = 0.03

@@ -40,6 +40,7 @@ from quantum_simulator_tpu_torch.noise import (AmplitudeDampingNoise,
                                                TwoQubitDepolarizingNoise)
 from quantum_simulator_tpu_torch.simulator import Simulator
 from tests import torch_jax_draws as nd
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ONE_Q = ["H", "S", "S_DAG", "X", "Y", "Z", "I"]
 

@@ -38,6 +38,7 @@ from quantum_simulator_tpu_torch import viewmodels as tvm
 from quantum_simulator_tpu_torch.reference import ReferenceManager
 from quantum_simulator_tpu_torch.utils.seeding import SeedManager
 from tests.test_torch_bridge import numpy_noisy_rho
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = 1e-5
 

@@ -41,6 +41,7 @@ from quantum_simulator_tpu_torch.comparison import CircuitComparator
 from quantum_simulator_tpu_torch.ops import plan as tplan
 from quantum_simulator_tpu_torch.ops import program as tprog
 from quantum_simulator_tpu_torch.reference import ReferenceManager
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 AMP_TOL = 1e-5
 RED_TOL = 1e-6

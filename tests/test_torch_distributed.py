@@ -45,6 +45,7 @@ from quantum_simulator_tpu_torch.parallel import (DistributedSimulator,
                                                   make_mesh)
 from quantum_simulator_tpu_torch.parallel import distributed as tdist
 from tests import torch_jax_draws as nd
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CPU = "cpu"
 

@@ -36,6 +36,7 @@ from quantum_simulator_tpu_torch.interop import mps_state_from_numpy
 from quantum_simulator_tpu_torch.models.hamiltonians import (
     heisenberg_chain, tfim_chain)
 from tests.oracle import dense_hamiltonian
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CPU = "cpu"
 E_TOL = 1e-5

@@ -56,6 +56,7 @@ from quantum_simulator_tpu_torch.examples import (error_mitigation,
                                                   quench_spectroscopy,
                                                   quickstart, vqe_at_scale)
 from quantum_simulator_tpu_torch.models.hamiltonians import tfim_chain
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 NUM = r"[-+]?\d+\.\d*(?:e[-+]\d+)?"

@@ -1292,3 +1292,85 @@ def test_vqe_benchmark_card_equals_cpu(cuda, tmp_path):
         cpu = _twin_json(vqe_benchmark, argv, "cpu", tmp_path)
         np.testing.assert_allclose(card["result"]["cost_trace"],
                                    cpu["result"]["cost_trace"], atol=1e-4)
+
+
+@pytest.fixture
+def gui_stubs(cuda, monkeypatch):
+    """The port's GUI over the display stand-ins of
+    ``tests/torch_gui_stubs.py`` (the card's machine has neither PyQt6
+    nor, perhaps, matplotlib); every engine call still runs on its
+    device."""
+    from tests import qt_stub, torch_gui_stubs
+
+    if not torch_gui_stubs.install_qt(monkeypatch):
+        pytest.skip("real PyQt6 present: the stand-in tests do not apply")
+    torch_gui_stubs.install_matplotlib(monkeypatch)
+    yield qt_stub
+    torch_gui_stubs.purge(torch_gui_stubs.PORT_RENDER)
+
+
+def test_main_window_card_equals_cpu(gui_stubs):
+    """One Run click of ``MainWindow(device="cuda")`` at n = 10 (both
+    kernels launched) against ``MainWindow(device="cpu")``: final and
+    reference states within 1e-5, no error box."""
+    from quantum_simulator_tpu_torch.gui.main_window import MainWindow
+    from quantum_simulator_tpu_torch.utils.appconfig import AppConfig
+
+    states = []
+    for device in ("cuda", "cpu"):
+        win = MainWindow(AppConfig(), device=device)
+        win.circuit_controller.circuit = QuantumCircuit.from_dict(
+            _front_end_circuit(n=10, depth=8))
+        cuda_exec.reset_launch_counts()
+        win._run_with_shots(1024)
+        assert not gui_stubs.QMessageBox.shown
+        launches = [k.launches for k in cuda_exec.KERNELS]
+        assert all(v > 0 for v in launches) == (device == "cuda")
+        res = win.last_result
+        assert res.final_state.device_data.device.type == device
+        assert sum(res.measurement_counts.values()) == 1024
+        states.append((res.final_state.data,
+                       win.reference_manager.reference.state.data))
+    (card, card_ref), (cpu, cpu_ref) = states
+    assert np.abs(card - cpu).max() <= 1e-5
+    assert np.abs(card_ref - cpu_ref).max() <= 1e-5
+
+
+def test_advanced_panel_worker_keeps_results_on_the_pinned_device(
+        gui_stubs, monkeypatch):
+    """``DebuggerPanel(device="cuda")`` pins the card where it is built;
+    its worker runs on a real thread, makes that device current, and
+    leaves every snapshot on it (within 1e-5 of the CPU panel's)."""
+    import threading
+
+    from quantum_simulator_tpu_torch.gui.advanced_panels import (
+        DebuggerPanel)
+
+    started = []
+
+    class _Recorded(threading.Thread):
+        def start(self):
+            started.append(self)
+            super().start()
+
+    monkeypatch.setattr(threading, "Thread", _Recorded)
+    circuit = QuantumCircuit.from_dict(_front_end_circuit(n=10, depth=8))
+    panel = DebuggerPanel(device="cuda")
+    pinned = panel._device
+    assert pinned == torch.device("cuda", torch.cuda.current_device())
+    seen = []
+    panel.debug_ready.connect(
+        lambda: seen.append((threading.current_thread(),
+                             torch.cuda.current_device())))
+    panel.run_debug(circuit, None, seed=7)
+    assert len(started) == 1
+    started[0].join(300)
+    assert not started[0].is_alive()
+    assert seen == [(started[0], pinned.index)]
+    snaps = panel.debugger.snapshots
+    assert len(snaps) == 9
+    assert all(s.state.device_data.device == pinned for s in snaps)
+    cpu = DebuggerPanel(device="cpu")
+    cpu.run_debug(circuit, None, seed=7, block=True)
+    for a, b in zip(snaps, cpu.debugger.snapshots):
+        assert np.abs(a.state.data - b.state.data).max() <= 1e-5

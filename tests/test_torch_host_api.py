@@ -34,6 +34,7 @@ from quantum_simulator_tpu_torch.utils import appconfig as tappconfig
 from quantum_simulator_tpu_torch.utils import experiment as texperiment
 from quantum_simulator_tpu_torch.utils import profiling as tprofiling
 from quantum_simulator_tpu_torch.utils import serialization as tserial
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 AMP_TOL = 1e-6
 

@@ -31,6 +31,7 @@ import torch
 from quantum_simulator_tpu.ops import pallas_exec
 from quantum_simulator_tpu.ops.plan import _HI, _cross_spec, _split_axis_bit
 from quantum_simulator_tpu_torch.ops import cuda_exec
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(autouse=True)

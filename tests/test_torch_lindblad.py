@@ -21,6 +21,7 @@ from quantum_simulator_tpu.models import tfim_chain as j_tfim_chain
 from quantum_simulator_tpu_torch import lindblad as tlind
 from quantum_simulator_tpu_torch.interop import density_result_from_numpy
 from quantum_simulator_tpu_torch.models import tfim_chain
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = 1e-4
 

@@ -42,6 +42,7 @@ from quantum_simulator_tpu_torch.circuit import GateInstance, QuantumCircuit
 from quantum_simulator_tpu_torch.noise import (
     AmplitudeDampingNoise, BitFlipNoise, DepolarizingNoise, NoiseModel,
     PhaseFlipNoise, ReadoutError, TwoQubitDepolarizingNoise)
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _rich_circuit() -> QuantumCircuit:

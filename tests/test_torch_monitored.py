@@ -36,6 +36,7 @@ from tests.test_torch_bigtraj import (fidelity, monomial_draws, programs,
                                       recorded)  # noqa: F401  (a fixture)
 from tests.test_torch_traj import (_ops, _x_damping_models, both, brickwork,
                                    model)
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 # ---------------------------------------------------------------------------

@@ -46,6 +46,7 @@ from quantum_simulator_tpu_torch import shadows as tsh
 from quantum_simulator_tpu_torch.interop import mps_state_from_numpy
 from quantum_simulator_tpu_torch.models import hamiltonians as th
 from tests import torch_jax_draws as D
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CPU = "cpu"
 ATOL = 2e-5

@@ -38,6 +38,7 @@ from quantum_simulator_tpu_torch.interop import mps_state_from_numpy
 from quantum_simulator_tpu_torch.lindblad import (LindbladSimulator,
                                                   _pauli_term_matrix)
 from tests import torch_jax_draws as D
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CPU = "cpu"
 TOL = 1e-5

@@ -26,6 +26,7 @@ import quantum_simulator_tpu_torch as tq
 from quantum_simulator_tpu_torch import measurement as tmeas
 from quantum_simulator_tpu_torch.ops import bigtraj as tbigtraj
 from quantum_simulator_tpu_torch.ops import program as tprog
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CHANNELS = {
     "bit-flip": lambda m: m.BitFlipNoise(0.12),

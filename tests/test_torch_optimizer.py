@@ -37,6 +37,7 @@ from quantum_simulator_tpu_torch import optimizer as topt
 from quantum_simulator_tpu_torch.gates import PARAM_BUILDERS, TORCH_BUILDERS
 from quantum_simulator_tpu_torch.ops import plan as tplan
 from quantum_simulator_tpu_torch.ops import program as tprog
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CPU = "cpu"
 FD_EPS = 1e-2

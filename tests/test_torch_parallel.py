@@ -38,6 +38,7 @@ from quantum_simulator_tpu_torch.parallel import (DistributedSimulator,
                                                   make_vqe_mesh,
                                                   sharded_vqe_step)
 from quantum_simulator_tpu_torch.parallel.vqe import shard_local_z_sign
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CPU = "cpu"
 

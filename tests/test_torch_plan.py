@@ -37,6 +37,7 @@ from quantum_simulator_tpu_torch.interop import (operands_from_numpy,
                                                  params_from_numpy)
 from quantum_simulator_tpu_torch.ops import plan as tplan
 from quantum_simulator_tpu_torch.ops import program as tprog
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def straddling():

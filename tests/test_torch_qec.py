@@ -34,6 +34,7 @@ from quantum_simulator_tpu_torch import qec as tq
 from quantum_simulator_tpu_torch import qec_frame as tf
 from quantum_simulator_tpu_torch.parallel import make_mesh
 from tests import torch_jax_draws as nd
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CODES = list(jq.AVAILABLE_CODES)
 T = 128

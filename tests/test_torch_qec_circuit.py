@@ -31,6 +31,7 @@ from quantum_simulator_tpu_torch import qec_matching as tqm
 from quantum_simulator_tpu_torch.qec import _rotated_surface_geometry
 from quantum_simulator_tpu_torch.qec_frame import surface_code_frame_spec
 from tests import torch_jax_draws as nd
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # (d, R, basis, two_qubit_depol, code)
 CONFIG_Z = (3, 2, "z", False, "surface")

@@ -57,6 +57,7 @@ from quantum_simulator_tpu_torch.scripts import (circuit_threshold,
                                                  qec_threshold,
                                                  quantum_volume_check,
                                                  sharded_run, vqe_benchmark)
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 CPU = ["--device", "cpu"]

@@ -25,6 +25,7 @@ from quantum_simulator_tpu_torch import (CONFIG, GateInstance,
                                          StateVector)
 from quantum_simulator_tpu_torch import measurement as tmeas
 from quantum_simulator_tpu_torch import simulator as tsim
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHOTS = 8192

@@ -43,6 +43,7 @@ from quantum_simulator_tpu_torch.ops import monomial_traj as tmt
 from quantum_simulator_tpu_torch.ops import plan as tplan
 from quantum_simulator_tpu_torch.ops import program as tprog
 from quantum_simulator_tpu_torch.ops import unitary_traj as tut
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def brickwork(n, layers, rz=False):

@@ -21,6 +21,7 @@ from quantum_simulator_tpu_torch.models import trotter as ttrot
 from quantum_simulator_tpu_torch.ops import plan as tplan
 from quantum_simulator_tpu_torch.ops import program as tprog
 from quantum_simulator_tpu_torch.registry import GateRegistry
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 PAULI = {"I": np.eye(2), "X": np.array([[0, 1], [1, 0]]),
          "Y": np.array([[0, -1j], [1j, 0]]), "Z": np.diag([1.0, -1.0])}

@@ -29,6 +29,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIMEOUT_S = 240
