@@ -328,6 +328,27 @@ The GUI slice adds:
     thread fails the phase. Printed per action: wall s, peak GiB from a
     fresh counter, launches from zero.
 
+The acceptance slice adds:
+
+16. the acceptance programs' twins on the card. 16a: the harness
+    (``quantum_simulator_tpu_torch.validation.run_groups("cuda")``, every
+    line printed) gives 33/33, its four ``[perf]`` bounds included, with
+    at least 2 + 3 dense launches (the plans of groups 8 and 9); its Bell
+    state, its group-8 Ry layers (the (8, 128) plan) and its 20-qubit H
+    layer on the card within 1e-5 of the same circuits on the CPU. 16b:
+    the parity twin's ``run_ours(200)`` on the card and on the CPU, held
+    together through its ``compare`` (every check passes); only where
+    ``--reference PATH`` names the reference engine's checkout does the
+    real comparison (``parity_check.main``) run, and then it must pass
+    too. 16c: the latency twin's ``main`` at its defaults (n = 16, depth
+    8, the second process included) must return 0 (every edit < 2 s, the
+    child found the kernel library built); its JSON is printed with the
+    second process's time beside its 10 s target, and its launches in
+    this process equal 4 x (10 dense + 8 cross) for the ideal runs plus
+    the two noisy trajectories' plans. The warm 1-gate edit is then split
+    (outside the count): its host operand build on the host clock and its
+    executor's 18 launches in CUDA events, best of 3.
+
 ``--phases 2c,6`` runs only the named phases (and then prints no summary
 and no result line): for bringing up one phase on the card.
 
@@ -338,10 +359,12 @@ debugger, quantum-volume, shadows, ZNE and QEC encode is, in phase 11
 the two statevector references (11a, 11c), in phase 12 the mesh runs
 of 12a-12c, the VQE steps of 12e and the segmented runs of 12f, in
 phase 13 every bridge request and controller or view-model run, in
-phase 14 ``entry()``'s forward and each twin's ``main``, and in phase 15
-every GUI action. The
+phase 14 ``entry()``'s forward and each twin's ``main``, in phase 15
+every GUI action, and in phase 16 the harness, the parity twin's card
+half and the latency twin's ``main`` (its child process uncounted). The
 comparison runs against the twins launch nothing (phases 5, 12 and 14 check
-it).
+it); phase 16 reruns two circuits on the card, outside its count, to hold
+them against the CPU.
 
 The line before the last is the JSON kernel summary; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits with an
@@ -356,8 +379,10 @@ import gc
 import importlib
 import io
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -401,7 +426,10 @@ from quantum_simulator_tpu_torch.ops import plan as tplan
 from quantum_simulator_tpu_torch.ops import program as tprog
 from quantum_simulator_tpu_torch.ops import unitary_traj as tunit
 from quantum_simulator_tpu_torch.parallel import distributed as tdist
-from quantum_simulator_tpu_torch.scripts import mesh_stretch_check
+from quantum_simulator_tpu_torch import validation
+from quantum_simulator_tpu_torch.scripts import (interactive_latency_check,
+                                                 mesh_stretch_check,
+                                                 parity_check)
 
 DENSE_TOL = 2e-4
 CROSS_TOL = 2e-3
@@ -415,7 +443,7 @@ F64_SIZES = (16, 28)
 RUN_PEAK_LIMIT = 6.1 * 2**30
 SEED = 42
 PHASES = ("2", "2b", "2c", "3", "3b", "4", "4b", "5", "6", "7", "8", "9",
-          "10", "11", "12", "13", "14", "15")
+          "10", "11", "12", "13", "14", "15", "16")
 
 # Layouts of n = 16, 28 and 30 qubits (GroupLayout.for_qubits).
 LAYOUTS = {16: (4, 128, 128), 28: (128,) * 4, 30: (4,) + (128,) * 4}
@@ -5096,9 +5124,195 @@ def phase_gui(report: dict, card: str) -> dict:
     return path
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the acceptance programs on the card
+# ---------------------------------------------------------------------------
+
+# Dense launches the harness makes at least: the plans of group 8 (the
+# 10-qubit Ry layers, 2 steps) and group 9 (the 20-qubit H layer, 3).
+HARNESS_MIN_DENSE = 2 + 3
+PARITY_TRIALS = 200
+
+
+def acceptance_harness(path: dict, report: dict, card: str) -> None:
+    """16a. The 33 assertions on the card, then two of its circuits held
+    against the CPU (those reruns launch outside the count)."""
+    before = launch_counts()
+    t0 = time.perf_counter()
+    records = validation.run_groups("cuda")
+    wall = time.perf_counter() - t0
+    delta = add_launches(path, before)
+    passed = sum(r.ok for r in records)
+    print(f"16a harness [{card}]: {passed}/{len(records)} assertions in "
+          f"{wall:.2f} s, launches dense {delta['dense_axis']} cross "
+          f"{delta['cross_bit_axis']}", flush=True)
+    check(passed == len(records) == validation.N_ASSERTIONS,
+          "harness: " + "; ".join(r.line().strip() for r in records
+                                  if not r.ok))
+    check(delta["dense_axis"] >= HARNESS_MIN_DENSE,
+          f"harness launched {delta}, want >= {HARNESS_MIN_DENSE} dense")
+    errs = {}
+    for label, circuit in (("Bell", validation.bell_circuit()),
+                           ("Ry layers n=10 depth-20",
+                            validation.ry_layers()),
+                           ("H-layer n=20", validation.h_layer())):
+        got = Simulator(device="cuda").run(
+            circuit, shots=0, seed=42).final_state.device_data.cpu()
+        want = Simulator(device="cpu").run(
+            circuit, shots=0, seed=42).final_state.device_data
+        errs[label] = float((got - want).abs().max())
+        check(errs[label] <= STATE_TOL,
+              f"harness {label}: card vs CPU {errs[label]}")
+    print("16a card vs CPU: " + ", ".join(f"{k} {v:.2e}"
+                                          for k, v in errs.items()),
+          flush=True)
+    report["acceptance"]["harness"] = {
+        "wall_s": wall, "launches": delta, "card_vs_cpu": errs,
+        "perf": {r.name: r.values["seconds"] for r in records
+                 if "seconds" in r.values},
+        "lines": [r.line() for r in records]}
+
+
+def acceptance_parity(path: dict, report: dict, card: str,
+                      reference: str | None) -> None:
+    """16b. The parity twin's engine half, card against CPU, through the
+    script's own ``compare``; the reference comparison only where
+    ``reference`` names its checkout."""
+    before = launch_counts()
+    t0 = time.perf_counter()
+    on_card = parity_check.run_ours(PARITY_TRIALS, "cuda")
+    wall = time.perf_counter() - t0
+    delta = add_launches(path, before)
+    on_cpu = parity_check.run_ours(PARITY_TRIALS, "cpu")
+    checks = parity_check.compare(on_cpu, on_card, PARITY_TRIALS)
+    ok = parity_check.print_checks(checks)
+    print(f"16b parity [{card}]: card half {wall:.2f} s, launches dense "
+          f"{delta['dense_axis']} cross {delta['cross_bit_axis']}; "
+          f"{sum(c['passed'] for c in checks)}/{len(checks)} checks, "
+          f"card against CPU", flush=True)
+    check(ok and len(checks) == 8, "parity card vs CPU failed")
+    check(delta["dense_axis"] > 0, f"parity launched {delta}")
+    if reference is None:
+        print("16b reference comparison: not run (no --reference)",
+              flush=True)
+    else:
+        check(parity_check.has_reference(reference),
+              f"--reference {reference} holds no quantum_sim package")
+    rec = {"card_s": wall, "launches": delta, "checks": checks,
+           "reference": reference}
+    if reference is not None:
+        rc = parity_check.main(["--device", "cuda", "--trials",
+                                str(PARITY_TRIALS), "--reference",
+                                reference])
+        check(rc == 0, f"parity against the reference exited {rc}")
+        rec["reference_rc"] = rc
+    report["acceptance"]["parity"] = rec
+
+
+def latency_launches(n: int, depth: int) -> dict:
+    """The in-process launches of the latency twin: four ideal runs and
+    one noisy trajectory each of the unedited and the 1-gate circuits."""
+    want = {"dense_axis": 0, "cross_bit_axis": 0}
+    for edit in (0, 0, 1, 2):
+        d, c, _ = step_counts(tprog.compile_circuit(
+            interactive_latency_check.build(n, depth, 3, edit)))
+        want["dense_axis"] += d
+        want["cross_bit_axis"] += c
+    nm = noise_model("depol")
+    for edit in (0, 1):
+        for k, v in batch_launches(tprog.compile_circuit(
+                interactive_latency_check.build(n, depth, 3, edit)),
+                nm, 1).items():
+            want[k] += v
+    return want
+
+
+def acceptance_latency(path: dict, report: dict, card: str) -> None:
+    """16c. The latency twin's ``main`` at its defaults."""
+    with tempfile.TemporaryDirectory() as td:
+        out_path = os.path.join(td, "latency.json")
+        before = launch_counts()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = interactive_latency_check.main(["--output", out_path])
+        delta = add_launches(path, before)
+        with open(out_path) as f:
+            out = json.load(f)
+    print(json.dumps(out), flush=True)
+    check(rc == 0, f"latency twin exited {rc}: {out}")
+    want = latency_launches(out["n"], out["depth"])
+    print(f"16c latency [{card}]: edits 1-gate {out['warm_1gate_edit_s']} "
+          f"s, realness flip {out['warm_realness_flip_edit_s']} s, noisy "
+          f"{out['noisy_warm_1gate_edit_s']} s (target < "
+          f"{interactive_latency_check.EDIT_TARGET_S} s); second process "
+          f"cold {out['second_process_cold_s']} s (target <= "
+          f"{interactive_latency_check.SECOND_PROCESS_TARGET_S} s, "
+          f"met: {out['second_process_cold_under_10s']}); launches dense "
+          f"{delta['dense_axis']} cross {delta['cross_bit_axis']} (plans "
+          f"{want['dense_axis']} / {want['cross_bit_axis']})", flush=True)
+    check(delta == want, f"latency launches {delta}, plans {want}")
+    split = edit_split(out["n"], out["depth"])
+    print(f"16c warm 1-gate edit [{card}]: executor "
+          f"{split['executor_ms']:.4f} ms device (CUDA events, "
+          f"{split['launches']} launches), host operand build "
+          f"{split['host_build_ms']:.4f} ms, of the "
+          f"{out['warm_1gate_edit_s'] * 1e3:.3f} ms edit rerun", flush=True)
+    report["acceptance"]["latency"] = {"result": out, "launches": delta,
+                                       "edit_split": split}
+
+
+def edit_split(n: int, depth: int) -> dict:
+    """The latency twin's warm 1-gate edit, split: the host operand build
+    (best of 3, host clock) and the executor on operands already on the
+    card (best of 3, CUDA events). Launched outside the path's count."""
+    program = tprog.compile_circuit(
+        interactive_latency_check.build(n, depth, 3, 1))
+    plan = tplan.build_group_plan(program)
+    params = program.initial_params
+    build_s = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        host_ops = tplan.build_group_operands(program, plan, params)
+        build_s = min(build_s, time.perf_counter() - t0)
+    ops = tplan.operands_to(host_ops, "cuda")
+    planar = not plan.all_real
+
+    def fresh():
+        return tplan.basis_state(plan, program.initial_index, "cuda",
+                                 planar)
+
+    def executor(x):
+        return tplan.execute_group_plan(plan, ops, program, params, x,
+                                        planar, False)
+
+    executor(fresh())   # warm
+    d, c, _ = step_counts(program)
+    return {"executor_ms": event_ms(executor, fresh),
+            "host_build_ms": build_s * 1e3, "launches": d + c}
+
+
+def phase_acceptance(report: dict, card: str,
+                     reference: str | None) -> dict:
+    """16a-16c. Launch counts: the harness, the parity twin's card half
+    and the latency twin's in-process runs, each from zero."""
+    path = {k: 0 for k in launch_counts()}
+    report["acceptance"] = {}
+    acceptance_harness(path, report, card)
+    acceptance_parity(path, report, card, reference)
+    acceptance_latency(path, report, card)
+    torch.cuda.empty_cache()
+    check(all(v > 0 for v in path.values()),
+          f"a kernel never launched in the acceptance programs: {path}")
+    report["acceptance_launches"] = path
+    return path
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every measurement as JSON")
+    ap.add_argument("--reference", metavar="PATH", help="checkout of the "
+                    "reference NumPy engine: 16b then also runs the parity "
+                    "check against it")
     ap.add_argument("--phases", help="comma-separated phases to run, of "
                     + ",".join(PHASES) + " (then no summary is printed)")
     args = ap.parse_args()
@@ -5155,7 +5369,8 @@ def main() -> int:
               "12": lambda: phase_mesh(report, card),
               "13": lambda: phase_front_ends(report, card),
               "14": lambda: phase_entry_points(report, card),
-              "15": lambda: phase_gui(report, card)}
+              "15": lambda: phase_gui(report, card),
+              "16": lambda: phase_acceptance(report, card, args.reference)}
     out = {}
     for name in PHASES:
         if name in chosen:
@@ -5184,7 +5399,8 @@ def main() -> int:
             "launches": sum(out[p][name] for p in ("3", "3b", "5", "6",
                                                    "7", "8", "9", "10",
                                                    "11", "12", "13",
-                                                   "14", "15")),
+                                                   "14", "15",
+                                                   "16")),
             "max_abs_err": max(out["2"]["max_err"][name], out["2b"][name],
                                out["2c"][name]),
             "ms": row["ms"], "plain_ms": row["plain_ms"],

@@ -1374,3 +1374,35 @@ def test_advanced_panel_worker_keeps_results_on_the_pinned_device(
     cpu.run_debug(circuit, None, seed=7, block=True)
     for a, b in zip(snaps, cpu.debugger.snapshots):
         assert np.abs(a.state.data - b.state.data).max() <= 1e-5
+
+
+def test_validation_harness_card_33_of_33(cuda):
+    """The acceptance harness on the card: all 33 assertions, the four
+    ``[perf]`` bounds included, with dense launches from groups 8 and 9."""
+    from quantum_simulator_tpu_torch import validation
+    cuda_exec.reset_launch_counts()
+    records = validation.run_groups("cuda")
+    assert len(records) == validation.N_ASSERTIONS
+    assert [r.line() for r in records if not r.ok] == []
+    assert cuda_exec.dense_axis.launches >= 2 + 3
+
+
+def test_parity_card_equals_cpu(cuda):
+    """The parity twin's engine half on the card against the CPU, through
+    the script's own ``compare``: all 8 checks pass."""
+    from quantum_simulator_tpu_torch.scripts import parity_check
+    card = parity_check.run_ours(200, "cuda")
+    cpu = parity_check.run_ours(200, "cpu")
+    checks = parity_check.compare(cpu, card, 200)
+    assert len(checks) == 8 and all(c["passed"] for c in checks), checks
+
+
+def test_interactive_latency_card_meets_edit_target(cuda, tmp_path):
+    """The latency twin at n = 16, depth 8 on the card: every edit rerun
+    (ideal 1-gate, realness flip, noisy 1-gate) under 2 s."""
+    from quantum_simulator_tpu_torch.scripts import interactive_latency_check
+    got = _twin_json(interactive_latency_check,
+                     ["-n", "16", "--depth", "8", "--skip-subprocess"],
+                     "cuda", tmp_path)
+    assert got["platform"] == "gpu" and got["edit_under_2s"]
+    assert got["device"] == torch.cuda.get_device_name(0)
