@@ -349,6 +349,32 @@ The acceptance slice adds:
     (outside the count): its host operand build on the host clock and its
     executor's 18 launches in CUDA events, best of 3.
 
+The complex128 slice adds:
+
+17. under ``config.enable_complex128()`` (restored to complex64 in a
+    ``finally``). 17a: the float64 kernels (``dense_axis_f64``,
+    ``cross_bit_axis_f64``, ``csrc/fiber_matmul_f64.cu``) against their
+    float64 twins at every depth K from 2 to 256 (layouts whose first
+    axis is 2-128 wide: the n = 15-21 layouts, the n = 16 headline's and
+    the n = 28 Ry/Rz step shapes), real and planar states, real and
+    complex operators, every dense axis, cross geometries on the small
+    and the wide axes and a sliced bit inside the last axis, and a batch
+    of B = 8 with shared and per-trajectory operators: max |kernel - twin|
+    <= 1e-12 x max |x| (float64 sums of at most 256 terms in another
+    order). 17b: ``Simulator(device="cuda").run`` on the headline (n = 16
+    depth-40 Ry+CNOT) within 1e-12 of the same port code on the CPU, and
+    on the n = 28 depth-8 Ry/Rz circuit with |1 - sum |a|^2| <= 1e-12 and
+    its largest difference from the complex64 run printed; the float64
+    launches equal the plans' dense and cross steps and the float32
+    counters stay 0. 17c: each trajectory route (unitary, monomial, fold,
+    per-gate) and one monitored case at n = 16 on the card and on the CPU
+    with the card's draws, within 1e-12. 17d: each float64 kernel's ms per
+    launch at the n = 28 shapes (CUDA events, best of 3) beside its bound
+    (FP64 at 67 TFLOP/s, 3.35 TB/s), its twin's and one blocked float64
+    ``torch.einsum`` (``library_ms``), and the whole complex128
+    ``Simulator.run`` at n = 16 and 28 beside the complex64 one, with the
+    peak memory.
+
 ``--phases 2c,6`` runs only the named phases (and then prints no summary
 and no result line): for bringing up one phase on the card.
 
@@ -361,7 +387,8 @@ of 12a-12c, the VQE steps of 12e and the segmented runs of 12f, in
 phase 13 every bridge request and controller or view-model run, in
 phase 14 ``entry()``'s forward and each twin's ``main``, in phase 15
 every GUI action, and in phase 16 the harness, the parity twin's card
-half and the latency twin's ``main`` (its child process uncounted). The
+half and the latency twin's ``main`` (its child process uncounted); the
+float64 kernels' launches are those of 17b and 17c, each run from zero. The
 comparison runs against the twins launch nothing (phases 5, 12 and 14 check
 it); phase 16 reruns two circuits on the card, outside its count, to hold
 them against the CPU.
@@ -400,6 +427,7 @@ from quantum_simulator_tpu_torch import (AmplitudeDampingNoise,
                                          StateVector,
                                          TwoQubitDepolarizingNoise)
 from quantum_simulator_tpu_torch import clifford as tclif
+from quantum_simulator_tpu_torch import config as tconfig
 from quantum_simulator_tpu_torch import correlators as tcorr
 from quantum_simulator_tpu_torch import density as tdens
 from quantum_simulator_tpu_torch import dmrg as tdmrg
@@ -443,7 +471,7 @@ F64_SIZES = (16, 28)
 RUN_PEAK_LIMIT = 6.1 * 2**30
 SEED = 42
 PHASES = ("2", "2b", "2c", "3", "3b", "4", "4b", "5", "6", "7", "8", "9",
-          "10", "11", "12", "13", "14", "15", "16")
+          "10", "11", "12", "13", "14", "15", "16", "17")
 
 # Layouts of n = 16, 28 and 30 qubits (GroupLayout.for_qubits).
 LAYOUTS = {16: (4, 128, 128), 28: (128,) * 4, 30: (4,) + (128,) * 4}
@@ -461,6 +489,13 @@ KERNEL_INFO = {
                    "quantum_simulator_tpu/ops/pallas_exec.py:178"),
     "cross_bit_axis": ("quantum_simulator_tpu_torch/csrc/cross_bit_axis.cu",
                        "quantum_simulator_tpu/ops/pallas_exec.py:229"),
+}
+KERNEL_INFO_F64 = {
+    "dense_axis_f64": ("quantum_simulator_tpu_torch/csrc/fiber_matmul_f64.cu",
+                       "quantum_simulator_tpu/ops/pallas_exec.py:178"),
+    "cross_bit_axis_f64": (
+        "quantum_simulator_tpu_torch/csrc/fiber_matmul_f64.cu",
+        "quantum_simulator_tpu/ops/pallas_exec.py:229"),
 }
 
 
@@ -5307,6 +5342,403 @@ def phase_acceptance(report: dict, card: str,
     return path
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the complex128 verification mode
+# ---------------------------------------------------------------------------
+
+C128_DEVICE = "cuda"
+# max |float64 kernel - float64 twin| <= C128_TOL x max |x|: sums of at
+# most 256 float64 terms in another order.
+C128_TOL = 1e-12
+# Layouts whose first axis is 2 - 128 wide (n = 15 - 21: every dense depth
+# and every cross depth 2S), and the n = 28 Ry/Rz step shapes.
+C128_LAYOUTS = {n: tplan.GroupLayout.for_qubits(n).axis_sizes
+                for n in (15, 16, 17, 18, 19, 20, 21, 28)}
+C128_BATCH = (16, 8)              # (n, B) of the batched cases
+C128_HEADLINE = (16, 40, False)   # Ry+CNOT brickwork (n, depth, mix_rz)
+C128_WIDE = (28, 8, True)         # Ry/Rz brickwork
+C128_TRAJ = (16, 6, 4)            # 17c: (n, depth, trajectories)
+C128_SHOTS = 1024
+# 17d kernel rows: the n = 28 Ry/Rz brickwork's complex steps
+C128_SUMMARY = {"dense_axis_f64": ("dense", 28, 3),
+                "cross_bit_axis_f64": ("cross", 28, (2, 6, 3))}
+FP64_FLOP_PER_S = 67e12           # H100 SXM FP64, tensor-core peak
+
+
+def c128_state(shape, planar: bool, seed: int, batch=None) -> torch.Tensor:
+    gen = torch.Generator(device=C128_DEVICE)
+    gen.manual_seed(seed)
+    full = (() if batch is None else (batch,)) + ((2,) if planar else ()) \
+        + tuple(shape)
+    return torch.randn(full, generator=gen, dtype=torch.float64,
+                       device=C128_DEVICE)
+
+
+def c128_op(shape, real: bool, rng, batch=None) -> torch.Tensor:
+    """N(0, 1/K) float64 entries, K the contraction depth (as
+    ``random_op``); ``batch`` adds one operator per trajectory."""
+    k = shape[-1] * (2 if len(shape) == 4 else 1)
+    full = (() if batch is None else (batch,)) + (
+        tuple(shape) if real else (2,) + tuple(shape))
+    return torch.from_numpy(rng.standard_normal(full) / np.sqrt(k)).to(
+        C128_DEVICE)
+
+
+def c128_geometries(shape) -> list:
+    """Cross geometries (slice_axis, slice_pos, op_axis): the first axis
+    as the op axis (K = 2 x its width), a wide op axis (K = 256), a sliced
+    bit inside the last axis and the first axis as the sliced one."""
+    last = len(shape) - 1
+    bits0 = shape[0].bit_length() - 1
+    return [(1, 0, 0), (1, 6, 2), (last, 3, 0), (0, bits0 - 1, 1)]
+
+
+def c128_bound(shape, planar: bool, real: bool, K: int) -> tuple:
+    """(least ms, "bytes" or "operations") of one float64 launch: each
+    state element read and written once and the operator read once at
+    3.35 TB/s, against 2K FLOPs per real output element (x2 complex) at
+    the FP64 peak."""
+    numel = (2 if planar else 1) * int(np.prod(shape))
+    t_bytes = (16 * numel + 8 * K * K * (1 if real else 2)) / \
+        HBM_BYTES_PER_S
+    t_ops = 2 * K * numel * (1 if real else 2) / FP64_FLOP_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def c128_kernel_case(name, label, x, op, kfn, pfn, max_err: dict,
+                     rows: list) -> None:
+    x0 = x.clone()
+    got = kfn(x)
+    torch.cuda.synchronize()
+    check(got is x, f"{label}: the wrapper did not return its input")
+    want = pfn(x0, op)
+    err = float((got - want).abs().max())
+    scale = float(x0.abs().max())
+    check(err <= C128_TOL * scale, f"{label}: max |kernel - twin| = {err} "
+          f"> {C128_TOL} x max |x| = {C128_TOL * scale}")
+    max_err[name] = max(max_err[name], err)
+    rows.append({"kernel": name, "case": label, "max_abs_err": err,
+                 "max_abs_x": scale})
+
+
+def c128_kernels(report: dict, card: str) -> dict:
+    """17a. Every case against its float64 twin, unbatched and batched."""
+    rng = np.random.default_rng(SEED)
+    max_err = {"dense_axis_f64": 0.0, "cross_bit_axis_f64": 0.0}
+    rows: list = []
+    variants = ((False, True), (True, True), (True, False))
+    for n, shape in C128_LAYOUTS.items():
+        for planar, real in variants:
+            kind = f"{'planar' if planar else 'real'}-state " \
+                f"{'real' if real else 'complex'}-op"
+            for axis in range(len(shape)):
+                S = shape[axis]
+                op = c128_op((S, S), real, rng)
+                c128_kernel_case(
+                    "dense_axis_f64", f"f64 dense n={n} axis={axis} {kind}",
+                    c128_state(shape, planar, len(rows)), op,
+                    lambda x, op=op, a=axis, p=planar:
+                    cuda_exec.dense_axis_f64(x, op, a, p),
+                    lambda x, op, a=axis, p=planar:
+                    cuda_exec.dense_axis_plain(x, op, a, p), max_err, rows)
+            for s, pos, o in c128_geometries(shape):
+                S = shape[o]
+                cop = c128_op((2, S, 2, S), real, rng)
+                c128_kernel_case(
+                    "cross_bit_axis_f64",
+                    f"f64 cross n={n} geom=({s},{pos},{o}) {kind}",
+                    c128_state(shape, planar, len(rows)), cop,
+                    lambda x, c=cop, g=(s, pos, o), p=planar:
+                    cuda_exec.cross_bit_axis_f64(x, c, *g, p),
+                    lambda x, c, g=(s, pos, o), p=planar:
+                    cuda_exec.cross_bit_axis_plain(x, c, *g, p),
+                    max_err, rows)
+        torch.cuda.empty_cache()
+    n, B = C128_BATCH
+    shape = C128_LAYOUTS[n]
+    for planar, real in variants:
+        for shared in (True, False):
+            kind = (f"{'planar' if planar else 'real'}-state "
+                    f"{'real' if real else 'complex'}-op "
+                    f"{'shared' if shared else 'per-trajectory'} B={B}")
+
+            def ops(op_shape):
+                if shared:
+                    one = c128_op(op_shape, real, rng)
+                    return one[None].expand((B,) + tuple(one.shape))
+                return c128_op(op_shape, real, rng, batch=B)
+
+            for axis in range(len(shape)):
+                S = shape[axis]
+                op = ops((S, S))
+                c128_kernel_case(
+                    "dense_axis_f64",
+                    f"f64 batched dense n={n} axis={axis} {kind}",
+                    c128_state(shape, planar, len(rows), B), op,
+                    lambda x, op=op, a=axis, p=planar:
+                    cuda_exec.dense_axis_f64(x, op, a, p, True),
+                    lambda x, op, a=axis, p=planar:
+                    cuda_exec.dense_axis_plain(x, op, a, p, True),
+                    max_err, rows)
+            for s, pos, o in c128_geometries(shape):
+                S = shape[o]
+                cop = ops((2, S, 2, S))
+                c128_kernel_case(
+                    "cross_bit_axis_f64",
+                    f"f64 batched cross n={n} geom=({s},{pos},{o}) {kind}",
+                    c128_state(shape, planar, len(rows), B), cop,
+                    lambda x, c=cop, g=(s, pos, o), p=planar:
+                    cuda_exec.cross_bit_axis_f64(x, c, *g, p, True),
+                    lambda x, c, g=(s, pos, o), p=planar:
+                    cuda_exec.cross_bit_axis_plain(x, c, *g, p, True),
+                    max_err, rows)
+    torch.cuda.empty_cache()
+    print(f"17a float64 kernels [{card}]: {len(rows)} cases, max |kernel - "
+          f"twin| dense {max_err['dense_axis_f64']:.3e} cross "
+          f"{max_err['cross_bit_axis_f64']:.3e} (bound {C128_TOL} x max "
+          f"|x|, worst ratio "
+          f"{max(r['max_abs_err'] / r['max_abs_x'] for r in rows):.3e})",
+          flush=True)
+    report["c128"]["kernel_cases"] = rows
+    return max_err
+
+
+def f64_counts() -> dict:
+    return {k.__name__: k.launches for k in cuda_exec.KERNELS_F64}
+
+
+def c128_path_run(fn, path: dict, want: dict | None, label: str):
+    """``fn()`` with every counter from zero: the float64 launches are
+    added to ``path`` (and held to ``want`` when given); the float32
+    kernels must not launch."""
+    cuda_exec.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    f64, f32 = f64_counts(), launch_counts()
+    check(all(v == 0 for v in f32.values()),
+          f"{label}: float32 kernels launched under complex128: {f32}")
+    if want is not None:
+        check(f64 == want, f"{label}: float64 launches {f64}, plan {want}")
+    for k, v in f64.items():
+        path[k] = path.get(k, 0) + v
+    return out, f64
+
+
+def f64_plan_launches(program) -> dict:
+    d, c, _ = step_counts(program)
+    return {"dense_axis_f64": d, "cross_bit_axis_f64": c}
+
+
+def c128_runs(path: dict, report: dict, card: str) -> dict:
+    """17b. ``Simulator.run`` on the headline (card against CPU) and at
+    n = 28 (norm, difference from complex64)."""
+    out = {}
+    n, depth, mix = C128_HEADLINE
+    c = brickwork(n, depth, SEED, mix)
+    res, f64 = c128_path_run(
+        lambda: Simulator(device=C128_DEVICE).run(c, shots=C128_SHOTS,
+                                                  seed=SEED),
+        path, f64_plan_launches(tprog.compile_circuit(c)), "17b headline")
+    got = res.final_state.device_data
+    check(got.dtype == torch.complex128, f"17b headline dtype {got.dtype}")
+    check(sum(res.measurement_counts.values()) == C128_SHOTS,
+          "17b headline shots")
+    cpu = Simulator(device="cpu").run(c, shots=0).final_state.device_data
+    err = float((got.cpu() - cpu).abs().max())
+    check(err <= C128_TOL, f"17b headline: card vs CPU {err} > {C128_TOL}")
+    print(f"17b headline n={n} depth-{depth} [{card}]: card vs CPU "
+          f"{err:.3e}, launches {f64}", flush=True)
+    out["headline"] = {"card_vs_cpu": err, "launches": f64}
+    del res, got, cpu
+
+    n, depth, mix = C128_WIDE
+    c = brickwork(n, depth, SEED, mix)
+    res, f64 = c128_path_run(
+        lambda: Simulator(device=C128_DEVICE).run(c, shots=C128_SHOTS,
+                                                  seed=SEED),
+        path, f64_plan_launches(tprog.compile_circuit(c)), "17b wide")
+    a128 = res.final_state.device_data
+    del res
+    check(a128.dtype == torch.complex128, f"17b wide dtype {a128.dtype}")
+    norm_err = abs(1.0 - float(a128.abs().square().sum()))
+    check(norm_err <= C128_TOL, f"17b n={n}: |1 - sum |a|^2| = {norm_err}")
+    tconfig.enable_complex64()
+    try:
+        cuda_exec.reset_launch_counts()
+        a64 = Simulator(device=C128_DEVICE).run(c, shots=0) \
+            .final_state.device_data
+    finally:
+        tconfig.enable_complex128()
+    diff = float((a128 - a64.to(torch.complex128)).abs().max())
+    check(np.isfinite(diff) and diff <= 1e-4,
+          f"17b n={n}: complex128 vs complex64 {diff}")
+    print(f"17b n={n} depth-{depth} Ry/Rz [{card}]: |1 - sum |a|^2| "
+          f"{norm_err:.3e}, max |complex128 - complex64| {diff:.3e}, "
+          f"launches {f64}", flush=True)
+    out["wide"] = {"norm_err": norm_err, "vs_complex64": diff,
+                   "launches": f64}
+    del a128, a64
+    torch.cuda.empty_cache()
+    return out
+
+
+def to_device(draws, device):
+    """A body's draws (a tensor, or lists and tuples of them) on
+    ``device``."""
+    if isinstance(draws, torch.Tensor):
+        return draws.to(device)
+    return type(draws)(to_device(d, device) for d in draws)
+
+
+def c128_trajectories(path: dict, report: dict, card: str) -> dict:
+    """17c. Each trajectory route and a monitored case, card against the
+    CPU on the card's draws."""
+    n, depth, T = C128_TRAJ
+    program = tprog.compile_circuit(brickwork(n, depth, SEED, True))
+    params = program.initial_params
+    cases = [("unitary", global_noise(DepolarizingNoise(0.05)),
+              tunit.unitary_insert_trajectory_body),
+             ("monomial", global_noise(AmplitudeDampingNoise(0.05)),
+              tmono.monomial_trajectory_body),
+             ("fold", global_noise(XBasisDamping(0.05)),
+              bigtraj.fold_trajectory_body),
+             ("per-gate", global_noise(XBasisDamping(0.05)),
+              tplan.group_trajectory_body)]
+    out = {}
+    for route, nm, body in cases:
+        if route != "per-gate":
+            check(tprog.trajectory_route(program, nm) == route,
+                  f"17c: {route} model routes elsewhere")
+        gen = torch.Generator(device=C128_DEVICE).manual_seed(SEED)
+        (states, draws), f64 = c128_path_run(
+            lambda: body(program, nm, params, T, C128_DEVICE, gen), path,
+            None, f"17c {route}")
+        cpu, _ = body(program, nm, params, T, "cpu", None,
+                      to_device(draws, "cpu"))
+        check(states.dtype == torch.complex128 and sum(f64.values()) > 0,
+              f"17c {route}: {states.dtype}, launches {f64}")
+        err = float((states.cpu() - cpu).abs().max())
+        check(err <= C128_TOL, f"17c {route}: card vs CPU {err}")
+        print(f"17c {route} n={n} T={T} [{card}]: card vs CPU {err:.3e}, "
+              f"launches {f64}", flush=True)
+        out[route] = {"card_vs_cpu": err, "launches": f64}
+    circuit = monitored_brickwork(n, depth, SEED)
+    mprog = tprog.compile_circuit(circuit)
+    events = monitored_events(circuit)
+    nm = global_noise(AmplitudeDampingNoise(0.05))
+    gen = torch.Generator(device=C128_DEVICE).manual_seed(SEED)
+    (states, outs, draws), f64 = c128_path_run(
+        lambda: tmono.monomial_monitored_body(
+            mprog, nm, events, mprog.initial_params, T, C128_DEVICE, gen),
+        path, None, "17c monitored")
+    cpu, cpu_outs, _ = tmono.monomial_monitored_body(
+        mprog, nm, events, mprog.initial_params, T, "cpu", None,
+        to_device(draws, "cpu"))
+    err = float((states.cpu() - cpu).abs().max())
+    check(err <= C128_TOL and torch.equal(outs.cpu(), cpu_outs),
+          f"17c monitored: card vs CPU {err}")
+    print(f"17c monitored n={n} {len(events)} measurements T={T} [{card}]: "
+          f"card vs CPU {err:.3e}, launches {f64}", flush=True)
+    out["monitored"] = {"card_vs_cpu": err, "launches": f64}
+    torch.cuda.empty_cache()
+    return out
+
+
+def c128_timing(report: dict, card: str) -> dict:
+    """17d. The float64 kernels at the n = 28 shapes, and the whole runs
+    in both precisions."""
+    rng = np.random.default_rng(SEED + 17)
+    summary = {}
+    for name, (kind, n, geom) in C128_SUMMARY.items():
+        shape = C128_LAYOUTS[n]
+        base = "dense_axis" if kind == "dense" else "cross_bit_axis"
+        if kind == "dense":
+            S = shape[geom]
+            K = S
+            op = c128_op((S, S), False, rng)
+
+            def kfn(x, op=op):
+                return cuda_exec.dense_axis_f64(x, op, geom, True)
+
+            def pfn(x, op=op):
+                return cuda_exec.dense_axis_plain(x, op, geom, True)
+        else:
+            S = shape[geom[2]]
+            K = 2 * S
+            op = c128_op((2, S, 2, S), False, rng)
+
+            def kfn(x, op=op):
+                return cuda_exec.cross_bit_axis_f64(x, op, *geom, True)
+
+            def pfn(x, op=op):
+                return cuda_exec.cross_bit_axis_plain(x, op, *geom, True)
+        x = c128_state(shape, True, 17)
+        x0 = x.clone()
+        k_ms, p_ms = in_turns(lambda: pfn(x0), lambda: kfn(x))
+        lib_ms = event_ms(library_call(base, x0, op, geom, True))
+        b_ms, b_by = c128_bound(shape, True, False, K)
+        del x, x0
+        torch.cuda.empty_cache()
+        summary[name] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
+                         "bound_ms": b_ms, "bound_by": b_by, "K": K}
+        print(f"17d {name} n={n} complex K={K} [{card}]: kernel {k_ms:.4f} "
+              f"ms, twin {p_ms:.4f} ms, float64 einsum {lib_ms:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by}), {b_ms / k_ms:.3f} of it",
+              flush=True)
+    runs = {}
+    for label, (n, depth, mix) in (("headline", C128_HEADLINE),
+                                   ("wide", C128_WIDE)):
+        c = brickwork(n, depth, SEED, mix)
+        row = {}
+        for prec, enable in (("complex64", tconfig.enable_complex64),
+                             ("complex128", tconfig.enable_complex128)):
+            enable()
+            sim = Simulator(device=C128_DEVICE)
+            sim.run(c, shots=0)     # warm
+            best = float("inf")
+            torch.cuda.reset_peak_memory_stats()
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = sim.run(c, shots=0)
+                torch.cuda.synchronize()
+                best = min(best, time.perf_counter() - t0)
+                del res
+            row[prec] = {"run_s": best,
+                         "peak_bytes": torch.cuda.max_memory_allocated()}
+            torch.cuda.empty_cache()
+        tconfig.enable_complex128()
+        runs[label] = row
+        print(f"17d Simulator.run(shots=0) {label} n={n} depth-{depth} "
+              f"[{card}]: complex64 {row['complex64']['run_s']:.4f} s peak "
+              f"{row['complex64']['peak_bytes'] / 2**30:.3f} GiB, complex128 "
+              f"{row['complex128']['run_s']:.4f} s peak "
+              f"{row['complex128']['peak_bytes'] / 2**30:.3f} GiB",
+              flush=True)
+    report["c128"]["timing"] = {"kernels": summary, "runs": runs}
+    return summary
+
+
+def phase_complex128(report: dict, card: str) -> dict:
+    """17a-17d under ``enable_complex128``, complex64 restored after."""
+    report["c128"] = {}
+    path: dict = {k: 0 for k in f64_counts()}
+    tconfig.enable_complex128()
+    try:
+        max_err = c128_kernels(report, card)
+        report["c128"]["runs"] = c128_runs(path, report, card)
+        report["c128"]["trajectories"] = c128_trajectories(path, report,
+                                                           card)
+        check(all(v > 0 for v in path.values()),
+              f"a float64 kernel never launched on the path: {path}")
+        summary = c128_timing(report, card)
+    finally:
+        tconfig.enable_complex64()
+    report["c128"]["launches"] = path
+    return {"launches": path, "max_err": max_err, "summary": summary}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every measurement as JSON")
@@ -5370,7 +5802,8 @@ def main() -> int:
               "13": lambda: phase_front_ends(report, card),
               "14": lambda: phase_entry_points(report, card),
               "15": lambda: phase_gui(report, card),
-              "16": lambda: phase_acceptance(report, card, args.reference)}
+              "16": lambda: phase_acceptance(report, card, args.reference),
+              "17": lambda: phase_complex128(report, card)}
     out = {}
     for name in PHASES:
         if name in chosen:
@@ -5403,6 +5836,15 @@ def main() -> int:
                                                    "16")),
             "max_abs_err": max(out["2"]["max_err"][name], out["2b"][name],
                                out["2c"][name]),
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"]})
+    for name, (source, replaces) in KERNEL_INFO_F64.items():
+        row = out["17"]["summary"][name]
+        summary["kernels"].append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": out["17"]["launches"][name],
+            "max_abs_err": out["17"]["max_err"][name],
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"]})

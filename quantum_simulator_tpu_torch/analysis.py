@@ -57,13 +57,13 @@ def _as_np_state(x) -> np.ndarray:
 
 def _as_tensor(x, device=None) -> torch.Tensor:
     """A state as a complex torch tensor: a ``StateVector``'s device data
-    or a tensor as they are; NumPy as complex64 on ``device`` (default
-    ``CONFIG.device``)."""
+    or a tensor as they are; NumPy as ``CONFIG.dtype`` on ``device``
+    (default ``CONFIG.device``)."""
     if isinstance(x, StateVector):
         return x.device_data
     if isinstance(x, torch.Tensor):
         return x
-    return torch.from_numpy(np.asarray(x, dtype=np.complex64)).to(
+    return torch.from_numpy(np.asarray(x, dtype=CONFIG.np_complex)).to(
         device or CONFIG.device)
 
 

@@ -12,6 +12,17 @@ float32 matrix product and convolution PyTorch runs (the flags below, set
 at import), and the hand-written kernels reach the tensor cores only
 through a 3-pass TF32 split (hi/lo parts, three products summed in fp32),
 held to float64 as tightly as an fp32 product (``csrc/fiber_matmul.cuh``).
+
+Verification mode (``enable_complex128``, ``config.py:133-155`` of the JAX
+package): the statevector family (``Simulator`` and the executors under
+it: the group plan, its operands, the per-gate and trajectory bodies) then
+computes in float64 planes, complex128 amplitudes, up to
+``COMPLEX128_MAX_QUBITS`` (29); every dense and cross step of a float64 state
+on the card launches the float64 kernels (``csrc/fiber_matmul_f64.cu``,
+plain FP64 FMA, no TF32 in any form). From n = 30 on the port runs the
+chunked float32 path (``ops/bigstate.py``), so an n >= 30 call raises
+under the mode rather than return float32 numbers. Torch needs no x64
+switch.
 """
 
 from __future__ import annotations
@@ -19,6 +30,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 
+import numpy as np
 import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -38,8 +50,63 @@ class EngineConfig:
     # Structural cap on the circuit IR itself.
     max_circuit_qubits: int = 4096
 
+    @property
+    def real_dtype(self) -> torch.dtype:
+        """Dtype of the executor's (re, im) planes and real states."""
+        return torch.float64 if self.dtype == torch.complex128 \
+            else torch.float32
+
+    @property
+    def np_complex(self):
+        """NumPy mirror of ``dtype`` for host-built operands."""
+        return np.complex128 if self.dtype == torch.complex128 \
+            else np.complex64
+
+    @property
+    def np_real(self):
+        """NumPy mirror of ``real_dtype``."""
+        return np.float64 if self.dtype == torch.complex128 else np.float32
+
 
 CONFIG = EngineConfig()
+
+# Widest statevector under ``enable_complex128``: from n = 30 on
+# (``ops/bigstate.HUGE_MIN_QUBITS``) the port runs the chunked float32
+# path, which has no float64 form yet.
+COMPLEX128_MAX_QUBITS = 29
+
+
+def statevector_dtype() -> torch.dtype:
+    return CONFIG.dtype
+
+
+def np_dtype():
+    """NumPy dtype mirror for host-side reference computations."""
+    return np.complex128
+
+
+def enable_complex128() -> None:
+    """Switch the engine to complex128 verification mode: the statevector
+    family at n <= ``COMPLEX128_MAX_QUBITS`` computes in float64 on the
+    CPU and on the card (see the module docstring). Call before building
+    operands or states that should carry the new precision."""
+    CONFIG.dtype = torch.complex128
+
+
+def enable_complex64() -> None:
+    """Back to the default complex64 engine."""
+    CONFIG.dtype = torch.complex64
+
+
+def require_complex64(what: str) -> None:
+    """Raise under ``enable_complex128`` for a path that computes in
+    float32 only (``what`` names it): it must never return float32
+    numbers under a complex128 label."""
+    if CONFIG.dtype == torch.complex128:
+        raise ValueError(
+            f"{what} computes in float32 only; complex128 verification "
+            f"mode (enable_complex128) covers statevectors of n <= "
+            f"{COMPLEX128_MAX_QUBITS} qubits (call enable_complex64 first)")
 
 
 def pinned_device(device=None) -> torch.device:

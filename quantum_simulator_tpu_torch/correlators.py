@@ -19,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .config import CONFIG
+from .config import CONFIG, require_complex64
 from .lindblad_mps import trotter_gates
 from .models.trotter import _PAULI, _validated
 from .mps import MPSState, _BatchMPS, _transfer
@@ -52,6 +52,7 @@ def mps_two_point_correlator(num_qubits: int, hamiltonian_terms,
     spectroscopy); an MPS start is re-canonicalised by two norm-preserving
     QR sweeps on entry. Runs on ``device`` (default ``CONFIG.device``; an
     ``MPSState`` start is moved there)."""
+    require_complex64("the MPS correlator")
     n = num_qubits
     if not (0 <= site_i < n and 0 <= site_j < n):
         raise ValueError("correlator sites out of range")

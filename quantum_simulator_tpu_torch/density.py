@@ -40,7 +40,7 @@ import numpy as np
 import torch
 
 from .circuit import QuantumCircuit
-from .config import CONFIG
+from .config import CONFIG, require_complex64
 from .ops import bigstate
 from .ops import program as prog
 from .ops.apply import apply_gate
@@ -350,7 +350,9 @@ class DensityMatrixSimulator:
         'dense', or 'superop'. Returns DensityMatrixResult, or
         SuperopDensityResult when vec(rho) takes the 2n >= 30 large-state
         path. ``dtype`` is the complex dtype of the returned rho; the
-        superoperator route computes in float32 planes whatever it is."""
+        superoperator route computes in ``CONFIG.real_dtype`` planes
+        whatever it is (float64 under ``enable_complex128``, which refuses
+        the 2n >= 30 path: it computes in float32 only)."""
         n = circuit.num_qubits
         if method == "auto":
             method = "dense" if n <= MAX_DM_QUBITS else "superop"
@@ -392,6 +394,8 @@ class DensityMatrixSimulator:
                                    self.noise_model)
         params = program2.initial_params
         if bigstate.is_huge(2 * n):
+            require_complex64(f"vec(rho) at n = {n} (a {2 * n}-qubit "
+                              "chunked state)")
             x, planar = group_forward_state_body(program2, params,
                                                  self._device)
             return SuperopDensityResult(n, x, planar)

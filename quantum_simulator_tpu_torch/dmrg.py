@@ -32,7 +32,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .config import CONFIG
+from .config import CONFIG, require_complex64
 from .mps import (MPSState, _PAULI_2X2, _parse_terms, expectation_hamiltonian,
                   thin_svd)
 
@@ -354,6 +354,7 @@ def dmrg_ground_state(terms, num_qubits: int, chi: int = 32,
     exact H_eff eigenstate, so the local solves cannot flow away from a
     product-state start: pass the intended ``init_bits`` or add a small
     transverse field."""
+    require_complex64("DMRG")
     n = int(num_qubits)
     if n < 2:
         raise ValueError("DMRG needs at least 2 sites")

@@ -155,9 +155,11 @@ PARAM_BUILDERS: dict[str, Callable] = {
 
 def _angles(*thetas) -> list[torch.Tensor]:
     """Angles as broadcast float tensors (a Python or NumPy number becomes
-    a float32 tensor)."""
+    a ``CONFIG.real_dtype`` tensor)."""
+    from .config import CONFIG
+
     ts = [t if isinstance(t, torch.Tensor)
-          else torch.as_tensor(t, dtype=torch.float32) for t in thetas]
+          else torch.as_tensor(t, dtype=CONFIG.real_dtype) for t in thetas]
     return list(torch.broadcast_tensors(*ts))
 
 

@@ -237,12 +237,12 @@ class LindbladSimulator:
             return out.add_(k, alpha=1.0 / 6.0)
 
         def measure(rho: torch.Tensor) -> torch.Tensor:
+            real = rho.real.dtype   # float64 from a complex128 rho
             if not obs_ops:
-                return torch.zeros((0,), dtype=torch.float32,
-                                   device=rho.device)
+                return torch.zeros((0,), dtype=real, device=rho.device)
             vals = [torch.diagonal(_apply_left(rho, u, tg, n)).sum().real
                     for u, tg in obs_ops]
-            return torch.stack(vals).to(torch.float32)
+            return torch.stack(vals).to(real)
 
         rho = self._initial_rho(initial, dtype)
         records = [measure(rho)]

@@ -32,7 +32,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .config import CONFIG
+from .config import CONFIG, require_complex64
 from .lindblad import JUMP_OPERATORS, _normalize_jumps, _pauli_term_matrix
 from .models.trotter import _PAULI, _validated
 from .mps import _BatchMPS, _transfer, gumbel_from_uniform
@@ -112,6 +112,7 @@ class MPSLindbladSimulator:
     def __init__(self, num_qubits: int, hamiltonian_terms=(),
                  jump_operators=(), chi: int = 32, order: int = 2,
                  device=None):
+        require_complex64("MPSLindbladSimulator")
         if num_qubits < 1:
             raise ValueError("num_qubits must be >= 1")
         if order not in (1, 2):

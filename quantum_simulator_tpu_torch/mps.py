@@ -48,7 +48,7 @@ import numpy as np
 import torch
 
 from .circuit import QuantumCircuit
-from .config import CONFIG
+from .config import CONFIG, require_complex64
 from .gates import GateType
 from .registry import GateRegistry
 from .utils.seeding import generator_from_rng
@@ -711,6 +711,7 @@ def build_batched_cost_fn(circuit: QuantumCircuit, bindings, terms,
     is numerically unsafe (the SVD's derivative divides by
     ``s_i^2 - s_j^2``, and product-state starts make degenerate or zero
     Schmidt values the common case), so the optimizer refuses it."""
+    require_complex64("the MPS cost function")
     registry = GateRegistry.instance()
     n = circuit.num_qubits
     device = device or CONFIG.device
@@ -827,6 +828,7 @@ class MPSSimulator:
     draws (``draw_branches``)."""
 
     def __init__(self, chi: int = 64, device=None):
+        require_complex64("MPSSimulator")
         if chi < 1:
             raise ValueError("chi must be >= 1")
         self.chi = chi

@@ -35,8 +35,9 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 # C entry points: (x, op, K, complex, rows, vec, n_outer, so, n_mid, sm,
 # n_inner, S, op_stride, bit_stride, plane_stride, n_batch, x_batch_stride,
 # op_batch_stride, stream) -> cudaError_t; the kernel writes its result
-# over x.
-_ENTRY_POINTS = ("qs_dense_axis", "qs_cross_bit_axis")
+# over x. The ``_f64`` ones take float64 state and operator.
+_ENTRY_POINTS = ("qs_dense_axis", "qs_cross_bit_axis", "qs_dense_axis_f64",
+                 "qs_cross_bit_axis_f64")
 
 
 def _sources() -> list[Path]:

@@ -24,6 +24,8 @@ import string
 
 import torch
 
+from ..config import CONFIG
+
 
 def basis_state_index(initial_states: list[int]) -> int:
     """Index of the computational basis product state (qubit 0 = MSB)."""
@@ -35,10 +37,12 @@ def basis_state_index(initial_states: list[int]) -> int:
     return idx
 
 
-def make_basis_state(num_qubits: int, index, dtype=torch.complex64,
+def make_basis_state(num_qubits: int, index, dtype=None,
                      device="cpu") -> torch.Tensor:
-    """|index> as a ``(2^n,)`` state; a sequence (or tensor) of indices
-    gives one basis state per row, ``(..., 2^n)``."""
+    """|index> as a ``(2^n,)`` state in ``dtype`` (default
+    ``CONFIG.dtype``); a sequence (or tensor) of indices gives one basis
+    state per row, ``(..., 2^n)``."""
+    dtype = dtype or CONFIG.dtype
     idx = torch.as_tensor(index, dtype=torch.int64, device=device)
     state = torch.zeros(tuple(idx.shape) + (1 << num_qubits,), dtype=dtype,
                         device=device)

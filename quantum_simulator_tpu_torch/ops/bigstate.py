@@ -39,6 +39,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..config import require_complex64
 from . import plan as gplan
 from .plan import GroupLayout, chunk_ranges
 
@@ -249,6 +250,7 @@ def huge_step_marginals_fn(program, device, plain: bool = False
     column on one state in place and returns the per-axis marginals of
     the initial state and after each column; a column with no op repeats
     the previous marginals (``bigstate.py:986-1031``)."""
+    require_complex64("the n >= 30 column-marginal stepper")
     full_plan = gplan.get_group_plan(program)
     planar = not full_plan.all_real
     col_programs = [_column_program(program, c)

@@ -39,6 +39,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from ..config import CONFIG, require_complex64
 from . import plan as gplan
 from .plan import (
     GroupLayout,
@@ -56,12 +57,12 @@ _FOLD_MAX_TARGETS = 3   # joint-rho folding bound: 8 x 8 trace algebra
 # Rows of one block of a Gram product: fp32 sums run over this many terms,
 # the blocks' partial sums are added in float64.
 _GRAM_BLOCK = 4096
-_C64 = torch.complex64
 
 def phase_real_stack(stack: np.ndarray) -> np.ndarray | None:
-    """``(m, 2, 2)`` complex Kraus stack -> float32 real stack when every
+    """``(m, 2, 2)`` complex Kraus stack -> float64 real stack when every
     operator is real up to a global phase, else None
-    (``Y -> -iY = [[0, -1], [1, 0]]``)."""
+    (``Y -> -iY = [[0, -1], [1, 0]]``); callers cast it to their
+    precision."""
     out = []
     for K in np.asarray(stack):
         flat = K.reshape(-1)
@@ -74,7 +75,7 @@ def phase_real_stack(stack: np.ndarray) -> np.ndarray | None:
         if not np.allclose(R.imag, 0.0, atol=1e-10):
             return None
         out.append(R.real)
-    return np.stack(out).astype(np.float32)
+    return np.stack(out)
 
 
 def trajectory_is_real(program, noise_model) -> bool:
@@ -99,7 +100,7 @@ def trajectory_is_real(program, noise_model) -> bool:
 
 def _gram(xr: torch.Tensor, lead: int, tdims: list[int],
           planar: bool) -> torch.Tensor:
-    """``(T, D, D)`` complex64 Gram ``G[P, R] = sum_rest psi[.. P ..]
+    """``(T, D, D)`` ``CONFIG.dtype`` Gram ``G[P, R] = sum_rest psi[.. P ..]
     conj(psi[.. R ..])`` over the dims ``tdims`` (after ``lead``; the first
     is the MSB of the D-index) of a batched state ``(T, [2,] *dims)``. The
     state is cut along its largest other dim; each chunk is copied with the
@@ -134,11 +135,11 @@ def _gram(xr: torch.Tensor, lead: int, tdims: list[int],
             add(xr.narrow(lead + cut, start, width))
     else:
         add(xr)
-    return torch.complex(rr, ri).to(_C64)
+    return torch.complex(rr, ri).to(CONFIG.dtype)
 
 
 def _rho_from(x: torch.Tensor, tbits, planar: bool) -> torch.Tensor:
-    """``(T, 2^k, 2^k)`` complex64 reduced density matrices of the target
+    """``(T, 2^k, 2^k)`` complex reduced density matrices of the target
     bits ``(axis, pos)`` (in the op's target order: the first target is
     the MSB of the rho index) of a batched grouped state
     (``bigtraj.py:141-171``). Unnormalized: the trace is ``|psi|^2``."""
@@ -163,7 +164,7 @@ def batched_norm_sq(x: torch.Tensor) -> torch.Tensor:
 def normalize_(x: torch.Tensor) -> torch.Tensor:
     """Scale each trajectory of a batched grouped state to norm 1, in
     place: one exact division that changes no branch."""
-    inv = torch.rsqrt(batched_norm_sq(x).clamp(min=1e-30)).float()
+    inv = torch.rsqrt(batched_norm_sq(x).clamp(min=1e-30)).to(x.dtype)
     return x.mul_(inv.reshape((-1,) + (1,) * (x.ndim - 1)))
 
 
@@ -238,7 +239,7 @@ def _initial_rho(program, targets) -> torch.Tensor:
     v = 0
     for q in targets:
         v = (v << 1) | ((program.initial_index >> (n - 1 - q)) & 1)
-    e = torch.zeros((1 << len(targets),) * 2, dtype=_C64)
+    e = torch.zeros((1 << len(targets),) * 2, dtype=CONFIG.dtype)
     e[v, v] = 1.0
     return e
 
@@ -261,7 +262,7 @@ def _fold_units(program, noise_model, layout: GroupLayout, planar: bool):
             raw = noise_model.kraus_stacks_for_gate(op.gate_name)
             stacks_cache[op.gate_name] = [
                 np.asarray(st if planar else phase_real_stack(st),
-                           np.complex64) for st in raw]
+                           CONFIG.np_complex) for st in raw]
         stacks = stacks_cache[op.gate_name]
         kind = _classify(layout, op)
         k = len(op.targets)
@@ -310,10 +311,10 @@ def huge_trajectory_evolve(program, noise_model, params, x: torch.Tensor,
 
     def op_matrix(op) -> torch.Tensor:
         if op.cphase_value is not None:
-            m = np.eye(1 << len(op.targets), dtype=np.complex64)
+            m = np.eye(1 << len(op.targets), dtype=CONFIG.np_complex)
             m[-1, -1] = complex(op.cphase_value)
         else:
-            m = program.op_matrix(op, params, np.complex64)
+            m = program.op_matrix(op, params)
         return torch.from_numpy(np.ascontiguousarray(m)).to(device)[None]
 
     def draw(Kt, rho, d):
@@ -343,7 +344,7 @@ def huge_trajectory_evolve(program, noise_model, params, x: torch.Tensor,
                 for st in extra:
                     for j in range(k):
                         Kt = torch.from_numpy(_embed_kraus_np(
-                            st, k, j).astype(np.complex64)).to(device)
+                            st, k, j).astype(CONFIG.np_complex)).to(device)
                         Ksel, rho_c = draw(Kt, rho_c, d)
                         Ue = Ksel @ Ue
                         d += 1
@@ -395,7 +396,7 @@ def fold_trajectory_body(program, noise_model, params, n_traj: int, device,
                          draws: torch.Tensor | None = None,
                          plain: bool = False):
     """``n_traj`` folded stochastic trajectories from the basis state:
-    ``(states (T, 2^n) complex64, draws)``, the draw schedule of
+    ``(states (T, 2^n) CONFIG.dtype, draws)``, the draw schedule of
     ``plan.group_trajectory_body`` with one state pass per gate instead of
     one per gate and draw (``bigtraj.py:759-783``)."""
     x, planar = _basis(program, noise_model, n_traj, device)
@@ -404,7 +405,7 @@ def fold_trajectory_body(program, noise_model, params, n_traj: int, device,
                                       from_basis=True)
     if planar:
         return gplan._combine(x), draws
-    return x.reshape(n_traj, -1).to(_C64), draws
+    return x.reshape(n_traj, -1).to(CONFIG.dtype), draws
 
 
 def trajectory_evolve_route(program, noise_model) -> str:
@@ -550,6 +551,7 @@ def huge_trajectory_sample_fn(program, noise_model, shots: int, device,
     (``bigtraj.py:1088-1122``)."""
     from .bigstate import sample_state_indices, state_axis_marginals
 
+    require_complex64("the n >= 30 trajectory sampler")
     if shots <= 0 and not keep_state:
         raise ValueError(
             "shots=0 with keep_state=False would evolve the trajectory "
@@ -589,6 +591,7 @@ def huge_monitored_sample_fn(program, noise_model, events: tuple,
     from .bigstate import sample_state_indices
     from .monomial_traj import monomial_monitored_evolve, monomial_spec
 
+    require_complex64("the n >= 30 monitored sampler")
     spec = monomial_spec(program, noise_model, tuple(events))
     if spec is None:
         raise ValueError(
@@ -616,6 +619,7 @@ def huge_trajectory_gram_fn(program, noise_model, device,
     trajectory and returns only its per-axis (S, S) Grams, the state
     freed: the n >= 30 ensemble-reduction primitive
     (``bigtraj.py:1179-1197``)."""
+    require_complex64("the n >= 30 trajectory Gram reduction")
     planar = not trajectory_is_real(program, noise_model)
 
     def run(params, generator):

@@ -21,9 +21,17 @@ Every geometry the planner emits is covered, including a sliced bit
 inside the last axis, which Pallas declines.
 
 Each wrapper has a plain PyTorch twin (``*_plain``: ``torch.einsum`` on the
-JAX package's ``_dense_spec`` / ``_cross_spec`` forms). The wrapper takes
-the twin only for a tensor on the CPU; a CUDA tensor launches the kernel
-or raises. ``<wrapper>.launches`` counts kernel launches.
+JAX package's ``_dense_spec`` / ``_cross_spec`` forms, in the state's
+dtype). The wrapper takes the twin only for a tensor on the CPU; a CUDA
+tensor launches the kernel or raises. ``<wrapper>.launches`` counts kernel
+launches.
+
+A float64 state (``config.enable_complex128``) goes to the float64 kernels
+(``dense_axis_f64``, ``cross_bit_axis_f64``: ``csrc/fiber_matmul_f64.cu``,
+plain FP64 FMA), each with its own count; ``dense_axis`` and
+``cross_bit_axis`` route a float64 CUDA state there and count only their
+float32 launches. State and operator must share one dtype: a mixed pair
+raises.
 
 Both wrappers also take a batch of B trajectories (``batched=True``): the
 state ``(B, [2,] *axis_sizes)`` and an operator with a leading B axis,
@@ -263,18 +271,21 @@ def _check(x: torch.Tensor, op: torch.Tensor, op_shape: tuple[int, ...],
     operator may repeat one block with stride 0 (shared by every
     trajectory) or hold one contiguous block per trajectory at any
     stride that keeps 16-byte copies aligned."""
+    want = torch.float64 if name.endswith("_f64") else torch.float32
+    if x.dtype != want or op.dtype != want:
+        raise TypeError(f"{name}: needs {want} state and operator, got "
+                        f"{x.dtype} / {op.dtype}")
     if x.device.type != "cuda":
         raise ValueError(f"{name}: state on {x.device}, expected CUDA or CPU")
     if op.device != x.device:
         raise ValueError(f"{name}: operator on {op.device}, state on "
                          f"{x.device}")
-    if x.dtype != torch.float32 or op.dtype != torch.float32:
-        raise TypeError(f"{name}: needs float32, got {x.dtype} / {op.dtype}")
     b = int(batched)
     block = op[0] if batched else op
     if not x.is_contiguous() or not block.is_contiguous():
         raise ValueError(f"{name}: state and operator must be contiguous")
-    if batched and (op.shape[0] != x.shape[0] or op.stride(0) % 4):
+    if batched and (op.shape[0] != x.shape[0]
+                    or op.stride(0) * op.element_size() % 16):
         raise ValueError(f"{name}: batched operator of shape "
                          f"{tuple(op.shape)} and stride {op.stride(0)} for "
                          f"{x.shape[0]} trajectories")
@@ -306,11 +317,12 @@ def _launch(fn_name: str, x: torch.Tensor, op: torch.Tensor, K: int,
             batched: bool) -> None:
     """Launch a kernel over ``x`` in place on the current stream. A batch
     of B trajectories: trajectory b's state starts ``b * x[0].numel()``
-    floats in and its operator ``b * op.stride(0)`` floats in."""
+    elements in and its operator ``b * op.stride(0)`` elements in."""
     g, (rows, vec) = view
-    if x.data_ptr() % (4 * vec) or op.data_ptr() % 16:
+    chunk = x.element_size() * vec
+    if x.data_ptr() % chunk or op.data_ptr() % 16:
         raise ValueError(f"{fn_name}: state or operator not aligned for "
-                         f"{4 * vec}-byte copies")
+                         f"{chunk}-byte copies")
     n_batch, xb, wb = ((x.shape[0], x[0].numel(), op.stride(0)) if batched
                        else (1, 0, 0))
     with torch.cuda.device(x.device):
@@ -324,20 +336,54 @@ def _launch(fn_name: str, x: torch.Tensor, op: torch.Tensor, K: int,
                            f"({_build.error_string(rc)})")
 
 
+def _dense_launch(name: str, x: torch.Tensor, op: torch.Tensor, axis: int,
+                  planar: bool, batched: bool) -> None:
+    shape = _layout_shape(x, planar, batched)
+    S = shape[axis]
+    real = _check(x, op, (S, S), planar, batched, name)
+    _launch(f"qs_{name}", x, op, S, real,
+            _view("dense", shape, axis, planar, real), batched)
+
+
+def _cross_launch(name: str, x: torch.Tensor, cop: torch.Tensor,
+                  slice_axis: int, slice_pos: int, op_axis: int,
+                  planar: bool, batched: bool) -> None:
+    shape = _layout_shape(x, planar, batched)
+    S = shape[op_axis]
+    if slice_axis == op_axis or not 0 <= slice_pos < \
+            shape[slice_axis].bit_length() - 1:
+        raise ValueError(f"{name}: bad geometry ({slice_axis}, "
+                         f"{slice_pos}, {op_axis}) for shape {shape}")
+    real = _check(x, cop, (2, S, 2, S), planar, batched, name)
+    _launch(f"qs_{name}", x, cop, 2 * S, real,
+            _view("cross", shape, (slice_axis, slice_pos, op_axis), planar,
+                  real), batched)
+
+
 def dense_axis(x: torch.Tensor, op: torch.Tensor, axis: int,
                planar: bool, batched: bool = False) -> torch.Tensor:
     """AxisMatmulStep: the ``dense_axis`` kernel on a CUDA tensor (in
     place: returns ``x``), the plain twin on a CPU one (a new tensor).
     ``batched``: ``x`` is ``(B, [2,] ...)`` and ``op`` ``(B, [2,] S, S)``,
-    one operator per trajectory (stride 0 shares one), in one launch."""
+    one operator per trajectory (stride 0 shares one), in one launch. A
+    float64 CUDA state goes to ``dense_axis_f64``."""
     if x.device.type == "cpu":
         return dense_axis_plain(x, op, axis, planar, batched)
-    shape = _layout_shape(x, planar, batched)
-    S = shape[axis]
-    real = _check(x, op, (S, S), planar, batched, "dense_axis")
-    _launch("qs_dense_axis", x, op, S, real,
-            _view("dense", shape, axis, planar, real), batched)
+    if x.dtype == torch.float64:
+        return dense_axis_f64(x, op, axis, planar, batched)
+    _dense_launch("dense_axis", x, op, axis, planar, batched)
     dense_axis.launches += 1
+    return x
+
+
+def dense_axis_f64(x: torch.Tensor, op: torch.Tensor, axis: int,
+                   planar: bool, batched: bool = False) -> torch.Tensor:
+    """``dense_axis`` on a float64 state and operator: the float64 kernel
+    on a CUDA tensor (in place), the plain twin on a CPU one."""
+    if x.device.type == "cpu":
+        return dense_axis_plain(x, op, axis, planar, batched)
+    _dense_launch("dense_axis_f64", x, op, axis, planar, batched)
+    dense_axis_f64.launches += 1
     return x
 
 
@@ -346,30 +392,45 @@ def cross_bit_axis(x: torch.Tensor, cop: torch.Tensor, slice_axis: int,
                    batched: bool = False) -> torch.Tensor:
     """CrossStep: the ``cross_bit_axis`` kernel on a CUDA tensor (in
     place: returns ``x``), the plain twin on a CPU one (a new tensor);
-    ``batched`` as for ``dense_axis``."""
+    ``batched`` as for ``dense_axis``. A float64 CUDA state goes to
+    ``cross_bit_axis_f64``."""
     if x.device.type == "cpu":
         return cross_bit_axis_plain(x, cop, slice_axis, slice_pos, op_axis,
                                     planar, batched)
-    shape = _layout_shape(x, planar, batched)
-    S = shape[op_axis]
-    if slice_axis == op_axis or not 0 <= slice_pos < \
-            shape[slice_axis].bit_length() - 1:
-        raise ValueError(f"cross_bit_axis: bad geometry ({slice_axis}, "
-                         f"{slice_pos}, {op_axis}) for shape {shape}")
-    real = _check(x, cop, (2, S, 2, S), planar, batched, "cross_bit_axis")
-    _launch("qs_cross_bit_axis", x, cop, 2 * S, real,
-            _view("cross", shape, (slice_axis, slice_pos, op_axis), planar,
-                  real), batched)
+    if x.dtype == torch.float64:
+        return cross_bit_axis_f64(x, cop, slice_axis, slice_pos, op_axis,
+                                  planar, batched)
+    _cross_launch("cross_bit_axis", x, cop, slice_axis, slice_pos, op_axis,
+                  planar, batched)
     cross_bit_axis.launches += 1
+    return x
+
+
+def cross_bit_axis_f64(x: torch.Tensor, cop: torch.Tensor, slice_axis: int,
+                       slice_pos: int, op_axis: int, planar: bool,
+                       batched: bool = False) -> torch.Tensor:
+    """``cross_bit_axis`` on a float64 state and operator: the float64
+    kernel on a CUDA tensor (in place), the plain twin on a CPU one."""
+    if x.device.type == "cpu":
+        return cross_bit_axis_plain(x, cop, slice_axis, slice_pos, op_axis,
+                                    planar, batched)
+    _cross_launch("cross_bit_axis_f64", x, cop, slice_axis, slice_pos,
+                  op_axis, planar, batched)
+    cross_bit_axis_f64.launches += 1
     return x
 
 
 dense_axis.launches = 0
 cross_bit_axis.launches = 0
+dense_axis_f64.launches = 0
+cross_bit_axis_f64.launches = 0
 
+# The float32 kernels (the default engine) and the float64 ones
+# (``config.enable_complex128``).
 KERNELS = (dense_axis, cross_bit_axis)
+KERNELS_F64 = (dense_axis_f64, cross_bit_axis_f64)
 
 
 def reset_launch_counts() -> None:
-    for k in KERNELS:
+    for k in KERNELS + KERNELS_F64:
         k.launches = 0

@@ -37,6 +37,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..config import CONFIG
 from . import plan as gplan
 from . import program as prog
 from .bigtraj import normalize_, trajectory_is_real
@@ -67,9 +68,10 @@ class MonomialStack(NamedTuple):
     """Static per-stack data for a monomial (m, D, D) Kraus stack."""
 
     kraus: np.ndarray        # (m, D, D) complex64 raw Kraus operators
-    kraus_real: object       # (m, D, D) f32 phase-real forms, or None
+    kraus_real: object       # (m, D, D) float64 phase-real forms, or None
     w2: np.ndarray           # (m, D) f32: |c_{m,j}|^2 per input value j
     fmap: np.ndarray         # (m, D) int32: f_m(j) (identity where c=0)
+    exact: np.ndarray        # (m, D, D) complex128 raw Kraus operators
 
 
 def monomial_stack(raw: np.ndarray) -> MonomialStack | None:
@@ -99,12 +101,12 @@ def monomial_stack(raw: np.ndarray) -> MonomialStack | None:
         return None  # not trace-preserving
     return MonomialStack(kraus=st.astype(np.complex64),
                          kraus_real=_phase_real_generic(st),
-                         w2=w2.astype(np.float32), fmap=fmap)
+                         w2=w2.astype(np.float32), fmap=fmap, exact=st)
 
 
 def _phase_real_generic(stack: np.ndarray):
-    """(m, D, D) -> f32 real forms when every operator is real up to a
-    global phase, else None."""
+    """(m, D, D) -> float64 real forms when every operator is real up to
+    a global phase, else None."""
     out = []
     for K in np.asarray(stack):
         flat = K.reshape(-1)
@@ -116,7 +118,7 @@ def _phase_real_generic(stack: np.ndarray):
         if not np.allclose(R.imag, 0.0, atol=1e-10):
             return None
         out.append(R.real)
-    return np.stack(out).astype(np.float32)
+    return np.stack(out)
 
 
 class _Site(NamedTuple):
@@ -366,8 +368,8 @@ def _window_draws(spec: MonomialSpec, window, idxs, nsq, layout: GroupLayout,
         if si == 0:
             scale = scale * inv_norm
         mats = torch.from_numpy(np.asarray(
-            st.kraus_real if spec.real else st.kraus,
-            dtype=np.complex64)).to(device)
+            st.kraus_real if spec.real else st.exact,
+            dtype=CONFIG.np_complex)).to(device)
         operand = mats[m] * scale[:, None, None]
         fm_flat = torch.from_numpy(st.fmap.reshape(-1).astype(
             np.int64)).to(device)

@@ -3,7 +3,9 @@
 Counterpart of ``quantum_simulator_tpu/ops/plan.py``. The n qubits are
 grouped into axes of at most 7 bits (``GroupLayout``, ``plan.py:68-102``)
 and the state is a planar float32 tensor ``(2, *axis_sizes)``, or a real
-``(*axis_sizes,)`` one when every operator of the plan is real. The host
+``(*axis_sizes,)`` one when every operator of the plan is real (float64
+under ``config.enable_complex128``: every operand, state and result here
+follows ``CONFIG.dtype`` / ``CONFIG.real_dtype``). The host
 planner (``build_group_plan``, ``plan.py:287-510``) and the NumPy operand
 build (``plan.py:517-982``, its ``xp=np`` mode) are carried over as they
 are, so the port takes the same steps as the JAX package:
@@ -24,7 +26,7 @@ variational path, ``group_batched_forward``) takes the same route: each
 parameterized op gets one matrix per row, built on the device by the
 torch gate builders and injected as an override. The per-gate trajectory body
 (``group_trajectory_body``) is at the end of the module. The port stores a
-complex operator as two float32 planes ``(re, im)`` where the JAX package
+complex operator as two real planes ``(re, im)`` where the JAX package
 stores the blocked ``[[re, -im], [im, re]]`` form.
 """
 
@@ -36,14 +38,13 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..config import CONFIG
 from . import cuda_exec
 from . import program as prog
 from .apply import apply_gate
 from .cuda_exec import _blocked, _cross_spec, _split_axis_bit
 
 GROUP_BITS = 7
-
-_F32 = np.float32
 
 # Parameterized gates whose matrix is diagonal for every parameter value.
 _DIAGONAL_PARAM_GATES = frozenset({"Rz", "Phase", "CPhase", "MCZ"})
@@ -525,10 +526,10 @@ def _embed_in_axis(u: np.ndarray, positions: tuple[int, ...],
     ``axis_bits``-bit axis into a (2^axis_bits, 2^axis_bits) operator."""
     masks = _embed_masks(positions, axis_bits)
     flat = u.reshape(-1)
-    re = np.tensordot(np.real(flat).astype(_F32), masks, axes=1)
+    re = np.tensordot(np.real(flat).astype(CONFIG.np_real), masks, axes=1)
     if not np.iscomplexobj(u):
         return re.astype(u.dtype)
-    im = np.tensordot(np.imag(flat).astype(_F32), masks, axes=1)
+    im = np.tensordot(np.imag(flat).astype(CONFIG.np_real), masks, axes=1)
     return (re + 1j * im).astype(u.dtype)
 
 
@@ -565,9 +566,9 @@ class _GateMatrixPool:
         # 1q pool: eye at row 0, one row per distinct static 1q matrix,
         # then one row block per parameterized builder.
         self._pool_index: dict[int, int] = {}
-        pool_parts = [np.eye(2, dtype=np.complex64)[None]]
+        pool_parts = [np.eye(2, dtype=dtype)[None]]
         for mat, _ in static_1q.values():
-            pool_parts.append(mat.astype(np.complex64)[None])
+            pool_parts.append(mat.astype(dtype)[None])
         pool_parts = [np.asarray(np.concatenate(pool_parts), dtype=dtype)]
         base = 1 + len(static_1q)
         for oi, op in enumerate(program.ops):
@@ -655,7 +656,7 @@ def _subcolumn_operator(program: prog.CircuitProgram, pool,
 
 def _indicator_masks(targets: tuple[int, ...], layout: GroupLayout
                      ) -> list[tuple[int, np.ndarray]]:
-    """Per-axis all-targets-set indicator vectors (axis, (S,) f32)."""
+    """Per-axis all-targets-set indicator vectors (axis, (S,) real)."""
     by_axis: dict[int, list[int]] = {}
     for q in targets:
         by_axis.setdefault(layout.axis_of(q), []).append(q)
@@ -663,22 +664,24 @@ def _indicator_masks(targets: tuple[int, ...], layout: GroupLayout
     for ax in sorted(by_axis):
         bits = layout.axis_bits[ax]
         size = layout.axis_sizes[ax]
-        mask = np.ones(size, np.float32)
+        mask = np.ones(size, CONFIG.np_real)
         for q in by_axis[ax]:
             bit = bits - 1 - layout.pos_in_axis(q)
-            mask *= ((np.arange(size) >> bit) & 1).astype(np.float32)
+            mask *= ((np.arange(size) >> bit) & 1).astype(CONFIG.np_real)
         out.append((ax, mask))
     return out
 
 
 def _planes(m: np.ndarray, axis: int = 0) -> np.ndarray:
-    """Complex array -> float32 (re, im) planes stacked at ``axis``."""
-    return np.stack([np.real(m), np.imag(m)], axis=axis).astype(_F32)
+    """Complex array -> real (re, im) planes stacked at ``axis``."""
+    return np.stack([np.real(m), np.imag(m)], axis=axis).astype(
+        CONFIG.np_real)
 
 
 def build_group_operands(program: prog.CircuitProgram, plan: GroupPlan,
-                         params, dtype=np.complex64):
-    """Host NumPy operands, in the port's layout:
+                         params, dtype=None):
+    """Host NumPy operands in ``dtype`` (default ``CONFIG.np_complex``),
+    in the port's layout:
 
     * ``axis_stacks[ax]``: (m, 2, S, S) planes of each composed operator;
     * ``cross_ops[i]``: (2, 2, S, 2, S) planes indexed (plane, i, y, k, x);
@@ -689,6 +692,7 @@ def build_group_operands(program: prog.CircuitProgram, plan: GroupPlan,
     The arithmetic is that of ``build_group_operands(..., xp=np)``
     (``quantum_simulator_tpu/ops/plan.py:818-982``)."""
     layout = plan.layout
+    dtype = dtype or CONFIG.np_complex
     pool = _GateMatrixPool(program, params, dtype)
 
     # Batch every all-1q sub-column of each axis width into one kron chain.
@@ -843,12 +847,9 @@ class OperandOverrides(NamedTuple):
     diagonality match the injected values: the plan reads the dummy, the
     operands read the override."""
 
-    pool_rows: torch.Tensor | None    # (T, R, 2, 2) complex64 1q matrices
+    pool_rows: torch.Tensor | None    # (T, R, 2, 2) complex 1q matrices
     pool_map: dict                     # op index -> row in pool_rows
-    per_op: dict                       # op index -> (T, D, D) complex64
-
-
-_C64 = torch.complex64
+    per_op: dict                       # op index -> (T, D, D) complex
 
 
 class _DevicePool:
@@ -863,11 +864,11 @@ class _DevicePool:
         self.device = device
         self._skip = (frozenset(overrides.pool_map) | frozenset(
             overrides.per_op)) if overrides else frozenset()
-        self.host = _GateMatrixPool(program, params, np.complex64,
+        self.host = _GateMatrixPool(program, params, CONFIG.np_complex,
                                     self._skip)
         rows = self.host.pool_1q
         if rows is None:
-            rows = np.eye(2, dtype=np.complex64)[None]
+            rows = np.eye(2, dtype=CONFIG.np_complex)[None]
         self.static_rows = torch.from_numpy(
             np.ascontiguousarray(rows)).to(device)[None]
         self.n_static = rows.shape[0]
@@ -889,7 +890,7 @@ class _DevicePool:
         if self._full is None:
             extra = self.overrides.pool_rows
             self._full = torch.cat([self.static_rows.expand(
-                extra.shape[0], -1, -1, -1), extra.to(_C64)], dim=1)
+                extra.shape[0], -1, -1, -1), extra.to(CONFIG.dtype)], dim=1)
         return self._full
 
     def matrix(self, oi: int) -> torch.Tensor:
@@ -897,14 +898,14 @@ class _DevicePool:
         if self.overrides is not None:
             m = self.overrides.per_op.get(oi)
             if m is not None:
-                return m.to(_C64)
+                return m.to(CONFIG.dtype)
             r = self.overrides.pool_map.get(oi)
             if r is not None:
-                return self.overrides.pool_rows[:, r].to(_C64)
+                return self.overrides.pool_rows[:, r].to(CONFIG.dtype)
         m = self._cache.get(oi)
         if m is None:
             m = torch.from_numpy(np.ascontiguousarray(
-                self.host.matrix(oi), dtype=np.complex64)).to(
+                self.host.matrix(oi), dtype=CONFIG.np_complex)).to(
                     self.device)[None]
             self._cache[oi] = m
         return m
@@ -965,7 +966,8 @@ def _t_subcolumn_operator(program, pool: _DevicePool, op_indices, layout,
     run: list[int] = []
 
     def eye(k: int) -> torch.Tensor:
-        return torch.eye(1 << k, dtype=_C64, device=pool.device)[None]
+        return torch.eye(1 << k, dtype=CONFIG.dtype,
+                         device=pool.device)[None]
 
     for p in range(bits):
         if p in covered:
@@ -994,23 +996,23 @@ _DEVICE_MASKS: dict[tuple, torch.Tensor] = {}
 def _t_embed_in_axis(u: torch.Tensor, positions: tuple[int, ...],
                      axis_bits: int) -> torch.Tensor:
     """Batched ``_embed_in_axis``: (B, 2^k, 2^k) -> (B, S, S); each output
-    entry takes exactly one input entry, so the float32 products are
-    exact."""
-    key = (positions, axis_bits, str(u.device))
+    entry takes exactly one input entry, so the products are exact."""
+    flat = u.reshape(u.shape[0], -1)
+    key = (positions, axis_bits, str(u.device), flat.real.dtype)
     masks = _DEVICE_MASKS.get(key)
     if masks is None:
         m = _embed_masks(positions, axis_bits)
-        masks = torch.from_numpy(m.reshape(m.shape[0], -1)).to(u.device)
+        masks = torch.from_numpy(m.reshape(m.shape[0], -1)).to(
+            device=u.device, dtype=flat.real.dtype)
         _DEVICE_MASKS[key] = masks
     S = 1 << axis_bits
-    flat = u.reshape(u.shape[0], -1)
     re = (flat.real @ masks).reshape(-1, S, S)
     im = (flat.imag @ masks).reshape(-1, S, S)
     return torch.complex(re, im)
 
 
 def _t_planes(m: torch.Tensor, n_traj: int) -> torch.Tensor:
-    """(B, ...) complex -> (T, 2, ...) float32 (re, im) planes; a shared
+    """(B, ...) complex -> (T, 2, ...) real (re, im) planes; a shared
     (B = 1) operator is repeated with stride 0, not copied."""
     out = torch.stack([m.real, m.imag], dim=1)
     return out.expand((n_traj,) + tuple(out.shape[1:]))
@@ -1042,7 +1044,7 @@ def param_overrides(program: prog.CircuitProgram,
                                 for oi in indices], device=params.device)
         mats = builder(*[params[:, offs + j] for j in
                          range(program.ops[indices[0]].num_params)])
-        mats = mats.to(_C64)                     # (B, len(indices), D, D)
+        mats = mats.to(CONFIG.dtype)             # (B, len(indices), D, D)
         if k == 1:
             for r, oi in enumerate(indices):
                 pool_map[oi] = n_rows + r
@@ -1066,7 +1068,8 @@ def merge_overrides(first: OperandOverrides,
     pool_map = dict(first.pool_map)
     pool_map.update({oi: shift + r for oi, r in second.pool_map.items()})
     return OperandOverrides(
-        torch.cat([p.to(_C64) for p in parts], dim=1) if parts else None,
+        torch.cat([p.to(CONFIG.dtype) for p in parts], dim=1)
+        if parts else None,
         pool_map, {**first.per_op, **second.per_op})
 
 
@@ -1075,9 +1078,9 @@ def build_group_operands_batched(program: prog.CircuitProgram,
                                  device,
                                  overrides: OperandOverrides | None = None):
     """Operands of ``n_traj`` trajectories, built on ``device`` in torch
-    complex64 with the arithmetic of ``build_group_operands`` (TF32 stays
-    off, ``config.py``). ``params`` is one parameter vector shared by the
-    batch, or a ``(n_traj, P)`` tensor of parameter rows, whose
+    ``CONFIG.dtype`` with the arithmetic of ``build_group_operands`` (TF32
+    stays off, ``config.py``). ``params`` is one parameter vector shared by
+    the batch, or a ``(n_traj, P)`` tensor of parameter rows, whose
     parameterized ops then take one matrix per row (``param_overrides``,
     merged with ``overrides``: each row has its own parameters and its own
     noise draws, as the JAX package's vmap over trials gives,
@@ -1143,7 +1146,8 @@ def build_group_operands_batched(program: prog.CircuitProgram,
     del batched
     for ax, ops in enumerate(axis_stacks):
         if not ops:
-            ops.append(_t_planes(torch.eye(layout.axis_sizes[ax], dtype=_C64,
+            ops.append(_t_planes(torch.eye(layout.axis_sizes[ax],
+                                           dtype=CONFIG.dtype,
                                            device=device)[None], T))
 
     cross_ops = []
@@ -1206,12 +1210,12 @@ def build_group_operands_batched(program: prog.CircuitProgram,
     for seg in plan.diag_segments:
         sa = layout.axis_sizes[seg.axis_a]
         sb = layout.axis_sizes[seg.axis_b]
-        D = torch.ones((1, sa, sb), dtype=_C64, device=device)
+        D = torch.ones((1, sa, sb), dtype=CONFIG.dtype, device=device)
         for oi in seg.op_indices:
             op = program.ops[oi]
             k = len(op.targets)
             if op.cphase_value is not None:
-                dv = np.ones(1 << k, np.complex64)
+                dv = np.ones(1 << k, CONFIG.np_complex)
                 dv[-1] = op.cphase_value
                 d = torch.from_numpy(dv).to(device)[None]
             else:
@@ -1337,11 +1341,12 @@ def apply_gate_bits(x: torch.Tensor, u: torch.Tensor, tbits, planar: bool,
     xr = x.reshape(tuple(x.shape[:lead]) + new_shape)
     if planar:
         d = int(per_traj)
-        opnd = _blocked(torch.stack([ut.real, ut.imag], dim=d).float(), d)
+        opnd = _blocked(torch.stack([ut.real, ut.imag], dim=d).to(x.dtype),
+                        d)
         spec = (f"{uz}cd{opsub},{tz}d{''.join(xin)}"
                 f"->{tz}c{''.join(xout)}")
     else:
-        opnd = ut.real.float()
+        opnd = ut.real.to(x.dtype)
         spec = f"{uz}{opsub},{tz}{''.join(xin)}->{tz}{''.join(xout)}"
     return torch.einsum(spec, opnd, xr).reshape(x.shape)
 
@@ -1486,11 +1491,11 @@ def execute_group_plan(plan: GroupPlan, operands, program, params,
                     and op.static_matrix is None:
                 u = program.op_matrix_torch(op, params)   # one per row
             else:
-                u = program.op_matrix(op, params, np.complex64)
+                u = program.op_matrix(op, params)
             if big:     # no complex copy of a state this size
                 tbits = tuple((layout.axis_of(q), layout.pos_in_axis(q))
                               for q in op.targets)
-                ut = torch.as_tensor(u, dtype=_C64, device=x.device)
+                ut = torch.as_tensor(u, dtype=CONFIG.dtype, device=x.device)
                 x = run(lambda v, ut=ut, tbits=tbits: apply_gate_bits(
                     v, ut, tbits, planar, batched), {a for a, _ in tbits})
                 continue
@@ -1520,7 +1525,8 @@ def _prod_chunk_fn(prod_op, rank: int, axes: tuple[int, ...], planar: bool,
 
 def basis_state(plan: GroupPlan, index: int, device, planar: bool = True,
                 n_traj: int | None = None) -> torch.Tensor:
-    """One-hot float32 basis state, planar ``(2, *axis_sizes)`` or real;
+    """One-hot basis state in ``CONFIG.real_dtype``, planar
+    ``(2, *axis_sizes)`` or real;
     ``n_traj`` adds a leading trajectory axis (one copy each)."""
     return layout_basis_state(plan.layout, index, device, planar, n_traj)
 
@@ -1531,7 +1537,7 @@ def layout_basis_state(layout: GroupLayout, index: int, device,
     shape = tuple(layout.axis_sizes)
     lead = () if n_traj is None else (n_traj,)
     x = torch.zeros(lead + ((2,) if planar else ()) + shape,
-                    dtype=torch.float32, device=device)
+                    dtype=CONFIG.real_dtype, device=device)
     re = x.reshape(lead + ((2,) if planar else ()) + (-1,))
     if planar:
         re = re.select(len(lead), 0)
@@ -1558,7 +1564,7 @@ def group_forward_state_body(program: prog.CircuitProgram, params, device,
                              plain: bool = False
                              ) -> tuple[torch.Tensor, bool]:
     """Forward pass returning ``(x, planar)``: the executor's grouped
-    state as it is, planar ``(2, *axis_sizes)`` float32 or, for an
+    state as it is, planar ``(2, *axis_sizes)`` real or, for an
     all-real plan, real ``(*axis_sizes,)``. No complex copy is built
     (``bigstate.py:323-360``)."""
     plan = get_group_plan(program)
@@ -1572,17 +1578,18 @@ def group_forward_state_body(program: prog.CircuitProgram, params, device,
 
 def group_forward_body(program: prog.CircuitProgram, params, device,
                        plain: bool = False) -> torch.Tensor:
-    """Forward pass through the group plan: complex64 state ``(2^n,)`` on
-    ``device`` (``plan.py:1556-1572``, with the all-real branch)."""
+    """Forward pass through the group plan: ``CONFIG.dtype`` state
+    ``(2^n,)`` on ``device`` (``plan.py:1556-1572``, with the all-real
+    branch)."""
     x, planar = group_forward_state_body(program, params, device, plain)
     if planar:
         return torch.complex(x[0], x[1]).reshape(-1)
-    return x.reshape(-1).to(torch.complex64)
+    return x.reshape(-1).to(CONFIG.dtype)
 
 
 def group_batched_forward(program: prog.CircuitProgram, params_batch,
                           device, plain: bool = False) -> torch.Tensor:
-    """``(B, 2^n)`` complex64 states of the circuit at each row of a
+    """``(B, 2^n)`` complex states of the circuit at each row of a
     ``(B, P)`` parameter batch: the port's form of the JAX package's
     ``vmap(forward_body)`` (``program.py:384-391``). The operands are built
     on ``device`` with one matrix per row for every parameterized op, and
@@ -1603,7 +1610,7 @@ def group_batched_forward(program: prog.CircuitProgram, params_batch,
     del operands
     if planar:
         return _combine(x)
-    return x.reshape(B, -1).to(torch.complex64)
+    return x.reshape(B, -1).to(CONFIG.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -1754,13 +1761,13 @@ def _rho_q_grouped(x: torch.Tensor, q: int,
 
 
 def _combine(x: torch.Tensor) -> torch.Tensor:
-    """Planar batched state -> (T, 2^n) complex64."""
+    """Planar batched state -> (T, 2^n) complex."""
     return torch.complex(x[:, 0], x[:, 1]).reshape(x.shape[0], -1)
 
 
 def _write_column(out: torch.Tensor, col: int, x: torch.Tensor) -> None:
     """Copy a planar batched state into ``out[:, col]`` of a ``(T, C+1,
-    2^n)`` complex64 stack, plane by plane: no complex temporary."""
+    2^n)`` complex stack, plane by plane: no complex temporary."""
     T = x.shape[0]
     dst = torch.view_as_real(out[:, col])
     dst[..., 0].copy_(x[:, 0].reshape(T, -1))
@@ -1782,7 +1789,7 @@ def group_trajectory_body(program: prog.CircuitProgram, noise_model,
     applied (one batched kernel launch with one operator per trajectory)
     and the state rescaled; one exact normalization at the end.
 
-    Returns ``(states, draws)``: states ``(T, 2^n)`` complex64, or ``(T,
+    Returns ``(states, draws)``: states ``(T, 2^n)`` ``CONFIG.dtype``, or ``(T,
     columns + 1, 2^n)`` with ``record_columns`` (the initial state, then
     one snapshot after each column), each column written as it is reached
     into one stack allocated up front, or into ``out`` when given;
@@ -1794,11 +1801,11 @@ def group_trajectory_body(program: prog.CircuitProgram, noise_model,
     if record_columns:
         shape = (T, program.num_columns + 1, 1 << program.num_qubits)
         if out is None:
-            out = torch.empty(shape, dtype=_C64, device=device)
-        elif tuple(out.shape) != shape or out.dtype != _C64 \
+            out = torch.empty(shape, dtype=CONFIG.dtype, device=device)
+        elif tuple(out.shape) != shape or out.dtype != CONFIG.dtype \
                 or not out.is_contiguous():
-            raise ValueError(f"out must be a contiguous complex64 tensor "
-                             f"of shape {shape}")
+            raise ValueError(f"out must be a contiguous {CONFIG.dtype} "
+                             f"tensor of shape {shape}")
     n_draws = total_draws(program, noise_model)
     if draws is None:
         draws = torch.zeros((T, n_draws), dtype=torch.long, device=device)
@@ -1809,7 +1816,7 @@ def group_trajectory_body(program: prog.CircuitProgram, noise_model,
     # first step: a copy from pageable host memory waits for the stream,
     # so one per gate would idle the card between gates.
     mats = [None if op.cphase_value is not None else torch.from_numpy(
-        program.op_matrix(op, params, np.complex64)).to(device)[None]
+        program.op_matrix(op, params)).to(device)[None]
         for op in program.ops]
     stacks: dict[str, list[torch.Tensor]] = {}
     for op in program.ops:
@@ -1822,7 +1829,7 @@ def group_trajectory_body(program: prog.CircuitProgram, noise_model,
                 "stacks; a multi-qubit stack needs the splice executors "
                 "(ops/unitary_traj.py, ops/monomial_traj.py)")
         stacks[op.gate_name] = [torch.from_numpy(np.asarray(
-            k, dtype=np.complex64)).to(device) for k in raw]
+            k, dtype=CONFIG.np_complex)).to(device) for k in raw]
     x = layout_basis_state(layout, program.initial_index, device, True, T)
     if record_columns:
         _write_column(out, 0, x)

@@ -80,19 +80,21 @@ class CircuitProgram:
                         params: torch.Tensor) -> torch.Tensor:
         """Torch matrix of ``op`` on ``params``' device: ``(..., D, D)``
         complex for a parameterized op and a ``(..., P)`` parameter
-        tensor (differentiable), ``(D, D)`` complex64 for a fixed one."""
+        tensor (differentiable), ``(D, D)`` ``CONFIG.dtype`` for a fixed
+        one."""
         if op.static_matrix is not None:
             return torch.from_numpy(np.asarray(
-                op.static_matrix, dtype=np.complex64)).to(params.device)
+                op.static_matrix, dtype=CONFIG.np_complex)).to(params.device)
         if op.torch_builder is None:
             raise ValueError(f"{op.gate_name} has no torch builder: its "
                              "parameters cannot run as a torch batch")
         return op.torch_builder(*[params[..., op.param_offset + j]
                                   for j in range(op.num_params)])
 
-    def op_matrix(self, op: ProgramOp, params, dtype=np.complex64
-                  ) -> np.ndarray:
-        """Host NumPy matrix of ``op`` at the parameter vector ``params``."""
+    def op_matrix(self, op: ProgramOp, params, dtype=None) -> np.ndarray:
+        """Host NumPy matrix of ``op`` at the parameter vector ``params``,
+        in ``dtype`` (default ``CONFIG.np_complex``)."""
+        dtype = dtype or CONFIG.np_complex
         if op.cphase_value is not None:
             raise NotImplementedError(
                 f"{op.gate_name} on {len(op.targets)} qubits has no dense "
@@ -170,11 +172,12 @@ def forward_fn(program: CircuitProgram, device) -> Callable:
 
 def param_tensor(params, device=None) -> torch.Tensor:
     """Parameters as a float tensor: a tensor stays as it is (and keeps
-    its autograd graph); anything else becomes float32 on ``device``
-    (default ``CONFIG.device``)."""
+    its autograd graph); anything else becomes ``CONFIG.real_dtype`` on
+    ``device`` (default ``CONFIG.device``): float32 angles alone would
+    cost the complex128 mode about 1e-8."""
     if isinstance(params, torch.Tensor):
         return params
-    return torch.as_tensor(np.asarray(params, dtype=np.float32),
+    return torch.as_tensor(np.asarray(params, dtype=CONFIG.np_real),
                            device=device or CONFIG.device)
 
 
@@ -182,13 +185,13 @@ def forward_body(program: CircuitProgram, params, device=None
                  ) -> torch.Tensor:
     """The per-gate forward (``program.py:175-180``): one ``apply_gate``
     (or ``apply_cphase``) per op from the initial basis state. ``params``
-    of shape ``(P,)`` gives a ``(2^n,)`` complex64 state, ``(B, P)`` a
+    of shape ``(P,)`` gives a ``(2^n,)`` ``CONFIG.dtype`` state, ``(B, P)`` a
     ``(B, 2^n)`` batch, one row per parameter row. Differentiable in
     ``params`` (autodiff, ``multi_start``); no kernel is involved."""
     params = param_tensor(params, device)
     n = program.num_qubits
     state = torch.zeros(tuple(params.shape[:-1]) + (1 << n,),
-                        dtype=torch.complex64, device=params.device)
+                        dtype=CONFIG.dtype, device=params.device)
     state[..., program.initial_index] = 1.0
     for op in program.ops:
         if op.cphase_value is not None:
@@ -201,7 +204,7 @@ def forward_body(program: CircuitProgram, params, device=None
 
 def batched_forward_fn(program: CircuitProgram, device=None,
                        plain: bool = False) -> Callable:
-    """``f(params_batch (B, P)) -> states (B, 2^n)`` complex64: the same
+    """``f(params_batch (B, P)) -> states (B, 2^n)`` complex: the same
     structure at many parameter points in one batch, every dense and
     cross step one kernel launch (``plain``: the twins)."""
     from .plan import group_batched_forward
@@ -261,7 +264,7 @@ def trajectory_route(program: CircuitProgram, noise_model) -> str:
 def batched_trajectories(program: CircuitProgram, noise_model, params,
                          n_traj: int, device, generator=None, draws=None,
                          plain: bool = False):
-    """``(states (T, 2^n) complex64, draws)`` of ``n_traj`` stochastic
+    """``(states (T, 2^n) CONFIG.dtype, draws)`` of ``n_traj`` stochastic
     trajectories in one batch on ``device``: every dense and cross step of
     the batch is one kernel launch (``plain``: the twins). ``draws`` from
     an earlier call with the same arguments replays its branches."""
@@ -359,12 +362,12 @@ def monitored_body(program: CircuitProgram, noise_model, events, params,
     ``(op_position, qubit)``: the measurement fires after exactly
     ``op_position`` ops, with one uniform per event and trajectory, and
     collapses its qubit; each gate's channels are drawn after it. Returns
-    ``(states (T, 2^n) complex64, outcomes (T, M) int64)``. No kernel is
+    ``(states (T, 2^n) CONFIG.dtype, outcomes (T, M) int64)``. No kernel is
     involved: this body serves what the monomial splice cannot (other
     channels), at small n."""
     n = program.num_qubits
     channels_for = noise_model.kraus_stacks_for_gate
-    state = torch.zeros((n_traj, 1 << n), dtype=torch.complex64,
+    state = torch.zeros((n_traj, 1 << n), dtype=CONFIG.dtype,
                         device=device)
     state[:, program.initial_index] = 1.0
     outcomes = torch.zeros((n_traj, len(events)), dtype=torch.long,
@@ -386,11 +389,11 @@ def monitored_body(program: CircuitProgram, noise_model, events, params,
         if op.cphase_value is not None:
             state = apply_cphase(state, op.targets, op.cphase_value, n)
         else:
-            state = apply_gate(state, program.op_matrix(
-                op, params, np.complex64), op.targets, n)
+            state = apply_gate(state, program.op_matrix(op, params),
+                               op.targets, n)
         for kraus_np in channels_for(op.gate_name):
             kraus = torch.from_numpy(np.asarray(
-                kraus_np, dtype=np.complex64)).to(device)
+                kraus_np, dtype=CONFIG.np_complex)).to(device)
             for q in op.targets:
                 state = _apply_channel_stochastic(state, kraus, q, n,
                                                   generator)
@@ -400,7 +403,7 @@ def monitored_body(program: CircuitProgram, noise_model, events, params,
 def monitored_trajectories(program: CircuitProgram, noise_model, events,
                            params, n_traj: int, device, generator=None,
                            plain: bool = False):
-    """``(states (T, 2^n) complex64, outcomes (T, M) int64)`` of
+    """``(states (T, 2^n) CONFIG.dtype, outcomes (T, M) int64)`` of
     ``n_traj`` monitored trajectories in one batch
     (``program.py:453-492``): the monomial splice through the group plan,
     every dense and cross step one batched kernel launch, wherever the

@@ -30,6 +30,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..config import CONFIG
 from . import program as prog
 from .bigtraj import phase_real_stack, trajectory_is_real
 from .plan import (
@@ -74,7 +75,8 @@ def mixed_unitary_stack(stack: np.ndarray):
 class _StackSpec(NamedTuple):
     probs: np.ndarray        # (m,) static branch probabilities
     units: np.ndarray        # (m, D, D) complex64 unitaries
-    units_real: object       # (m, D, D) real (phase-real form) or None
+    units_real: object       # (m, D, D) float64 phase-real forms, or None
+    exact: np.ndarray        # (m, D, D) complex128 unitaries
 
 
 class _Draw(NamedTuple):
@@ -131,7 +133,8 @@ def _build_spec(program, noise_model):
         probs, units = mu
         ur = phase_real_stack(units) if real else None
         sid = len(stacks)
-        stacks.append(_StackSpec(probs, units.astype(np.complex64), ur))
+        stacks.append(_StackSpec(probs, units.astype(np.complex64), ur,
+                                 units))
         stack_ids[skey] = sid
         return sid
 
@@ -221,8 +224,8 @@ def branch_overrides(spec: UnitaryInsertSpec,
         if not dlist:
             continue
         units = torch.from_numpy(np.asarray(
-            st.units_real if spec.real else st.units,
-            dtype=np.complex64)).to(device)
+            st.units_real if spec.real else st.exact,
+            dtype=CONFIG.np_complex)).to(device)
         chosen = units[branch[:, torch.as_tensor(
             [d.draw_index for d in dlist], device=device)]]
         if st.units.shape[1] == 2:
@@ -239,12 +242,12 @@ def branch_overrides(spec: UnitaryInsertSpec,
 
 
 def finalize(x: torch.Tensor, planar: bool) -> torch.Tensor:
-    """Batched grouped state -> (T, 2^n) complex64, each trajectory
+    """Batched grouped state -> (T, 2^n) ``CONFIG.dtype``, each trajectory
     normalized once: the spliced operators are exactly unitary, but fp32
     products drift by about 1e-6 per op (``unitary_traj.py:335-339``)."""
     T = x.shape[0]
     flat = (torch.complex(x[:, 0], x[:, 1]) if planar
-            else x.to(torch.complex64)).reshape(T, -1)
+            else x.to(CONFIG.dtype)).reshape(T, -1)
     nsq = flat.real.square().sum(-1) + flat.imag.square().sum(-1)
     return flat * torch.rsqrt(nsq.clamp(min=1e-30))[:, None]
 
@@ -255,7 +258,7 @@ def unitary_insert_trajectory_body(program, noise_model, params,
                                    branch: torch.Tensor | None = None,
                                    plain: bool = False):
     """``n_traj`` stochastic trajectories with every noise draw spliced as
-    a unitary into the group plan. Returns ``(states (T, 2^n) complex64,
+    a unitary into the group plan. Returns ``(states (T, 2^n) complex,
     branch (T, total_draws))``; ``branch`` given replays those draws,
     ``plain`` runs the kernels' plain twins."""
     spec = unitary_insert_spec(program, noise_model)

@@ -20,8 +20,8 @@ Where the JAX package compiles, the port runs batches:
   (``ops/program.forward_body``) with ``torch.autograd``, as the JAX
   package differentiates its per-gate body with ``jax.value_and_grad``;
   no kernel is involved. ``multi_start`` replaces ``lax.scan`` + ``vmap``
-  with a loop over iterations on a batch of starts, in float32 on the
-  device.
+  with a loop over iterations on a batch of starts, in float32 (float64
+  under ``config.enable_complex128``) on the device.
 * **MPS configs** (``MPSParameterizedConfig``): the rows run as one
   batch of MPS through ``mps.build_batched_cost_fn`` (parameter shift
   and finite differences only; reverse mode is refused, as in JAX).
@@ -235,8 +235,8 @@ def _pauli_terms_device(terms):
     mask m costs one state-sized t_m, shared by its terms (the Z strings
     share |psi|^2); each support one marginal of t_m, contracted with the
     vectors of all its terms at once (the coefficient folded into the
-    first). The sums are float32 reductions, as in the per-term
-    application. A qubit named twice in a string takes the product of
+    first). The sums are reductions in the state's real dtype, as in the
+    per-term application. A qubit named twice in a string takes the product of
     its Paulis in the order they apply, as there."""
     ident = 0.0
     groups: dict[tuple, list[np.ndarray]] = {}   # (m, S) -> (k, 2) each
@@ -257,17 +257,18 @@ def _pauli_terms_device(terms):
                       for q in support])
         f[0] *= coeff
         groups.setdefault((flips, support), []).append(f)
-    host = {k: torch.from_numpy(np.stack(v, axis=-1).astype(np.complex64))
+    host = {k: torch.from_numpy(np.stack(v, axis=-1).astype(np.complex128))
             for k, v in groups.items()}           # (k, 2, terms)
-    on_device: dict = {}          # the factors by device, copied once
+    on_device: dict = {}   # the factors by device and dtype, copied once
 
     def device(psi, n):
-        fs = on_device.get(psi.device)
+        fs = on_device.get((psi.device, psi.dtype))
         if fs is None:
-            fs = on_device[psi.device] = {
-                k: v.to(psi.device) for k, v in host.items()}
+            fs = on_device[(psi.device, psi.dtype)] = {
+                k: v.to(device=psi.device, dtype=psi.dtype)
+                for k, v in host.items()}
         lead = tuple(psi.shape[:-1])
-        total = torch.zeros(lead, dtype=torch.float32, device=psi.device)
+        total = torch.zeros(lead, dtype=psi.real.dtype, device=psi.device)
         if ident:
             total = total + ident * psi.abs().square().sum(-1)
         t, t_flips = None, None
@@ -397,7 +398,7 @@ def _device_costs(program, cost: DeviceCost, offsets: np.ndarray,
     """Costs at every row of ``values_batch`` through the batched group
     executor, chunk by chunk (``plain``: the kernels' twins)."""
     n = program.num_qubits
-    values = torch.as_tensor(np.asarray(values_batch, dtype=np.float32),
+    values = torch.as_tensor(np.asarray(values_batch, dtype=CONFIG.np_real),
                              device=device)
     rows = param_rows_per_batch(program, values.shape[0])
     out = []
@@ -524,7 +525,7 @@ class GradientEstimator:
         exact, one forward and one backward pass, any torch-form gate."""
         program, offsets = _check_reverse_mode(config, cost_fn, "autodiff")
         device = device or CONFIG.device
-        v = torch.tensor(np.asarray(values, dtype=np.float32),
+        v = torch.tensor(np.asarray(values, dtype=CONFIG.np_real),
                          device=device, requires_grad=True)
         params = _param_rows(program, offsets, v[None])[0]
         c = cost_fn.device_fn(prog.forward_body(program, params),
@@ -585,14 +586,14 @@ class MultiStartResult:
 def _multi_start_adam(program, cost: DeviceCost, offsets: np.ndarray,
                       inits: torch.Tensor, n_iter: int, lr: float,
                       beta1: float, beta2: float):
-    """Adam from every row of ``inits`` (S, K) at once, float32 on its
+    """Adam from every row of ``inits`` (S, K) at once, in their dtype on its
     device (``optimizer.py:385-408``): each iteration records the cost at
     the current point, keeps the best point in the carry, then updates;
     a final evaluation competes for best. Returns (best_values (S, K),
     best_costs (S,), costs (S, n_iter))."""
     n = program.num_qubits
-    f32 = torch.float32
-    lr, b1, b2 = (torch.tensor(x, dtype=f32) for x in (lr, beta1, beta2))
+    real = inits.dtype     # float32, float64 under enable_complex128
+    lr, b1, b2 = (torch.tensor(x, dtype=real) for x in (lr, beta1, beta2))
 
     def value_and_grad(values):
         v = values.detach().requires_grad_(True)
@@ -604,7 +605,7 @@ def _multi_start_adam(program, cost: DeviceCost, offsets: np.ndarray,
     values = inits
     m = torch.zeros_like(values)
     v = torch.zeros_like(values)
-    best_c = torch.full((values.shape[0],), float("inf"), dtype=f32,
+    best_c = torch.full((values.shape[0],), float("inf"), dtype=real,
                         device=values.device)
     best_v = values
     costs = []
@@ -615,7 +616,7 @@ def _multi_start_adam(program, cost: DeviceCost, offsets: np.ndarray,
         best_v = torch.where(better[:, None], values, best_v)
         m = b1 * m + (1 - b1) * g
         v = b2 * v + (1 - b2) * g * g
-        t1 = torch.tensor(t + 1, dtype=f32)
+        t1 = torch.tensor(t + 1, dtype=real)
         m_hat = m / (1 - torch.pow(b1, t1))
         v_hat = v / (1 - torch.pow(b2, t1))
         values = values - lr * m_hat / (torch.sqrt(v_hat) + 1e-8)
@@ -627,7 +628,7 @@ def _multi_start_adam(program, cost: DeviceCost, offsets: np.ndarray,
     best_c = torch.where(better, final_c, best_c)
     best_v = torch.where(better[:, None], values, best_v)
     hist = (torch.stack(costs, dim=1) if costs
-            else torch.zeros((values.shape[0], 0), dtype=f32))
+            else torch.zeros((values.shape[0], 0), dtype=real))
     return best_v, best_c, hist
 
 
@@ -767,7 +768,7 @@ class CircuitOptimizer:
                 raise ValueError(
                     f"init_values must be ({n_starts}, "
                     f"{config.num_params}), got {init_values.shape}")
-        inits = torch.as_tensor(init_values.astype(np.float32),
+        inits = torch.as_tensor(init_values.astype(CONFIG.np_real),
                                 device=device or CONFIG.device)
         best_v, best_c, costs = _multi_start_adam(
             program, cost_fn, offsets, inits, max_iterations,

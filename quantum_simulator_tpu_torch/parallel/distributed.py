@@ -60,7 +60,7 @@ import torch
 import torch.distributed as dist
 
 from ..circuit import GateInstance, QuantumCircuit
-from ..config import CONFIG
+from ..config import CONFIG, require_complex64
 from ..mps import gumbel_from_uniform
 from ..ops import plan as gplan
 from ..ops import program as prog
@@ -983,6 +983,7 @@ class DistributedSimulator:
 
     def __init__(self, mesh: ShardMesh | None = None,
                  n_devices: int | None = None, device=None):
+        require_complex64("DistributedSimulator")
         self._mesh = (check_mesh(mesh) if mesh is not None
                       else make_mesh(n_devices, device=device))
 

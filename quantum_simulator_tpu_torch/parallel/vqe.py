@@ -26,6 +26,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from ..config import require_complex64
 from ..ops import program as prog
 from ..simulator import TRAJECTORY_MEMORY_BYTES
 from .distributed import ShardMesh, _ShardBody, check_mesh, mesh_device
@@ -105,6 +106,7 @@ def sharded_vqe_step(circuit, mesh: ShardMesh, *, qubit: int = 0,
     shard and per local amplitude summed over the amp shards. The
     (1 + 2P)-row batch of parameter vectors (base and the +-pi/2 shifts),
     padded to a multiple of the traj rows, is split over the traj rows."""
+    require_complex64("the sharded VQE step")
     mesh = check_mesh(mesh)
     program = prog.compile_circuit(circuit)
     n = program.num_qubits

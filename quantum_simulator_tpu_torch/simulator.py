@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from .circuit import QuantumCircuit
-from .config import CONFIG
+from .config import CONFIG, require_complex64
 from .gates import GateType
 from .measurement import (MeasurementBasis, MeasurementEngine,
                           counts_from_array, sample_rows)
@@ -77,29 +77,33 @@ def _check_amplitude_cap(circuit: QuantumCircuit) -> None:
         raise ValueError(
             f"num_qubits must be 1-{CONFIG.max_qubits} for amplitude "
             f"simulation, got {circuit.num_qubits}")
+    if _is_huge(circuit):
+        require_complex64(f"the n >= {bigstate.HUGE_MIN_QUBITS} chunked "
+                          f"path (n = {circuit.num_qubits})")
 
 
 def _plan_operand_bytes(plan) -> int:
     """Bytes of one trajectory's operands if every one were its own:
-    (re, im) float32 planes of each dense, cross and pair-diagonal step."""
+    (re, im) planes of each dense, cross and pair-diagonal step."""
     from .ops import plan as gplan
 
     sizes = plan.layout.axis_sizes
     total = 0
     for s in plan.steps:
         if isinstance(s, gplan.AxisMatmulStep):
-            total += 8 * sizes[s.axis] ** 2
+            total += sizes[s.axis] ** 2
         elif isinstance(s, gplan.CrossStep):
-            total += 32 * sizes[s.op_axis] ** 2
+            total += 4 * sizes[s.op_axis] ** 2
         elif isinstance(s, gplan.DiagPairStep):
-            total += 8 * sizes[s.axis_a] * sizes[s.axis_b]
-    return total
+            total += sizes[s.axis_a] * sizes[s.axis_b]
+    return total * CONFIG.dtype.itemsize
 
 
 def _chunk_size(program, noise_model, n_traj: int) -> int:
     """Trajectories per batch: ``TRAJECTORY_MEMORY_BYTES`` over
     one trajectory's peak, which is its planar state and one state-sized
-    temporary (basis sampling, reductions), its complex64 result, and
+    temporary (basis sampling, reductions), its complex result (8 bytes
+    an amplitude, 16 under ``enable_complex128``), and
     four times its operands: the batched build holds the kron chains and
     compositions beside the finished operands (3.2x measured at n=16
     depth-40 on an H100, ``chip_smoke.py`` phase 4b). Its regime ends at
@@ -120,15 +124,16 @@ def _chunk_size(program, noise_model, n_traj: int) -> int:
         ops = max(_plan_operand_bytes(gplan.get_group_plan(s))
                   for s in monomial_spec(program, noise_model).segments)
     else:
-        ops = 32 * 128 ** 2   # one embedded cross operator per gate or draw
-    per = 3 * (8 << program.num_qubits) + 4 * ops
+        # one embedded cross operator per gate or draw
+        ops = 4 * 128 ** 2 * CONFIG.dtype.itemsize
+    per = 3 * (CONFIG.dtype.itemsize << program.num_qubits) + 4 * ops
     return max(1, min(n_traj, TRAJECTORY_MEMORY_BYTES // per))
 
 
 def param_rows_per_batch(program, n_rows: int) -> int:
     """Parameter rows per batch of the variational path
     (``optimizer._device_costs``): ``TRAJECTORY_MEMORY_BYTES`` over one
-    row's peak, which is five state-sized complex64 buffers (the grouped
+    row's peak, which is five state-sized complex buffers (the grouped
     state, the complex result and the cost's temporaries, such as a
     flipped copy of the result and its product with the result) and four
     times its operands,
@@ -137,24 +142,25 @@ def param_rows_per_batch(program, n_rows: int) -> int:
     from .ops import plan as gplan
 
     ops = _plan_operand_bytes(gplan.get_group_plan(program))
-    per = 5 * (8 << program.num_qubits) + 4 * ops
+    per = 5 * (CONFIG.dtype.itemsize << program.num_qubits) + 4 * ops
     return max(1, min(n_rows, TRAJECTORY_MEMORY_BYTES // per))
 
 
 def record_rows_per_batch(program, n_traj: int) -> int:
     """Trajectories per batch of a column-recording run (the debugger's
     trials): ``TRAJECTORY_MEMORY_BYTES`` over one trajectory's peak, which
-    is its ``columns + 1`` complex64 snapshots and four state-sized
+    is its ``columns + 1`` complex snapshots and four state-sized
     buffers: the planar state, and the permuted and conjugated copies that
     the reduced density matrices take (of the state in the body, of one
     column in the reductions)."""
-    per = (program.num_columns + 5) * (8 << program.num_qubits)
+    per = (program.num_columns + 5) * (CONFIG.dtype.itemsize
+                                       << program.num_qubits)
     return max(1, min(n_traj, TRAJECTORY_MEMORY_BYTES // per))
 
 
 def run_batched_trajectories(traj_fn, params, uniforms: torch.Tensor,
                              row_shape: tuple, chunk: int) -> torch.Tensor:
-    """``(T, *row_shape)`` complex64 results of a batched trajectory
+    """``(T, *row_shape)`` ``CONFIG.dtype`` results of a batched trajectory
     function ``traj_fn(params, uniforms, out=...)`` (``program.
     batched_trajectories_fn(..., record_columns=True)``) over the ``T``
     rows of ``uniforms`` (``simulator.py:77-104``), in batches of
@@ -162,7 +168,7 @@ def run_batched_trajectories(traj_fn, params, uniforms: torch.Tensor,
     front: the peak is the result plus one batch's temporaries. The rows
     carry the draws, so the result does not depend on ``chunk``."""
     T = uniforms.shape[0]
-    out = torch.empty((T,) + tuple(row_shape), dtype=torch.complex64,
+    out = torch.empty((T,) + tuple(row_shape), dtype=CONFIG.dtype,
                       device=uniforms.device)
     for start in range(0, T, chunk):
         stop = min(T, start + chunk)
@@ -394,7 +400,7 @@ class Simulator:
     def _trajectory_batches(self, circuit: QuantumCircuit, n_traj: int,
                             rng: np.random.Generator
                             ) -> Iterator[torch.Tensor]:
-        """(take, 2^n) complex64 states of consecutive batches of the
+        """(take, 2^n) ``CONFIG.dtype`` states of consecutive batches of the
         ``n_traj`` trajectories; without channels, the ideal state
         repeated (``simulator.py:475-477``)."""
         _check_amplitude_cap(circuit)
@@ -404,7 +410,8 @@ class Simulator:
         if not self._noisy():
             state = prog.forward_fn(program, self._device)(params)
             chunk = max(1, min(n_traj, TRAJECTORY_MEMORY_BYTES
-                               // (16 << circuit.num_qubits)))
+                               // (2 * CONFIG.dtype.itemsize
+                                   << circuit.num_qubits)))
             for start in range(0, n_traj, chunk):
                 yield state.expand(min(chunk, n_traj - start), -1)
             return
@@ -419,8 +426,8 @@ class Simulator:
                           seed: int | None = None,
                           rng: np.random.Generator | None = None
                           ) -> torch.Tensor:
-        """(T, 2^n) complex64 final states of T stochastic trajectories on
-        the device."""
+        """(T, 2^n) ``CONFIG.dtype`` final states of T stochastic
+        trajectories on the device."""
         if rng is None:
             rng = np.random.default_rng(seed)
         out = None
@@ -653,7 +660,7 @@ class Simulator:
                 acc += qubit_rhos_from_grams(
                     fn(program.initial_params, self._generator(rng)), n)
             return acc / n_trials
-        acc = torch.zeros((n, 2, 2), dtype=torch.complex64,
+        acc = torch.zeros((n, 2, 2), dtype=CONFIG.dtype,
                           device=self._device)
         for states in self._trajectory_batches(circuit, n_trials, rng):
             t = states.shape[0]

@@ -1,7 +1,9 @@
 """Host-facing StateVector over a device-resident torch tensor.
 
 Counterpart of ``quantum_simulator_tpu/state.py:34-153``: amplitudes live
-on the device as ``CONFIG.dtype`` (complex64); ``.data`` is a NumPy
+on the device as ``CONFIG.dtype`` (complex64, or complex128 under
+``config.enable_complex128``, where the executors already return
+complex128 and ``from_tensor`` casts nothing); ``.data`` is a NumPy
 complex128 copy and ``.probabilities`` a float64 one. The JAX package's
 complex-transfer helpers (``utils/xfer.py``) exist for its TPU runtime and
 are not needed here.

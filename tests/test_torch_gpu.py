@@ -234,8 +234,8 @@ def test_executor_holds_one_state(cuda):
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     x = _state((4, 128, 128), True, cuda)
     op = _op((128, 128), True, cuda)
-    with pytest.raises(TypeError):
-        cuda_exec.dense_axis(x.double(), op.double(), 2, True)
+    with pytest.raises(TypeError):   # a float64 state takes a float64 op
+        cuda_exec.dense_axis(x.double(), op, 2, True)
     with pytest.raises(ValueError):
         cuda_exec.dense_axis(x.transpose(2, 3), op, 2, True)
     with pytest.raises(ValueError):
@@ -1406,3 +1406,77 @@ def test_interactive_latency_card_meets_edit_target(cuda, tmp_path):
                      "cuda", tmp_path)
     assert got["platform"] == "gpu" and got["edit_under_2s"]
     assert got["device"] == torch.cuda.get_device_name(0)
+
+
+# ---------------------------------------------------------------------------
+# Complex128 verification mode: the float64 kernels
+# ---------------------------------------------------------------------------
+
+def _f64(shape, device, seed, scale=1.0):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.standard_normal(shape) * scale).to(device)
+
+
+@pytest.mark.parametrize("shape", [(4, 128, 128), (32, 128, 128)])
+@pytest.mark.parametrize("planar,real", VARIANTS)
+def test_f64_kernels_match_twins(cuda, shape, planar, real):
+    """Every dense axis and two cross geometries of a layout, float64
+    against the float64 twin: 1e-12 x max |x| (sums of at most 256 terms
+    in another order)."""
+    lead = (2,) if planar else ()
+    x = _f64(lead + shape, cuda, 0)
+    tol = 1e-12 * float(x.abs().max())
+    for axis, S in enumerate(shape):
+        op = _f64((S, S) if real else (2, S, S), cuda, axis, S ** -0.5)
+        want = cuda_exec.dense_axis_plain(x, op, axis, planar)
+        cuda_exec.reset_launch_counts()
+        got = cuda_exec.dense_axis(x.clone(), op, axis, planar)
+        torch.cuda.synchronize()
+        assert cuda_exec.dense_axis_f64.launches == 1
+        assert cuda_exec.dense_axis.launches == 0
+        assert float((got - want).abs().max()) <= tol
+    for s, pos, o in [(1, 0, 0), (1, 6, 2), (2, 3, 0)]:
+        S = shape[o]
+        cop = _f64((2, S, 2, S) if real else (2, 2, S, 2, S), cuda, 9,
+                   (2 * S) ** -0.5)
+        want = cuda_exec.cross_bit_axis_plain(x, cop, s, pos, o, planar)
+        got = cuda_exec.cross_bit_axis(x.clone(), cop, s, pos, o, planar)
+        torch.cuda.synchronize()
+        assert float((got - want).abs().max()) <= tol
+
+
+def test_f64_state_with_f32_operator_raises(cuda):
+    x = torch.zeros((2, 4, 128, 128), dtype=torch.float64, device=cuda)
+    with pytest.raises(TypeError):
+        cuda_exec.dense_axis(x, torch.zeros((128, 128), device=cuda), 2,
+                             True)
+    with pytest.raises(TypeError):
+        cuda_exec.cross_bit_axis_f64(
+            x.float(), torch.zeros((2, 4, 2, 4), device=cuda), 1, 0, 0, True)
+
+
+@pytest.mark.parametrize("mix_rz", [False, True])
+def test_complex128_run_card_equals_cpu(cuda, mix_rz):
+    """``Simulator.run`` at n = 12 under ``enable_complex128``: the card's
+    complex128 state within 1e-12 of the CPU's, every dense and cross
+    step a float64 launch."""
+    from quantum_simulator_tpu_torch import config
+    circuit = QuantumCircuit.from_dict(build_circuit_dict(12, 16, 3, mix_rz))
+    plan = tplan.build_group_plan(tprog.compile_circuit(circuit))
+    config.enable_complex128()
+    try:
+        cuda_exec.reset_launch_counts()
+        card = Simulator(device="cuda").run(circuit, shots=0) \
+            .final_state.device_data
+        torch.cuda.synchronize()
+        cpu = Simulator(device="cpu").run(circuit, shots=0) \
+            .final_state.device_data
+    finally:
+        config.enable_complex64()
+    assert card.dtype == torch.complex128
+    assert cuda_exec.dense_axis_f64.launches == sum(
+        isinstance(s, tplan.AxisMatmulStep) for s in plan.steps)
+    assert cuda_exec.cross_bit_axis_f64.launches == sum(
+        isinstance(s, tplan.CrossStep) for s in plan.steps)
+    assert cuda_exec.dense_axis.launches == 0
+    assert float((card.cpu() - cpu).abs().max()) <= 1e-12
