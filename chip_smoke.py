@@ -352,7 +352,12 @@ The acceptance slice adds:
 The complex128 slice adds:
 
 17. under ``config.enable_complex128()`` (restored to complex64 in a
-    ``finally``). 17a: the float64 kernels (``dense_axis_f64``,
+    ``finally``). First the build of the float64 kernels: the ``ptxas -v``
+    lines of every ``f64_mma_kernel`` / ``f64_fma_kernel`` instance
+    (registers, spills) are printed and a spill fails the phase, and
+    ``cuobjdump -sass`` of the built library must show DMMA instructions
+    in every DMMA-path instance (K >= 16) and none elsewhere. 17a: the
+    float64 kernels (``dense_axis_f64``,
     ``cross_bit_axis_f64``, ``csrc/fiber_matmul_f64.cu``) against their
     float64 twins at every depth K from 2 to 256 (layouts whose first
     axis is 2-128 wide: the n = 15-21 layouts, the n = 16 headline's and
@@ -370,8 +375,11 @@ The complex128 slice adds:
     per-gate) and one monitored case at n = 16 on the card and on the CPU
     with the card's draws, within 1e-12. 17d: each float64 kernel's ms per
     launch at the n = 28 shapes (CUDA events, best of 3) beside its bound
-    (FP64 at 67 TFLOP/s, 3.35 TB/s), its twin's and one blocked float64
-    ``torch.einsum`` (``library_ms``), and the whole complex128
+    (FP64 at 67 TFLOP/s, 3.35 TB/s), its share of the bound, its TFLOP/s,
+    the operator bytes it reads from L2 as reckoned from its tile size
+    (beside the FMA design's), the FMA design's time at the same shapes,
+    its twin's and one blocked float64 ``torch.einsum`` (``library_ms``;
+    the kernel must be no slower), and the whole complex128
     ``Simulator.run`` at n = 16 and 28 beside the complex64 one, with the
     peak memory.
 
@@ -5363,6 +5371,9 @@ C128_SHOTS = 1024
 C128_SUMMARY = {"dense_axis_f64": ("dense", 28, 3),
                 "cross_bit_axis_f64": ("cross", 28, (2, 6, 3))}
 FP64_FLOP_PER_S = 67e12           # H100 SXM FP64, tensor-core peak
+# The float64 kernels' first design (FP64 FMA, F = 4096 / K fibers a tile)
+# at the 17d shapes: ms on an NVIDIA H100 80GB HBM3, 700.00 W.
+C128_FMA_DESIGN_MS = {"dense_axis_f64": 28.263, "cross_bit_axis_f64": 54.639}
 
 
 def c128_state(shape, planar: bool, seed: int, batch=None) -> torch.Tensor:
@@ -5404,6 +5415,65 @@ def c128_bound(shape, planar: bool, real: bool, K: int) -> tuple:
     t_ops = 2 * K * numel * (1 if real else 2) / FP64_FLOP_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def operator_l2_gib(shape, planar: bool, real: bool, K: int,
+                    F: int) -> float:
+    """GiB of operator a float64 launch streams from L2: every tile of F
+    fibers reads the whole (NP K^2 doubles) operator once."""
+    numel = (2 if planar and real else 1) * int(np.prod(shape))
+    tiles = -(-(numel // K) // F)
+    return tiles * 8 * K * K * (1 if real else 2) / 2 ** 30
+
+
+def f64_kernel_build(card: str) -> dict:
+    """The float64 kernels in the built library: each instance's ``ptxas
+    -v`` registers and spills (printed; a spill fails) and its DMMA and
+    DFMA instruction counts in ``cuobjdump -sass`` (every DMMA-path
+    instance must have DMMA, the FMA ones none)."""
+    out, entry = {}, None
+    for line in _build.build_log().splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            entry = name if "f64_" in name else None
+            if entry:
+                out[entry] = {}
+        elif entry and "spill stores" in line:
+            nums = [int(t) for t in line.replace(",", " ").split()
+                    if t.isdigit()]
+            out[entry]["spill_bytes"] = nums[1] + nums[2]
+        elif entry and "Used" in line and "registers" in line:
+            out[entry]["registers"] = int(line.split("Used")[1].split()[0])
+    check(len(out) > 0, "no float64 kernel in the ptxas log")
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(_build.build())],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    fn = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            if fn in out:
+                out[fn].update(dmma=0, dfma=0)
+        elif fn in out:
+            words = line.split("*/")[1].split() if "*/" in line else []
+            op = next((t for t in words if not t.startswith("@")), "")
+            if op.startswith("DMMA"):
+                out[fn]["dmma"] += 1
+            elif op.startswith("DFMA"):
+                out[fn]["dfma"] += 1
+    for name, row in sorted(out.items()):
+        print(f"17 ptxas [{card}]: {name}: {row.get('registers')} "
+              f"registers, {row.get('spill_bytes')} spill bytes, DMMA "
+              f"{row.get('dmma')}, DFMA {row.get('dfma')}", flush=True)
+        check(row.get("spill_bytes") == 0, f"{name} spills: {row}")
+        mma = "f64_mma_kernel" in name
+        check(row.get("dmma", 0) > 0 if mma else row.get("dmma") == 0,
+              f"{name}: DMMA count {row.get('dmma')}")
+    check(any("f64_mma_kernel" in k for k in out)
+          and any("f64_fma_kernel" in k for k in out),
+          f"float64 kernel instances missing: {sorted(out)}")
+    return out
 
 
 def c128_kernel_case(name, label, x, op, kfn, pfn, max_err: dict,
@@ -5680,12 +5750,24 @@ def c128_timing(report: dict, card: str) -> dict:
         b_ms, b_by = c128_bound(shape, True, False, K)
         del x, x0
         torch.cuda.empty_cache()
+        tflops = 2 * K * 2 * 2 * int(np.prod(shape)) / (k_ms * 1e9)
+        l2 = operator_l2_gib(shape, True, False, K,
+                             cuda_exec.tile_fibers_f64(K, False))
+        l2_fma = operator_l2_gib(shape, True, False, K, 4096 // K)
+        earlier = C128_FMA_DESIGN_MS[name]
         summary[name] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
-                         "bound_ms": b_ms, "bound_by": b_by, "K": K}
+                         "bound_ms": b_ms, "bound_by": b_by, "K": K,
+                         "share_of_bound": b_ms / k_ms, "tflops": tflops,
+                         "operator_l2_gib": l2,
+                         "operator_l2_gib_fma_design": l2_fma,
+                         "fma_design_ms": earlier}
         print(f"17d {name} n={n} complex K={K} [{card}]: kernel {k_ms:.4f} "
-              f"ms, twin {p_ms:.4f} ms, float64 einsum {lib_ms:.4f} ms, "
-              f"bound {b_ms:.4f} ms ({b_by}), {b_ms / k_ms:.3f} of it",
-              flush=True)
+              f"ms ({tflops:.2f} TFLOP/s; FMA design {earlier} ms), twin "
+              f"{p_ms:.4f} ms, float64 einsum {lib_ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}), {b_ms / k_ms:.3f} of it; operator "
+              f"from L2 {l2:.1f} GiB (FMA design {l2_fma:.1f})", flush=True)
+        check(k_ms <= lib_ms, f"17d {name}: kernel {k_ms} ms slower than "
+              f"the float64 einsum {lib_ms} ms")
     runs = {}
     for label, (n, depth, mix) in (("headline", C128_HEADLINE),
                                    ("wide", C128_WIDE)):
@@ -5726,6 +5808,7 @@ def phase_complex128(report: dict, card: str) -> dict:
     path: dict = {k: 0 for k in f64_counts()}
     tconfig.enable_complex128()
     try:
+        report["c128"]["build"] = f64_kernel_build(card)
         max_err = c128_kernels(report, card)
         report["c128"]["runs"] = c128_runs(path, report, card)
         report["c128"]["trajectories"] = c128_trajectories(path, report,
@@ -5783,6 +5866,16 @@ def main() -> int:
             check(got == cuda_exec.tile_fibers(k, real),
                   f"tile fibers at K={k} real={real}: kernel {got}, "
                   f"wrapper {cuda_exec.tile_fibers(k, real)}")
+            got = lib.qs_tile_fibers_f64(k, int(not real))
+            check(got == cuda_exec.tile_fibers_f64(k, real),
+                  f"float64 tile fibers at K={k} real={real}: kernel "
+                  f"{got}, wrapper {cuda_exec.tile_fibers_f64(k, real)}")
+    print("float64 kernels, fibers per tile / dynamic shared memory bytes "
+          "(K: real, complex):",
+          ", ".join(f"{k}: {lib.qs_tile_fibers_f64(k, 0)}/"
+                    f"{lib.qs_smem_bytes_f64(k, 0)}, "
+                    f"{lib.qs_tile_fibers_f64(k, 1)}/"
+                    f"{lib.qs_smem_bytes_f64(k, 1)}" for k in depths))
 
     phases = {"2": lambda: phase_kernels(report, card),
               "2b": lambda: phase_batched_kernels(report, card),

@@ -128,6 +128,10 @@ def _load() -> ctypes.CDLL:
     lib.qs_smem_bytes.restype = ctypes.c_longlong
     lib.qs_tile_fibers.argtypes = [ctypes.c_int] * 2
     lib.qs_tile_fibers.restype = ctypes.c_int
+    lib.qs_tile_fibers_f64.argtypes = [ctypes.c_int] * 2
+    lib.qs_tile_fibers_f64.restype = ctypes.c_int
+    lib.qs_smem_bytes_f64.argtypes = [ctypes.c_int] * 2
+    lib.qs_smem_bytes_f64.restype = ctypes.c_longlong
     return lib
 
 

@@ -28,10 +28,11 @@ launches.
 
 A float64 state (``config.enable_complex128``) goes to the float64 kernels
 (``dense_axis_f64``, ``cross_bit_axis_f64``: ``csrc/fiber_matmul_f64.cu``,
-plain FP64 FMA), each with its own count; ``dense_axis`` and
-``cross_bit_axis`` route a float64 CUDA state there and count only their
-float32 launches. State and operator must share one dtype: a mixed pair
-raises.
+DMMA on the FP64 tensor cores for K >= ``F64_MMA_MIN_K``, FP64 FMA below),
+each with its own count and a copy plan in doubles (``copy_plan(g, 8)``);
+``dense_axis`` and ``cross_bit_axis`` route a float64 CUDA state there
+and count only their float32 launches. State and operator must share one
+dtype: a mixed pair raises.
 
 Both wrappers also take a batch of B trajectories (``batched=True``): the
 state ``(B, [2,] *axis_sizes)`` and an operator with a leading B axis,
@@ -244,20 +245,38 @@ def tile_fibers(K: int, real: bool) -> int:
     return 64 if K == 32 else 32
 
 
-def copy_plan(g: Geometry) -> tuple[bool, int]:
+# Contraction depths from this one up take the float64 kernels' DMMA path
+# (``kF64MmaMinK`` in ``csrc/fiber_matmul_f64.cu``); below, FP64 FMA.
+F64_MMA_MIN_K = 16
+
+
+def tile_fibers_f64(K: int, real: bool) -> int:
+    """Fibers per tile of the float64 kernels at depth K:
+    ``F64FmaTile`` / ``F64MmaTile<K, ...>::F`` of ``csrc/fiber_matmul_f64.cu``
+    (``chip_smoke.py`` checks the two agree)."""
+    if K < F64_MMA_MIN_K:
+        return 256 * min(K, 4) * 4 // K
+    if real:
+        return {256: 64, 128: 128}.get(K, 256)
+    return {256: 32, 128: 64, 64: 128}.get(K, 256)
+
+
+def copy_plan(g: Geometry, itemsize: int = 4) -> tuple[bool, int]:
     """How a fiber tile is copied: ``(rows, vec)``.
 
     ``rows`` is True when each fiber's rows are contiguous (op axis last:
     ``n_inner == 1``, ``op_stride == 1``): the tile is stored row-major and
     copy chunks run along the rows. Otherwise chunks run along a run of
-    ``n_inner`` contiguous fibers. ``vec`` is the floats per chunk (16, 8
-    or 4 bytes): the widest that divides the contiguous run and every
-    stride, so every chunk is contiguous and aligned."""
+    ``n_inner`` contiguous fibers. ``vec`` is the elements per chunk, of
+    ``itemsize`` bytes each (float32: 4, 2 or 1; float64: 2 or 1), the
+    widest chunk of at most 16 bytes that divides the contiguous run and
+    every stride, so every chunk is contiguous and aligned."""
     rows = g.n_inner == 1 and g.op_stride == 1
     run = g.S if rows else g.n_inner
     strides = (run, g.so, g.sm, g.bit_stride, g.plane_stride) + (
         () if rows else (g.op_stride,))
-    vec = next(v for v in (4, 2, 1) if all(s % v == 0 for s in strides))
+    vec = next(v for v in (4, 2, 1)
+               if v * itemsize <= 16 and all(s % v == 0 for s in strides))
     return rows, vec
 
 
@@ -304,12 +323,12 @@ def _check(x: torch.Tensor, op: torch.Tensor, op_shape: tuple[int, ...],
 
 @functools.lru_cache(maxsize=None)
 def _view(kind: str, shape: tuple[int, ...], geom, planar: bool,
-          real: bool) -> tuple[Geometry, tuple[bool, int]]:
+          real: bool, itemsize: int) -> tuple[Geometry, tuple[bool, int]]:
     """Geometry and copy plan of a launch, cached: an executor repeats a
     few shapes, and at n=16 a launch's host work is most of its time."""
     g = (dense_geometry(shape, geom, planar, real) if kind == "dense"
          else cross_geometry(shape, *geom, planar, real))
-    return g, copy_plan(g)
+    return g, copy_plan(g, itemsize)
 
 
 def _launch(fn_name: str, x: torch.Tensor, op: torch.Tensor, K: int,
@@ -342,7 +361,8 @@ def _dense_launch(name: str, x: torch.Tensor, op: torch.Tensor, axis: int,
     S = shape[axis]
     real = _check(x, op, (S, S), planar, batched, name)
     _launch(f"qs_{name}", x, op, S, real,
-            _view("dense", shape, axis, planar, real), batched)
+            _view("dense", shape, axis, planar, real, x.element_size()),
+            batched)
 
 
 def _cross_launch(name: str, x: torch.Tensor, cop: torch.Tensor,
@@ -357,7 +377,7 @@ def _cross_launch(name: str, x: torch.Tensor, cop: torch.Tensor,
     real = _check(x, cop, (2, S, 2, S), planar, batched, name)
     _launch(f"qs_{name}", x, cop, 2 * S, real,
             _view("cross", shape, (slice_axis, slice_pos, op_axis), planar,
-                  real), batched)
+                  real, x.element_size()), batched)
 
 
 def dense_axis(x: torch.Tensor, op: torch.Tensor, axis: int,

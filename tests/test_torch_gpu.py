@@ -1417,31 +1417,52 @@ def _f64(shape, device, seed, scale=1.0):
     return torch.from_numpy(rng.standard_normal(shape) * scale).to(device)
 
 
-@pytest.mark.parametrize("shape", [(4, 128, 128), (32, 128, 128)])
+# shape -> (cross geometries, batch): between them every dense depth K
+# from 2 to 128 and every cross depth from 4 to 256, both sides of the
+# FMA / DMMA line (K = 16); (2, 8, 16, 64) and (4, 128, 8) run a batch of
+# B = 3 with one operator per trajectory, and (4, 128, 8) leaves each
+# trajectory a ragged tile (the dense K = 128 and cross K = 256 steps have
+# fewer fibers than a tile).
+F64_CASES = {(4, 128, 128): ([(1, 0, 0), (1, 6, 2), (2, 3, 0)], None),
+             (32, 128, 128): ([(1, 0, 0), (1, 6, 2), (2, 3, 0)], None),
+             (2, 8, 16, 64): ([(1, 0, 0), (2, 1, 1), (3, 2, 2), (1, 2, 3)],
+                              3),
+             (4, 128, 8): ([(0, 0, 1), (2, 1, 0), (1, 3, 2)], 3)}
+
+
+@pytest.mark.parametrize("shape", list(F64_CASES))
 @pytest.mark.parametrize("planar,real", VARIANTS)
 def test_f64_kernels_match_twins(cuda, shape, planar, real):
-    """Every dense axis and two cross geometries of a layout, float64
-    against the float64 twin: 1e-12 x max |x| (sums of at most 256 terms
-    in another order)."""
-    lead = (2,) if planar else ()
+    """Every dense axis and the case's cross geometries of a layout,
+    float64 against the float64 twin: 1e-12 x max |x| (sums of at most 256
+    terms in another order)."""
+    geoms, batch = F64_CASES[shape]
+    batched = batch is not None
+    lead = ((batch,) if batched else ()) + ((2,) if planar else ())
+    per = (batch,) if batched else ()
     x = _f64(lead + shape, cuda, 0)
     tol = 1e-12 * float(x.abs().max())
     for axis, S in enumerate(shape):
-        op = _f64((S, S) if real else (2, S, S), cuda, axis, S ** -0.5)
-        want = cuda_exec.dense_axis_plain(x, op, axis, planar)
+        op = _f64(per + ((S, S) if real else (2, S, S)), cuda, axis,
+                  S ** -0.5)
+        want = cuda_exec.dense_axis_plain(x, op, axis, planar, batched)
         cuda_exec.reset_launch_counts()
-        got = cuda_exec.dense_axis(x.clone(), op, axis, planar)
+        got = cuda_exec.dense_axis(x.clone(), op, axis, planar, batched)
         torch.cuda.synchronize()
         assert cuda_exec.dense_axis_f64.launches == 1
         assert cuda_exec.dense_axis.launches == 0
         assert float((got - want).abs().max()) <= tol
-    for s, pos, o in [(1, 0, 0), (1, 6, 2), (2, 3, 0)]:
+    for s, pos, o in geoms:
         S = shape[o]
-        cop = _f64((2, S, 2, S) if real else (2, 2, S, 2, S), cuda, 9,
-                   (2 * S) ** -0.5)
-        want = cuda_exec.cross_bit_axis_plain(x, cop, s, pos, o, planar)
-        got = cuda_exec.cross_bit_axis(x.clone(), cop, s, pos, o, planar)
+        cop = _f64(per + ((2, S, 2, S) if real else (2, 2, S, 2, S)), cuda,
+                   9, (2 * S) ** -0.5)
+        want = cuda_exec.cross_bit_axis_plain(x, cop, s, pos, o, planar,
+                                              batched)
+        cuda_exec.reset_launch_counts()
+        got = cuda_exec.cross_bit_axis(x.clone(), cop, s, pos, o, planar,
+                                       batched)
         torch.cuda.synchronize()
+        assert cuda_exec.cross_bit_axis_f64.launches == 1
         assert float((got - want).abs().max()) <= tol
 
 

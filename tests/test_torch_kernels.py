@@ -371,13 +371,21 @@ def test_main_path_cross_geometries_cover_the_state(n, s, pos, o):
     ("cross", (4, 128, 128), (1, 6, 2), (True, 4)),
     ("cross", (4, 128, 128), (2, 5, 1), (False, 2)),  # runs of 2 fibers
     ("cross", (4, 128, 128), (2, 6, 1), (False, 1)),  # only bit pairs
+    # float64 (the complex128 mode): chunks of at most 16 bytes, 2 doubles
+    ("dense_f64", (4, 128, 128), 1, (False, 2)),
+    ("dense_f64", (4, 128, 128), 2, (True, 2)),
+    ("cross_f64", (4, 128, 128), (1, 6, 2), (True, 2)),
+    ("cross_f64", (4, 128, 128), (2, 5, 1), (False, 2)),
+    ("cross_f64", (4, 128, 128), (2, 6, 1), (False, 1)),
+    ("cross_f64", (128,) * 4, (2, 6, 3), (True, 2)),   # the n = 28 K = 256
 ])
 def test_copy_plan_follows_the_contiguous_dimension(kind, shape, geom, want):
-    if kind == "dense":
+    itemsize = 8 if kind.endswith("_f64") else 4
+    if kind.startswith("dense"):
         g = cuda_exec.dense_geometry(shape, geom, False, True)
     else:
         g = cuda_exec.cross_geometry(shape, *geom, False, True)
-    assert cuda_exec.copy_plan(g) == want
+    assert cuda_exec.copy_plan(g, itemsize) == want
 
 
 def test_tile_fibers_split_the_two_paths():
