@@ -383,6 +383,40 @@ The complex128 slice adds:
     ``Simulator.run`` at n = 16 and 28 beside the complex64 one, with the
     peak memory.
 
+The slice that carries the complex128 mode past n = 29 adds:
+
+18. under ``config.enable_complex128()`` (restored in a ``finally``), the
+    large-state path in float64. 18a: both float64 kernels at the n = 30
+    and n = 31 layouts ((4 | 8, 128, 128, 128, 128): dense K = 4 / 8 on
+    FP64 FMA and K = 128, cross K = 8 / 16 and 256), every dense axis and
+    every cross geometry of the brickwork plans, against the float64 twin
+    run slice by slice, within 1e-12 x max |x|, with each launch's time
+    beside its bound; real and planar states at n = 30, the real state at
+    n = 31 and the planar ones where the card holds two 32 GiB states
+    (the line says which ran). 18b: ``Simulator(device="cuda").run`` on
+    the depth-8 brickwork at n = 29 (Ry/Rz, ``shots=0``: the widest state
+    below the large-state path), n = 30 (Ry/Rz, 4096 shots in the Z and
+    X bases) and n = 31 (Ry+CNOT real, Ry/Rz planar, 4096 shots): float64
+    ``PlanarStateVector`` results (complex128 at n = 29), |1 - norm| <=
+    1e-12, float64 launches equal to the plans' dense and cross steps and
+    no float32 launch, the shots adding up, the per-axis marginals within
+    1e-5 of a complex64 run of the same circuit, peaks under 1.75x the
+    state from n = 30 on, with the run's wall time and the executor's
+    CUDA-event ms; GHZ-31 gives only 0..0 and 1..1, GHZ-30's Z and Pauli
+    strings their values within 1e-12, QFT-30 is flat to 1e-12 relative
+    (peak under 1.75x), and ``run_step_by_step`` at n = 30 yields float64
+    marginal summaries whose last equals the final state's qubit
+    probabilities within 1e-12. 18c: one n = 30 depth-4 Ry+CNOT
+    trajectory per route (unitary, monomial, fold) and two monitored ones
+    (``final_shots=256``), the kernels against the twins replayed on the
+    same draws within 1e-12, seconds per trajectory. 18d:
+    ``DensityMatrixSimulator.run(method="superop")`` at n = 15 (vec(rho)
+    at 2n = 30) on the noisy Ry+CNOT (real, 8 GiB) and Ry/Rz (planar,
+    16 GiB) brickworks of phase 8: a float64 ``SuperopDensityResult``,
+    trace within 1e-12 of 1, diagonal and purity within 1e-5 of the
+    complex64 run, peak under 1.75x the state. Each sub-phase's wall time
+    and the phase's float64 launches are printed.
+
 ``--phases 2c,6`` runs only the named phases (and then prints no summary
 and no result line): for bringing up one phase on the card.
 
@@ -396,10 +430,11 @@ phase 13 every bridge request and controller or view-model run, in
 phase 14 ``entry()``'s forward and each twin's ``main``, in phase 15
 every GUI action, and in phase 16 the harness, the parity twin's card
 half and the latency twin's ``main`` (its child process uncounted); the
-float64 kernels' launches are those of 17b and 17c, each run from zero. The
-comparison runs against the twins launch nothing (phases 5, 12 and 14 check
-it); phase 16 reruns two circuits on the card, outside its count, to hold
-them against the CPU.
+float64 kernels' launches are those of 17b, 17c and 18b-18d, each run
+from zero. The comparison runs against the twins launch nothing (phases
+5, 12 and 14 check it); phase 16 reruns two circuits on the card, and
+18b its complex64 comparison runs and executor timings, outside the
+count.
 
 The line before the last is the JSON kernel summary; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits with an
@@ -479,7 +514,7 @@ F64_SIZES = (16, 28)
 RUN_PEAK_LIMIT = 6.1 * 2**30
 SEED = 42
 PHASES = ("2", "2b", "2c", "3", "3b", "4", "4b", "5", "6", "7", "8", "9",
-          "10", "11", "12", "13", "14", "15", "16", "17")
+          "10", "11", "12", "13", "14", "15", "16", "17", "18")
 
 # Layouts of n = 16, 28 and 30 qubits (GroupLayout.for_qubits).
 LAYOUTS = {16: (4, 128, 128), 28: (128,) * 4, 30: (4,) + (128,) * 4}
@@ -1732,8 +1767,8 @@ MARGINAL_TOL = 1e-5
 NO_LAUNCHES = {"dense_axis": 0, "cross_bit_axis": 0}
 
 
-def state_bytes(n: int, planar: bool) -> int:
-    return (8 if planar else 4) << n
+def state_bytes(n: int, planar: bool, itemsize: int = 4) -> int:
+    return (2 * itemsize if planar else itemsize) << n
 
 
 def grouped_max_diff(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -5822,6 +5857,536 @@ def phase_complex128(report: dict, card: str) -> dict:
     return {"launches": path, "max_err": max_err, "summary": summary}
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the complex128 mode past n = 29
+# ---------------------------------------------------------------------------
+
+# 18b qubit counts: the widest state below the large-state path, then
+# n = 30 (planar Ry/Rz, GHZ strings, QFT, stepping, 18c) and n = 31 (real
+# and planar, GHZ counts).
+C128_HUGE_SIZES = (29, 30, 31)
+# 18a layouts (GroupLayout.for_qubits): the leading axis 4 / 8 wide (dense
+# K = 4 / 8 and cross K = 8 / 16 on it), the others 128 (dense K = 128,
+# cross K = 256).
+C128_HUGE_LAYOUTS = {n: tplan.GroupLayout.for_qubits(n).axis_sizes
+                     for n in C128_HUGE_SIZES[1:]}
+C128_HUGE_DEPTH = 8           # 18b brickworks; 18a takes their geometries
+C128_HUGE_SHOTS = 4096
+C128_HUGE_NOISY_DEPTH = 4     # 18c brickwork and monitored circuit
+C128_MONITORED_T = 2
+# 18b / 18d: a complex128 result against the complex64 run of the same
+# circuit (float32 rounding of ~20-200 steps).
+C128_VS_C64_TOL = 1e-5
+# 18a runs the planar n = 31 cases only where the card holds two 32 GiB
+# states (the kernel's and the twin's input) and the twin's slices.
+C128_TWO_STATES_SLACK = 8 * 2**30
+
+
+def abs_max(x: torch.Tensor) -> float:
+    """max |x| without a state-sized temporary."""
+    return max(float(x.max()), -float(x.min()))
+
+
+def f64_names(launches: dict) -> dict:
+    """A float32 launch dict (``plan_launches``) under the float64
+    kernels' names."""
+    return {k + "_f64": v for k, v in launches.items()}
+
+
+def c128_huge_kernels(report: dict, card: str) -> dict:
+    """18a. Both float64 kernels at the n = 30 and 31 layouts: every dense
+    axis and every cross geometry of the brickwork plans, against the
+    float64 twin run slice by slice."""
+    rng = np.random.default_rng(SEED + 18)
+    max_err = {"dense_axis_f64": 0.0, "cross_bit_axis_f64": 0.0}
+    rows: list = []
+    ran: dict = {}
+    for n, shape in C128_HUGE_LAYOUTS.items():
+        variants = [(False, True), (True, True), (True, False)]
+        torch.cuda.empty_cache()
+        free = torch.cuda.mem_get_info()[0]
+        if free < 2 * state_bytes(n, True, 8) + C128_TWO_STATES_SLACK:
+            variants = variants[:1]
+        ran[n] = ["planar" if p else "real" for p, _ in variants]
+        geoms = brickwork_cross_geometries(n, C128_HUGE_DEPTH)
+        for planar, real in variants:
+            cases = [("dense_axis_f64", (axis,), {axis}, shape[axis])
+                     for axis in range(len(shape))]
+            cases += [("cross_bit_axis_f64", g, {g[0], g[2]},
+                       2 * shape[g[2]]) for g in geoms]
+            for name, geom, involved, K in cases:
+                kind = "dense" if name == "dense_axis_f64" else "cross"
+                op = c128_op((K, K) if kind == "dense"
+                             else (2, K // 2, 2, K // 2), real, rng)
+                kfn = getattr(cuda_exec, name)
+                pfn = getattr(cuda_exec,
+                              name.replace("_f64", "") + "_plain")
+                torch.cuda.empty_cache()
+                x = c128_state(shape, planar, len(rows))
+                x0 = x.clone()
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                got = kfn(x, op, *geom, planar)
+                b.record()
+                b.synchronize()
+                ms = a.elapsed_time(b)
+                label = (f"f64 {kind} n={n} geom={geom} "
+                         f"{'planar' if planar else 'real'}-state "
+                         f"{'real' if real else 'complex'}-op K={K}")
+                check(got is x, f"18a {label}: the wrapper did not return "
+                      "its input")
+                err = sliced_max_err(got, x0,
+                                     lambda v: pfn(v, op, *geom, planar),
+                                     planar, involved)
+                scale = abs_max(x0)
+                del x, x0, got
+                check(err <= C128_TOL * scale, f"18a {label}: max |kernel "
+                      f"- twin| = {err} > {C128_TOL} x max |x| = "
+                      f"{C128_TOL * scale}")
+                b_ms, b_by = c128_bound(shape, planar, real, K)
+                max_err[name] = max(max_err[name], err)
+                rows.append({"kernel": name, "case": label, "n": n,
+                             "max_abs_err": err, "max_abs_x": scale,
+                             "ms": ms, "bound_ms": b_ms, "bound_by": b_by})
+                print(f"18a {label} [{card}]: err {err:.3e} "
+                      f"({err / scale:.2e} x max |x|), one launch "
+                      f"{ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})",
+                      flush=True)
+    torch.cuda.empty_cache()
+    print(f"18a float64 kernels [{card}]: {len(rows)} cases ("
+          + ", ".join(f"n = {n} {'+'.join(v)}" for n, v in ran.items())
+          + " states), max |kernel - twin| dense "
+          f"{max_err['dense_axis_f64']:.3e} cross "
+          f"{max_err['cross_bit_axis_f64']:.3e}", flush=True)
+    report["c128_huge"]["kernel_cases"] = rows
+    report["c128_huge"]["kernel_states"] = ran
+    return max_err
+
+
+def c128_marginals(circuit: QuantumCircuit) -> list:
+    """Host float64 per-axis marginals of ``Simulator.run(shots=0)`` in
+    the current precision (the state freed before returning)."""
+    fs = Simulator(device=C128_DEVICE).run(circuit, shots=0).final_state
+    if isinstance(fs, PlanarStateVector):
+        out = fs._get_marginals()
+    else:
+        layout = tplan.GroupLayout.for_qubits(circuit.num_qubits)
+        p = fs.device_data.abs().square().reshape(layout.axis_sizes)
+        out = [p.sum(dim=[d for d in range(p.dim()) if d != ax],
+                     dtype=torch.float64).cpu().numpy()
+               for ax in range(p.dim())]
+    del fs
+    torch.cuda.empty_cache()
+    return out
+
+
+def c128_huge_run(circuit: QuantumCircuit, label: str, shots: int,
+                  basis: MeasurementBasis, path: dict, report: dict,
+                  card: str) -> np.ndarray:
+    """18b. One ``Simulator.run`` under the mode with its checks and
+    times; returns the final state's qubit probabilities (host)."""
+    n = circuit.num_qubits
+    huge = bigstate.is_huge(n)
+    program = tprog.compile_circuit(circuit)
+    programs = [program]
+    if basis == MeasurementBasis.X:
+        programs.append(tprog.compile_circuit(x_rotated(circuit)))
+    plan = tplan.get_group_plan(program)
+    planar = not plan.all_real
+    size = state_bytes(n, planar, 8)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res, f64 = c128_path_run(
+        lambda: Simulator(device=C128_DEVICE).run(
+            circuit, shots=shots, seed=SEED, measurement_basis=basis),
+        path, f64_names(plan_launches(programs)), f"18b {label}")
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    fs = res.final_state
+    if huge:
+        check(isinstance(fs, PlanarStateVector) and fs.is_planar == planar
+              and fs.state_data.dtype == torch.float64,
+              f"18b {label}: final state {fs!r}")
+        norm = fs.norm_sq()
+        marg = fs._get_marginals()
+        qp = fs.qubit_probabilities()
+        check(peak <= HUGE_PEAK_RATIO * size, f"18b {label}: peak "
+              f"{peak / 2**30:.3f} GiB > {HUGE_PEAK_RATIO} x the state's "
+              f"{size / 2**30:.0f} GiB")
+    else:
+        check(fs.device_data.dtype == torch.complex128,
+              f"18b {label}: dtype {fs.device_data.dtype}")
+        norm = float(fs.device_data.abs().square().sum())
+        marg = None
+        qp = None
+    check(abs(1.0 - norm) <= C128_TOL, f"18b {label}: |1 - |psi|^2| = "
+          f"{abs(1.0 - norm)}")
+    counts = res.measurement_counts
+    check(sum(counts.values()) == shots and all(len(k) == n for k in counts),
+          f"18b {label}: {sum(counts.values())} shots of {shots}")
+    del res, fs
+    torch.cuda.empty_cache()
+    if marg is None:
+        marg = c128_marginals(circuit)
+    tconfig.enable_complex64()
+    try:
+        cuda_exec.reset_launch_counts()
+        m64 = c128_marginals(circuit)
+    finally:
+        tconfig.enable_complex128()
+    dev = max(float(np.abs(a - b).max()) for a, b in zip(marg, m64))
+    check(dev <= C128_VS_C64_TOL, f"18b {label}: marginals vs complex64 "
+          f"{dev}")
+    params = program.initial_params
+    ops = tplan.operands_to(
+        tplan.build_group_operands(program, plan, params), C128_DEVICE)
+    ex_ms = event_ms(
+        lambda x: tplan.execute_group_plan(plan, ops, program, params, x,
+                                           planar),
+        lambda: tplan.basis_state(plan, program.initial_index, C128_DEVICE,
+                                  planar), reps=1)
+    del ops
+    torch.cuda.empty_cache()
+    row = {"circuit": label, "n": n, "planar": planar, "state_bytes": size,
+           "peak_bytes": peak, "launches": f64, "norm_err": abs(1.0 - norm),
+           "run_s": run_s, "executor_ms": ex_ms, "vs_complex64": dev,
+           "distinct_strings": len(counts), "card": card}
+    report["c128_huge"].setdefault("runs", []).append(row)
+    print(f"18b {label} [{card}]: {'planar' if planar else 'real'} float64 "
+          f"state {size / 2**30:.0f} GiB, Simulator.run {run_s:.3f} s, "
+          f"executor {ex_ms:.1f} ms (CUDA events), peak "
+          f"{peak / 2**30:.3f} GiB ({peak / size:.3f} x), float64 launches "
+          f"{f64}, |1 - |psi|^2| {abs(1.0 - norm):.2e}, marginals vs "
+          f"complex64 {dev:.2e}, {len(counts)} distinct strings of {shots}",
+          flush=True)
+    return qp
+
+
+def c128_huge_special(path: dict, report: dict, card: str,
+                      qp30: np.ndarray) -> None:
+    """18b. GHZ-31 counts, GHZ-30 strings, QFT-30 and stepping at n = 30
+    under the mode."""
+    _, n0, n1 = C128_HUGE_SIZES
+    sim = Simulator(device=C128_DEVICE)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res, f64 = c128_path_run(
+        lambda: sim.run(ghz(n1), shots=C128_HUGE_SHOTS, seed=SEED), path,
+        f64_names(plan_launches([tprog.compile_circuit(ghz(n1))])),
+        f"18b GHZ-{n1}")
+    ghz_s = time.perf_counter() - t0
+    counts = res.measurement_counts
+    zeros, ones = counts.get("0" * n1, 0), counts.get("1" * n1, 0)
+    check(res.final_state.state_data.dtype == torch.float64
+          and zeros + ones == C128_HUGE_SHOTS
+          and 0.4 <= zeros / C128_HUGE_SHOTS <= 0.6,
+          f"18b GHZ-{n1} counts {dict(list(counts.items())[:4])}")
+    print(f"18b GHZ-{n1} [{card}]: {zeros} x 0..0, {ones} x 1..1 of "
+          f"{C128_HUGE_SHOTS} in {ghz_s:.3f} s, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, float64 "
+          f"launches {f64}", flush=True)
+    del res
+    torch.cuda.empty_cache()
+
+    fs, f64 = c128_path_run(lambda: sim.run(ghz(n0), shots=0).final_state,
+                            path, None, f"18b GHZ-{n0}")
+    every, last = list(range(n0)), n0 - 1
+    strings = {
+        "<Z0>": (fs.expectation_z(0), 0.0),
+        "<Z3 Z4> (one group)": (fs.expectation_z_string([3, 4]), 1.0),
+        "<Z0 Z_last>": (fs.expectation_z_string([0, last]), 1.0),
+        "<Z0 Z5 Z_last>": (fs.expectation_z_string([0, 5, last]), 0.0),
+        "<X0 X1>": (fs.expectation_pauli_string([0, 1], "XX"), 0.0),
+        "<X^n>": (fs.expectation_pauli_string(every, "X" * n0), 1.0),
+        "<Y0 Y1 X^(n-2)>": (fs.expectation_pauli_string(
+            every, "YY" + "X" * (n0 - 2)), -1.0),
+    }
+    for name, (got, want) in strings.items():
+        check(abs(got - want) <= C128_TOL,
+              f"18b GHZ-{n0} {name} = {got!r}, not {want}")
+    worst = max(abs(g - w) for g, w in strings.values())
+    print(f"18b GHZ-{n0} strings [{card}]: " + ", ".join(
+        f"{k} = {v[0]:+.15f}" for k, v in strings.items())
+        + f"; worst |error| {worst:.2e}, float64 launches {f64}",
+        flush=True)
+    report["c128_huge"]["ghz_strings"] = {k: v[0]
+                                          for k, v in strings.items()}
+    del fs
+    torch.cuda.empty_cache()
+
+    program = tprog.compile_circuit(qft(n0))
+    size = state_bytes(n0, True, 8)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res, f64 = c128_path_run(
+        lambda: sim.run(qft(n0), shots=C128_HUGE_SHOTS, seed=SEED), path,
+        f64_names(plan_launches([program])), f"18b QFT-{n0}")
+    qft_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    check(peak <= HUGE_PEAK_RATIO * size, f"18b QFT-{n0}: peak "
+          f"{peak / 2**30:.3f} GiB > {HUGE_PEAK_RATIO} x the state")
+    check(sum(res.measurement_counts.values()) == C128_HUGE_SHOTS,
+          f"18b QFT-{n0}: shots")
+    p = res.final_state.probabilities_device
+    check(p.dtype == torch.float64, f"18b QFT-{n0}: {p.dtype}")
+    dev = 0.0
+    for s in range(0, p.numel(), tplan.CHUNK_ELEMS):
+        dev = max(dev, float((p[s:s + tplan.CHUNK_ELEMS] * float(2 ** n0)
+                              - 1.0).abs().max()))
+    del p, res
+    check(dev <= C128_TOL, f"18b QFT-{n0}: max |2^n |amp|^2 - 1| = {dev}")
+    print(f"18b QFT-{n0} [{card}]: max |2^n |amp|^2 - 1| = {dev:.3e}, "
+          f"{qft_s:.3f} s, peak {peak / 2**30:.3f} GiB "
+          f"({peak / size:.3f} x the state), float64 launches {f64}",
+          flush=True)
+    report["c128_huge"]["qft"] = {"seconds": qft_s, "dev": dev,
+                                  "peak_bytes": peak, "launches": f64}
+    torch.cuda.empty_cache()
+
+    c30 = brickwork(n0, C128_HUGE_DEPTH, SEED, True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    steps, f64 = c128_path_run(lambda: list(sim.run_step_by_step(c30)),
+                               path, None, f"18b steps n={n0}")
+    step_s = time.perf_counter() - t0
+    check(len(steps) == C128_HUGE_DEPTH + 1 and all(
+        isinstance(s, MarginalStateSummary)
+        and s.axis_marginals[0].dtype == torch.float64 for s, _ in steps),
+        f"18b run_step_by_step n={n0}: {len(steps)} snapshots")
+    dev = float(np.abs(steps[-1][0].qubit_probabilities() - qp30).max())
+    check(dev <= C128_TOL, f"18b run_step_by_step n={n0}: last snapshot vs "
+          f"the final state's qubit probabilities {dev}")
+    print(f"18b run_step_by_step n={n0} depth-{C128_HUGE_DEPTH} Ry/Rz "
+          f"[{card}]: {len(steps)} float64 marginal summaries in "
+          f"{step_s:.3f} s, last vs final state {dev:.2e}, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, float64 "
+          f"launches {f64}", flush=True)
+    report["c128_huge"]["step_by_step"] = {"seconds": step_s, "dev": dev,
+                                           "launches": f64}
+    del steps
+    torch.cuda.empty_cache()
+
+
+def c128_huge_trajectories(path: dict, report: dict, card: str) -> None:
+    """18c. The n = 30 trajectory routes and a monitored case in float64:
+    the kernels against the twins replayed with the same draws."""
+    n = C128_HUGE_SIZES[1]
+    program = tprog.compile_circuit(
+        brickwork(n, C128_HUGE_NOISY_DEPTH, SEED, False))
+    params = program.initial_params
+    for route, nm in (("unitary", global_noise(DepolarizingNoise(0.05))),
+                      ("monomial", global_noise(AmplitudeDampingNoise(0.05))),
+                      ("fold", global_noise(XBasisDamping(0.05)))):
+        label = f"{route} n={n} depth-{C128_HUGE_NOISY_DEPTH} Ry+CNOT"
+        check(bigtraj.trajectory_evolve_route(program, nm) == route,
+              f"18c {label}: routes elsewhere")
+        want = evolve_launches(program, nm)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device=C128_DEVICE).manual_seed(SEED)
+        t0 = time.perf_counter()
+        (x, planar, draws), f64 = c128_path_run(
+            lambda: bigtraj.huge_trajectory_state_body(
+                program, nm, params, 1, C128_DEVICE, gen), path,
+            None if "total" in want else f64_names(want), f"18c {label}")
+        cold_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        del x
+        torch.cuda.empty_cache()
+        gen = torch.Generator(device=C128_DEVICE).manual_seed(SEED)
+        t0 = time.perf_counter()
+        x, planar, draws = bigtraj.huge_trajectory_state_body(
+            program, nm, params, 1, C128_DEVICE, gen)
+        torch.cuda.synchronize()
+        kernel_s = time.perf_counter() - t0
+        check(x.dtype == torch.float64 and launches_match(
+            {k[:-4]: v for k, v in f64.items()}, want),
+            f"18c {label}: {x.dtype}, launches {f64}, expected {want}")
+        norm_err = abs(float(bigtraj.batched_norm_sq(x)[0]) - 1.0)
+        check(norm_err <= C128_TOL, f"18c {label}: |1 - |psi|^2| {norm_err}")
+        t0 = time.perf_counter()
+        ref, _, _ = bigtraj.huge_trajectory_state_body(
+            program, nm, params, 1, C128_DEVICE, None, draws, plain=True)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        err = grouped_max_diff(x, ref)
+        del x, ref, draws
+        check(err <= C128_TOL, f"18c {label}: kernel vs twins on the same "
+              f"draws {err}")
+        print(f"18c {label} [{card}]: {'planar' if planar else 'real'} "
+              f"float64 state, {kernel_s:.3f} s a trajectory warm (cold "
+              f"{cold_s:.3f} s, twins {plain_s:.3f} s), kernel vs twins "
+              f"{err:.2e}, |1 - |psi|^2| "
+              f"{norm_err:.1e}, peak {peak / 2**30:.3f} GiB, float64 "
+              f"launches {f64}", flush=True)
+        report["c128_huge"].setdefault("trajectories", []).append(
+            {"route": route, "s_per_trajectory": kernel_s,
+             "cold_s": cold_s, "plain_s_per_trajectory": plain_s,
+             "kernel_vs_plain": err, "peak_bytes": peak, "launches": f64,
+             "card": card})
+        torch.cuda.empty_cache()
+
+    mc = monitored_brickwork(n, C128_HUGE_NOISY_DEPTH, SEED)
+    mprog = tprog.compile_circuit(mc)
+    events = monitored_events(mc)
+    n_events = len(events)
+    repeat = len(range(0, n, 4))
+    T = C128_MONITORED_T
+    planar = not tmono.monomial_spec(mprog, tprog._NoNoise, events).real
+    size = state_bytes(n, planar, 8)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    (outcomes, sites, counts), f64 = c128_path_run(
+        lambda: Simulator(device=C128_DEVICE).monitored_trajectories(
+            mc, T, seed=SEED, final_shots=256), path,
+        f64_names({k: T * v for k, v in monitored_launches(mc).items()}),
+        "18c monitored")
+    mon_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    check(peak <= HUGE_PEAK_RATIO * size, f"18c monitored: peak "
+          f"{peak / 2**30:.3f} GiB > {HUGE_PEAK_RATIO} x the state")
+    check(outcomes.shape == (T, n_events) and set(np.unique(outcomes))
+          <= {0, 1} and bool((outcomes[:, 0] == outcomes[:, repeat]).all())
+          and all(sum(d.values()) == 256 for d in counts),
+          f"18c monitored: outcomes {outcomes.shape}")
+    layout = tplan.GroupLayout.for_qubits(n)
+    gen = torch.Generator(device=C128_DEVICE).manual_seed(SEED)
+    x = tplan.layout_basis_state(layout, mprog.initial_index, C128_DEVICE,
+                                 planar, 1)
+    x, outs, record = tmono.monomial_monitored_evolve(
+        mprog, tprog._NoNoise, events, mprog.initial_params, x, gen)
+    x0 = tplan.layout_basis_state(layout, mprog.initial_index, C128_DEVICE,
+                                  planar, 1)
+    ref, ref_outs, _ = tmono.monomial_monitored_evolve(
+        mprog, tprog._NoNoise, events, mprog.initial_params, x0, None,
+        record, plain=True)
+    err = grouped_max_diff(x, ref)
+    check(x.dtype == torch.float64 and err <= C128_TOL
+          and torch.equal(outs, ref_outs),
+          f"18c monitored: kernel vs twins on the same draws {err}")
+    del x, ref, x0
+    print(f"18c monitored n={n} {n_events} measurements T={T} [{card}]: "
+          f"{mon_s / T:.3f} s a trajectory with 256 final shots, kernel vs "
+          f"twins {err:.2e}, peak {peak / 2**30:.3f} GiB "
+          f"({peak / size:.3f} x), float64 launches {f64}", flush=True)
+    report["c128_huge"]["monitored"] = {
+        "s_per_trajectory": mon_s / T, "kernel_vs_plain": err,
+        "peak_bytes": peak, "launches": f64}
+    torch.cuda.empty_cache()
+
+
+def c128_superop(path: dict, report: dict, card: str) -> None:
+    """18d. vec(rho) at n = 15 (2n = 30) under the mode, real and
+    planar, against the complex64 superop run."""
+    n = SUPEROP_HUGE_N
+    nm = open_noise()
+    for mix_rz in (False, True):
+        circuit = brickwork(n, SUPEROP_DEPTH, SEED, mix_rz)
+        label = (f"superop n={n} (2n={2 * n}) depth-{SUPEROP_DEPTH} "
+                 f"{'Ry/Rz' if mix_rz else 'Ry+CNOT'} depol+amp-damp")
+        program2 = tdens.superop_program(tprog.compile_circuit(circuit), nm)
+        planar = not tplan.get_group_plan(program2).all_real
+        size = state_bytes(2 * n, planar, 8)
+        sim = DensityMatrixSimulator(noise_model=nm, device=C128_DEVICE)
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res, f64 = c128_path_run(lambda: sim.run(circuit, method="superop"),
+                                 path,
+                                 f64_names(plan_launches([program2])),
+                                 f"18d {label}")
+        run_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        check(isinstance(res, SuperopDensityResult)
+              and res.is_planar == planar
+              and res.state_data.dtype == torch.float64,
+              f"18d {label}: result {type(res).__name__}")
+        check(peak <= HUGE_PEAK_RATIO * size, f"18d {label}: peak "
+              f"{peak / 2**30:.3f} GiB > {HUGE_PEAK_RATIO} x the state's "
+              f"{size / 2**30:.0f} GiB")
+        trace, purity, diag = res.trace(), res.purity(), res.probabilities
+        del res
+        torch.cuda.empty_cache()
+        check(abs(trace - 1.0) <= C128_TOL, f"18d {label}: tr(rho) = "
+              f"{trace!r}")
+        tconfig.enable_complex64()
+        try:
+            r64 = sim.run(circuit, method="superop")
+            purity64, diag64 = r64.purity(), r64.probabilities
+            del r64
+        finally:
+            tconfig.enable_complex128()
+        torch.cuda.empty_cache()
+        d_diag = float(np.abs(diag - diag64).max())
+        d_pur = abs(purity - purity64)
+        check(d_diag <= C128_VS_C64_TOL and d_pur <= C128_VS_C64_TOL,
+              f"18d {label}: vs complex64 diagonal {d_diag}, purity {d_pur}")
+        print(f"18d {label} [{card}]: {'planar' if planar else 'real'} "
+              f"float64 vec(rho) {size / 2**30:.0f} GiB, run {run_s:.3f} s, "
+              f"peak {peak / 2**30:.3f} GiB ({peak / size:.3f} x), |tr - 1| "
+              f"{abs(trace - 1.0):.2e}, purity {purity:.12f} (complex64 "
+              f"{purity64:.7f}), diagonal vs complex64 {d_diag:.2e}, float64 "
+              f"launches {f64}", flush=True)
+        report["c128_huge"].setdefault("superop", []).append(
+            {"case": label, "run_s": run_s, "peak_bytes": peak,
+             "state_bytes": size, "trace": trace, "purity": purity,
+             "vs_complex64_diag": d_diag, "vs_complex64_purity": d_pur,
+             "launches": f64, "card": card})
+
+
+def phase_complex128_huge(report: dict, card: str) -> dict:
+    """18a-18d under ``enable_complex128``, complex64 restored after."""
+    report["c128_huge"] = {}
+    path: dict = {k: 0 for k in f64_counts()}
+    Z, X = MeasurementBasis.Z, MeasurementBasis.X
+    tconfig.enable_complex128()
+    try:
+        walls = {}
+        t0 = time.perf_counter()
+        max_err = c128_huge_kernels(report, card)
+        walls["18a"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        n29, n30, n31 = C128_HUGE_SIZES
+        d = C128_HUGE_DEPTH
+        c128_huge_run(brickwork(n29, d, SEED, True),
+                      f"n={n29} depth-{d} Ry/Rz shots=0", 0, Z, path,
+                      report, card)
+        qp30 = c128_huge_run(brickwork(n30, d, SEED, True),
+                             f"n={n30} depth-{d} Ry/Rz Z basis",
+                             C128_HUGE_SHOTS, Z, path, report, card)
+        c128_huge_run(brickwork(n30, d, SEED, True),
+                      f"n={n30} depth-{d} Ry/Rz X basis", C128_HUGE_SHOTS, X,
+                      path, report, card)
+        c128_huge_run(brickwork(n31, d, SEED, False),
+                      f"n={n31} depth-{d} Ry+CNOT Z basis", C128_HUGE_SHOTS,
+                      Z, path, report, card)
+        c128_huge_run(brickwork(n31, d, SEED, True),
+                      f"n={n31} depth-{d} Ry/Rz Z basis", C128_HUGE_SHOTS, Z,
+                      path, report, card)
+        c128_huge_special(path, report, card, qp30)
+        walls["18b"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        c128_huge_trajectories(path, report, card)
+        walls["18c"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        c128_superop(path, report, card)
+        walls["18d"] = time.perf_counter() - t0
+        check(all(v > 0 for v in path.values()),
+              f"a float64 kernel never launched past n = 29: {path}")
+    finally:
+        tconfig.enable_complex64()
+    print(f"18 wall s [{card}]: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in walls.items()) + f"; float64 launches "
+        f"{path}", flush=True)
+    report["c128_huge"].update(launches=path, walls=walls)
+    return {"launches": path, "max_err": max_err}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every measurement as JSON")
@@ -5896,7 +6461,8 @@ def main() -> int:
               "14": lambda: phase_entry_points(report, card),
               "15": lambda: phase_gui(report, card),
               "16": lambda: phase_acceptance(report, card, args.reference),
-              "17": lambda: phase_complex128(report, card)}
+              "17": lambda: phase_complex128(report, card),
+              "18": lambda: phase_complex128_huge(report, card)}
     out = {}
     for name in PHASES:
         if name in chosen:
@@ -5936,8 +6502,11 @@ def main() -> int:
         row = out["17"]["summary"][name]
         summary["kernels"].append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": out["17"]["launches"][name],
-            "max_abs_err": out["17"]["max_err"][name],
+            "replaces": replaces,
+            "launches": out["17"]["launches"][name]
+            + out["18"]["launches"][name],
+            "max_abs_err": max(out["17"]["max_err"][name],
+                               out["18"]["max_err"][name]),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"]})

@@ -15,14 +15,17 @@ held to float64 as tightly as an fp32 product (``csrc/fiber_matmul.cuh``).
 
 Verification mode (``enable_complex128``, ``config.py:133-155`` of the JAX
 package): the statevector family (``Simulator`` and the executors under
-it: the group plan, its operands, the per-gate and trajectory bodies) then
-computes in float64 planes, complex128 amplitudes, up to
-``COMPLEX128_MAX_QUBITS`` (29); every dense and cross step of a float64 state
-on the card launches the float64 kernels (``csrc/fiber_matmul_f64.cu``,
-plain FP64 FMA, no TF32 in any form). From n = 30 on the port runs the
-chunked float32 path (``ops/bigstate.py``), so an n >= 30 call raises
-under the mode rather than return float32 numbers. Torch needs no x64
-switch.
+it: the group plan, its operands, the per-gate and trajectory bodies, and
+from n = 30 on the chunked large-state path of ``ops/bigstate.py`` and
+``ops/bigtraj.py`` with vec(rho) at 2n = 30) then computes in float64
+planes, complex128 amplitudes, up to ``COMPLEX128_MAX_QUBITS`` (31); every
+dense and cross step of a float64 state on the card launches the float64
+kernels (``csrc/fiber_matmul_f64.cu``: FP64 tensor cores and FP64 FMA, no
+TF32 in any form). n = 32 raises under the mode (``require_width``): its
+float64 planar state is 64 GiB, and the chunked path holds up to 1.75x
+its state on an 80 GB card. The families that compute in float32 only
+(the MPS family, DMRG, the mesh) raise under the mode
+(``require_complex64``). Torch needs no x64 switch.
 """
 
 from __future__ import annotations
@@ -70,10 +73,10 @@ class EngineConfig:
 
 CONFIG = EngineConfig()
 
-# Widest statevector under ``enable_complex128``: from n = 30 on
-# (``ops/bigstate.HUGE_MIN_QUBITS``) the port runs the chunked float32
-# path, which has no float64 form yet.
-COMPLEX128_MAX_QUBITS = 29
+# Widest statevector under ``enable_complex128``: a float64 planar state
+# is 32 GiB at n = 31 (56 GiB at the chunked path's 1.75x peak) and
+# 64 GiB at n = 32, past an 80 GB card with any temporary beside it.
+COMPLEX128_MAX_QUBITS = 31
 
 
 def statevector_dtype() -> torch.dtype:
@@ -106,6 +109,21 @@ def require_complex64(what: str) -> None:
         raise ValueError(
             f"{what} computes in float32 only; complex128 verification "
             f"mode (enable_complex128) covers statevectors of n <= "
+            f"{COMPLEX128_MAX_QUBITS} qubits (call enable_complex64 first)")
+
+
+def require_width(num_qubits: int, what: str) -> None:
+    """Raise under ``enable_complex128`` for a statevector of more than
+    ``COMPLEX128_MAX_QUBITS`` qubits (``what`` names the path): its
+    float64 planar state does not fit the card beside the chunked path's
+    temporaries."""
+    if CONFIG.dtype == torch.complex128 and \
+            num_qubits > COMPLEX128_MAX_QUBITS:
+        gib = (16 << num_qubits) / 2**30
+        raise ValueError(
+            f"{what}: a {num_qubits}-qubit float64 planar state is "
+            f"{gib:.0f} GiB; complex128 verification mode "
+            f"(enable_complex128) covers statevectors of n <= "
             f"{COMPLEX128_MAX_QUBITS} qubits (call enable_complex64 first)")
 
 

@@ -23,8 +23,9 @@ vec(rho) program that rides the statevector group executor
 (``ops/plan.py``), so each of its dense and cross steps is one launch of
 the ``dense_axis`` / ``cross_bit_axis`` CUDA kernels. At n = 15 vec(rho)
 is a 30-qubit state and takes the large-state path
-(``ops/bigstate.is_huge``): the grouped float32 tensor is kept as it is
-and wrapped in a ``SuperopDensityResult``.
+(``ops/bigstate.is_huge``): the grouped tensor (float32 planes, float64
+under ``enable_complex128``) is kept as it is and wrapped in a
+``SuperopDensityResult``.
 
 The port runs eagerly and has no per-structure compile, so the JAX
 package's jit cache (``_cache_get``), its entry layout plumbing
@@ -40,7 +41,7 @@ import numpy as np
 import torch
 
 from .circuit import QuantumCircuit
-from .config import CONFIG, require_complex64
+from .config import CONFIG
 from .ops import bigstate
 from .ops import program as prog
 from .ops.apply import apply_gate
@@ -234,9 +235,9 @@ def _expectation_z(probs: np.ndarray, num_qubits: int, qubit: int) -> float:
 
 class SuperopDensityResult:
     """Result view for the 2n >= 30 vec(rho) path over the executor's
-    grouped float32 tensor, planar ``(2, *axis_sizes)`` or real
-    ``(*axis_sizes,)``: diagonal-derived quantities (probabilities, trace,
-    <Z>, sampling) plus purity. The full 2^n x 2^n rho would be a
+    grouped tensor in ``CONFIG.real_dtype``, planar ``(2, *axis_sizes)``
+    or real ``(*axis_sizes,)``: diagonal-derived quantities
+    (probabilities, trace, <Z>, sampling) plus purity, in float64. The full 2^n x 2^n rho would be a
     multi-GiB host copy and raises; no complex copy and no second state
     is made."""
 
@@ -351,8 +352,8 @@ class DensityMatrixSimulator:
         SuperopDensityResult when vec(rho) takes the 2n >= 30 large-state
         path. ``dtype`` is the complex dtype of the returned rho; the
         superoperator route computes in ``CONFIG.real_dtype`` planes
-        whatever it is (float64 under ``enable_complex128``, which refuses
-        the 2n >= 30 path: it computes in float32 only)."""
+        whatever it is (float64 under ``enable_complex128``, the 2n >= 30
+        path included)."""
         n = circuit.num_qubits
         if method == "auto":
             method = "dense" if n <= MAX_DM_QUBITS else "superop"
@@ -394,8 +395,6 @@ class DensityMatrixSimulator:
                                    self.noise_model)
         params = program2.initial_params
         if bigstate.is_huge(2 * n):
-            require_complex64(f"vec(rho) at n = {n} (a {2 * n}-qubit "
-                              "chunked state)")
             x, planar = group_forward_state_body(program2, params,
                                                  self._device)
             return SuperopDensityResult(n, x, planar)

@@ -3,12 +3,14 @@ copy the state.
 
 Counterpart of ``quantum_simulator_tpu/ops/bigstate.py``. From
 ``HUGE_MIN_QUBITS`` on, ``Simulator`` returns the executor's grouped
-float32 tensor as it is, planar ``(2, *axis_sizes)`` or real
-``(*axis_sizes,)``, wrapped in a ``PlanarStateVector``: a planar state is
+tensor as it is, planar ``(2, *axis_sizes)`` or real ``(*axis_sizes,)``,
+wrapped in a ``PlanarStateVector``: a planar float32 state is
 8 / 16 / 32 GiB at n = 30 / 31 / 32 (a real one half of that) on an 80 GB
-card, so a complex64 copy, a full probability vector with its cumulative
-sum, or a ``2^n``-long histogram would each cost as much as the state
-again. What is carried over:
+card, twice that in float64 under ``enable_complex128`` (to n = 31), so a
+complex copy, a full probability vector with its cumulative sum, or a
+``2^n``-long histogram would each cost as much as the state again. Every
+reduction here returns the state's precision or float64. What is
+carried over:
 
 * ``state_axis_marginals``, ``planar_norm_sq``: reductions over views of
   about ``plan.CHUNK_ELEMS`` elements, accumulated in float64;
@@ -39,7 +41,6 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ..config import require_complex64
 from . import plan as gplan
 from .plan import GroupLayout, chunk_ranges
 
@@ -50,7 +51,7 @@ from .plan import GroupLayout, chunk_ranges
 HUGE_MIN_QUBITS = 30
 
 # Draws per tile-gather batch (bounds the gathered tiles: 2048 x 2^14
-# amplitudes a plane).
+# amplitudes a plane, 128 MiB of float32 or 256 MiB of float64).
 SAMPLE_BATCH = 2048
 
 
@@ -59,8 +60,8 @@ def is_huge(num_qubits: int) -> bool:
 
 
 def planar_probabilities(x: torch.Tensor) -> torch.Tensor:
-    """``(2^n,)`` float32 ``|amp|^2`` of a planar state: one output, no
-    other temporary."""
+    """``(2^n,)`` ``|amp|^2`` of a planar state in its precision: one
+    output, no other temporary."""
     return _chunk_probabilities(x, True).reshape(-1)
 
 
@@ -87,10 +88,10 @@ def _chunk_probabilities(v: torch.Tensor, planar: bool) -> torch.Tensor:
 def state_axis_marginals(x: torch.Tensor, planar: bool
                          ) -> tuple[torch.Tensor, ...]:
     """Per-data-axis probability marginals: for each tensor axis the
-    ``(axis_size,)`` float32 vector of ``|amp|^2`` summed over every other
-    axis. The state is cut along its first two axes into chunks; each
-    chunk's squares are reduced once per axis and accumulated in
-    float64."""
+    ``(axis_size,)`` vector of ``|amp|^2`` summed over every other axis,
+    in the state's precision. The state is cut along its first two axes
+    into chunks; each chunk's squares are reduced once per axis and
+    accumulated in float64."""
     lead = int(planar)
     shape = tuple(x.shape[lead:])
     rank = len(shape)
@@ -109,7 +110,7 @@ def state_axis_marginals(x: torch.Tensor, planar: bool
             acc += sq.sum(dim=[d for d in range(sq.ndim) if d != k + 1],
                           dtype=torch.float64)
     m01 = m01.reshape(a0, a1)
-    return tuple(m.float() for m in [m01.sum(1), m01.sum(0)] + rest)
+    return tuple(m.to(x.dtype) for m in [m01.sum(1), m01.sum(0)] + rest)
 
 
 # ---------------------------------------------------------------------------
@@ -250,7 +251,6 @@ def huge_step_marginals_fn(program, device, plain: bool = False
     column on one state in place and returns the per-axis marginals of
     the initial state and after each column; a column with no op repeats
     the previous marginals (``bigstate.py:986-1031``)."""
-    require_complex64("the n >= 30 column-marginal stepper")
     full_plan = gplan.get_group_plan(program)
     planar = not full_plan.all_real
     col_programs = [_column_program(program, c)
@@ -282,8 +282,8 @@ def huge_step_marginals_fn(program, device, plain: bool = False
 # ---------------------------------------------------------------------------
 
 def _axis_parity_vector(layout: GroupLayout, ax: int, qubits) -> np.ndarray:
-    """``(S_ax,)`` float32 vector of (-1)^(parity of this axis's queried
-    bits) over the axis index."""
+    """``(S_ax,)`` float64 vector of (-1)^(parity of this axis's queried
+    bits) over the axis index (exact in any precision)."""
     bits = layout.axis_bits[ax]
     sel = 0
     for q in qubits:
@@ -293,7 +293,7 @@ def _axis_parity_vector(layout: GroupLayout, ax: int, qubits) -> np.ndarray:
     while np.any(v):
         pc += v & 1
         v >>= 1
-    return np.where(pc % 2 == 1, -1.0, 1.0).astype(np.float32)
+    return np.where(pc % 2 == 1, -1.0, 1.0)
 
 
 def pauli_string_sum(x: torch.Tensor, planar: bool,
@@ -359,8 +359,9 @@ def pauli_string_sum(x: torch.Tensor, planar: bool,
 class PlanarStateVector:
     """Host-facing wrapper of the executor's grouped state: the n >= 30
     stand-in for ``StateVector`` (``bigstate.py:1034-1284``). The tensor
-    is planar ``(2, *axis_sizes)`` float32 or, for an all-real evolution,
-    real ``(*axis_sizes,)`` (``planar=False``). It serves the queries
+    is planar ``(2, *axis_sizes)`` or, for an all-real evolution, real
+    ``(*axis_sizes,)`` (``planar=False``), float32 or (under
+    ``enable_complex128``) float64. It serves the queries
     that need no complex copy; ``.data`` raises ``MemoryError``."""
 
     def __init__(self, state: torch.Tensor, num_qubits: int,
@@ -403,8 +404,8 @@ class PlanarStateVector:
 
     @property
     def probabilities_device(self) -> torch.Tensor:
-        """``(2^n,)`` float32 on the device: half a planar state's memory
-        again, a real state's whole."""
+        """``(2^n,)`` in the state's precision on the device: half a
+        planar state's memory again, a real state's whole."""
         if self._planar:
             return planar_probabilities(self._state)
         return self._state.square().reshape(-1)
@@ -462,7 +463,7 @@ class PlanarStateVector:
 
     def _sign_vecs(self, layout: GroupLayout, by_axis: dict) -> dict:
         return {ax: torch.from_numpy(_axis_parity_vector(
-            layout, ax, qs)).to(self._state.device)
+            layout, ax, qs)).to(self._state.device, self._state.dtype)
             for ax, qs in sorted(by_axis.items())}
 
     def expectation_pauli_string(self, qubits, paulis: str) -> float:

@@ -6,7 +6,7 @@ Counterpart of ``quantum_simulator_tpu/ops/bigtraj.py``.
 * ``phase_real_stack``, ``trajectory_is_real`` (``:73-108``): Kraus
   stacks that are real up to a global phase per operator (all four
   reference channels: Y realifies to ``-iY``) keep an all-real circuit's
-  trajectory real, so its state is one float32 plane instead of two. A
+  trajectory real, so its state is one real plane instead of two. A
   per-branch global phase is unobservable: branch probabilities, later
   draws, marginals, samples and reduced density matrices do not change.
 * The fold executor (``huge_trajectory_evolve``, ``:539-696``), for
@@ -24,7 +24,8 @@ Counterpart of ``quantum_simulator_tpu/ops/bigtraj.py``.
   ``huge_monitored_sample_fn``, ``huge_trajectory_gram_fn``) as plain
   functions over the three evolutions (unitary splice, monomial splice,
   fold). Every body takes a leading batch of trajectories; n >= 30 calls
-  them with a batch of 1.
+  them with a batch of 1. Under ``enable_complex128`` every state,
+  operator and reduction here is float64 / complex128.
 
 Left behind: the chunked passes (``_apply_pass``, ``_norm_sq_chunked``)
 and the donation chain with its caches and layouts, which bound XLA's
@@ -39,7 +40,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from ..config import CONFIG, require_complex64
+from ..config import CONFIG
 from . import plan as gplan
 from .plan import (
     GroupLayout,
@@ -54,8 +55,8 @@ from .plan import (
 )
 
 _FOLD_MAX_TARGETS = 3   # joint-rho folding bound: 8 x 8 trace algebra
-# Rows of one block of a Gram product: fp32 sums run over this many terms,
-# the blocks' partial sums are added in float64.
+# Rows of one block of a Gram product: sums in the state's precision run
+# over this many terms, the blocks' partial sums are added in float64.
 _GRAM_BLOCK = 4096
 
 def phase_real_stack(stack: np.ndarray) -> np.ndarray | None:
@@ -365,8 +366,9 @@ def huge_trajectory_evolve(program, noise_model, params, x: torch.Tensor,
         rho = _rho_from(x, tbits_of(nxt), planar) if nxt is not None \
             else None
     if total_draws:
-        # each draw rescaled by an fp32 estimate of 1/sqrt(p); one exact
-        # division restores |psi| = 1 and changes no branch
+        # each draw rescaled by an estimate of 1/sqrt(p) in the state's
+        # precision; one exact division restores |psi| = 1 and changes no
+        # branch
         x = normalize_(x)
     return x, draws
 
@@ -454,9 +456,10 @@ def huge_trajectory_state_body(program, noise_model, params, n_traj: int,
 
 def axis_grams(x: torch.Tensor, planar: bool) -> tuple[torch.Tensor, ...]:
     """Per-data-axis Gram matrices ``G_ax[t, p, q] = sum_rest psi[..p..]
-    conj(psi[..q..])`` of a batched grouped state, ``(T, S, S)`` complex64
-    each (``bigtraj.py:790-816``). Every single-qubit reduced density
-    matrix follows by a small partial trace on the host."""
+    conj(psi[..q..])`` of a batched grouped state, ``(T, S, S)``
+    ``CONFIG.dtype`` each (``bigtraj.py:790-816``). Every single-qubit
+    reduced density matrix follows by a small partial trace on the
+    host."""
     lead = 1 + int(planar)
     return tuple(_gram(x, lead, [ax], planar)
                  for ax in range(x.ndim - lead))
@@ -517,10 +520,10 @@ def apply_basis_rotation(x: torch.Tensor, basis: str, layout: GroupLayout,
         for _ in range(bits - 1):
             op = np.kron(op, m)
         if basis == "X":
-            opnd = torch.from_numpy(op.astype(np.float32)).to(x.device)
+            opnd = torch.from_numpy(op.real).to(x.device, x.dtype)
         else:
-            opnd = torch.from_numpy(np.stack([op.real, op.imag]).astype(
-                np.float32)).to(x.device)
+            opnd = torch.from_numpy(np.stack([op.real, op.imag])).to(
+                x.device, x.dtype)
         x = dense(x.contiguous(), opnd[None].expand((T,) + opnd.shape), ax,
                   planar, True)
     return x, planar
@@ -551,7 +554,6 @@ def huge_trajectory_sample_fn(program, noise_model, shots: int, device,
     (``bigtraj.py:1088-1122``)."""
     from .bigstate import sample_state_indices, state_axis_marginals
 
-    require_complex64("the n >= 30 trajectory sampler")
     if shots <= 0 and not keep_state:
         raise ValueError(
             "shots=0 with keep_state=False would evolve the trajectory "
@@ -591,7 +593,6 @@ def huge_monitored_sample_fn(program, noise_model, events: tuple,
     from .bigstate import sample_state_indices
     from .monomial_traj import monomial_monitored_evolve, monomial_spec
 
-    require_complex64("the n >= 30 monitored sampler")
     spec = monomial_spec(program, noise_model, tuple(events))
     if spec is None:
         raise ValueError(
@@ -619,7 +620,6 @@ def huge_trajectory_gram_fn(program, noise_model, device,
     trajectory and returns only its per-axis (S, S) Grams, the state
     freed: the n >= 30 ensemble-reduction primitive
     (``bigtraj.py:1179-1197``)."""
-    require_complex64("the n >= 30 trajectory Gram reduction")
     planar = not trajectory_is_real(program, noise_model)
 
     def run(params, generator):

@@ -69,7 +69,7 @@ class MonomialStack(NamedTuple):
 
     kraus: np.ndarray        # (m, D, D) complex64 raw Kraus operators
     kraus_real: object       # (m, D, D) float64 phase-real forms, or None
-    w2: np.ndarray           # (m, D) f32: |c_{m,j}|^2 per input value j
+    w2: np.ndarray           # (m, D) float64: |c_{m,j}|^2 per input j
     fmap: np.ndarray         # (m, D) int32: f_m(j) (identity where c=0)
     exact: np.ndarray        # (m, D, D) complex128 raw Kraus operators
 
@@ -101,7 +101,7 @@ def monomial_stack(raw: np.ndarray) -> MonomialStack | None:
         return None  # not trace-preserving
     return MonomialStack(kraus=st.astype(np.complex64),
                          kraus_real=_phase_real_generic(st),
-                         w2=w2.astype(np.float32), fmap=fmap, exact=st)
+                         w2=w2, fmap=fmap, exact=st)
 
 
 def _phase_real_generic(stack: np.ndarray):
@@ -358,7 +358,8 @@ def _window_draws(spec: MonomialSpec, window, idxs, nsq, layout: GroupLayout,
             outcomes.append((site.event_index, bv))
             scale = torch.ones_like(inv_norm)
         else:
-            w2_t = torch.from_numpy(np.ascontiguousarray(st.w2.T)).to(device)
+            w2_t = torch.from_numpy(np.ascontiguousarray(
+                st.w2.T, CONFIG.np_real)).to(device)
             probs = w2_t[bv]                                    # (T, m)
             m = forced[:, si] if forced is not None else categorical(
                 probs + 1e-30, generator)
@@ -436,7 +437,7 @@ def monomial_trajectory_body(program, noise_model, params, n_traj: int,
     """``n_traj`` stochastic trajectories with every (monomial-channel)
     noise draw spliced into the group plan, windows separated by basis
     samples (``_run_spec`` and ``_finalize``). Returns ``(states (T, 2^n)
-    complex64, draws)``; passing ``draws`` replays them."""
+    CONFIG.dtype, draws)``; passing ``draws`` replays them."""
     spec = monomial_spec(program, noise_model)
     if spec is None:
         raise ValueError("noise model has non-monomial channels; use the "
@@ -455,7 +456,7 @@ def monomial_monitored_body(program, noise_model, events, params,
     """``n_traj`` monitored trajectories through the group plan:
     projective collapse at the static ``(op_position, qubit)`` events,
     with optional monomial noise (``monomial_traj.py:592-610``). Returns
-    ``(states (T, 2^n) complex64, outcomes (T, M) int64, draws)``."""
+    ``(states (T, 2^n) CONFIG.dtype, outcomes (T, M) int64, draws)``."""
     spec = monomial_spec(program, noise_model, tuple(events))
     if spec is None:
         raise ValueError("noise model has non-monomial channels; "

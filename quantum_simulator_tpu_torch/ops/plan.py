@@ -1244,13 +1244,17 @@ def build_group_operands_batched(program: prog.CircuitProgram,
 # ---------------------------------------------------------------------------
 
 # A state of at least this many bytes (a planar n = 29 or a real n = 30
-# one) runs its non-kernel steps chunk by chunk over views, each result
-# copied over its chunk: the kernels write in place, and at n >= 30 no
-# step may allocate a second state (planar: 8 / 16 / 32 GiB at n = 30 /
-# 31 / 32 on an 80 GB card).
+# one in float32; a planar n = 28 or a real n = 29 one in float64 under
+# ``enable_complex128``) runs its non-kernel steps chunk by chunk over
+# views, each result copied over its chunk: the kernels write in place,
+# and at n >= 30 no step may allocate a second state (planar: 8 / 16 /
+# 32 GiB at n = 30 / 31 / 32 in float32, 16 / 32 GiB at n = 30 / 31 in
+# float64, on an 80 GB card).
 INPLACE_MIN_BYTES = 4 << 30
-# Elements of one chunk of such a pass, and of the chunked reductions of
-# ``ops/bigstate.py`` and ``ops/bigtraj.py`` (256 MiB of float32).
+# Elements (not bytes) of one chunk of such a pass, and of the chunked
+# reductions of ``ops/bigstate.py`` and ``ops/bigtraj.py``: 256 MiB of
+# float32, 512 MiB of float64. A chunk's temporaries are a few chunks,
+# against a 16-32 GiB float64 state.
 CHUNK_ELEMS = 1 << 26
 
 

@@ -301,7 +301,8 @@ def unitary_insert_evolve(program, noise_model, params, x: torch.Tensor,
     n >= 30 form of ``unitary_insert_trajectory_body``
     (``unitary_traj.py:379-418``). Returns ``(x, branch)`` and builds no
     complex result. No renormalization: every spliced operator is exactly
-    unitary, so the norm drifts by fp32 rounding only."""
+    unitary, so the norm drifts by rounding in the state's precision
+    only."""
     spec = unitary_insert_spec(program, noise_model)
     if spec is None:
         raise ValueError("noise model has channels that are not "

@@ -19,7 +19,8 @@ batches through the monomial splice wherever the noise allows it.
 
 From n = 30 on (``ops/bigstate.HUGE_MIN_QUBITS``) a state is never copied
 into complex form: ``run`` returns a ``PlanarStateVector`` over the
-executor's grouped float32 tensor and samples it with the two-level
+executor's grouped tensor (float32 planes, float64 under
+``enable_complex128``) and samples it with the two-level
 sampler, ``run_step_by_step`` yields ``MarginalStateSummary`` snapshots,
 ``run_with_noise`` returns counts with ``final_state=None``, and
 ``monitored_trajectories`` returns count dicts in place of states. What
@@ -36,7 +37,7 @@ import numpy as np
 import torch
 
 from .circuit import QuantumCircuit
-from .config import CONFIG, require_complex64
+from .config import CONFIG, require_width
 from .gates import GateType
 from .measurement import (MeasurementBasis, MeasurementEngine,
                           counts_from_array, sample_rows)
@@ -77,9 +78,7 @@ def _check_amplitude_cap(circuit: QuantumCircuit) -> None:
         raise ValueError(
             f"num_qubits must be 1-{CONFIG.max_qubits} for amplitude "
             f"simulation, got {circuit.num_qubits}")
-    if _is_huge(circuit):
-        require_complex64(f"the n >= {bigstate.HUGE_MIN_QUBITS} chunked "
-                          f"path (n = {circuit.num_qubits})")
+    require_width(circuit.num_qubits, "Simulator")
 
 
 def _plan_operand_bytes(plan) -> int:

@@ -1,8 +1,9 @@
 """The port's complex128 verification mode on the CPU.
 
 ``config.enable_complex128()`` makes the statevector family compute in
-float64 planes (complex128 amplitudes) up to n = 29. Held here, every case
-restoring ``enable_complex64()``:
+float64 planes (complex128 amplitudes) up to n = 31 (the n >= 30 path and
+vec(rho) at 2n >= 30: ``tests/test_torch_complex128_huge.py``). Held here,
+every case restoring ``enable_complex64()``:
 
 * against the JAX package's own complex128 mode, 1e-12: the 3-qubit
   circuit of ``tests/test_edge_cases.py`` (also against its analytic
@@ -18,12 +19,12 @@ restoring ``enable_complex64()``:
 * the other families JAX's mode reaches: ``DensityMatrixSimulator`` (both
   routes), ``LindbladSimulator``, the debugger and the optimizer's cost
   and gradients (against ``<H>`` of JAX's complex128 states), 1e-12; those
-  that compute in float32 only (MPS, DMRG, the mesh, vec(rho) at
-  2n >= 30) raise under the mode;
-* the routes: an n >= 30 call raises under the mode, a float64 state with
-  a float32 operator raises, and with the mode off the operands and
-  states are float32 / complex64 and the same bit for bit as before a
-  complex128 round trip.
+  that compute in float32 only (the MPS family, DMRG, the mesh) raise
+  under the mode;
+* the routes: an n = 32 call raises under the mode (its float64 planar
+  state is 64 GiB), a float64 state with a float32 operator raises, and
+  with the mode off the operands and states are float32 / complex64 and
+  the same bit for bit as before a complex128 round trip.
 
 1e-12: float64 sums of at most a few hundred terms, taken in another
 order than JAX's einsums; the complex64 engine is 1e-8 - 1e-7 off.
@@ -481,13 +482,6 @@ def test_per_gate_trajectories_draw_exact_against_jax(jax_refs):
     assert np.abs(states.numpy() - jax_refs["trajectory"]).max() < TOL
 
 
-def _huge_superop(monkeypatch):
-    monkeypatch.setattr(bigstate, "HUGE_MIN_QUBITS", 6)
-    return tq.DensityMatrixSimulator(_noise_model(), device="cpu").run(
-        tq.QuantumCircuit.from_dict(build_circuit_dict(3, 2, 0)),
-        method="superop")
-
-
 FLOAT32_FAMILIES = {
     "mps": lambda mp: tq.MPSSimulator(chi=4, device="cpu"),
     "dmrg": lambda mp: tq.dmrg_ground_state(models.tfim_chain(4), 4,
@@ -498,7 +492,6 @@ FLOAT32_FAMILIES = {
     "mesh": lambda mp: __import__(
         "quantum_simulator_tpu_torch.parallel", fromlist=["x"])
     .DistributedSimulator(n_devices=2, device="cpu"),
-    "superop-chunked": _huge_superop,
 }
 
 
@@ -514,22 +507,34 @@ def test_float32_family_raises(family, monkeypatch):
 # Routes
 # ---------------------------------------------------------------------------
 
-def test_n30_raises_under_the_mode(monkeypatch):
+def test_n32_raises_under_the_mode(monkeypatch):
     sim = tq.Simulator(device="cpu")
-    with pytest.raises(ValueError, match="enable_complex128"):
-        sim.run(tq.QuantumCircuit.from_dict(build_circuit_dict(30, 2, 0)),
-                shots=0)
-    # the guard follows the routing predicate, whatever its threshold
+    for mix_rz in (False, True):     # a real and a planar state
+        with pytest.raises(ValueError, match="64 GiB.*enable_complex128"):
+            sim.run(tq.QuantumCircuit.from_dict(
+                build_circuit_dict(32, 2, 0, mix_rz)), shots=0)
+    # the guard follows COMPLEX128_MAX_QUBITS, whatever its value
+    monkeypatch.setattr(config, "COMPLEX128_MAX_QUBITS", 9)
     monkeypatch.setattr(bigstate, "HUGE_MIN_QUBITS", 10)
     c10 = tq.QuantumCircuit.from_dict(build_circuit_dict(10, 2, 0))
+    nm = tq.NoiseModel()
+    nm.add_global_noise(tq.DepolarizingNoise(0.1))
     for call in (lambda: sim.run(c10, shots=16),
                  lambda: list(sim.run_step_by_step(c10)),
+                 lambda: sim.monitored_trajectories(c10, 2, final_shots=4),
+                 lambda: tq.Simulator(nm, device="cpu").run_with_noise(
+                     c10, shots=4),
                  lambda: sim.ensemble_qubit_density_matrices(c10, 2)):
         with pytest.raises(ValueError, match="enable_complex128"):
             call()
+    monkeypatch.setattr(config, "COMPLEX128_MAX_QUBITS", 31)
+    assert sim.run(c10, shots=0).final_state.state_data.dtype \
+        == torch.float64
+    # with the mode off n >= 30 returns the float32 large-state result
     config.enable_complex64()
-    assert isinstance(sim.run(c10, shots=0).final_state,
-                      bigstate.PlanarStateVector)
+    state = sim.run(c10, shots=0).final_state
+    assert isinstance(state, bigstate.PlanarStateVector)
+    assert state.state_data.dtype == torch.float32
 
 
 @pytest.mark.parametrize("kernel", ["dense", "cross"])

@@ -502,12 +502,15 @@ def test_gradients_on_cuda(cuda, kind):
 # Large states (n >= 30)
 # ---------------------------------------------------------------------------
 
-def test_simulator_run_n30_holds_under_two_states(cuda):
+@pytest.mark.parametrize("precision", ["complex64", "complex128"])
+def test_simulator_run_n30_holds_under_two_states(cuda, precision):
     """``Simulator.run`` at n = 30 returns the executor's planar state as
-    it is: its peak stays under 1.75x the 8 GiB state (a complex copy, a
-    full probability vector or a 2^n histogram would each break that)."""
-    from quantum_simulator_tpu_torch import PlanarStateVector
+    it is: its peak stays under 1.75x the state, 8 GiB in float32 and
+    16 GiB in float64 under ``enable_complex128`` (a complex copy, a full
+    probability vector or a 2^n histogram would each break that)."""
+    from quantum_simulator_tpu_torch import PlanarStateVector, config
 
+    wide = precision == "complex128"
     circuit = QuantumCircuit.from_dict(
         build_circuit_dict(30, 4, seed=1, mix_rz=True))
     program = tprog.compile_circuit(circuit)
@@ -516,18 +519,33 @@ def test_simulator_run_n30_holds_under_two_states(cuda):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     cuda_exec.reset_launch_counts()
-    res = Simulator(device="cuda").run(circuit, shots=4096, seed=0)
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated()
-    fs = res.final_state
-    assert isinstance(fs, PlanarStateVector) and fs.is_planar
-    assert peak < 1.75 * (8 << 30), peak / 2**30
-    assert sum(res.measurement_counts.values()) == 4096
-    assert abs(fs.norm_sq() - 1.0) < 1e-4
+    if wide:
+        config.enable_complex128()
+    try:
+        res = Simulator(device="cuda").run(circuit, shots=4096, seed=0)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        fs = res.final_state
+        assert isinstance(fs, PlanarStateVector) and fs.is_planar
+        assert fs.state_data.dtype == (torch.float64 if wide
+                                       else torch.float32)
+        size = (16 if wide else 8) << 30
+        assert peak < 1.75 * size, peak / 2**30
+        assert sum(res.measurement_counts.values()) == 4096
+        assert abs(fs.norm_sq() - 1.0) < (1e-12 if wide else 1e-4)
+        del res, fs
+        torch.cuda.empty_cache()
+    finally:
+        config.enable_complex64()
     n_dense = sum(isinstance(s, tplan.AxisMatmulStep) for s in plan.steps)
     n_cross = sum(isinstance(s, tplan.CrossStep) for s in plan.steps)
-    assert cuda_exec.dense_axis.launches == n_dense
-    assert cuda_exec.cross_bit_axis.launches == n_cross
+    dense, cross = ((cuda_exec.dense_axis_f64, cuda_exec.cross_bit_axis_f64)
+                    if wide else (cuda_exec.dense_axis,
+                                  cuda_exec.cross_bit_axis))
+    assert dense.launches == n_dense
+    assert cross.launches == n_cross
+    assert sum(k.launches for k in cuda_exec.KERNELS + cuda_exec.KERNELS_F64
+               ) == n_dense + n_cross
 
 
 def test_sampler_returns_indices_beyond_int32(cuda):
@@ -554,12 +572,15 @@ def test_sampler_returns_indices_beyond_int32(cuda):
     assert bigstate.indices_to_counts(idx[:1], 32).popitem()[0][0] == "1"
 
 
-def test_fold_trajectory_n30_launches_one_kernel_per_gate(cuda):
+@pytest.mark.parametrize("precision", ["complex64", "complex128"])
+def test_fold_trajectory_n30_launches_one_kernel_per_gate(cuda, precision):
     """One fold-executor trajectory at n = 30 (a channel that is neither
     mixed-unitary nor monomial): every gate with its draws is one launch,
-    on one 4 GiB real state."""
+    on one real state of 4 GiB (8 GiB in float64 under
+    ``enable_complex128``, every launch a float64 one)."""
     from quantum_simulator_tpu_torch import (AmplitudeDampingNoise,
-                                             NoiseChannel, NoiseModel)
+                                             NoiseChannel, NoiseModel,
+                                             config)
     from quantum_simulator_tpu_torch.ops import bigtraj
 
     class XDamp(NoiseChannel):
@@ -577,20 +598,30 @@ def test_fold_trajectory_n30_launches_one_kernel_per_gate(cuda):
     program = tprog.compile_circuit(
         QuantumCircuit.from_dict(build_circuit_dict(30, 2, seed=2)))
     assert bigtraj.trajectory_evolve_route(program, nm) == "fold"
+    wide = precision == "complex128"
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     cuda_exec.reset_launch_counts()
-    x, planar, draws = bigtraj.huge_trajectory_state_body(
-        program, nm, program.initial_params, 1, "cuda", gen)
-    torch.cuda.synchronize()
-    launches = cuda_exec.dense_axis.launches + \
-        cuda_exec.cross_bit_axis.launches
-    assert launches == len(program.ops)
+    if wide:
+        config.enable_complex128()
+    try:
+        x, planar, draws = bigtraj.huge_trajectory_state_body(
+            program, nm, program.initial_params, 1, "cuda", gen)
+        torch.cuda.synchronize()
+    finally:
+        config.enable_complex64()
+    kernels = cuda_exec.KERNELS_F64 if wide else cuda_exec.KERNELS
+    assert sum(k.launches for k in kernels) == len(program.ops)
+    assert sum(k.launches for k in cuda_exec.KERNELS + cuda_exec.KERNELS_F64
+               ) == len(program.ops)
     assert not planar and tuple(x.shape) == (1, 4, 128, 128, 128, 128)
-    assert torch.cuda.max_memory_allocated() < 1.75 * (4 << 30)
-    assert abs(float(bigtraj.batched_norm_sq(x)[0]) - 1.0) < 1e-4
+    assert x.dtype == (torch.float64 if wide else torch.float32)
+    size = (8 if wide else 4) << 30
+    assert torch.cuda.max_memory_allocated() < 1.75 * size
+    assert abs(float(bigtraj.batched_norm_sq(x)[0]) - 1.0) < \
+        (1e-12 if wide else 1e-4)
     # one draw per gate target (one one-qubit channel on every gate)
     assert draws.shape == (1, sum(len(op.targets) for op in program.ops))
 
@@ -1501,3 +1532,65 @@ def test_complex128_run_card_equals_cpu(cuda, mix_rz):
         isinstance(s, tplan.CrossStep) for s in plan.steps)
     assert cuda_exec.dense_axis.launches == 0
     assert float((card.cpu() - cpu).abs().max()) <= 1e-12
+
+
+@pytest.mark.parametrize("mix_rz", [False, True])
+def test_complex128_chunked_route_card_equals_cpu(cuda, mix_rz, monkeypatch):
+    """The large-state path under ``enable_complex128``, forced at n = 10
+    with every pass chunked (``tests/test_torch_complex128_huge.py``'s
+    forcing): ``Simulator.run``'s float64 planes, the axis marginals and a
+    Pauli string, ``run_step_by_step``'s last snapshot, a monomial-splice
+    trajectory on the card's draws and vec(rho) at 2n = 10, card against
+    CPU within 1e-12, every kernel launch a float64 one."""
+    from quantum_simulator_tpu_torch import (AmplitudeDampingNoise, config,
+                                             DensityMatrixSimulator,
+                                             DepolarizingNoise, NoiseModel)
+    from quantum_simulator_tpu_torch.ops import bigstate, bigtraj
+
+    monkeypatch.setattr(bigstate, "HUGE_MIN_QUBITS", 10)
+    monkeypatch.setattr(tplan, "INPLACE_MIN_BYTES", 0)
+    monkeypatch.setattr(tplan, "CHUNK_ELEMS", 512)
+    circuit = QuantumCircuit.from_dict(build_circuit_dict(10, 8, 3, mix_rz))
+    program = tprog.compile_circuit(circuit)
+    nm = NoiseModel()
+    nm.add_global_noise(DepolarizingNoise(0.05))
+    nm.add_global_noise(AmplitudeDampingNoise(0.1))
+    config.enable_complex128()
+    try:
+        cuda_exec.reset_launch_counts()
+        out = {}
+        for dev in ("cuda", "cpu"):
+            fs = Simulator(device=dev).run(circuit, shots=0).final_state
+            assert fs.state_data.dtype == torch.float64
+            steps = list(Simulator(device=dev).run_step_by_step(circuit))
+            out[dev] = (fs.state_data.cpu(),
+                        fs._get_marginals(),
+                        fs.expectation_pauli_string([0, 5, 9], "XYZ"),
+                        steps[-1][0].qubit_probabilities())
+        assert bigtraj.trajectory_evolve_route(program, nm) == "monomial"
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(4)
+        xs, planar, draws = bigtraj.huge_trajectory_state_body(
+            program, nm, program.initial_params, 2, "cuda", gen)
+        xc, _, _ = bigtraj.huge_trajectory_state_body(
+            program, nm, program.initial_params, 2, "cpu", None,
+            [(a.cpu(), b.cpu()) for a, b in draws])
+        small = QuantumCircuit.from_dict(build_circuit_dict(5, 4, 2, mix_rz))
+        rho = [DensityMatrixSimulator(nm, device=dev).run(
+            small, method="superop") for dev in ("cuda", "cpu")]
+        torch.cuda.synchronize()
+    finally:
+        config.enable_complex64()
+    assert cuda_exec.dense_axis.launches == 0
+    assert cuda_exec.cross_bit_axis.launches == 0
+    assert cuda_exec.dense_axis_f64.launches > 0
+    card, cpu = out["cuda"], out["cpu"]
+    assert float((card[0] - cpu[0]).abs().max()) <= 1e-12
+    assert all(np.abs(a - b).max() <= 1e-12 for a, b in zip(card[1], cpu[1]))
+    assert abs(card[2] - cpu[2]) <= 1e-12
+    assert np.abs(card[3] - cpu[3]).max() <= 1e-12
+    assert xs.dtype == torch.float64
+    assert float((xs.cpu() - xc).abs().max()) <= 1e-12
+    assert rho[0].state_data.dtype == torch.float64
+    assert np.abs(rho[0].probabilities - rho[1].probabilities).max() <= 1e-12
+    assert abs(rho[0].purity() - rho[1].purity()) <= 1e-12
