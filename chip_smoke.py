@@ -416,6 +416,39 @@ The slice that carries the complex128 mode past n = 29 adds:
     trace within 1e-12 of 1, diagonal and purity within 1e-5 of the
     complex64 run, peak under 1.75x the state. Each sub-phase's wall time
     and the phase's float64 launches are printed.
+19. The complex128 mode through the shard mesh and the MPS family (under
+    ``config.enable_complex128``, restored after). 19a: both float64
+    kernels at the mesh's stacked layouts, 8 shards of (64, 128, 128,
+    128) (n = 30) and (128,) * 4 (n = 31) in one launch, a dense step on
+    the first and the last axis and a cross step of the ansatz's mini
+    plans, each with one operator shared at stride 0 and with two rows of
+    per-row operators, against the twin shard by shard within 1e-12 x
+    max |x|, ms per launch against the bound. 19b: on 8 shards, n = 30
+    Ry/Rz depth 8 and ``hardware_efficient_ansatz(30, 4)`` against the
+    single-device complex128 ``Simulator.run(shots=0)`` within 1e-12
+    (compared chunk by chunk), QFT-31 on a basis input through
+    ``run_segmented(4)`` against the analytic DFT row within 1e-12: only
+    float64 launches, as many as the mini plans' dense and cross steps,
+    exchanges as the schedule's, peaks under 1.75x the state, the run's
+    seconds and the exchanges' share; an n = 32 mesh is refused. 19c:
+    ``run_with_noise`` n = 24 depth 8, T = 16 (trajectories/s) and at
+    n = 18 the card's trajectories against the CPU's on the same draws
+    within 1e-12; the sharded VQE step on ``hardware_efficient_ansatz(20,
+    4)`` (traj 2 x amp 4) against the single-device complex128 cost
+    within 1e-12, ms per step; an n = 26 float64 checkpoint (manifest
+    ``"complex128"``, save and load bit for bit, resume within 1e-12).
+    19d: the MPS family, card against CPU and each against its exact
+    reference: ``MPSSimulator`` Ry/Rz n = 12 chi = 64 against
+    ``Simulator`` (1e-12), the n = 48 Rx + CNOT bench cell's <Z_q> card
+    against CPU (1e-12), ``run_with_noise`` there (depolarizing 0.01,
+    1024 shots) bit for bit against the CPU on the same draws, the MPS
+    gradient of ``hardware_efficient_ansatz(10, 2)`` chi = 32 against the
+    statevector's (1e-10), DMRG TFIM n = 8 against ``eigvalsh`` (relative
+    1e-10) and n = 64 chi = 16 against free fermions (no worse than a
+    complex64 run beyond float32 rounding), MPS Lindblad n = 40 chi = 16
+    card against CPU on the same draws (1e-10), the correlator n = 8
+    against the dense product of its Trotter factors (1e-10), with the
+    batched QR rows that had to be redone counted.
 
 ``--phases 2c,6`` runs only the named phases (and then prints no summary
 and no result line): for bringing up one phase on the card.
@@ -430,11 +463,12 @@ phase 13 every bridge request and controller or view-model run, in
 phase 14 ``entry()``'s forward and each twin's ``main``, in phase 15
 every GUI action, and in phase 16 the harness, the parity twin's card
 half and the latency twin's ``main`` (its child process uncounted); the
-float64 kernels' launches are those of 17b, 17c and 18b-18d, each run
-from zero. The comparison runs against the twins launch nothing (phases
-5, 12 and 14 check it); phase 16 reruns two circuits on the card, and
-18b its complex64 comparison runs and executor timings, outside the
-count.
+float64 kernels' launches are those of 17b, 17c, 18b-18d, the mesh runs
+of 19b, the VQE steps and the uninterrupted segmented run of 19c and the
+statevector references of 19d, each run from zero. The comparison runs
+against the twins launch nothing (phases 5, 12 and 14 check it); phase
+16 reruns two circuits on the card, 18b its complex64 comparison runs
+and executor timings and 19d a complex64 DMRG run, outside the count.
 
 The line before the last is the JSON kernel summary; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits with an
@@ -496,6 +530,7 @@ from quantum_simulator_tpu_torch.ops import monomial_traj as tmono
 from quantum_simulator_tpu_torch.ops import plan as tplan
 from quantum_simulator_tpu_torch.ops import program as tprog
 from quantum_simulator_tpu_torch.ops import unitary_traj as tunit
+from quantum_simulator_tpu_torch.parallel import checkpoint as tckpt
 from quantum_simulator_tpu_torch.parallel import distributed as tdist
 from quantum_simulator_tpu_torch import validation
 from quantum_simulator_tpu_torch.scripts import (interactive_latency_check,
@@ -514,7 +549,7 @@ F64_SIZES = (16, 28)
 RUN_PEAK_LIMIT = 6.1 * 2**30
 SEED = 42
 PHASES = ("2", "2b", "2c", "3", "3b", "4", "4b", "5", "6", "7", "8", "9",
-          "10", "11", "12", "13", "14", "15", "16", "17", "18")
+          "10", "11", "12", "13", "14", "15", "16", "17", "18", "19")
 
 # Layouts of n = 16, 28 and 30 qubits (GroupLayout.for_qubits).
 LAYOUTS = {16: (4, 128, 128), 28: (128,) * 4, 30: (4,) + (128,) * 4}
@@ -6387,6 +6422,632 @@ def phase_complex128_huge(report: dict, card: str) -> dict:
     return {"launches": path, "max_err": max_err}
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the complex128 mode through the mesh and the MPS family
+# ---------------------------------------------------------------------------
+
+# 19a: the mesh's stacked layouts, 8 shards of GroupLayout.for_qubits(n - 3)
+# ((64, 128, 128, 128) at n = 30, (128,) * 4 at n = 31) in one launch.
+C128_MESH_SIZES = (30, 31)
+C128_MESH_ROWS = 2                # 19a per-row operators: 2 rows x 4 shards
+C128_MESH_QFT = (31, 4)           # 19b: QFT-31 by run_segmented(4)
+C128_MESH_NOISY_CMP = (18, 4)     # 19c: card vs CPU on the same draws (n, T)
+# 19c: n = 18, not 12d's n = 24, for the card-against-CPU comparison: the
+# CPU's per-gate complex128 body takes minutes at n = 24; n = 24 is timed.
+C128_DRAW_MARGIN = 1e-9           # draws nearer a tie may part
+C128_MPS_GRAD_TOL = 1e-10
+C128_DMRG_EXACT = (8, 16, 6)      # 19d: tfim_chain (n, chi, sweeps)
+C128_DMRG_REL_TOL = 1e-10
+C128_F32_NOISE = 1e-6             # 19d: DMRG n = 64, float32 rounding
+C128_LINDBLAD = (40, 16, 10, 8)   # 19d: (n, chi, steps, trajectories)
+C128_CORR = (8, 16, 1.0, 40)      # 19d: (n, chi, t, steps)
+C128_LIND_TOL = 1e-10
+
+
+def c128_mesh_state(shape, seed: int) -> torch.Tensor:
+    """An (8, 2, *shape) float64 stack, shard b drawn from seed + b (so
+    one shard's input can be drawn again alone)."""
+    x = torch.empty((MESH_SHARDS, 2) + tuple(shape), dtype=torch.float64,
+                    device=C128_DEVICE)
+    for b in range(MESH_SHARDS):
+        x[b].copy_(c128_state(shape, True, seed + b))
+    return x
+
+
+def c128_mesh_ops(shape, rng, shared: bool) -> torch.Tensor:
+    """A complex float64 operator for 8 shards: one shared with stride 0,
+    or ``C128_MESH_ROWS`` rows each repeated over its shards (as
+    ``distributed._repeat_rows`` stacks a VQE batch's operators)."""
+    if shared:
+        return c128_op(shape, False, rng, batch=1).expand(
+            (MESH_SHARDS,) + (2,) + tuple(shape))
+    rows = c128_op(shape, False, rng, batch=C128_MESH_ROWS)
+    return rows.repeat_interleave(MESH_SHARDS // C128_MESH_ROWS, dim=0)
+
+
+def c128_mesh_geometries(n: int) -> list:
+    """The cross geometries of ``hardware_efficient_ansatz(n, 4)``'s mini
+    plans on 8 shards (the mesh's own cross steps)."""
+    mesh = tpar.make_mesh(MESH_SHARDS, device=C128_DEVICE)
+    body = tdist._ShardBody(tprog.compile_circuit(
+        random_ansatz(n, MESH_ANSATZ)), mesh)
+    return sorted({(s.slice_axis, s.slice_pos, s.op_axis)
+                   for seg in body.segments if seg[0] == "run"
+                   for s in seg[2].steps if isinstance(s, tplan.CrossStep)})
+
+
+def c128_mesh_kernels(report: dict, card: str) -> dict:
+    """19a. Both float64 kernels at the mesh's stacked layouts, one
+    launch for the 8 shards with a shared (stride 0) or per-row operator,
+    against the twin shard by shard."""
+    rng = np.random.default_rng(SEED + 19)
+    max_err = {"dense_axis_f64": 0.0, "cross_bit_axis_f64": 0.0}
+    rows: list = []
+    for n in C128_MESH_SIZES:
+        shape = tplan.GroupLayout.for_qubits(
+            n - (MESH_SHARDS.bit_length() - 1)).axis_sizes
+        geoms = c128_mesh_geometries(n)
+        cases = [("dense_axis_f64", (0,), shape[0]),
+                 ("dense_axis_f64", (len(shape) - 1,), shape[-1])]
+        cases += [("cross_bit_axis_f64", g, 2 * shape[g[2]])
+                  for g in geoms[:1]]
+        for name, geom, K in cases:
+            for shared in (True, False):
+                kind = "dense" if name == "dense_axis_f64" else "cross"
+                op_shape = (K, K) if kind == "dense" else (2, K // 2, 2,
+                                                           K // 2)
+                op = c128_mesh_ops(op_shape, rng, shared)
+                kfn = getattr(cuda_exec, name)
+                pfn = getattr(cuda_exec, name.replace("_f64", "") + "_plain")
+                torch.cuda.empty_cache()
+                seed = 1000 * n + len(rows)
+                x = c128_mesh_state(shape, seed)
+                got = kfn(x, op, *geom, True, True)
+                torch.cuda.synchronize()
+                label = (f"f64 {kind} mesh n={n} 8 x {tuple(shape)} "
+                         f"geom={geom} K={K} "
+                         f"{'shared' if shared else 'per-row'} operator")
+                check(got is x, f"19a {label}: the wrapper did not return "
+                      "its input")
+                err = scale = 0.0
+                for b in range(MESH_SHARDS):
+                    xb = c128_state(shape, True, seed + b)
+                    want = pfn(xb, op[b], *geom, True)
+                    err = max(err, float((got[b] - want).abs().max()))
+                    scale = max(scale, abs_max(xb))
+                    del xb, want
+                check(err <= C128_TOL * scale, f"19a {label}: max |kernel "
+                      f"- twin| = {err} > {C128_TOL} x max |x|")
+                ms = event_ms(lambda: kfn(x, op, *geom, True, True))
+                del x, got
+                b_ms, b_by = c128_bound((MESH_SHARDS,) + tuple(shape), True,
+                                        False, K)
+                max_err[name] = max(max_err[name], err)
+                rows.append({"kernel": name, "case": label, "n": n,
+                             "max_abs_err": err, "max_abs_x": scale,
+                             "ms": ms, "bound_ms": b_ms, "bound_by": b_by})
+                print(f"19a {label} [{card}]: err {err:.3e} "
+                      f"({err / scale:.2e} x max |x|), one launch "
+                      f"{ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}, "
+                      f"{b_ms / ms:.2f} of it)", flush=True)
+    torch.cuda.empty_cache()
+    report["c128_mesh"]["kernel_cases"] = rows
+    return max_err
+
+
+def c128_mesh_run(label: str, fn, size: int, want: dict | None,
+                  path: dict, clock: ExchangeClock):
+    """``fn()`` under the mode with every counter from zero: float64
+    launches only (equal to ``want`` when given), peak under 1.75x the
+    state; returns (result, wall s, float64 launches, peak bytes)."""
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with clock:
+        (out, f64), wall = timed(lambda: c128_path_run(fn, path, want,
+                                                       f"19b {label}"))
+    peak = torch.cuda.max_memory_allocated() - base
+    check(peak <= MESH_PEAK_RATIO * size, f"19b {label}: peak "
+          f"{peak / 2**30:.3f} GiB > {MESH_PEAK_RATIO} x the state's "
+          f"{size / 2**30:.0f} GiB")
+    return out, wall, f64, peak
+
+
+def segment_launches(circuit: QuantumCircuit, cols: int, mesh) -> dict:
+    """The float64 launches of ``run_segmented(circuit, cols)``: each
+    segment's mini plans' dense and cross steps (its bodies built as
+    ``run_segmented`` builds them)."""
+    total = {"dense_axis_f64": 0, "cross_bit_axis_f64": 0}
+    n_cols = 1 + max(g.column for g in circuit.gates)
+    for lo in range(0, n_cols, cols):
+        seg = QuantumCircuit(circuit.num_qubits)
+        for g in sorted(circuit.gates, key=lambda x: x.column):
+            if lo <= g.column < lo + cols:
+                seg.add(g.gate_name, list(g.target_qubits), list(g.params),
+                        g.column - lo)
+        if seg.gates:
+            body = tdist._ShardBody(tprog.compile_circuit(seg), mesh)
+            for k, v in f64_names(mesh_plan_launches(body)).items():
+                total[k] += v
+    return total
+
+
+def dft_max_err(stack: torch.Tensor, mesh, b: int, n: int) -> float:
+    """max |psi_k - 2^(-n/2) exp(2 pi i b k / 2^n)| over this rank's
+    ``(L, 2, N)`` stack, chunk by chunk in float64 (b k mod 2^n exact in
+    int64, as ``mesh_stretch_check.dft_overlap`` takes it)."""
+    L, _, N = stack.shape
+    mask = (1 << n) - 1
+    amp = 2.0 ** (-n / 2)
+    err = torch.zeros((), dtype=torch.float64, device=stack.device)
+    for l, shard in enumerate(mesh.shard_ids()):
+        for s in range(0, N, tplan.CHUNK_ELEMS):
+            e = min(N, s + tplan.CHUNK_ELEMS)
+            k = torch.arange(shard * N + s, shard * N + e,
+                             device=stack.device, dtype=torch.int64)
+            m = (b * (k & 0xFFFF) + (((b * (k >> 16)) & mask) << 16)) & mask
+            phase = m.double() * (2 * np.pi / 2.0 ** n)
+            err = torch.maximum(err, torch.maximum(
+                (stack[l, 0, s:e] - amp * torch.cos(phase)).abs().max(),
+                (stack[l, 1, s:e] - amp * torch.sin(phase)).abs().max()))
+    return float(err)
+
+
+def c128_mesh_full(path: dict, report: dict, card: str) -> None:
+    """19b. The mesh at full width on 8 shards under the mode: n = 30
+    Ry/Rz brickwork and ``hardware_efficient_ansatz(30, 4)`` against the
+    single-device complex128 ``Simulator.run``, QFT-31 through
+    ``run_segmented(4)`` against the DFT row, n = 32 refused."""
+    n, depth = MESH_BRICK
+    mesh = tpar.make_mesh(MESH_SHARDS, device=C128_DEVICE)
+    sim = tpar.DistributedSimulator(mesh)
+    size = state_bytes(n, True, 8)
+    rec = {}
+    for key, c in (("brickwork", brickwork(n, depth, SEED, True)),
+                   ("ansatz", random_ansatz(n, MESH_ANSATZ))):
+        body = tdist._ShardBody(tprog.compile_circuit(c), mesh)
+        check(body.grouped, f"19b {key}: not the grouped route")
+        torch.cuda.empty_cache()
+        cuda_exec.reset_launch_counts()
+        fs = Simulator(device=C128_DEVICE).run(c, shots=0).final_state
+        check(isinstance(fs, PlanarStateVector)
+              and fs.state_data.dtype == torch.float64,
+              f"19b {key}: single-device state {fs!r}")
+        planar, single = fs.is_planar, fs.state_data
+        del fs
+        clock = ExchangeClock()
+        st, wall, f64, peak = c128_mesh_run(
+            f"n={n} {key}", lambda: sim.run(c), size,
+            f64_names(mesh_plan_launches(body)), path, clock)
+        check(st.device_data.dtype == torch.float64,
+              f"19b {key}: mesh state {st.device_data.dtype}")
+        err = mesh_vs_single(st.device_data, single, planar)
+        del single
+        check(err <= C128_TOL, f"19b n={n} {key} vs Simulator.run: {err}")
+        check(clock.calls == body.swaps, f"19b {key}: {clock.calls} "
+              f"exchanges, the schedule has {body.swaps}")
+        norm = st.norm()
+        check(abs(1.0 - norm) <= C128_TOL, f"19b {key}: |psi|^2 {norm}")
+        del st
+        share = None
+        if key == "brickwork":
+            timed_clock = ExchangeClock(timed=True)
+            st, wall_t, _, _ = c128_mesh_run(
+                f"n={n} {key} (exchanges timed)", lambda: sim.run(c), size,
+                None, path, timed_clock)
+            share = timed_clock.s / wall_t
+            del st
+        rec[key] = {"run_s": wall, "launches": f64, "exchanges":
+                    clock.calls, "exchange_share": share, "peak_bytes": peak,
+                    "state_bytes": size, "err_vs_single": err}
+        print(f"19b mesh n={n} {key} over {MESH_SHARDS} shards, complex128 "
+              f"[{card}]: run {wall:.3f} s, float64 launches {f64} (= the "
+              f"mini plans), {clock.calls} exchanges"
+              + (f" ({100 * share:.1f} % of a synchronized run)"
+                 if share is not None else "")
+              + f", peak {peak / 2**30:.3f} GiB ({peak / size:.3f} x), vs "
+              f"Simulator.run {err:.2e}, |1 - |psi|^2| {abs(1 - norm):.1e}",
+              flush=True)
+        torch.cuda.empty_cache()
+    check(sum(r["launches"]["cross_bit_axis_f64"] for r in rec.values()) > 0
+          and sum(r["launches"]["dense_axis_f64"] for r in rec.values()) > 0,
+          "19b: a float64 kernel never launched on the mesh")
+
+    n, cols = C128_MESH_QFT
+    b = int(np.random.default_rng(SEED + 19).integers(0, 1 << n))
+    c = qft(n)
+    c.initial_states = [(b >> (n - 1 - q)) & 1 for q in range(n)]
+    size = state_bytes(n, True, 8)
+    clock = ExchangeClock(timed=True)
+    segs: list = []
+    st, wall, f64, peak = c128_mesh_run(
+        f"QFT-{n}", lambda: sim.run_segmented(
+            c, cols, progress=lambda i, ns, w: segs.append(w)), size,
+        segment_launches(c, cols, mesh), path, clock)
+    err = dft_max_err(st.device_data, mesh, b, n)
+    norm = st.norm()
+    check(err <= C128_TOL and abs(1 - norm) <= C128_TOL,
+          f"19b QFT-{n}: vs the DFT row {err}, |psi|^2 {norm}")
+    del st
+    torch.cuda.empty_cache()
+    rec["qft"] = {"n": n, "b": b, "run_s": wall, "launches": f64,
+                  "segment_s": segs,
+                  "exchanges": clock.calls, "exchange_s": clock.s,
+                  "peak_bytes": peak, "state_bytes": size, "err_vs_dft": err}
+    print(f"19b QFT-{n} run_segmented({cols}) over {MESH_SHARDS} shards, "
+          f"complex128 [{card}]: {wall:.3f} s ({len(segs)} segments, "
+          f"slowest {max(segs):.3f} s), {clock.calls} exchanges "
+          f"{clock.s:.3f} s = {100 * clock.s / wall:.1f} % (synchronized), "
+          f"float64 launches {f64}, peak {peak / 2**30:.3f} GiB "
+          f"({peak / size:.3f} x), max |psi - DFT row| {err:.2e}, "
+          f"|1 - |psi|^2| {abs(1 - norm):.1e}", flush=True)
+
+    try:
+        sim.run(brickwork(32, 1, SEED, True))
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    check("64 GiB" in refused, f"19b: an n = 32 mesh ran under the mode "
+          f"({refused!r})")
+    print(f"19b n=32 mesh under the mode [{card}]: refused ({refused})",
+          flush=True)
+    report["c128_mesh"]["runs"] = rec
+
+
+def c128_mesh_side(path: dict, report: dict, card: str) -> None:
+    """19c. ``run_with_noise`` at n = 24 (timed) and card against CPU on
+    the same draws at n = 18; the sharded VQE step against the
+    single-device complex128 cost; an n = 26 float64 checkpoint."""
+    import shutil
+    from pathlib import Path
+
+    nm = NoiseModel()
+    nm.add_global_noise(DepolarizingNoise(MESH_NOISY[2]))
+    n, depth, _, T, shots = MESH_NOISY
+    sim = tpar.DistributedSimulator(
+        tpar.make_mesh(MESH_SHARDS, device=C128_DEVICE))
+    c = brickwork(n, depth, SEED, mix_rz=False)
+    sim.run_with_noise(brickwork(MESH_NOISY_SMALL, 2, SEED, False), nm, 8,
+                       trajectories=2, seed=SEED)
+    counts, wall = timed(lambda: sim.run_with_noise(
+        c, nm, shots, trajectories=T, seed=SEED))
+    check(sum(counts.values()) == shots, f"19c noisy n={n}: shots")
+    n_cmp, T_cmp = C128_MESH_NOISY_CMP
+    small = brickwork(n_cmp, depth, SEED, mix_rz=True)
+    prog_s = tprog.compile_circuit(small)
+    draws, width = tdist.noisy_draw_shape(prog_s, nm)
+    g = tdist.draw_gumbels((T_cmp, draws, width),
+                           torch.Generator().manual_seed(SEED), "cpu")
+    rec: list = []
+    want = tdist.sharded_trajectory_fn(
+        prog_s, nm, tpar.make_mesh(MESH_SHARDS, device="cpu"))(
+            prog_s.initial_params, g, rec)
+    got = tdist.sharded_trajectory_fn(
+        prog_s, nm, tpar.make_mesh(MESH_SHARDS, device=C128_DEVICE))(
+            prog_s.initial_params, g.to(C128_DEVICE)).cpu()
+    check(got.dtype == want.dtype == torch.float64,
+          f"19c noisy: dtypes {got.dtype} {want.dtype}")
+    margins = torch.stack([m for _, m in rec], 1).min(1).values
+    clear = margins > C128_DRAW_MARGIN
+    noisy_err = float((got - want).abs().amax((1, 2, 3))[clear].max())
+    check(int(clear.sum()) >= T_cmp // 2 and noisy_err <= C128_TOL,
+          f"19c noisy n={n_cmp}: card vs CPU {noisy_err} over "
+          f"{int(clear.sum())} trajectories")
+    print(f"19c run_with_noise n={n} depth {depth} over {MESH_SHARDS} "
+          f"shards, T={T}, {shots} shots, complex128 [{card}]: "
+          f"{wall:.3f} s, {T / wall:.2f} trajectories/s; n={n_cmp} card vs "
+          f"CPU on the same draws {noisy_err:.2e} ({int(clear.sum())} of "
+          f"{T_cmp} clear of ties)", flush=True)
+    out = {"noisy_s": wall, "noisy_traj_per_s": T / wall,
+           "noisy_card_vs_cpu": noisy_err}
+
+    n, layers = MESH_VQE
+    c = random_ansatz(n, layers)
+    ham = [(1.0, [i, i + 1]) for i in range(n - 1)]
+    mesh = tpar.make_vqe_mesh(MESH_SHARDS, device=C128_DEVICE)
+    step = tpar.sharded_vqe_step(c, mesh, observable=ham)
+    check(step.init.params.dtype == torch.float64, "19c VQE carry dtype")
+    (state, cost), first_s = timed(lambda: c128_path_run(
+        lambda: step.step(step.init), path, None, "19c VQE")[0])
+    fs = Simulator(device=C128_DEVICE).run(c, shots=0).final_state
+    if isinstance(fs, PlanarStateVector):
+        x = fs.state_data
+        probs = (x.square() if not fs.is_planar
+                 else x[0].square() + x[1].square()).reshape(-1)
+    else:
+        psi = fs.device_data
+        probs = psi.real.square() + psi.imag.square()
+    del fs
+    idx = torch.arange(1 << n, device=C128_DEVICE)
+    single = 0.0
+    for coeff, qs in ham:
+        sign = torch.ones(1 << n, dtype=torch.float64, device=C128_DEVICE)
+        for q in qs:
+            sign = sign * (1 - 2 * ((idx >> (n - 1 - q)) & 1)).double()
+        single += coeff * float((probs * sign).sum())
+    del probs
+    vqe_err = abs(float(cost) - single)
+    check(cost.dtype == torch.float64 and vqe_err <= C128_TOL,
+          f"19c VQE cost {float(cost)} vs single device {single}: "
+          f"{vqe_err}")
+    st, ms = state, []
+    for _ in range(MESH_VQE_STEPS):
+        (st, _), s = timed(lambda st=st: c128_path_run(
+            lambda: step.step(st), path, None, "19c VQE")[0])
+        ms.append(1e3 * s)
+    print(f"19c sharded VQE hardware_efficient_ansatz({n}, {layers}) ZZ "
+          f"chain, traj 2 x amp 4, complex128 [{card}]: cost "
+          f"{float(cost):+.12f} (single device {vqe_err:.1e}); first step "
+          f"{1e3 * first_s:.1f} ms, {MESH_VQE_STEPS} Adam steps "
+          f"{np.round(ms, 1).tolist()} ms", flush=True)
+    out.update(vqe_err=vqe_err, vqe_step_ms=ms, vqe_first_ms=1e3 * first_s)
+
+    n, depth, cols, stop = MESH_CKPT
+    c = brickwork(n, depth, SEED, mix_rz=True)
+    sim = tpar.DistributedSimulator(
+        tpar.make_mesh(MESH_SHARDS, device=C128_DEVICE))
+    root = Path(__file__).resolve().parent / "build" / "mesh_checkpoint"
+    shutil.rmtree(root, ignore_errors=True)
+
+    class Stop(Exception):
+        pass
+
+    def stopper(i, ns, w):
+        if i == stop:
+            raise Stop()
+
+    whole = c128_path_run(lambda: sim.run_segmented(c, cols), path, None,
+                          "19c checkpoint")[0]
+    try:
+        sim.run_segmented(c, cols, progress=stopper, checkpoint_dir=str(root))
+        check(False, "19c: the checkpointed run did not stop")
+    except Stop:
+        pass
+    latest = tckpt.read_latest(str(root))
+    dtype = tckpt.load_manifest(latest)["dtype"]
+    back = tckpt.load_sharded_state(latest, sim.mesh)
+    (res, wall) = timed(lambda: sim.run_segmented(c, cols,
+                                                  checkpoint_dir=str(root)))
+    shutil.rmtree(root, ignore_errors=True)
+    tckpt.save_sharded_state(whole.device_data, str(root), sim.mesh)
+    again = tckpt.load_sharded_state(str(root), sim.mesh)
+    exact = torch.equal(again, whole.device_data)
+    shutil.rmtree(root, ignore_errors=True)
+    err = max(grouped_max_diff(whole.device_data[l], res.device_data[l])
+              for l in range(MESH_SHARDS))
+    check(dtype == "complex128" and back.dtype == torch.float64 and exact
+          and err <= C128_TOL, f"19c checkpoint n={n}: manifest {dtype}, "
+          f"loaded {back.dtype}, round trip exact {exact}, resumed vs "
+          f"uninterrupted {err}")
+    print(f"19c checkpoint n={n} complex128 [{card}]: manifest {dtype}, "
+          f"save/load bit for bit, resumed in {wall:.3f} s, vs "
+          f"uninterrupted {err:.1e}", flush=True)
+    out.update(checkpoint_err=err, resume_s=wall)
+    del whole, res, back, again
+    torch.cuda.empty_cache()
+    report["c128_mesh"]["side"] = out
+
+
+class RedoCount:
+    """Counts the batch rows whose batched QR came back non-finite and
+    was redone alone (``mps._isometry_split``) inside the ``with``
+    block."""
+
+    def __init__(self):
+        self.rows = 0
+
+    def __enter__(self):
+        self._real = tmps._finite_rows
+
+        def counting(*ts):
+            ok = self._real(*ts)
+            self.rows += int((~ok).sum())
+            return ok
+
+        tmps._finite_rows = counting
+        return self
+
+    def __exit__(self, *exc):
+        tmps._finite_rows = self._real
+
+
+def c128_mps(path: dict, report: dict, card: str) -> None:
+    """19d. The MPS family on the card under the mode, each card against
+    the CPU and its exact reference: no NaN anywhere, the redone QR rows
+    counted."""
+    out = {}
+    redo = RedoCount()
+    with redo:
+        n, depth, chi = MPS_EXACT
+        c = brickwork(n, depth, SEED, True)
+        _, st = tmps.MPSSimulator(chi, device=C128_DEVICE).run(c, shots=0)
+        check(st.tensors[0].dtype == torch.complex128, "19d MPS dtype")
+        psi = c128_path_run(lambda: Simulator(device=C128_DEVICE).run(
+            c, shots=0).final_state.device_data, path, None, "19d exact")[0]
+        err = float(np.abs(tmps.to_statevector(st)
+                           - psi.cpu().numpy()).max())
+        check(err <= C128_TOL and st.truncation_weight == 0.0,
+              f"19d MPS n={n} chi={chi}: state vs Simulator {err}")
+        out["exact_err"] = err
+        print(f"19d mps exact n={n} depth {depth} chi={chi} complex128 "
+              f"[{card}]: state vs Simulator {err:.2e}", flush=True)
+
+        n, depth, chi, _ = MPS_BENCH
+        c = rx_brickwork(n, depth)
+        sim = tmps.MPSSimulator(chi, device=C128_DEVICE)
+        sim.run(c, shots=0)
+        (_, st), wall = timed(lambda: sim.run(c, shots=0))
+        _, st_cpu = tmps.MPSSimulator(chi, device="cpu").run(c, shots=0)
+        zerr = float(np.abs(z_profile(st) - z_profile(st_cpu)).max())
+        check(zerr <= C128_TOL, f"19d MPS bench: <Z_q> card vs CPU {zerr}")
+        out.update(bench_ms=1e3 * wall, bench_z_err=zerr)
+        print(f"19d mps bench n={n} depth-{depth} chi={chi} complex128 "
+              f"[{card}]: {1e3 * wall:.1f} ms/run, <Z_q> card vs CPU "
+              f"{zerr:.2e}", flush=True)
+
+        n, depth, chis, shots, p = MPS_NOISY
+        chi = chis[0]
+        nm = NoiseModel()
+        nm.add_global_noise(DepolarizingNoise(p))
+        gen = torch.Generator().manual_seed(SEED)
+        g = tmps.draw_gumbels(shots, tmps.draw_branches(c, nm), gen, "cpu")
+        u = torch.rand((shots, n), generator=gen)
+        (cnt, disc), wall = timed(lambda: sim.run_with_noise(
+            c, nm, shots=shots, gumbels=g.to(C128_DEVICE),
+            uniforms=u.to(C128_DEVICE)))
+        cnt_cpu, disc_cpu = tmps.MPSSimulator(chi, device="cpu") \
+            .run_with_noise(c, nm, shots=shots, gumbels=g, uniforms=u)
+        check(cnt == cnt_cpu and np.isfinite(disc),
+              f"19d MPS noisy n={n}: card and CPU counts differ on the "
+              f"same draws (truncation {disc} / {disc_cpu})")
+        out.update(noisy_shots_per_s=shots / wall)
+        print(f"19d mps run_with_noise n={n} depth-{depth} depol {p} "
+              f"chi={chi} {shots} shots complex128 [{card}]: "
+              f"{shots / wall:.1f} shots/s, bits identical to the CPU's on "
+              f"the same draws, mean truncation {disc:.2e}", flush=True)
+
+        n, layers, chi = VQE_MPS_EXACT
+        c = models.hardware_efficient_ansatz(n, layers)
+        cost = topt.CostFunction.vqe_hamiltonian(models.tfim_chain(n))
+        mcfg = topt.MPSParameterizedConfig.auto_detect(c, chi=chi)
+        scfg = topt.ParameterizedCircuitConfig.auto_detect(c)
+        v = np.random.default_rng(SEED + 1).uniform(-np.pi, np.pi,
+                                                    mcfg.num_params)
+        g_mps, wall = timed(lambda: topt.GradientEstimator.parameter_shift(
+            mcfg, cost, v, device=C128_DEVICE))
+        g_sv = c128_path_run(lambda: topt.GradientEstimator.parameter_shift(
+            scfg, cost, v, device=C128_DEVICE), path, None,
+            "19d gradient")[0]
+        gerr = float(np.abs(g_mps - g_sv).max())
+        check(gerr <= C128_MPS_GRAD_TOL, f"19d MPS gradient n={n}: vs the "
+              f"statevector {gerr}")
+        out.update(gradient_err=gerr, gradient_ms=1e3 * wall)
+        print(f"19d mps gradient n={n} chi={chi} complex128 [{card}]: "
+              f"{1e3 * wall:.1f} ms, vs the statevector gradient "
+              f"{gerr:.2e}", flush=True)
+
+        n, chi, sweeps = C128_DMRG_EXACT
+        terms = models.tfim_chain(n)
+        res = tdmrg.dmrg_ground_state(terms, n, chi=chi, sweeps=sweeps,
+                                      device=C128_DEVICE)
+        exact = float(np.linalg.eigvalsh(dense_ham(n, terms))[0])
+        rel8 = abs(res.energy - exact) / abs(exact)
+        check(rel8 <= C128_DMRG_REL_TOL, f"19d DMRG n={n}: rel err {rel8}")
+        n, j, h, chi, sweeps, k = DMRG_BENCH
+        terms = models.tfim_chain(n, j=j, h=h)
+        exact = tfim_exact_open(n, j, h)
+        rel = {}
+        for mode in ("complex64", "complex128"):
+            if mode == "complex64":
+                tconfig.enable_complex64()
+            try:
+                r, wall = timed(lambda: tdmrg.dmrg_ground_state(
+                    terms, n, chi=chi, sweeps=sweeps, lanczos_k=k,
+                    device=C128_DEVICE))
+            finally:
+                tconfig.enable_complex128()
+            rel[mode] = (abs(r.energy - exact) / abs(exact), wall)
+        check(rel["complex128"][0] <= rel["complex64"][0] + C128_F32_NOISE,
+              f"19d DMRG n={n}: complex128 rel err {rel['complex128'][0]} "
+              f"worse than complex64's {rel['complex64'][0]}")
+        out.update(dmrg8_rel=rel8, dmrg64_rel=rel["complex128"][0],
+                   dmrg64_rel_c64=rel["complex64"][0],
+                   dmrg64_s=rel["complex128"][1])
+        print(f"19d dmrg TFIM n=8 chi=16 complex128 [{card}]: rel err vs "
+              f"eigvalsh {rel8:.2e}; n={n} chi={chi} {sweeps} sweeps: "
+              f"{rel['complex128'][1]:.3f} s, rel err vs free fermions "
+              f"{rel['complex128'][0]:.3e} (complex64 run "
+              f"{rel['complex64'][0]:.3e}, {rel['complex64'][1]:.3f} s)",
+              flush=True)
+
+        n, chi, steps, T = C128_LINDBLAD
+        H = ([(1.0, "ZZ", [i, i + 1]) for i in range(n - 1)]
+             + [(0.5, "X", [i]) for i in range(n)])
+        jumps = [(0.1, "sigma_minus", q) for q in range(n)]
+        gl = tmps.gumbel_from_uniform(torch.rand(
+            (T, steps, n, 2), generator=torch.Generator().manual_seed(SEED),
+            dtype=torch.float32))
+        obs = [("Z", [0]), ("Z", [n // 2]), ("XX", [1, 2])]
+        runs = {}
+        for dev in (C128_DEVICE, "cpu"):
+            lsim = tlmps.MPSLindbladSimulator(n, H, jumps, chi=chi,
+                                              device=dev)
+            runs[dev] = timed(lambda: lsim.evolve(
+                1.0, steps, n_trajectories=T, observables=obs,
+                gumbels=gl.to(dev)))
+        (a, wall), (b_, _) = runs[C128_DEVICE], runs["cpu"]
+        lerr = float(np.abs(a.expectations - b_.expectations).max())
+        check(np.isfinite(a.expectations).all() and lerr <= C128_LIND_TOL,
+              f"19d MPS Lindblad n={n}: card vs CPU {lerr}")
+        out.update(lindblad_err=lerr, lindblad_s=wall)
+        print(f"19d mps lindblad n={n} chi={chi} {steps} steps T={T} "
+              f"complex128 [{card}]: {wall:.3f} s, records card vs CPU on "
+              f"the same draws {lerr:.2e}", flush=True)
+
+        n, chi, t, steps = C128_CORR
+        terms = models.tfim_chain(n)
+        times, C = tcorr.mps_two_point_correlator(
+            n, terms, t, steps, 2, 5, pauli_i="X", pauli_j="Z", chi=chi,
+            device=C128_DEVICE)
+        dt = t / steps
+        half = []
+        for coeff, pstr, qubits in terms:
+            w, vv = np.linalg.eigh(dense_ham(n, [(coeff, pstr, qubits)]))
+            half.append((vv * np.exp(-0.5j * dt * w)) @ vv.conj().T)
+        U = np.eye(1 << n)
+        for f in half + half[::-1]:
+            U = f @ U
+        psi = np.zeros(1 << n, complex)
+        psi[0] = 1.0
+        phi = dense_ham(n, [(1.0, "Z", [5])]) @ psi
+        Pi = dense_ham(n, [(1.0, "X", [2])])
+        cerr = 0.0
+        for k_ in range(steps + 1):
+            cerr = max(cerr, abs(C[k_] - np.conj(psi) @ Pi @ phi))
+            psi, phi = U @ psi, U @ phi
+        check(cerr <= C128_LIND_TOL, f"19d correlator n={n}: vs the dense "
+              f"Trotter product {cerr}")
+        out["correlator_err"] = cerr
+        print(f"19d mps correlator n={n} chi={chi} {steps} steps complex128 "
+              f"[{card}]: vs the dense Trotter product {cerr:.2e}",
+              flush=True)
+    out["redone_qr_rows"] = redo.rows
+    print(f"19d factorisations [{card}]: no non-finite value; {redo.rows} "
+          f"batched QR rows redone alone", flush=True)
+    report["c128_mesh"]["mps"] = out
+
+
+def phase_complex128_mesh_mps(report: dict, card: str) -> dict:
+    """19a-19d under ``enable_complex128``, complex64 restored after."""
+    report["c128_mesh"] = {}
+    path: dict = {k: 0 for k in f64_counts()}
+    walls = {}
+    tconfig.enable_complex128()
+    try:
+        t0 = time.perf_counter()
+        max_err = c128_mesh_kernels(report, card)
+        walls["19a"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        c128_mesh_full(path, report, card)
+        walls["19b"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        c128_mesh_side(path, report, card)
+        walls["19c"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        c128_mps(path, report, card)
+        walls["19d"] = time.perf_counter() - t0
+        check(all(v > 0 for v in path.values()),
+              f"a float64 kernel never launched in phase 19: {path}")
+    finally:
+        tconfig.enable_complex64()
+    print(f"19 wall s [{card}]: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in walls.items()) + f"; float64 launches "
+        f"{path}", flush=True)
+    report["c128_mesh"].update(launches=path, walls=walls)
+    return {"launches": path, "max_err": max_err}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every measurement as JSON")
@@ -6462,7 +7123,8 @@ def main() -> int:
               "15": lambda: phase_gui(report, card),
               "16": lambda: phase_acceptance(report, card, args.reference),
               "17": lambda: phase_complex128(report, card),
-              "18": lambda: phase_complex128_huge(report, card)}
+              "18": lambda: phase_complex128_huge(report, card),
+              "19": lambda: phase_complex128_mesh_mps(report, card)}
     out = {}
     for name in PHASES:
         if name in chosen:
@@ -6503,10 +7165,10 @@ def main() -> int:
         summary["kernels"].append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": out["17"]["launches"][name]
-            + out["18"]["launches"][name],
-            "max_abs_err": max(out["17"]["max_err"][name],
-                               out["18"]["max_err"][name]),
+            "launches": sum(out[p]["launches"][name]
+                            for p in ("17", "18", "19")),
+            "max_abs_err": max(out[p]["max_err"][name]
+                               for p in ("17", "18", "19")),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"]})

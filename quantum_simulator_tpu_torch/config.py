@@ -14,18 +14,23 @@ through a 3-pass TF32 split (hi/lo parts, three products summed in fp32),
 held to float64 as tightly as an fp32 product (``csrc/fiber_matmul.cuh``).
 
 Verification mode (``enable_complex128``, ``config.py:133-155`` of the JAX
-package): the statevector family (``Simulator`` and the executors under
+package): every family then computes in float64 planes, complex128
+amplitudes: the statevector family (``Simulator`` and the executors under
 it: the group plan, its operands, the per-gate and trajectory bodies, and
 from n = 30 on the chunked large-state path of ``ops/bigstate.py`` and
-``ops/bigtraj.py`` with vec(rho) at 2n = 30) then computes in float64
-planes, complex128 amplitudes, up to ``COMPLEX128_MAX_QUBITS`` (31); every
-dense and cross step of a float64 state on the card launches the float64
-kernels (``csrc/fiber_matmul_f64.cu``: FP64 tensor cores and FP64 FMA, no
-TF32 in any form). n = 32 raises under the mode (``require_width``): its
-float64 planar state is 64 GiB, and the chunked path holds up to 1.75x
-its state on an 80 GB card. The families that compute in float32 only
-(the MPS family, DMRG, the mesh) raise under the mode
-(``require_complex64``). Torch needs no x64 switch.
+``ops/bigtraj.py`` with vec(rho) at 2n = 30) up to
+``COMPLEX128_MAX_QUBITS`` (31), the shard mesh (``parallel/``: the
+per-gate and grouped bodies, the sampler, the reductions, the checkpoints
+and the sharded VQE step) up to that cap plus log2 of its ranks, and the
+MPS family (``MPSSimulator``, its cost function, DMRG, the MPS Lindblad
+trajectories and the correlator). Every dense and cross step of a float64
+state on the card launches the float64 kernels
+(``csrc/fiber_matmul_f64.cu``: FP64 tensor cores and FP64 FMA, no TF32 in
+any form). Wider statevectors raise under the mode (``require_width``): a
+float64 planar state is 64 GiB at n = 32, and the chunked path holds up to
+1.75x its state on an 80 GB card. Draws may stay float32 (Gumbel rows,
+uniforms); what they are compared with follows the state. Torch needs no
+x64 switch.
 """
 
 from __future__ import annotations
@@ -90,9 +95,10 @@ def np_dtype():
 
 def enable_complex128() -> None:
     """Switch the engine to complex128 verification mode: the statevector
-    family at n <= ``COMPLEX128_MAX_QUBITS`` computes in float64 on the
-    CPU and on the card (see the module docstring). Call before building
-    operands or states that should carry the new precision."""
+    family at n <= ``COMPLEX128_MAX_QUBITS``, the shard mesh and the MPS
+    family compute in float64 on the CPU and on the card (see the module
+    docstring). Call before building operands or states that should carry
+    the new precision."""
     CONFIG.dtype = torch.complex128
 
 
@@ -101,30 +107,23 @@ def enable_complex64() -> None:
     CONFIG.dtype = torch.complex64
 
 
-def require_complex64(what: str) -> None:
-    """Raise under ``enable_complex128`` for a path that computes in
-    float32 only (``what`` names it): it must never return float32
-    numbers under a complex128 label."""
-    if CONFIG.dtype == torch.complex128:
-        raise ValueError(
-            f"{what} computes in float32 only; complex128 verification "
-            f"mode (enable_complex128) covers statevectors of n <= "
-            f"{COMPLEX128_MAX_QUBITS} qubits (call enable_complex64 first)")
-
-
-def require_width(num_qubits: int, what: str) -> None:
+def require_width(num_qubits: int, what: str, ranks: int = 1) -> None:
     """Raise under ``enable_complex128`` for a statevector of more than
-    ``COMPLEX128_MAX_QUBITS`` qubits (``what`` names the path): its
-    float64 planar state does not fit the card beside the chunked path's
-    temporaries."""
-    if CONFIG.dtype == torch.complex128 and \
-            num_qubits > COMPLEX128_MAX_QUBITS:
+    ``COMPLEX128_MAX_QUBITS`` qubits per card (``what`` names the path):
+    its float64 planar state does not fit the card beside the chunked
+    path's temporaries. A mesh of ``ranks`` ranks (a power of 2, one card
+    each) holds 2^n / ranks amplitudes a card, so its cap is log2(ranks)
+    higher."""
+    cap = COMPLEX128_MAX_QUBITS + max(0, ranks.bit_length() - 1)
+    if CONFIG.dtype == torch.complex128 and num_qubits > cap:
         gib = (16 << num_qubits) / 2**30
+        per = f" ({gib / ranks:.0f} GiB a card on {ranks} ranks)" \
+            if ranks > 1 else ""
         raise ValueError(
             f"{what}: a {num_qubits}-qubit float64 planar state is "
-            f"{gib:.0f} GiB; complex128 verification mode "
-            f"(enable_complex128) covers statevectors of n <= "
-            f"{COMPLEX128_MAX_QUBITS} qubits (call enable_complex64 first)")
+            f"{gib:.0f} GiB{per}; complex128 verification mode "
+            f"(enable_complex128) covers statevectors of n <= {cap} "
+            f"qubits (call enable_complex64 first)")
 
 
 def pinned_device(device=None) -> torch.device:

@@ -12,6 +12,8 @@ bond), so the port runs them as the two rows of one batch of MPS
 (``mps._BatchMPS``), each truncated on its own, as the JAX package's two
 traced evolutions are. It loops every step and records at t = 0 and every
 ``record_every``-th step, the points of the JAX package's record windows.
+The evolutions run in ``CONFIG.dtype`` (complex128 under
+``config.enable_complex128``).
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .config import CONFIG, require_complex64
+from .config import CONFIG
 from .lindblad_mps import trotter_gates
 from .models.trotter import _PAULI, _validated
 from .mps import MPSState, _BatchMPS, _transfer
@@ -52,7 +54,6 @@ def mps_two_point_correlator(num_qubits: int, hamiltonian_terms,
     spectroscopy); an MPS start is re-canonicalised by two norm-preserving
     QR sweeps on entry. Runs on ``device`` (default ``CONFIG.device``; an
     ``MPSState`` start is moved there)."""
-    require_complex64("the MPS correlator")
     n = num_qubits
     if not (0 <= site_i < n and 0 <= site_j < n):
         raise ValueError("correlator sites out of range")

@@ -21,8 +21,11 @@ tensors:
   sweep), then split by a truncated SVD with the discarded-weight ledger.
 
 The returned ``MPSState`` has its orthogonality centre at site 0, so the
-whole observable surface of ``mps`` applies. Ritz values and sweep
-energies are float32, as in the JAX package.
+whole observable surface of ``mps`` applies. Ritz values, sweep energies
+and discarded weights are in the state's real precision: float32, as in
+the JAX package, or float64 under ``config.enable_complex128`` (with the
+Lanczos tridiagonal, which JAX builds in float32 in its mode too; the
+breakdown threshold stays JAX's 1e-6).
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .config import CONFIG, require_complex64
+from .config import CONFIG
 from .mps import (MPSState, _PAULI_2X2, _parse_terms, expectation_hamiltonian,
                   thin_svd)
 
@@ -111,7 +114,8 @@ def _lanczos_ground(matvec, theta0: torch.Tensor, k: int):
     v = theta0.reshape(-1)
     v = v / torch.vdot(v, v).real.clamp_min(1e-30).sqrt()
     vs = [v]
-    one = torch.ones((), dtype=torch.float32, device=v.device)
+    real = v.dtype.to_real()
+    one = torch.ones((), dtype=real, device=v.device)
     alive = [one]
     alphas, betas = [], []
     w = matvec(v.reshape(shape)).reshape(-1)
@@ -121,7 +125,7 @@ def _lanczos_ground(matvec, theta0: torch.Tensor, k: int):
         for u in vs:
             w = w - torch.vdot(u, w) * u
         b = torch.vdot(w, w).real.clamp_min(0.0).sqrt()
-        ok = (b > 1e-6).float()
+        ok = (b > 1e-6).to(real)
         v = torch.where(ok > 0, w / b.clamp_min(1e-30).to(w.dtype),
                         torch.zeros_like(w))
         vs.append(v)
@@ -131,9 +135,9 @@ def _lanczos_ground(matvec, theta0: torch.Tensor, k: int):
         alphas.append(torch.vdot(v, w).real)
         w = w - alphas[-1].to(v.dtype) * v
     m = torch.stack(alive)
-    tri = torch.diag(torch.stack(alphas).float() * m + (1.0 - m) * 1e9)
+    tri = torch.diag(torch.stack(alphas).to(real) * m + (1.0 - m) * 1e9)
     if betas:
-        off = torch.stack(betas).float() * m[1:]
+        off = torch.stack(betas).to(real) * m[1:]
         tri = tri + torch.diag(off, 1) + torch.diag(off, -1)
     evals, evecs = torch.linalg.eigh(tri)
     c = evecs[:, 0].to(v.dtype)
@@ -217,9 +221,10 @@ def _penalty_vectors(phis, lov_i, rov_i2, i: int):
 def _run_sweeps(w_stack, a_stack, phis, w_pen: float, chi: int,
                 sweeps: int, k: int):
     """The sweep program: -> (final padded stack as a list of site
-    tensors, sweep energies (sweeps,) float32, last sweep's discarded
-    weight). ``phis`` (n_prev, n, chi, 2, chi) are earlier states whose
-    projectors the local solves penalise with weight ``w_pen``."""
+    tensors, sweep energies (sweeps,) in the state's real dtype, last
+    sweep's discarded weight). ``phis`` (n_prev, n, chi, 2, chi) are
+    earlier states whose projectors the local solves penalise with weight
+    ``w_pen``."""
     n, d = w_stack.shape[0], w_stack.shape[1]
     dtype, device = a_stack.dtype, a_stack.device
     n_prev = phis.shape[0]
@@ -283,7 +288,7 @@ def _run_sweeps(w_stack, a_stack, phis, w_pen: float, chi: int,
                 lov[i + 1] = _lov_update(lov[i], phis[:, i], a[i])
         # Right -> left; the ledger restarts so the reported weight is
         # the final pass's.
-        disc = torch.zeros((), dtype=torch.float32, device=device)
+        disc = torch.zeros((), dtype=dtype.to_real(), device=device)
         for i in range(n - 2, -1, -1):
             vjs = (_penalty_vectors(phis, lov[i], rov[i + 2], i)
                    if n_prev else None)
@@ -298,7 +303,7 @@ def _run_sweeps(w_stack, a_stack, phis, w_pen: float, chi: int,
 
 
 def _product_stack(n: int, chi: int, bits, dtype, device) -> torch.Tensor:
-    a0 = np.zeros((n, chi, 2, chi), dtype=np.complex64)
+    a0 = np.zeros((n, chi, 2, chi), dtype=np.complex128)
     for i, b in enumerate(bits):
         a0[i, 0, b, 0] = 1.0
     return torch.from_numpy(a0).to(device=device, dtype=dtype)
@@ -354,7 +359,6 @@ def dmrg_ground_state(terms, num_qubits: int, chi: int = 32,
     exact H_eff eigenstate, so the local solves cannot flow away from a
     product-state start: pass the intended ``init_bits`` or add a small
     transverse field."""
-    require_complex64("DMRG")
     n = int(num_qubits)
     if n < 2:
         raise ValueError("DMRG needs at least 2 sites")
@@ -411,9 +415,11 @@ def dmrg_excited_states(terms, num_qubits: int, n_states: int = 2,
                             for r in results])
         bits = list(init_bits)
         bits[(k - 1) % n] ^= 1  # symmetry-breaking kick
+        w_pen = (float(penalty) if dtype == torch.complex128
+                 else float(np.float32(penalty)))
         a_final, energies, disc = _run_sweeps(
             w_stack, _product_stack(n, chi, bits, dtype, device), phis,
-            float(np.float32(penalty)), chi, int(sweeps), int(lanczos_k))
+            w_pen, chi, int(sweeps), int(lanczos_k))
         results.append(_wrap_result(a_final, energies, disc, n, chi,
                                     terms, shift))
     results.sort(key=lambda r: r.energy)

@@ -22,7 +22,9 @@ step, recording at t = 0 and every ``record_every``-th step, the same
 points. The jump draws are one Gumbel row per (trajectory, step, jump):
 ``gumbels=`` takes them ((T, n_steps, n_jump, 2), the JAX package's
 ``categorical`` draws), else a ``torch.Generator`` seeded from ``seed``
-draws them step by step on the device.
+draws them step by step on the device. The trajectories, their norms and
+records are in ``CONFIG.dtype``'s precision (complex128 under
+``config.enable_complex128``); the Gumbel rows stay float32.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .config import CONFIG, require_complex64
+from .config import CONFIG
 from .lindblad import JUMP_OPERATORS, _normalize_jumps, _pauli_term_matrix
 from .models.trotter import _PAULI, _validated
 from .mps import _BatchMPS, _transfer, gumbel_from_uniform
@@ -43,13 +45,13 @@ __all__ = ["MPSLindbladSimulator", "MPSLindbladResult", "JUMP_OPERATORS"]
 def _expectation_pstr(tensors, ops: dict) -> torch.Tensor:
     """<psi|P|psi> per row by one transfer contraction over (B, l, 2, r)
     tensors; any canonical form (the bra carries the whole conjugate
-    network). -> (B,) float32."""
+    network). -> (B,) in the tensors' real dtype."""
     t0 = tensors[0]
     env = torch.ones((t0.shape[0], 1, 1), dtype=t0.dtype, device=t0.device)
     for i, t in enumerate(tensors):
         op = ops.get(i)
         env = _transfer(env, t, t if op is None else op @ t)
-    return env[:, 0, 0].real.float()
+    return env[:, 0, 0].real
 
 
 def _kraus_pair(rate: float, L: np.ndarray, dt: float) -> np.ndarray:
@@ -112,7 +114,6 @@ class MPSLindbladSimulator:
     def __init__(self, num_qubits: int, hamiltonian_terms=(),
                  jump_operators=(), chi: int = 32, order: int = 2,
                  device=None):
-        require_complex64("MPSLindbladSimulator")
         if num_qubits < 1:
             raise ValueError("num_qubits must be >= 1")
         if order not in (1, 2):
@@ -183,7 +184,7 @@ class MPSLindbladSimulator:
 
             def measure():
                 if not obs:
-                    return torch.zeros((B, 0), dtype=torch.float32,
+                    return torch.zeros((B, 0), dtype=dtype.to_real(),
                                        device=self.device)
                 return torch.stack([_expectation_pstr(mps.tensors, o)
                                     for o in obs], dim=1)

@@ -35,9 +35,15 @@ variational rows) are ``(B, d, d)``.
 
 Qubit 0 is the most significant bit of every bitstring; MEASUREMENT and
 BARRIER gates are skipped during evolution and sampling happens at the
-end. Every entry point runs on ``device`` (default ``CONFIG.device``).
-Reductions that decide a draw (branch weights, ``pr0``) are float32, as
-in the JAX package.
+end. Every entry point runs on ``device`` (default ``CONFIG.device``)
+in ``CONFIG.dtype``: complex64, or complex128 under
+``config.enable_complex128``. The gate, Pauli, basis-rotation and
+projector matrices are exact complex128 constants cast to the state's
+dtype where they are used; the discarded weight, the energies and the
+reductions that decide a draw (branch weights, ``pr0``) follow the
+state's precision (JAX keeps its energies and discarded weights float32
+in its mode). The draws themselves (uniforms, Gumbel rows) are float32,
+as in the JAX package.
 """
 
 from __future__ import annotations
@@ -48,7 +54,7 @@ import numpy as np
 import torch
 
 from .circuit import QuantumCircuit
-from .config import CONFIG, require_complex64
+from .config import CONFIG
 from .gates import GateType
 from .registry import GateRegistry
 from .utils.seeding import generator_from_rng
@@ -68,19 +74,21 @@ MPS_BATCH_BYTES = 8 * 2**30
 # the batch. Its batched QR loops over the batch at every size.
 BATCHED_SVD_MAX = 32
 
+# Host constants in complex128, each cast to the state's dtype where it is
+# used (1/sqrt(2) rounded to float32 would be 1e-8 off in complex128).
 _PAULI_2X2 = {
-    "I": np.eye(2, dtype=np.complex64),
-    "X": np.array([[0, 1], [1, 0]], np.complex64),
-    "Y": np.array([[0, -1j], [1j, 0]], np.complex64),
-    "Z": np.array([[1, 0], [0, -1]], np.complex64),
+    "I": np.eye(2, dtype=np.complex128),
+    "X": np.array([[0, 1], [1, 0]], np.complex128),
+    "Y": np.array([[0, -1j], [1j, 0]], np.complex128),
+    "Z": np.array([[1, 0], [0, -1]], np.complex128),
 }
 
-_H_2X2 = np.array([[1, 1], [1, -1]], np.complex64) / np.sqrt(2.0)
-_SDG_2X2 = np.array([[1, 0], [0, -1j]], np.complex64)
+_H_2X2 = np.array([[1, 1], [1, -1]], np.complex128) / np.sqrt(2.0)
+_SDG_2X2 = np.array([[1, 0], [0, -1j]], np.complex128)
 _SWAP_4X4 = np.array([[1, 0, 0, 0], [0, 0, 1, 0], [0, 1, 0, 0],
-                      [0, 0, 0, 1]], np.complex64)
+                      [0, 0, 0, 1]], np.complex128)
 _PROJECTORS = np.stack([np.diag([1, 0]), np.diag([0, 1])]).astype(
-    np.complex64)
+    np.complex128)
 
 
 class MPSState(NamedTuple):
@@ -107,12 +115,12 @@ def _left_mul(g: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
 
 
 def flush_tiny(m: torch.Tensor) -> torch.Tensor:
-    """Entries below eps^2 (1.4e-14 in float32) of their matrix's largest
-    one set to 0 before a factorisation. They are rounding residue of
-    earlier products (1e-18 next to O(1) entries), below the precision of
-    every float32 sum they enter, and a column of them makes both MKL's
-    complex64 Householder QR (PyTorch's CPU LAPACK) and cuBLAS's batched
-    one on the card return NaN."""
+    """Entries below eps^2 (1.4e-14 in float32, 4.9e-32 in float64) of
+    their matrix's largest one set to 0 before a factorisation. They are
+    rounding residue of earlier products (1e-18 next to O(1) entries in
+    float32), below the precision of every sum they enter, and a column
+    of them makes both MKL's complex64 Householder QR (PyTorch's CPU
+    LAPACK) and cuBLAS's batched one on the card return NaN."""
     eps = torch.finfo(m.real.dtype).eps
     mag = m.abs()
     return m.masked_fill(
@@ -191,7 +199,7 @@ class _BatchMPS:
         self.chi = chi
         self.center = 0
         t0 = self.tensors[0]
-        self.discarded = torch.zeros(t0.shape[0], dtype=torch.float32,
+        self.discarded = torch.zeros(t0.shape[0], dtype=t0.dtype.to_real(),
                                      device=t0.device)
         self._swap = None
 
@@ -421,8 +429,8 @@ class _Matrices:
         return (mat.shape[0], len(rows) - 1)
 
     def to(self, device, dtype) -> None:
-        self._dev = {d: torch.from_numpy(np.stack(m).astype(np.complex64)
-                                         ).to(device=device, dtype=dtype)
+        self._dev = {d: torch.from_numpy(np.stack(m)).to(device=device,
+                                                         dtype=dtype)
                      for d, m in self._host.items()}
 
     def __getitem__(self, key) -> torch.Tensor:
@@ -515,8 +523,8 @@ def _evolve(circuit: QuantumCircuit, chi: int, batch: int, device,
         elif op[0] == "kraus":
             ks = kstacks.get(op[2])
             if ks is None:
-                ks = kstacks[op[2]] = torch.from_numpy(
-                    op[3].astype(np.complex64)).to(device, dtype)
+                ks = kstacks[op[2]] = torch.from_numpy(op[3]).to(device,
+                                                                 dtype)
             mps.apply_kraus_1q(op[1], ks, gumbels[:, draw, :ks.shape[0]])
             draw += 1
         else:
@@ -549,7 +557,8 @@ def sample_cascade(tensors, uniforms: torch.Tensor,
     """The conditional cascade over right-canonical site tensors (centre
     at site 0): ``tensors`` are (l, 2, r) shared by every shot or
     (S, l, 2, r) one per shot; ``uniforms`` (S, n) float32, one per shot
-    and site (bit = u >= P(0 | earlier bits)); ``rotations`` optionally
+    and site (bit = u >= P(0 | earlier bits), compared in the tensors'
+    precision); ``rotations`` optionally
     (S, n, 2, 2), a one-qubit rotation per shot and site before its
     readout (the shadows' bases). -> (S, n) uint8 bits."""
     S, n = uniforms.shape
@@ -610,8 +619,12 @@ def _parse_ops(n: int, paulis) -> dict:
 
 def _pauli_ops(ops: dict, like: torch.Tensor) -> dict:
     """{site: Pauli letter} -> {site: (2, 2) tensor} on ``like``'s device."""
-    return {q: torch.from_numpy(_PAULI_2X2[p]).to(like.device, like.dtype)
-            for q, p in ops.items()}
+    return {q: _device_const(_PAULI_2X2[p], like) for q, p in ops.items()}
+
+
+def _device_const(mat: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    """A complex128 host constant in ``like``'s dtype on its device."""
+    return torch.from_numpy(mat).to(like.device, like.dtype)
 
 
 def expectation_pauli_string(state: MPSState, paulis: dict | str) -> float:
@@ -660,28 +673,29 @@ def _hamiltonian_energy(tensors, parsed, n: int) -> torch.Tensor:
     """<H>/<1> over tensors (l, 2, r) or (B, l, 2, r) whose centre is at
     site 0: everything right of it is right-canonical, so every term's
     right environment is the identity. One shared sweep of left
-    environments, then O(support) transfers per term. -> float32 of the
-    batch shape."""
+    environments, then O(support) transfers per term. -> the tensors'
+    real dtype, of the batch shape."""
     t0 = tensors[0]
     lead = tuple(t0.shape[:-3])
+    real = t0.dtype.to_real()
+    scalar = np.float64 if real == torch.float64 else np.float32
     left = [torch.ones(lead + (1, 1), dtype=t0.dtype, device=t0.device)]
     for t in tensors:
         left.append(_transfer(left[-1], t, t))
-    norm2 = left[n][..., 0, 0].real.float()
-    paulis = {p: torch.from_numpy(m).to(t0.device, t0.dtype)
-              for p, m in _PAULI_2X2.items()}
-    total = torch.zeros(lead, dtype=torch.float32, device=t0.device)
+    norm2 = left[n][..., 0, 0].real
+    paulis = {p: _device_const(m, t0) for p, m in _PAULI_2X2.items()}
+    total = torch.zeros(lead, dtype=real, device=t0.device)
     for coeff, ops, a, b in parsed:
         if not ops:
-            total = total + np.float32(coeff) * norm2
+            total = total + scalar(coeff) * norm2
             continue
         env = left[a]
         for i in range(a, b + 1):
             t = tensors[i]
             env = _transfer(env, t, t if i not in ops
                             else paulis[ops[i]] @ t)
-        trace = torch.diagonal(env, dim1=-2, dim2=-1).sum(-1).real.float()
-        total = total + np.float32(coeff) * trace
+        trace = torch.diagonal(env, dim1=-2, dim2=-1).sum(-1).real
+        total = total + scalar(coeff) * trace
     return total / norm2
 
 
@@ -700,7 +714,8 @@ def expectation_hamiltonian(state: MPSState, terms) -> float:
 
 def build_batched_cost_fn(circuit: QuantumCircuit, bindings, terms,
                           chi: int, constant: float = 0.0, device=None):
-    """``f(values[B, P]) -> energies[B]`` (float32 tensor): the
+    """``f(values[B, P]) -> energies[B]`` (a ``CONFIG.real_dtype`` tensor,
+    read when ``f`` is called): the
     MPS-evolved circuit's ``<H> + constant`` at every parameter row, the
     rows one batch (cut by ``rows_per_batch``), each bound gate's
     matrices built per row by its ``torch_matrix_func``.
@@ -711,7 +726,6 @@ def build_batched_cost_fn(circuit: QuantumCircuit, bindings, terms,
     is numerically unsafe (the SVD's derivative divides by
     ``s_i^2 - s_j^2``, and product-state starts make degenerate or zero
     Schmidt values the common case), so the optimizer refuses it."""
-    require_complex64("the MPS cost function")
     registry = GateRegistry.instance()
     n = circuit.num_qubits
     device = device or CONFIG.device
@@ -732,9 +746,12 @@ def build_batched_cost_fn(circuit: QuantumCircuit, bindings, terms,
         per_gate.setdefault(b.gate_index, []).append((b.param_index, vi))
 
     def fn(values) -> torch.Tensor:
-        values = torch.as_tensor(np.asarray(values, dtype=np.float32)
+        values = torch.as_tensor(np.asarray(values, dtype=CONFIG.np_real)
                                  if not isinstance(values, torch.Tensor)
                                  else values, device=device)
+        if CONFIG.dtype == torch.complex128:
+            values = values.double()
+        scalar = CONFIG.np_real
         rows = rows_per_batch(n, chi)
         out = []
         for lo in range(0, values.shape[0], rows):
@@ -742,7 +759,8 @@ def build_batched_cost_fn(circuit: QuantumCircuit, bindings, terms,
             overrides = {}
             for gi, slots in per_gate.items():
                 gate = circuit.gates[gi]
-                params = [torch.tensor(float(p), device=vals.device)
+                params = [torch.tensor(float(p), dtype=CONFIG.real_dtype,
+                                       device=vals.device)
                           for p in gate.params]
                 for pi, vi in slots:
                     params[pi] = vals[:, vi]
@@ -750,7 +768,7 @@ def build_batched_cost_fn(circuit: QuantumCircuit, bindings, terms,
             mps, _, _ = _evolve(circuit, chi, vals.shape[0], device,
                                 param_overrides=overrides)
             out.append(_hamiltonian_energy(mps.tensors, parsed, n)
-                       + np.float32(constant))
+                       + scalar(constant))
         return torch.cat(out)
 
     return fn
@@ -810,6 +828,14 @@ def entanglement_entropy(state: MPSState, bond: int) -> float:
                               torch.zeros_like(p)).sum())
 
 
+def basis_rotated(tensors, basis: str) -> list:
+    """Site tensors rotated for an X (H) or Y (H S-dagger) readout: a
+    one-site unitary on every site, which keeps the canonical form."""
+    rot = _H_2X2 if basis == "X" else _H_2X2 @ _SDG_2X2
+    r = _device_const(rot, tensors[0])
+    return [r @ t for t in tensors]
+
+
 # --------------------------------------------------------------------------
 # Simulator facade
 # --------------------------------------------------------------------------
@@ -828,7 +854,6 @@ class MPSSimulator:
     draws (``draw_branches``)."""
 
     def __init__(self, chi: int = 64, device=None):
-        require_complex64("MPSSimulator")
         if chi < 1:
             raise ValueError("chi must be >= 1")
         self.chi = chi
@@ -860,10 +885,7 @@ class MPSSimulator:
             gen = generator_from_rng(rng, self.device)
             tensors = state.tensors
             if basis != "Z":
-                rot = _H_2X2 if basis == "X" else _H_2X2 @ _SDG_2X2
-                r = torch.from_numpy(rot).to(tensors[0].device,
-                                             tensors[0].dtype)
-                tensors = [r @ t for t in tensors]
+                tensors = basis_rotated(tensors, basis)
             if uniforms is None:
                 uniforms = torch.rand((shots, circuit.num_qubits),
                                       generator=gen, device=self.device)

@@ -3,10 +3,12 @@
 Counterpart of ``quantum_simulator_tpu/parallel/checkpoint.py``, writing
 and reading the same layout, so a checkpoint one package writes resumes
 in the other: each shard k (global shard index) saves its split planes
-``shard_<k>_re.npy`` / ``shard_<k>_im.npy`` (float32, ``(2^(n-g),)``),
+``shard_<k>_re.npy`` / ``shard_<k>_im.npy`` (``(2^(n-g),)`` in the
+state's precision: float32, or float64 under ``config.enable_complex128``),
 ``manifest.json`` records ``num_shards``, ``global_shape`` ``[2^n]``,
-``dtype`` ``"complex64"`` and the caller's ``meta``, and ``LATEST`` names
-the newest complete ``seg_<k>/`` directory, replaced atomically
+``dtype`` (``"complex64"`` or ``"complex128"``, JAX's
+``str(array.dtype)``) and the caller's ``meta``, and ``LATEST`` names the
+newest complete ``seg_<k>/`` directory, replaced atomically
 (``os.replace``) after the shards and the manifest are written; older
 segment directories are then pruned. A crash mid-save leaves the previous
 pointer and its files in place.
@@ -34,7 +36,7 @@ from .distributed import ShardMesh
 
 __all__ = ["save_sharded_state", "load_sharded_state", "load_manifest",
            "write_latest", "read_latest", "circuit_digest",
-           "resume_segment"]
+           "resume_segment", "complex_name"]
 
 _MANIFEST = "manifest.json"
 _LATEST = "LATEST"
@@ -43,6 +45,12 @@ _LATEST = "LATEST"
 def _barrier(mesh: ShardMesh | None) -> None:
     if mesh is not None and mesh.world > 1:
         dist.barrier(group=mesh.group)
+
+
+def complex_name(real_dtype: torch.dtype) -> str:
+    """The manifest's ``dtype`` of planes of ``real_dtype``:
+    ``"complex64"`` for float32, ``"complex128"`` for float64."""
+    return "complex128" if real_dtype == torch.float64 else "complex64"
 
 
 def save_sharded_state(planar: torch.Tensor, directory: str,
@@ -59,7 +67,7 @@ def save_sharded_state(planar: torch.Tensor, directory: str,
         manifest = {
             "num_shards": mesh.n_devices,
             "global_shape": [mesh.n_devices * planar[0, 0].numel()],
-            "dtype": "complex64",
+            "dtype": complex_name(planar.dtype),
             "meta": meta or {},
         }
         tmp = os.path.join(directory, _MANIFEST + ".tmp")
@@ -76,20 +84,25 @@ def load_manifest(directory: str) -> dict:
 
 def load_sharded_state(directory: str, mesh: ShardMesh) -> torch.Tensor:
     """This rank's planar ``(L, 2, 2^(n-g))`` stack from a checkpoint (its
-    own shards' files only, each moved to the device as it is read)."""
+    own shards' files only, each moved to the device as it is read), in
+    the manifest's precision: float64 planes for ``"complex128"``, float32
+    ones for ``"complex64"``."""
     manifest = load_manifest(directory)
     if mesh.n_devices != manifest["num_shards"]:
         raise ValueError(
             f"checkpoint has {manifest['num_shards']} shards but the mesh "
             f"has {mesh.n_devices} devices — reshard is not supported")
     n_local = int(manifest["global_shape"][0]) // mesh.n_devices
-    out = torch.empty((mesh.local, 2, n_local), dtype=torch.float32,
+    wide = manifest.get("dtype", "complex64") == "complex128"
+    out = torch.empty((mesh.local, 2, n_local),
+                      dtype=torch.float64 if wide else torch.float32,
                       device=mesh.device)
     for l, k in enumerate(mesh.shard_ids()):
         for plane, part in enumerate(("re", "im")):
             arr = np.load(os.path.join(directory, f"shard_{k}_{part}.npy"))
             out[l, plane].copy_(torch.from_numpy(
-                np.ascontiguousarray(arr, dtype=np.float32)))
+                np.ascontiguousarray(arr, dtype=np.float64 if wide
+                                     else np.float32)))
     return out
 
 

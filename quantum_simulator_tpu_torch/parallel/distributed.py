@@ -39,11 +39,17 @@ static schedule (``_build_schedule``) and every rank walks it.
 
 Reductions sum over the local shards, then ``dist.all_reduce``; JAX's
 ``all_gather`` is ``dist.all_gather``. A state stays planar
-``(L, 2, 2^(n-g))`` float32 on the device (``DistributedStateVector``):
-JAX's grouped body returns ``x[0] + 1j * x[1]``, a second whole state,
-and only ``.data`` here builds a complex copy (on the host). The noisy
-body draws ``argmax(log w + g)`` over given Gumbel rows (JAX:
+``(L, 2, 2^(n-g))`` on the device (``DistributedStateVector``): JAX's
+grouped body returns ``x[0] + 1j * x[1]``, a second whole state, and only
+``.data`` here builds a complex copy (on the host). The noisy body draws
+``argmax(log w + g)`` over given Gumbel rows (JAX:
 ``jax.random.categorical`` on split keys).
+
+The planes are float32, or float64 under ``config.enable_complex128``:
+both routes, their operands and per-shard factors, the exchanges, the
+checkpoints, the sampler and every reduction then follow the state's
+precision (JAX's grouped body keeps float32 planes in its mode); the
+Gumbel rows and the sampler's uniforms stay float32.
 """
 
 from __future__ import annotations
@@ -60,7 +66,7 @@ import torch
 import torch.distributed as dist
 
 from ..circuit import GateInstance, QuantumCircuit
-from ..config import CONFIG, require_complex64
+from ..config import CONFIG, require_width
 from ..mps import gumbel_from_uniform
 from ..ops import plan as gplan
 from ..ops import program as prog
@@ -335,7 +341,7 @@ def noisy_noswap(program: prog.CircuitProgram, noise_model) -> set[int]:
 # ---------------------------------------------------------------------------
 
 def _float_view(x: torch.Tensor) -> torch.Tensor:
-    """A stack as float32 ``(R, L, C, N')``: planar ``(R, L, 2, N)`` as it
+    """A stack as real ``(R, L, C, N')``: planar ``(R, L, 2, N)`` as it
     is, complex ``(R, L, N)`` as ``(R, L, 1, 2N)`` (re, im interleaved,
     so every bit of the basis index keeps its place)."""
     if x.is_complex():
@@ -400,7 +406,7 @@ def swap_global_local_plain(x: torch.Tensor, g_pos: int, l_pos: int,
 def _scale_chunks(x: torch.Tensor, factor: Callable) -> None:
     """``x *= factor(start, width)`` in place along the last axis, chunk
     by chunk: ``x`` a planar ``(R, L, 2, N)`` or complex ``(R, L, N)``
-    stack, ``factor`` a complex64 tensor broadcastable to
+    stack, ``factor`` a complex tensor broadcastable to
     ``(R, L, width)``."""
     N = x.shape[-1]
     for start, width in gplan.chunk_ranges(N, x.numel()):
@@ -422,8 +428,8 @@ def _bits_of(ids: torch.Tensor, pos: int, width: int) -> torch.Tensor:
 
 
 def _row_params(params, device) -> torch.Tensor:
-    """Parameters as a float32 ``(R, P)`` tensor of rows (R = 1 for one
-    vector)."""
+    """Parameters as an ``(R, P)`` tensor of rows (R = 1 for one vector),
+    ``CONFIG.real_dtype`` unless given as a tensor."""
     p = prog.param_tensor(params, device).to(device)
     return p if p.ndim == 2 else p[None]
 
@@ -448,7 +454,8 @@ def _diag1_values(op: prog.ProgramOp, rows: torch.Tensor):
     if op.gate_name == "Rz":
         return torch.polar(one, -0.5 * theta), torch.polar(one, 0.5 * theta)
     if op.gate_name == "Phase":
-        return one.to(torch.complex64), torch.polar(one, theta)
+        return torch.complex(one, torch.zeros_like(one)), \
+            torch.polar(one, theta)
     raise ValueError(f"not a known 1q diagonal: {op.gate_name}")
 
 
@@ -456,7 +463,7 @@ def _op_matrix(program, op: prog.ProgramOp, rows: torch.Tensor):
     """A gate matrix for ``apply_gate`` on an ``(R, L, N)`` stack: the
     static ``(D, D)`` matrix, or ``(R, 1, D, D)``, one per parameter row."""
     if op.static_matrix is not None:
-        return np.asarray(op.static_matrix, dtype=np.complex64)
+        return np.asarray(op.static_matrix, dtype=CONFIG.np_complex)
     return program.op_matrix_torch(op, rows)[:, None]
 
 
@@ -561,7 +568,7 @@ class _ShardBody:
         L, N = self.mesh.local, 1 << self.n_local
         shape = (R, L, N) if complex_ else (R, L, 2, N)
         x = torch.zeros(shape, dtype=CONFIG.dtype if complex_
-                        else torch.float32, device=self.mesh.device)
+                        else CONFIG.real_dtype, device=self.mesh.device)
         dev = (self.program.initial_index >> self.n_local) \
             - self.mesh.first_shard
         if 0 <= dev < L:
@@ -590,9 +597,9 @@ class _ShardBody:
                                    device=self.ids.device)
                 for lp in local_ts:
                     ind = ind & (_bits_of(idx, lp, nl) == 1)[None]
-            one = torch.ones((), dtype=torch.complex64, device=ind.device)
+            one = torch.ones((), dtype=CONFIG.dtype, device=ind.device)
             return torch.where(ind, torch.as_tensor(
-                v, dtype=torch.complex64, device=ind.device), one)
+                v, dtype=CONFIG.dtype, device=ind.device), one)
 
         _scale_chunks(x, factor)
 
@@ -602,9 +609,8 @@ class _ShardBody:
         bit = _bits_of(self.ids, g_pos, self.g).bool()
         dev = x.device
         f = torch.where(bit[None, :],
-                        torch.as_tensor(d1, dtype=torch.complex64,
-                                        device=dev),
-                        torch.as_tensor(d0, dtype=torch.complex64,
+                        torch.as_tensor(d1, dtype=CONFIG.dtype, device=dev),
+                        torch.as_tensor(d0, dtype=CONFIG.dtype,
                                         device=dev))[..., None]
         _scale_chunks(x, lambda start, width: f)
 
@@ -635,7 +641,7 @@ class _ShardBody:
             z = (self.initial(R, True) if x is None else
                  torch.complex(x[:, :, 0], x[:, :, 1]).to(CONFIG.dtype))
             z = self._per_gate(z.contiguous(), rows, gumbels, record)
-            x = torch.stack([z.real, z.imag], dim=2).float()
+            x = torch.stack([z.real, z.imag], dim=2).to(CONFIG.real_dtype)
         return x[0] if one and gumbels is None else x
 
     def _grouped(self, rows, x, plain: bool) -> torch.Tensor:
@@ -694,8 +700,8 @@ class _ShardBody:
                     raise ValueError(
                         "the sharded trajectory body draws one-qubit "
                         "Kraus channels only")
-                kraus = torch.from_numpy(kraus_np.astype(np.complex64)).to(
-                    z.device)
+                kraus = torch.from_numpy(kraus_np.astype(
+                    CONFIG.np_complex)).to(z.device)
                 for lq in local_ts:
                     z = self._kraus_draw(z, kraus, lq, gumbels[:, draw],
                                          record)
@@ -923,7 +929,8 @@ def _local_indices(probs: torch.Tensor, targets: torch.Tensor
 
 class DistributedStateVector:
     """An n-qubit state sharded across a mesh: this rank's planar
-    ``(L, 2, 2^(n-g))`` float32 stack on the mesh's device."""
+    ``(L, 2, 2^(n-g))`` stack on the mesh's device: float32 planes, or
+    float64 under ``config.enable_complex128``."""
 
     def __init__(self, planar: torch.Tensor, num_qubits: int,
                  mesh: ShardMesh):
@@ -968,7 +975,9 @@ def _check_mesh_amplitude_cap(circuit: QuantumCircuit,
                               mesh: ShardMesh) -> None:
     """Per-card amplitude cap: each rank's card holds 2^n / W amplitudes
     (its L shards), so W ranks extend ``CONFIG.max_qubits`` by log2(W)
-    (JAX: one shard per device, log2(D))."""
+    (JAX: one shard per device, log2(D)), and under
+    ``config.enable_complex128`` the float64 cap by as much."""
+    require_width(circuit.num_qubits, "DistributedSimulator", mesh.world)
     cap = CONFIG.max_qubits + max(0, mesh.world.bit_length() - 1)
     if circuit.num_qubits > cap:
         raise ValueError(
@@ -983,7 +992,6 @@ class DistributedSimulator:
 
     def __init__(self, mesh: ShardMesh | None = None,
                  n_devices: int | None = None, device=None):
-        require_complex64("DistributedSimulator")
         self._mesh = (check_mesh(mesh) if mesh is not None
                       else make_mesh(n_devices, device=device))
 
@@ -1038,8 +1046,16 @@ class DistributedSimulator:
             # rank 0 decides for every rank: the hash differs per process
             start_seg = self._mesh.broadcast(start_seg)
             if start_seg:
-                state = ckpt.load_sharded_state(
-                    ckpt.read_latest(checkpoint_dir), self._mesh)
+                latest = ckpt.read_latest(checkpoint_dir)
+                saved = ckpt.load_manifest(latest).get("dtype", "complex64")
+                if saved != ckpt.complex_name(CONFIG.real_dtype):
+                    raise ValueError(
+                        f"the checkpoint in {checkpoint_dir} holds a "
+                        f"{saved} state and the engine runs "
+                        f"{CONFIG.dtype}: resume it in the mode that wrote "
+                        f"it (config.enable_complex128 / enable_complex64) "
+                        f"or pass resume=False")
+                state = ckpt.load_sharded_state(latest, self._mesh)
         if start_seg == 0:
             init = QuantumCircuit(n)
             init.initial_states = list(circuit.initial_states)
@@ -1096,7 +1112,8 @@ class DistributedSimulator:
         a chunk's complex stacks (about 3 per trajectory: the state and
         the einsum temporaries) stay within ``TRAJECTORY_MEMORY_BYTES``."""
         fn = sharded_trajectory_fn(program, noise_model, self._mesh)
-        per = 3 * 8 * self._mesh.local << (program.num_qubits - self._g)
+        per = 3 * CONFIG.dtype.itemsize * self._mesh.local << (
+            program.num_qubits - self._g)
         chunk = max(1, TRAJECTORY_MEMORY_BYTES // per)
         for start in range(0, gumbels.shape[0], chunk):
             yield fn(program.initial_params, gumbels[start:start + chunk])
@@ -1312,7 +1329,8 @@ class DistributedSimulator:
             np.float32)).to(x.device)
         sums = mesh.all_gather(torch.stack([_probs(b).sum() for b in x]))
         bounds = torch.cumsum(sums, 0)
-        u_scaled = u * bounds[D - 1]
+        # the float32 uniforms scale in the state's precision
+        u_scaled = u.to(bounds.dtype) * bounds[D - 1]
         shard_of = torch.zeros(shots, dtype=torch.int64, device=x.device)
         local_of = torch.zeros_like(shard_of)
         for l, blk in enumerate(x):

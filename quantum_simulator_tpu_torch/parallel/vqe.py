@@ -14,7 +14,10 @@ axes:
 
 One ``step`` computes every shifted cost, assembles the parameter-shift
 gradient and applies an Adam update with the JAX package's constants
-(``vqe.py:166-188``), in float32.
+(``vqe.py:166-188``), in float32, or under ``config.enable_complex128``
+in float64 with the state: the observable's coefficients, the costs, the
+Adam carry and its bias terms follow ``CONFIG.real_dtype`` (JAX keeps
+them float32 in its mode).
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from ..config import require_complex64
+from ..config import CONFIG, require_width
 from ..ops import program as prog
 from ..simulator import TRAJECTORY_MEMORY_BYTES
 from .distributed import ShardMesh, _ShardBody, check_mesh, mesh_device
@@ -70,7 +73,8 @@ def shard_local_z_sign(qubit: int, n: int, g: int,
 
 
 class VQEState(NamedTuple):
-    """Adam optimizer carry (float32 tensors, ``t`` an int)."""
+    """Adam optimizer carry (``CONFIG.real_dtype`` tensors, ``t`` an
+    int)."""
 
     params: torch.Tensor
     m: torch.Tensor
@@ -106,10 +110,11 @@ def sharded_vqe_step(circuit, mesh: ShardMesh, *, qubit: int = 0,
     shard and per local amplitude summed over the amp shards. The
     (1 + 2P)-row batch of parameter vectors (base and the +-pi/2 shifts),
     padded to a multiple of the traj rows, is split over the traj rows."""
-    require_complex64("the sharded VQE step")
     mesh = check_mesh(mesh)
     program = prog.compile_circuit(circuit)
     n = program.num_qubits
+    require_width(n, "the sharded VQE step", mesh.world)
+    real, np_real = CONFIG.real_dtype, CONFIG.np_real
     amp, traj = mesh.shape[amp_axis], mesh.shape[traj_axis]
     g = amp.bit_length() - 1
     if (1 << g) != amp:
@@ -132,20 +137,20 @@ def sharded_vqe_step(circuit, mesh: ShardMesh, *, qubit: int = 0,
     ids = torch.arange(amp, device=dev)
     signs, coeffs = [], []
     for coeff, qs in observable:
-        s = torch.ones((amp, 1 << (n - g)), device=dev)
+        s = torch.ones((amp, 1 << (n - g)), dtype=real, device=dev)
         for q in qs:
             s = s * shard_local_z_sign(q, n, g, ids)
         signs.append(s)
         coeffs.append(float(coeff))
     signs = torch.stack(signs)                          # (terms, amp, N)
-    coeffs = torch.tensor(coeffs, dtype=torch.float32, device=dev)
+    coeffs = torch.tensor(coeffs, dtype=real, device=dev)
 
     rows_total = 1 + 2 * n_params
     rows_padded = -(-rows_total // traj) * traj
     rows_per_traj = rows_padded // traj
     local_rows = (mesh.local // amp) * rows_per_traj
     first_row = mesh.rank * local_rows
-    per_row = 3 * amp * 2 * 4 << (n - g)
+    per_row = 3 * amp * 2 * real.itemsize << (n - g)
     chunk = max(1, TRAJECTORY_MEMORY_BYTES // per_row)
 
     def costs_of(rows: torch.Tensor) -> torch.Tensor:
@@ -175,17 +180,17 @@ def sharded_vqe_step(circuit, mesh: ShardMesh, *, qubit: int = 0,
         t = state.t + 1
         m = b1 * state.m + (1 - b1) * grad
         v = b2 * state.v + (1 - b2) * grad ** 2
-        m_hat = m / (1 - np.float32(b1) ** np.float32(t))
-        v_hat = v / (1 - np.float32(b2) ** np.float32(t))
+        m_hat = m / (1 - np_real(b1) ** np_real(t))
+        v_hat = v / (1 - np_real(b2) ** np_real(t))
         new_params = params - learning_rate * m_hat / (torch.sqrt(v_hat)
                                                        + eps)
         return VQEState(new_params, m, v, t), costs[0]
 
     init = VQEState(
-        params=torch.as_tensor(program.initial_params, dtype=torch.float32,
+        params=torch.as_tensor(program.initial_params, dtype=real,
                                device=dev),
-        m=torch.zeros(n_params, dtype=torch.float32, device=dev),
-        v=torch.zeros(n_params, dtype=torch.float32, device=dev),
+        m=torch.zeros(n_params, dtype=real, device=dev),
+        v=torch.zeros(n_params, dtype=real, device=dev),
         t=0)
     return ShardedVQEStep(step=train_step, init=init, mesh=mesh,
                           num_params=n_params)

@@ -18,13 +18,13 @@ every case restoring ``enable_complex64()``:
   JAX's own draws (its complex128 ``_trajectory_body``), 1e-12;
 * the other families JAX's mode reaches: ``DensityMatrixSimulator`` (both
   routes), ``LindbladSimulator``, the debugger and the optimizer's cost
-  and gradients (against ``<H>`` of JAX's complex128 states), 1e-12; those
-  that compute in float32 only (the MPS family, DMRG, the mesh) raise
-  under the mode;
+  and gradients (against ``<H>`` of JAX's complex128 states), 1e-12 (the
+  mesh and the MPS family: ``tests/test_torch_complex128_mesh_mps.py``);
 * the routes: an n = 32 call raises under the mode (its float64 planar
   state is 64 GiB), a float64 state with a float32 operator raises, and
-  with the mode off the operands and states are float32 / complex64 and
-  the same bit for bit as before a complex128 round trip.
+  with the mode off the operands and states (the mesh's and the MPS
+  engine's too) are float32 / complex64 and the same bit for bit as
+  before a complex128 round trip.
 
 1e-12: float64 sums of at most a few hundred terms, taken in another
 order than JAX's einsums; the complex64 engine is 1e-8 - 1e-7 off.
@@ -482,27 +482,6 @@ def test_per_gate_trajectories_draw_exact_against_jax(jax_refs):
     assert np.abs(states.numpy() - jax_refs["trajectory"]).max() < TOL
 
 
-FLOAT32_FAMILIES = {
-    "mps": lambda mp: tq.MPSSimulator(chi=4, device="cpu"),
-    "dmrg": lambda mp: tq.dmrg_ground_state(models.tfim_chain(4), 4,
-                                            chi=4, device="cpu"),
-    "mps-lindblad": lambda mp: __import__(
-        "quantum_simulator_tpu_torch.lindblad_mps", fromlist=["x"])
-    .MPSLindbladSimulator(4, device="cpu"),
-    "mesh": lambda mp: __import__(
-        "quantum_simulator_tpu_torch.parallel", fromlist=["x"])
-    .DistributedSimulator(n_devices=2, device="cpu"),
-}
-
-
-@pytest.mark.parametrize("family", sorted(FLOAT32_FAMILIES))
-def test_float32_family_raises(family, monkeypatch):
-    """Families that compute in float32 only refuse the mode rather than
-    return float32 numbers under a complex128 label."""
-    with pytest.raises(ValueError, match="enable_complex128"):
-        FLOAT32_FAMILIES[family](monkeypatch)
-
-
 # ---------------------------------------------------------------------------
 # Routes
 # ---------------------------------------------------------------------------
@@ -561,15 +540,31 @@ def _operands(program):
             for a in part]
 
 
+def _mesh_and_mps_states(circuit):
+    """The 8-shard mesh's planar stack and the MPS engine's site tensors
+    of ``circuit`` in the current precision."""
+    mesh = __import__("quantum_simulator_tpu_torch.parallel",
+                      fromlist=["x"]).DistributedSimulator(n_devices=8,
+                                                           device="cpu")
+    _, st = tq.MPSSimulator(chi=8, device="cpu").run(circuit, shots=0)
+    return mesh.run(circuit).device_data, st.tensors
+
+
 def test_mode_off_is_bit_for_bit_unchanged():
     """Operands, states and parameter tensors after a complex128 round
-    trip are the complex64 engine's, bit for bit, and float32 again."""
+    trip are the complex64 engine's, bit for bit, and float32 again (the
+    mesh's planar stack and the MPS site tensors too)."""
     program = tprog.compile_circuit(tq.QuantumCircuit.from_dict(
         build_circuit_dict(12, 6, 4, True)))
+    small = tq.QuantumCircuit.from_dict(build_circuit_dict(8, 4, 2, True))
     config.enable_complex64()
     before = _operands(program)
     state0 = tprog.forward_fn(program, "cpu")(program.initial_params)
+    mesh0, mps0 = _mesh_and_mps_states(small)
     config.enable_complex128()
+    mesh_w, mps_w = _mesh_and_mps_states(small)
+    assert mesh_w.dtype == torch.float64 and mps_w[0].dtype == \
+        torch.complex128
     wide = _operands(program)
     assert all(np.asarray(a).dtype == np.float64 for a in wide)
     assert tprog.forward_fn(program, "cpu")(
@@ -582,4 +577,8 @@ def test_mode_off_is_bit_for_bit_unchanged():
     state1 = tprog.forward_fn(program, "cpu")(program.initial_params)
     assert state1.dtype == torch.complex64
     assert torch.equal(state0, state1)
+    mesh1, mps1 = _mesh_and_mps_states(small)
+    assert mesh1.dtype == torch.float32 and torch.equal(mesh0, mesh1)
+    assert all(a.dtype == torch.complex64 and torch.equal(a, b)
+               for a, b in zip(mps0, mps1))
     assert tprog.param_tensor([0.5], "cpu").dtype == torch.float32

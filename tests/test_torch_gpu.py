@@ -1594,3 +1594,115 @@ def test_complex128_chunked_route_card_equals_cpu(cuda, mix_rz, monkeypatch):
     assert rho[0].state_data.dtype == torch.float64
     assert np.abs(rho[0].probabilities - rho[1].probabilities).max() <= 1e-12
     assert abs(rho[0].purity() - rho[1].purity()) <= 1e-12
+
+
+@pytest.mark.parametrize("route", ["grouped", "per-gate"])
+def test_complex128_mesh_card_equals_cpu(cuda, route, monkeypatch):
+    """The 8-shard mesh under ``enable_complex128`` at n = 17 (14 local
+    qubits: the grouped route's mini plans, with cross steps; the
+    per-gate route forced by raising the threshold), card against the
+    CPU mesh within 1e-12: a run, ``run_segmented`` and a sharded VQE
+    step, every kernel launch a float64 one, as many as the mini plans'
+    dense and cross steps."""
+    from quantum_simulator_tpu_torch import config, models
+    from quantum_simulator_tpu_torch.parallel import (DistributedSimulator,
+                                                      make_mesh,
+                                                      make_vqe_mesh,
+                                                      sharded_vqe_step)
+    from quantum_simulator_tpu_torch.parallel import distributed as tdist
+
+    if route == "per-gate":
+        monkeypatch.setattr(tdist, "_GROUPED_SHARD_MIN_QUBITS", 15)
+    c = models.hardware_efficient_ansatz(17, 3, initial_angle=0.4)
+    out = {}
+    config.enable_complex128()
+    try:
+        for dev in ("cuda", "cpu"):
+            mesh = make_mesh(8, device=dev)
+            body = tdist._ShardBody(tprog.compile_circuit(c), mesh)
+            assert body.grouped == (route == "grouped")
+            cuda_exec.reset_launch_counts()
+            sim = DistributedSimulator(mesh)
+            st = sim.run(c)
+            torch.cuda.synchronize()
+            launches = (cuda_exec.dense_axis_f64.launches,
+                        cuda_exec.cross_bit_axis_f64.launches,
+                        cuda_exec.dense_axis.launches
+                        + cuda_exec.cross_bit_axis.launches)
+            step = sharded_vqe_step(c, make_vqe_mesh(8, device=dev),
+                                    observable=[(1.0, [0, 16]), (0.5, [8])])
+            out[dev] = (st.device_data.cpu(), launches,
+                        sim.run_segmented(c, 3).device_data.cpu(),
+                        float(step.step(step.init)[1]),
+                        [seg for seg in body.segments or []
+                         if seg[0] == "run"])
+    finally:
+        config.enable_complex64()
+    card, cpu = out["cuda"], out["cpu"]
+    assert card[0].dtype == torch.float64
+    assert float((card[0] - cpu[0]).abs().max()) <= 1e-12
+    assert float((card[2] - card[0]).abs().max()) <= 1e-12
+    assert abs(card[3] - cpu[3]) <= 1e-12
+    dense, cross, f32 = card[1]
+    assert f32 == 0
+    if route == "grouped":
+        runs = [tplan.build_group_plan(seg[1]) for seg in card[4]]
+        assert dense == sum(isinstance(s, tplan.AxisMatmulStep)
+                            for p in runs for s in p.steps) > 0
+        assert cross == sum(isinstance(s, tplan.CrossStep)
+                            for p in runs for s in p.steps) > 0
+    else:
+        assert dense == cross == 0
+
+
+def test_complex128_mps_family_card_equals_cpu(cuda):
+    """The MPS family under ``enable_complex128``, card against CPU: a
+    state against the statevector (1e-12), noisy counts on the same
+    draws, DMRG, the MPS Lindblad records and the correlator (1e-10), no
+    NaN in any factorisation's output."""
+    from quantum_simulator_tpu_torch import (DepolarizingNoise, NoiseModel,
+                                             config, models)
+    from quantum_simulator_tpu_torch import correlators as tc
+    from quantum_simulator_tpu_torch import dmrg as td
+    from quantum_simulator_tpu_torch import lindblad_mps as tl
+    from quantum_simulator_tpu_torch import mps as tm
+
+    c = _mps_brick(12, 6, 2)
+    cn = _mps_brick(16, 4, 3)
+    nm = NoiseModel()
+    nm.add_global_noise(DepolarizingNoise(0.02))
+    gen = torch.Generator().manual_seed(5)
+    g = tm.draw_gumbels(64, tm.draw_branches(cn, nm), gen, "cpu")
+    u = torch.rand((64, 16), generator=gen)
+    gl = tm.gumbel_from_uniform(torch.rand((4, 6, 6, 2), generator=gen))
+    h6 = models.tfim_chain(6)
+    out = {}
+    config.enable_complex128()
+    try:
+        psi = Simulator(device="cuda").run(c, shots=0).final_state.data
+        for dev in ("cuda", "cpu"):
+            _, st = _mps_on(dev, 64).run(c, shots=0)
+            assert st.tensors[0].dtype == torch.complex128
+            counts, disc = _mps_on(dev).run_with_noise(
+                cn, nm, shots=64, gumbels=g, uniforms=u)
+            e = td.dmrg_ground_state(h6, 6, chi=8, sweeps=4,
+                                     device=dev).energy
+            lind = tl.MPSLindbladSimulator(
+                6, h6, [(0.2, "sigma_minus", q) for q in range(6)], chi=8,
+                device=dev).evolve(0.6, 6, n_trajectories=4,
+                                   observables=[("Z", [0]), ("XX", [2, 3])],
+                                   gumbels=gl)
+            _, corr = tc.mps_two_point_correlator(6, h6, 0.5, 8, 1, 4,
+                                                  chi=8, device=dev)
+            out[dev] = (tm.to_statevector(st), counts, disc, e,
+                        lind.expectations, corr)
+    finally:
+        config.enable_complex64()
+    card, cpu = out["cuda"], out["cpu"]
+    for a in (card[0], card[4], card[5]):
+        assert np.isfinite(a).all()
+    assert np.abs(card[0] - psi).max() <= 1e-12
+    assert card[1] == cpu[1] and np.isfinite(card[2])
+    assert abs(card[3] - cpu[3]) <= 1e-10
+    assert np.abs(card[4] - cpu[4]).max() <= 1e-10
+    assert np.abs(card[5] - cpu[5]).max() <= 1e-10

@@ -10,10 +10,13 @@ shard-bit qubits, the VQE step's cost gather, the trial gathers of the
 frame sweeps (one with a host decoder) and the circuit-level memory, a
 noisy trajectory's global
 branch weights, and a checkpointed segmented run (every rank writes its
-shards, rank 0 the manifest) stopped and resumed. Every result must
-equal the one-process 8-shard mesh's: states within 1e-6, the reductions
-within 1e-6, the VQE cost and parameters within 1e-6, the flags and the
-memory report exactly; the counts as in ``tests/test_two_process.py``.
+shards, rank 0 the manifest) stopped and resumed; under
+``config.enable_complex128`` a per-gate and a grouped run move float64
+planes across the ranks, with a reduction, a sample and a VQE step on
+them. Every result must equal the one-process 8-shard mesh's: states
+within 1e-6 (float64 ones within 1e-12), the reductions within 1e-6, the
+VQE cost and parameters within 1e-6, the flags and the memory report
+exactly; the counts as in ``tests/test_two_process.py``.
 
 Each process has a hard time limit (``communicate(timeout=...)``) and
 the group one for its init and collectives, so the test can neither hang
@@ -59,8 +62,8 @@ def mesh_results(mesh, vqe_mesh, workdir: str) -> dict:
     """Everything the test compares, on ``mesh`` (2 x 4 or 1 x 8);
     ``workdir`` holds the checkpoints."""
     from quantum_simulator_tpu_torch import (DepolarizingNoise, NoiseModel,
-                                             QuantumCircuit, qec, qec_circuit,
-                                             qec_frame)
+                                             QuantumCircuit, config, qec,
+                                             qec_circuit, qec_frame)
     from quantum_simulator_tpu_torch.algorithms import AlgorithmTemplate
     from quantum_simulator_tpu_torch.models import (brickwork_circuit,
                                                     hardware_efficient_ansatz)
@@ -106,7 +109,26 @@ def mesh_results(mesh, vqe_mesh, workdir: str) -> dict:
     resumed_at = []
     resumed = sim.run_segmented(deep, 2, checkpoint_dir=ck,
                                 progress=lambda i, ns, w: resumed_at.append(i))
+    config.enable_complex128()
+    try:
+        per_gate = sim.run(brickwork_circuit(12, 4, seed=5))
+        grouped = sim.run(brickwork_circuit(17, 2, seed=6))
+        step64 = sharded_vqe_step(QuantumCircuit.from_dict(ansatz), vqe_mesh,
+                                  observable=[(1.0, [0, 5]), (0.5, [2])])
+        f64 = {"dtypes": [str(per_gate.device_data.dtype),
+                          str(grouped.device_data.dtype)],
+               "per_gate": [per_gate.data.real.tolist(),
+                            per_gate.data.imag.tolist()],
+               "grouped_head": [grouped.data[:256].real.tolist(),
+                                grouped.data[:256].imag.tolist()],
+               "z": sim.expectation_z(grouped, 0),
+               "counts": sim.sample(per_gate, 500,
+                                    np.random.default_rng(5)),
+               "vqe": float(step64.step(step64.init)[1])}
+    finally:
+        config.enable_complex64()
     return {
+        "f64": f64,
         "ghz": [st.data.real.tolist(), st.data.imag.tolist()],
         "z": [sim.expectation_z(st, 0), sim.expectation_z(st, 11)],
         "counts": sim.sample(st, 2000, np.random.default_rng(3)),
@@ -181,4 +203,10 @@ def test_two_process_mesh_matches_one_process(tmp_path):
     np.testing.assert_allclose(got["noisy"], want["noisy"], atol=1e-6)
     assert got["resumed_at"] == want["resumed_at"] == [1, 2, 3]
     np.testing.assert_allclose(got["resumed"], want["resumed"], atol=1e-6)
+    f64, want64 = got["f64"], want["f64"]
+    assert f64["dtypes"] == want64["dtypes"] == ["torch.float64"] * 2
+    for key in ("per_gate", "grouped_head", "z", "vqe"):
+        np.testing.assert_allclose(f64[key], want64[key], rtol=0,
+                                   atol=1e-12)
+    assert f64["counts"] == want64["counts"]
     assert torch.distributed.is_available()
