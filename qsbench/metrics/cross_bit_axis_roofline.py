@@ -1,0 +1,10 @@
+"""cross_bit_axis_roofline: the ``cross_bit_axis`` launches' least time
+(``roofline.py``) over their device time in the trace, percent."""
+
+from qsbench.reduce import roofline_percent
+
+LAUNCHES = True
+
+
+def read(ctx):
+    return roofline_percent(ctx, "cross_bit_axis")
