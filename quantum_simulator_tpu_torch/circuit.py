@@ -11,6 +11,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 
 from .config import CONFIG
+from .utils.profiling import span
 
 SERDE_VERSION = "1.0"
 
@@ -186,10 +187,11 @@ class QuantumCircuit:
 
     @classmethod
     def from_dict(cls, data: dict) -> "QuantumCircuit":
-        circuit = cls(
-            num_qubits=data["num_qubits"],
-            initial_states=list(data.get("initial_states", [])),
-        )
-        for g_data in data.get("gates", []):
-            circuit.add_gate(GateInstance.from_dict(g_data))
-        return circuit
+        with span("circuit.from_dict"):
+            circuit = cls(
+                num_qubits=data["num_qubits"],
+                initial_states=list(data.get("initial_states", [])),
+            )
+            for g_data in data.get("gates", []):
+                circuit.add_gate(GateInstance.from_dict(g_data))
+            return circuit

@@ -26,6 +26,7 @@ import torch
 from .gates import H_MATRIX, S_DAG_MATRIX
 from .ops.apply import apply_gate_all_qubits, probabilities
 from .state import StateVector
+from .utils.profiling import span
 from .utils.seeding import generator_from_rng
 
 
@@ -143,17 +144,18 @@ class MeasurementEngine:
         transforms the probabilities with the per-qubit confusion matrix
         before a host multinomial; ``"shot"`` corrupts the sampled
         bitstrings afterwards (``ReadoutError.corrupt_counts``)."""
-        rng = rng or np.random.default_rng()
-        rotated = rotate_to_basis(state, basis)
-        n = rotated.num_qubits
-        if readout_error is not None and readout_mode == "distribution":
-            probs = rotated.probabilities
-            total = probs.sum()
-            if total > 1e-15:
-                probs = probs / total
-            noisy = readout_error.apply_to_distribution(probs, n)
-            return counts_from_array(rng.multinomial(shots, noisy), n)
-        counts = MeasurementEngine.sample(rotated, shots, rng=rng)
-        if readout_error is not None and readout_mode == "shot":
-            counts = readout_error.corrupt_counts(counts, rng)
-        return counts
+        with span("measure.sample"):
+            rng = rng or np.random.default_rng()
+            rotated = rotate_to_basis(state, basis)
+            n = rotated.num_qubits
+            if readout_error is not None and readout_mode == "distribution":
+                probs = rotated.probabilities
+                total = probs.sum()
+                if total > 1e-15:
+                    probs = probs / total
+                noisy = readout_error.apply_to_distribution(probs, n)
+                return counts_from_array(rng.multinomial(shots, noisy), n)
+            counts = MeasurementEngine.sample(rotated, shots, rng=rng)
+            if readout_error is not None and readout_mode == "shot":
+                counts = readout_error.corrupt_counts(counts, rng)
+            return counts

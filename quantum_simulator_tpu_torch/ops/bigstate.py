@@ -41,6 +41,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 from . import plan as gplan
 from .plan import GroupLayout, chunk_ranges
 
@@ -92,25 +93,26 @@ def state_axis_marginals(x: torch.Tensor, planar: bool
     in the state's precision. The state is cut along its first two axes
     into chunks; each chunk's squares are reduced once per axis and
     accumulated in float64."""
-    lead = int(planar)
-    shape = tuple(x.shape[lead:])
-    rank = len(shape)
-    if rank == 1:
-        return (_chunk_probabilities(x, planar),)
-    a0, a1 = shape[0], shape[1]
-    rows = x.reshape(tuple(x.shape[:lead]) + (a0 * a1,) + shape[2:])
-    m01 = torch.zeros(a0 * a1, dtype=torch.float64, device=x.device)
-    rest = [torch.zeros(s, dtype=torch.float64, device=x.device)
-            for s in shape[2:]]
-    for start, width in chunk_ranges(a0 * a1, x.numel()):
-        sq = _chunk_probabilities(rows.narrow(lead, start, width), planar)
-        m01[start:start + width] = sq.reshape(width, -1).sum(
-            -1, dtype=torch.float64)
-        for k, acc in enumerate(rest):
-            acc += sq.sum(dim=[d for d in range(sq.ndim) if d != k + 1],
-                          dtype=torch.float64)
-    m01 = m01.reshape(a0, a1)
-    return tuple(m.to(x.dtype) for m in [m01.sum(1), m01.sum(0)] + rest)
+    with span("bigstate.marginals"):
+        lead = int(planar)
+        shape = tuple(x.shape[lead:])
+        rank = len(shape)
+        if rank == 1:
+            return (_chunk_probabilities(x, planar),)
+        a0, a1 = shape[0], shape[1]
+        rows = x.reshape(tuple(x.shape[:lead]) + (a0 * a1,) + shape[2:])
+        m01 = torch.zeros(a0 * a1, dtype=torch.float64, device=x.device)
+        rest = [torch.zeros(s, dtype=torch.float64, device=x.device)
+                for s in shape[2:]]
+        for start, width in chunk_ranges(a0 * a1, x.numel()):
+            sq = _chunk_probabilities(rows.narrow(lead, start, width), planar)
+            m01[start:start + width] = sq.reshape(width, -1).sum(
+                -1, dtype=torch.float64)
+            for k, acc in enumerate(rest):
+                acc += sq.sum(dim=[d for d in range(sq.ndim) if d != k + 1],
+                              dtype=torch.float64)
+        m01 = m01.reshape(a0, a1)
+        return tuple(m.to(x.dtype) for m in [m01.sum(1), m01.sum(0)] + rest)
 
 
 # ---------------------------------------------------------------------------
@@ -146,32 +148,33 @@ def sample_state_indices(x: torch.Tensor, shots: int, planar: bool = True,
     With ``u > 0`` and "first entry that reaches" on both levels, a draw
     never lands on a block or an entry of zero probability, however the
     two levels' sums round."""
-    lead = int(planar)
-    shape = tuple(x.shape[lead:])
-    tile = shape[-2:] if len(shape) >= 3 else shape[-1:]
-    S = int(np.prod(tile, dtype=np.int64))
-    nblocks = int(np.prod(shape, dtype=np.int64)) // S
-    flat = x.reshape(tuple(x.shape[:lead]) + (nblocks, S))
-    bsums = torch.empty(nblocks, dtype=torch.float64, device=x.device)
-    for start, width in chunk_ranges(nblocks, x.numel()):
-        sq = _chunk_probabilities(flat.narrow(lead, start, width), planar)
-        bsums[start:start + width] = sq.sum(-1, dtype=torch.float64)
-    bcdf = torch.cumsum(bsums, dim=0)
-    u = (1.0 - torch.rand(shots, dtype=torch.float64, device=x.device,
-                          generator=generator)) * bcdf[-1]
-    b = torch.searchsorted(bcdf, u).clamp_(max=nblocks - 1)
-    below = torch.where(b > 0, bcdf[(b - 1).clamp(min=0)],
-                        torch.zeros_like(u))
-    frac = ((u - below) / bsums[b].clamp(min=1e-300)).clamp_(0.0, 1.0)
-    out = torch.empty(shots, dtype=torch.long, device=x.device)
-    for start in range(0, shots, SAMPLE_BATCH):
-        bb = b[start:start + SAMPLE_BATCH]
-        tiles = _chunk_probabilities(flat.index_select(lead, bb), planar)
-        tcdf = torch.cumsum(tiles.double(), dim=1)
-        target = frac[start:start + SAMPLE_BATCH, None] * tcdf[:, -1:]
-        j = torch.searchsorted(tcdf, target).squeeze(1).clamp_(max=S - 1)
-        out[start:start + SAMPLE_BATCH] = bb * S + j
-    return out
+    with span("bigstate.sample"):
+        lead = int(planar)
+        shape = tuple(x.shape[lead:])
+        tile = shape[-2:] if len(shape) >= 3 else shape[-1:]
+        S = int(np.prod(tile, dtype=np.int64))
+        nblocks = int(np.prod(shape, dtype=np.int64)) // S
+        flat = x.reshape(tuple(x.shape[:lead]) + (nblocks, S))
+        bsums = torch.empty(nblocks, dtype=torch.float64, device=x.device)
+        for start, width in chunk_ranges(nblocks, x.numel()):
+            sq = _chunk_probabilities(flat.narrow(lead, start, width), planar)
+            bsums[start:start + width] = sq.sum(-1, dtype=torch.float64)
+        bcdf = torch.cumsum(bsums, dim=0)
+        u = (1.0 - torch.rand(shots, dtype=torch.float64, device=x.device,
+                              generator=generator)) * bcdf[-1]
+        b = torch.searchsorted(bcdf, u).clamp_(max=nblocks - 1)
+        below = torch.where(b > 0, bcdf[(b - 1).clamp(min=0)],
+                            torch.zeros_like(u))
+        frac = ((u - below) / bsums[b].clamp(min=1e-300)).clamp_(0.0, 1.0)
+        out = torch.empty(shots, dtype=torch.long, device=x.device)
+        for start in range(0, shots, SAMPLE_BATCH):
+            bb = b[start:start + SAMPLE_BATCH]
+            tiles = _chunk_probabilities(flat.index_select(lead, bb), planar)
+            tcdf = torch.cumsum(tiles.double(), dim=1)
+            target = frac[start:start + SAMPLE_BATCH, None] * tcdf[:, -1:]
+            j = torch.searchsorted(tcdf, target).squeeze(1).clamp_(max=S - 1)
+            out[start:start + SAMPLE_BATCH] = bb * S + j
+        return out
 
 
 def indices_to_counts(idx: torch.Tensor, num_qubits: int) -> dict[str, int]:

@@ -59,6 +59,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils import profiling
 from . import _build
 
 _AXIS_LETTERS = "abefghjlmnopqrstuvwz"  # reserved: c d i k x y
@@ -334,9 +335,13 @@ def _view(kind: str, shape: tuple[int, ...], geom, planar: bool,
 def _launch(fn_name: str, x: torch.Tensor, op: torch.Tensor, K: int,
             real: bool, view: tuple[Geometry, tuple[bool, int]],
             batched: bool) -> None:
-    """Launch a kernel over ``x`` in place on the current stream. A batch
-    of B trajectories: trajectory b's state starts ``b * x[0].numel()``
-    elements in and its operator ``b * op.stride(0)`` elements in."""
+    """Launch a kernel over ``x`` in place on the current stream, with a
+    launch record while the recorder is on (``utils/profiling.py``). A
+    batch of B trajectories: trajectory b's state starts ``b *
+    x[0].numel()`` elements in and its operator ``b * op.stride(0)``
+    elements in."""
+    profiling.launch(fn_name.removeprefix("qs_"), x, op, K, not real,
+                     batched)
     g, (rows, vec) = view
     chunk = x.element_size() * vec
     if x.data_ptr() % chunk or op.data_ptr() % 16:

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from ..config import CONFIG
+from ..utils.profiling import span
 from . import cuda_exec
 from . import program as prog
 from .apply import apply_gate
@@ -691,148 +692,162 @@ def build_group_operands(program: prog.CircuitProgram, plan: GroupPlan,
 
     The arithmetic is that of ``build_group_operands(..., xp=np)``
     (``quantum_simulator_tpu/ops/plan.py:818-982``)."""
-    layout = plan.layout
-    dtype = dtype or CONFIG.np_complex
-    pool = _GateMatrixPool(program, params, dtype)
+    with span("plan.operands"):
+        layout = plan.layout
+        dtype = dtype or CONFIG.np_complex
+        with span("operands.gates"):
+            pool = _GateMatrixPool(program, params, dtype)
 
-    # Batch every all-1q sub-column of each axis width into one kron chain.
-    classes: dict[int, list[np.ndarray]] = {}
-    class_ref: dict[tuple[int, int], int] = {}
-    for si, seg in enumerate(plan.dense_segments):
-        bits = layout.axis_bits[seg.axis]
-        for bi, sub in enumerate(seg.subcolumns):
-            if not all(len(program.ops[oi].targets) == 1 for oi in sub):
-                continue
-            table = np.zeros(bits, dtype=np.int32)
-            for oi in sub:
-                q = program.ops[oi].targets[0]
-                table[layout.pos_in_axis(q)] = pool.pool_index(oi)
-            class_ref[(si, bi)] = len(classes.setdefault(bits, []))
-            classes[bits].append(table)
-    batched = {bits: _batched_1q_subcolumns(pool, np.stack(tables))
-               for bits, tables in classes.items()}
+            # Batch every all-1q sub-column of each axis width into one
+            # kron chain.
+            classes: dict[int, list[np.ndarray]] = {}
+            class_ref: dict[tuple[int, int], int] = {}
+            for si, seg in enumerate(plan.dense_segments):
+                bits = layout.axis_bits[seg.axis]
+                for bi, sub in enumerate(seg.subcolumns):
+                    if not all(len(program.ops[oi].targets) == 1
+                               for oi in sub):
+                        continue
+                    table = np.zeros(bits, dtype=np.int32)
+                    for oi in sub:
+                        q = program.ops[oi].targets[0]
+                        table[layout.pos_in_axis(q)] = pool.pool_index(oi)
+                    class_ref[(si, bi)] = len(classes.setdefault(bits, []))
+                    classes[bits].append(table)
+            batched = {bits: _batched_1q_subcolumns(pool, np.stack(tables))
+                       for bits, tables in classes.items()}
 
-    axis_lists: list[list] = [[] for _ in layout.axis_sizes]
-    for si, seg in enumerate(plan.dense_segments):
-        bits = layout.axis_bits[seg.axis]
-        combined = None
-        for bi, sub in enumerate(seg.subcolumns):
-            row = class_ref.get((si, bi))
-            if row is not None:
-                sc = batched[bits][row]
-            else:
-                sc = _subcolumn_operator(program, pool, sub, layout,
-                                         seg.axis, dtype)
-            combined = sc if combined is None else np.matmul(sc, combined)
-        axis_lists[seg.axis].append(combined)
+        with span("operands.dense"):
+            axis_lists: list[list] = [[] for _ in layout.axis_sizes]
+            for si, seg in enumerate(plan.dense_segments):
+                bits = layout.axis_bits[seg.axis]
+                combined = None
+                for bi, sub in enumerate(seg.subcolumns):
+                    row = class_ref.get((si, bi))
+                    if row is not None:
+                        sc = batched[bits][row]
+                    else:
+                        sc = _subcolumn_operator(program, pool, sub, layout,
+                                                 seg.axis, dtype)
+                    combined = (sc if combined is None
+                                else np.matmul(sc, combined))
+                axis_lists[seg.axis].append(combined)
 
-    axis_stacks = []
-    for ax, ops in enumerate(axis_lists):
-        if not ops:
-            ops = [np.eye(layout.axis_sizes[ax], dtype=dtype)]
-        axis_stacks.append(_planes(np.stack(ops), axis=1))
+            axis_stacks = []
+            for ax, ops in enumerate(axis_lists):
+                if not ops:
+                    ops = [np.eye(layout.axis_sizes[ax], dtype=dtype)]
+                axis_stacks.append(_planes(np.stack(ops), axis=1))
 
-    cross_ops = []
-    for spec in plan.cross_specs:
-        op = program.ops[spec.op_index]
-        slice_q = next(q for q in op.targets
-                       if layout.axis_of(q) == spec.slice_axis)
-        op_qs = sorted((q for q in op.targets
-                        if layout.axis_of(q) == spec.op_axis),
-                       key=lambda q: layout.pos_in_axis(q))
-        u = reorder_gate_targets(pool.matrix(spec.op_index), op.targets,
-                                 [slice_q] + op_qs)
-        gl = 1 << len(op_qs)
-        u4 = u.reshape(2, gl, 2, gl)
-        pos = tuple(layout.pos_in_axis(q) for q in op_qs)
-        bits = layout.axis_bits[spec.op_axis]
-        blocks = [[_embed_in_axis(u4[i, :, kk, :], pos, bits)
-                   for kk in (0, 1)] for i in (0, 1)]
-        if spec.pre_slice_ops:
-            # folded 1q gates on the sliced bit: B'_ik = sum_j B_ij us_jk
-            us = None
-            for oi in spec.pre_slice_ops:
-                m = pool.matrix(oi)
-                us = m if us is None else np.matmul(m, us)
-            blocks = [[blocks[i][0] * us[0, kk] + blocks[i][1] * us[1, kk]
-                       for kk in (0, 1)] for i in (0, 1)]
-        if spec.pre_op_subcolumns:
-            # pending op-axis operator applies before the cross: blocks @ M
-            m = None
-            for sub in spec.pre_op_subcolumns:
-                sc = _subcolumn_operator(program, pool, sub, layout,
-                                         spec.op_axis, dtype)
-                m = sc if m is None else np.matmul(sc, m)
-            blocks = [[np.matmul(blocks[i][kk], m)
-                       for kk in (0, 1)] for i in (0, 1)]
-        C = np.stack([np.stack(row, axis=0) for row in blocks], axis=0)
-        cross_ops.append(_planes(C.transpose(0, 2, 1, 3)))  # (i, y, k, x)
+        with span("operands.cross"):
+            cross_ops = []
+            for spec in plan.cross_specs:
+                op = program.ops[spec.op_index]
+                slice_q = next(q for q in op.targets
+                               if layout.axis_of(q) == spec.slice_axis)
+                op_qs = sorted((q for q in op.targets
+                                if layout.axis_of(q) == spec.op_axis),
+                               key=lambda q: layout.pos_in_axis(q))
+                u = reorder_gate_targets(pool.matrix(spec.op_index),
+                                         op.targets, [slice_q] + op_qs)
+                gl = 1 << len(op_qs)
+                u4 = u.reshape(2, gl, 2, gl)
+                pos = tuple(layout.pos_in_axis(q) for q in op_qs)
+                bits = layout.axis_bits[spec.op_axis]
+                blocks = [[_embed_in_axis(u4[i, :, kk, :], pos, bits)
+                           for kk in (0, 1)] for i in (0, 1)]
+                if spec.pre_slice_ops:
+                    # folded 1q gates on the sliced bit:
+                    # B'_ik = sum_j B_ij us_jk
+                    us = None
+                    for oi in spec.pre_slice_ops:
+                        m = pool.matrix(oi)
+                        us = m if us is None else np.matmul(m, us)
+                    blocks = [[blocks[i][0] * us[0, kk]
+                               + blocks[i][1] * us[1, kk]
+                               for kk in (0, 1)] for i in (0, 1)]
+                if spec.pre_op_subcolumns:
+                    # pending op-axis operator applies before the cross:
+                    # blocks @ M
+                    m = None
+                    for sub in spec.pre_op_subcolumns:
+                        sc = _subcolumn_operator(program, pool, sub, layout,
+                                                 spec.op_axis, dtype)
+                        m = sc if m is None else np.matmul(sc, m)
+                    blocks = [[np.matmul(blocks[i][kk], m)
+                               for kk in (0, 1)] for i in (0, 1)]
+                C = np.stack([np.stack(row, axis=0) for row in blocks], axis=0)
+                # (i, y, k, x)
+                cross_ops.append(_planes(C.transpose(0, 2, 1, 3)))
 
-    bitpair_ops = []
-    for spec in plan.bitpair_specs:
-        if spec.is_swap:
-            bitpair_ops.append(None)  # executes as a transpose
-            continue
-        op = program.ops[spec.op_index]
-        slice_q = next(q for q in op.targets
-                       if layout.axis_of(q) == spec.slice_axis)
-        op_q = next(q for q in op.targets if q != slice_q)
-        u = reorder_gate_targets(pool.matrix(spec.op_index), op.targets,
-                                 [slice_q, op_q])
-        bitpair_ops.append(_planes(u.reshape(2, 2, 2, 2)))
+        with span("operands.rest"):
+            bitpair_ops = []
+            for spec in plan.bitpair_specs:
+                if spec.is_swap:
+                    bitpair_ops.append(None)  # executes as a transpose
+                    continue
+                op = program.ops[spec.op_index]
+                slice_q = next(q for q in op.targets
+                               if layout.axis_of(q) == spec.slice_axis)
+                op_q = next(q for q in op.targets if q != slice_q)
+                u = reorder_gate_targets(pool.matrix(spec.op_index),
+                                         op.targets, [slice_q, op_q])
+                bitpair_ops.append(_planes(u.reshape(2, 2, 2, 2)))
 
-    prod_ops = []
-    for seg in plan.prod_segments:
-        v = _diag_product_value(program.ops[seg.op_index])
-        facs = tuple(m for _, m in _indicator_masks(
-            program.ops[seg.op_index].targets, layout))
-        prod_ops.append((facs, float(np.real(v - 1)), float(np.imag(v - 1))))
+            prod_ops = []
+            for seg in plan.prod_segments:
+                v = _diag_product_value(program.ops[seg.op_index])
+                facs = tuple(m for _, m in _indicator_masks(
+                    program.ops[seg.op_index].targets, layout))
+                prod_ops.append((facs, float(np.real(v - 1)),
+                                 float(np.imag(v - 1))))
 
-    diag_ops = []
-    for seg in plan.diag_segments:
-        sa = layout.axis_sizes[seg.axis_a]
-        sb = layout.axis_sizes[seg.axis_b]
-        D = np.ones((sa, sb), dtype=dtype)
-        for oi in seg.op_indices:
-            op = program.ops[oi]
-            k = len(op.targets)
-            if op.cphase_value is not None:
-                dv = np.ones(1 << k, np.complex128)
-                dv[-1] = op.cphase_value
-                d = np.asarray(dv, dtype=dtype)
-            else:
-                d = np.diagonal(pool.matrix(oi))
-            code_a = np.zeros(sa, dtype=np.int32)
-            code_b = np.zeros(sb, dtype=np.int32)
-            for j, q in enumerate(op.targets):
-                shift = k - 1 - j
-                p = layout.pos_in_axis(q)
-                if layout.axis_of(q) == seg.axis_a:
-                    ab = layout.axis_bits[seg.axis_a]
-                    code_a |= (((np.arange(sa) >> (ab - 1 - p)) & 1)
-                               << shift).astype(np.int32)
-                else:
-                    bb = layout.axis_bits[seg.axis_b]
-                    code_b |= (((np.arange(sb) >> (bb - 1 - p)) & 1)
-                               << shift).astype(np.int32)
-            D = D * d[code_a[:, None] + code_b[None, :]]
-        diag_ops.append(_planes(D))
+            diag_ops = []
+            for seg in plan.diag_segments:
+                sa = layout.axis_sizes[seg.axis_a]
+                sb = layout.axis_sizes[seg.axis_b]
+                D = np.ones((sa, sb), dtype=dtype)
+                for oi in seg.op_indices:
+                    op = program.ops[oi]
+                    k = len(op.targets)
+                    if op.cphase_value is not None:
+                        dv = np.ones(1 << k, np.complex128)
+                        dv[-1] = op.cphase_value
+                        d = np.asarray(dv, dtype=dtype)
+                    else:
+                        d = np.diagonal(pool.matrix(oi))
+                    code_a = np.zeros(sa, dtype=np.int32)
+                    code_b = np.zeros(sb, dtype=np.int32)
+                    for j, q in enumerate(op.targets):
+                        shift = k - 1 - j
+                        p = layout.pos_in_axis(q)
+                        if layout.axis_of(q) == seg.axis_a:
+                            ab = layout.axis_bits[seg.axis_a]
+                            code_a |= (((np.arange(sa) >> (ab - 1 - p)) & 1)
+                                       << shift).astype(np.int32)
+                        else:
+                            bb = layout.axis_bits[seg.axis_b]
+                            code_b |= (((np.arange(sb) >> (bb - 1 - p)) & 1)
+                                       << shift).astype(np.int32)
+                    D = D * d[code_a[:, None] + code_b[None, :]]
+                diag_ops.append(_planes(D))
 
-    return axis_stacks, cross_ops, diag_ops, prod_ops, bitpair_ops
+        return axis_stacks, cross_ops, diag_ops, prod_ops, bitpair_ops
 
 
 def operands_to(operands, device):
     """Move a host operand tuple to ``device`` (one copy per array)."""
-    def put(a):
-        return None if a is None else torch.from_numpy(
-            np.ascontiguousarray(a)).to(device)
+    with span("plan.operands_to"):
+        def put(a):
+            return None if a is None else torch.from_numpy(
+                np.ascontiguousarray(a)).to(device)
 
-    axis_stacks, cross_ops, diag_ops, prod_ops, bitpair_ops = operands
-    return ([put(a) for a in axis_stacks], [put(a) for a in cross_ops],
-            [put(a) for a in diag_ops],
-            [(tuple(put(m) for m in facs), cre, cim)
-             for facs, cre, cim in prod_ops],
-            [put(a) for a in bitpair_ops])
+        axis_stacks, cross_ops, diag_ops, prod_ops, bitpair_ops = operands
+        return ([put(a) for a in axis_stacks], [put(a) for a in cross_ops],
+                [put(a) for a in diag_ops],
+                [(tuple(put(m) for m in facs), cre, cim)
+                 for facs, cre, cim in prod_ops],
+                [put(a) for a in bitpair_ops])
 
 
 # ---------------------------------------------------------------------------
@@ -1096,147 +1111,152 @@ def build_group_operands_batched(program: prog.CircuitProgram,
     An operand no override touches is computed once and shared across
     the trajectories with stride 0. The JAX package builds these operands
     outside any kernel too (``plan.py:818-982`` under vmap)."""
-    layout = plan.layout
-    T = n_traj
-    if isinstance(params, torch.Tensor) and params.ndim == 2:
-        if params.shape[0] != T:
-            raise ValueError(f"a parameter batch of shape "
-                             f"{tuple(params.shape)} for {T} rows")
-        rows = param_overrides(program, params)
-        overrides = (rows if overrides is None
-                     else merge_overrides(rows, overrides))
-        params = program.initial_params   # the host pool builds fixed ops
-    pool = _DevicePool(program, params, device, overrides)
+    with span("plan.operands_batched"):
+        layout = plan.layout
+        T = n_traj
+        if isinstance(params, torch.Tensor) and params.ndim == 2:
+            if params.shape[0] != T:
+                raise ValueError(f"a parameter batch of shape "
+                                 f"{tuple(params.shape)} for {T} rows")
+            rows = param_overrides(program, params)
+            overrides = (rows if overrides is None
+                         else merge_overrides(rows, overrides))
+            params = program.initial_params   # the host pool builds fixed ops
+        pool = _DevicePool(program, params, device, overrides)
 
-    def touched(ops) -> bool:
-        return any(pool.is_override(oi) for oi in ops)
+        def touched(ops) -> bool:
+            return any(pool.is_override(oi) for oi in ops)
 
-    # Every all-1q sub-column of each axis width goes through one gather
-    # and kron chain; shared and per-trajectory ones apart.
-    classes: dict[tuple[int, bool], list[np.ndarray]] = {}
-    class_ref: dict[tuple[int, int], tuple] = {}
-    for si, seg in enumerate(plan.dense_segments):
-        bits = layout.axis_bits[seg.axis]
-        for bi, sub in enumerate(seg.subcolumns):
-            if not all(len(program.ops[oi].targets) == 1 for oi in sub):
-                continue
-            table = np.zeros(bits, dtype=np.int64)
-            for oi in sub:
-                q = program.ops[oi].targets[0]
-                table[layout.pos_in_axis(q)] = pool.pool_index(oi)
-            key = (bits, touched(sub))
-            class_ref[(si, bi)] = (key, len(classes.setdefault(key, [])))
-            classes[key].append(table)
-    batched = {key: _t_batched_1q_subcolumns(pool.rows(key[1]),
-                                             np.stack(tables))
-               for key, tables in classes.items()}
+        # Every all-1q sub-column of each axis width goes through one gather
+        # and kron chain; shared and per-trajectory ones apart.
+        classes: dict[tuple[int, bool], list[np.ndarray]] = {}
+        class_ref: dict[tuple[int, int], tuple] = {}
+        for si, seg in enumerate(plan.dense_segments):
+            bits = layout.axis_bits[seg.axis]
+            for bi, sub in enumerate(seg.subcolumns):
+                if not all(len(program.ops[oi].targets) == 1 for oi in sub):
+                    continue
+                table = np.zeros(bits, dtype=np.int64)
+                for oi in sub:
+                    q = program.ops[oi].targets[0]
+                    table[layout.pos_in_axis(q)] = pool.pool_index(oi)
+                key = (bits, touched(sub))
+                class_ref[(si, bi)] = (key, len(classes.setdefault(key, [])))
+                classes[key].append(table)
+        batched = {key: _t_batched_1q_subcolumns(pool.rows(key[1]),
+                                                 np.stack(tables))
+                   for key, tables in classes.items()}
 
-    axis_stacks: list[list[torch.Tensor]] = [[] for _ in layout.axis_sizes]
-    for si, seg in enumerate(plan.dense_segments):
-        combined = None
-        for bi, sub in enumerate(seg.subcolumns):
-            ref = class_ref.get((si, bi))
-            if ref is not None:
-                sc = batched[ref[0]][:, ref[1]]
-            else:
-                sc = _t_subcolumn_operator(program, pool, sub, layout,
-                                           seg.axis)
-            combined = sc if combined is None else torch.matmul(sc, combined)
-        axis_stacks[seg.axis].append(_t_planes(combined, T))
-    del batched
-    for ax, ops in enumerate(axis_stacks):
-        if not ops:
-            ops.append(_t_planes(torch.eye(layout.axis_sizes[ax],
-                                           dtype=CONFIG.dtype,
-                                           device=device)[None], T))
-
-    cross_ops = []
-    for spec in plan.cross_specs:
-        op = program.ops[spec.op_index]
-        slice_q = next(q for q in op.targets
-                       if layout.axis_of(q) == spec.slice_axis)
-        op_qs = sorted((q for q in op.targets
-                        if layout.axis_of(q) == spec.op_axis),
-                       key=lambda q: layout.pos_in_axis(q))
-        u = _t_reorder_targets(pool.matrix(spec.op_index), op.targets,
-                               [slice_q] + op_qs)
-        gl = 1 << len(op_qs)
-        u4 = u.reshape(u.shape[0], 2, gl, 2, gl)
-        pos = tuple(layout.pos_in_axis(q) for q in op_qs)
-        bits = layout.axis_bits[spec.op_axis]
-        blocks = [[_t_embed_in_axis(u4[:, i, :, kk, :], pos, bits)
-                   for kk in (0, 1)] for i in (0, 1)]
-        if spec.pre_slice_ops:
-            us = None
-            for oi in spec.pre_slice_ops:
-                m = pool.matrix(oi)
-                us = m if us is None else torch.matmul(m, us)
-            blocks = [[blocks[i][0] * us[:, 0, kk, None, None]
-                       + blocks[i][1] * us[:, 1, kk, None, None]
-                       for kk in (0, 1)] for i in (0, 1)]
-        if spec.pre_op_subcolumns:
-            m = None
-            for sub in spec.pre_op_subcolumns:
-                sc = _t_subcolumn_operator(program, pool, sub, layout,
-                                           spec.op_axis)
-                m = sc if m is None else torch.matmul(sc, m)
-            blocks = [[torch.matmul(blocks[i][kk], m)
-                       for kk in (0, 1)] for i in (0, 1)]
-        C = torch.stack([torch.stack(row, dim=1) for row in blocks], dim=1)
-        cross_ops.append(_t_planes(C.permute(0, 1, 3, 2, 4), T))
-
-    bitpair_ops = []
-    for spec in plan.bitpair_specs:
-        if spec.is_swap:
-            bitpair_ops.append(None)
-            continue
-        op = program.ops[spec.op_index]
-        slice_q = next(q for q in op.targets
-                       if layout.axis_of(q) == spec.slice_axis)
-        op_q = next(q for q in op.targets if q != slice_q)
-        u = _t_reorder_targets(pool.matrix(spec.op_index), op.targets,
-                               [slice_q, op_q])
-        bitpair_ops.append(_t_planes(u.reshape(-1, 2, 2, 2, 2), T))
-
-    prod_ops = []
-    for seg in plan.prod_segments:
-        v = _diag_product_value(program.ops[seg.op_index])
-        facs = tuple(torch.from_numpy(m).to(device) for _, m in
-                     _indicator_masks(program.ops[seg.op_index].targets,
-                                      layout))
-        prod_ops.append((facs, float(np.real(v - 1)), float(np.imag(v - 1))))
-
-    diag_ops = []
-    for seg in plan.diag_segments:
-        sa = layout.axis_sizes[seg.axis_a]
-        sb = layout.axis_sizes[seg.axis_b]
-        D = torch.ones((1, sa, sb), dtype=CONFIG.dtype, device=device)
-        for oi in seg.op_indices:
-            op = program.ops[oi]
-            k = len(op.targets)
-            if op.cphase_value is not None:
-                dv = np.ones(1 << k, CONFIG.np_complex)
-                dv[-1] = op.cphase_value
-                d = torch.from_numpy(dv).to(device)[None]
-            else:
-                d = torch.diagonal(pool.matrix(oi), dim1=-2, dim2=-1)
-            code_a = np.zeros(sa, dtype=np.int64)
-            code_b = np.zeros(sb, dtype=np.int64)
-            for j, q in enumerate(op.targets):
-                shift = k - 1 - j
-                p = layout.pos_in_axis(q)
-                if layout.axis_of(q) == seg.axis_a:
-                    ab = layout.axis_bits[seg.axis_a]
-                    code_a |= ((np.arange(sa) >> (ab - 1 - p)) & 1) << shift
+        axis_stacks: list[list[torch.Tensor]] = [[] for _ in layout.axis_sizes]
+        for si, seg in enumerate(plan.dense_segments):
+            combined = None
+            for bi, sub in enumerate(seg.subcolumns):
+                ref = class_ref.get((si, bi))
+                if ref is not None:
+                    sc = batched[ref[0]][:, ref[1]]
                 else:
-                    bb = layout.axis_bits[seg.axis_b]
-                    code_b |= ((np.arange(sb) >> (bb - 1 - p)) & 1) << shift
-            idx = torch.from_numpy(code_a[:, None] + code_b[None, :]).to(
-                device)
-            D = D * d[:, idx]
-        diag_ops.append(_t_planes(D, T))
+                    sc = _t_subcolumn_operator(program, pool, sub, layout,
+                                               seg.axis)
+                combined = (sc if combined is None
+                            else torch.matmul(sc, combined))
+            axis_stacks[seg.axis].append(_t_planes(combined, T))
+        del batched
+        for ax, ops in enumerate(axis_stacks):
+            if not ops:
+                ops.append(_t_planes(torch.eye(layout.axis_sizes[ax],
+                                               dtype=CONFIG.dtype,
+                                               device=device)[None], T))
 
-    return axis_stacks, cross_ops, diag_ops, prod_ops, bitpair_ops
+        cross_ops = []
+        for spec in plan.cross_specs:
+            op = program.ops[spec.op_index]
+            slice_q = next(q for q in op.targets
+                           if layout.axis_of(q) == spec.slice_axis)
+            op_qs = sorted((q for q in op.targets
+                            if layout.axis_of(q) == spec.op_axis),
+                           key=lambda q: layout.pos_in_axis(q))
+            u = _t_reorder_targets(pool.matrix(spec.op_index), op.targets,
+                                   [slice_q] + op_qs)
+            gl = 1 << len(op_qs)
+            u4 = u.reshape(u.shape[0], 2, gl, 2, gl)
+            pos = tuple(layout.pos_in_axis(q) for q in op_qs)
+            bits = layout.axis_bits[spec.op_axis]
+            blocks = [[_t_embed_in_axis(u4[:, i, :, kk, :], pos, bits)
+                       for kk in (0, 1)] for i in (0, 1)]
+            if spec.pre_slice_ops:
+                us = None
+                for oi in spec.pre_slice_ops:
+                    m = pool.matrix(oi)
+                    us = m if us is None else torch.matmul(m, us)
+                blocks = [[blocks[i][0] * us[:, 0, kk, None, None]
+                           + blocks[i][1] * us[:, 1, kk, None, None]
+                           for kk in (0, 1)] for i in (0, 1)]
+            if spec.pre_op_subcolumns:
+                m = None
+                for sub in spec.pre_op_subcolumns:
+                    sc = _t_subcolumn_operator(program, pool, sub, layout,
+                                               spec.op_axis)
+                    m = sc if m is None else torch.matmul(sc, m)
+                blocks = [[torch.matmul(blocks[i][kk], m)
+                           for kk in (0, 1)] for i in (0, 1)]
+            C = torch.stack([torch.stack(row, dim=1) for row in blocks], dim=1)
+            cross_ops.append(_t_planes(C.permute(0, 1, 3, 2, 4), T))
+
+        bitpair_ops = []
+        for spec in plan.bitpair_specs:
+            if spec.is_swap:
+                bitpair_ops.append(None)
+                continue
+            op = program.ops[spec.op_index]
+            slice_q = next(q for q in op.targets
+                           if layout.axis_of(q) == spec.slice_axis)
+            op_q = next(q for q in op.targets if q != slice_q)
+            u = _t_reorder_targets(pool.matrix(spec.op_index), op.targets,
+                                   [slice_q, op_q])
+            bitpair_ops.append(_t_planes(u.reshape(-1, 2, 2, 2, 2), T))
+
+        prod_ops = []
+        for seg in plan.prod_segments:
+            v = _diag_product_value(program.ops[seg.op_index])
+            facs = tuple(torch.from_numpy(m).to(device) for _, m in
+                         _indicator_masks(program.ops[seg.op_index].targets,
+                                          layout))
+            prod_ops.append((facs, float(np.real(v - 1)),
+                             float(np.imag(v - 1))))
+
+        diag_ops = []
+        for seg in plan.diag_segments:
+            sa = layout.axis_sizes[seg.axis_a]
+            sb = layout.axis_sizes[seg.axis_b]
+            D = torch.ones((1, sa, sb), dtype=CONFIG.dtype, device=device)
+            for oi in seg.op_indices:
+                op = program.ops[oi]
+                k = len(op.targets)
+                if op.cphase_value is not None:
+                    dv = np.ones(1 << k, CONFIG.np_complex)
+                    dv[-1] = op.cphase_value
+                    d = torch.from_numpy(dv).to(device)[None]
+                else:
+                    d = torch.diagonal(pool.matrix(oi), dim1=-2, dim2=-1)
+                code_a = np.zeros(sa, dtype=np.int64)
+                code_b = np.zeros(sb, dtype=np.int64)
+                for j, q in enumerate(op.targets):
+                    shift = k - 1 - j
+                    p = layout.pos_in_axis(q)
+                    if layout.axis_of(q) == seg.axis_a:
+                        ab = layout.axis_bits[seg.axis_a]
+                        code_a |= ((np.arange(sa) >> (ab - 1 - p)) & 1) \
+                            << shift
+                    else:
+                        bb = layout.axis_bits[seg.axis_b]
+                        code_b |= ((np.arange(sb) >> (bb - 1 - p)) & 1) \
+                            << shift
+                idx = torch.from_numpy(code_a[:, None] + code_b[None, :]).to(
+                    device)
+                D = D * d[:, idx]
+            diag_ops.append(_t_planes(D, T))
+
+        return axis_stacks, cross_ops, diag_ops, prod_ops, bitpair_ops
 
 
 # ---------------------------------------------------------------------------
@@ -1460,55 +1480,71 @@ def execute_group_plan(plan: GroupPlan, operands, program, params,
     cross = (cuda_exec.cross_bit_axis_plain if plain
              else cuda_exec.cross_bit_axis)
 
-    for step in plan.steps:
-        # einsum and transpose results may be strided views; the kernels
-        # take contiguous states
-        if isinstance(step, AxisMatmulStep):
-            real = plan.dense_real[step.axis][step.op_index]
-            op = axis_stacks[step.axis][step.op_index]
-            x = dense(x.contiguous(), op.select(b, 0) if real else op,
-                      step.axis, planar, batched)
-        elif isinstance(step, CrossStep):
-            real = plan.cross_real[step.index]
-            cop = cross_ops[step.index]
-            x = cross(x.contiguous(), cop.select(b, 0) if real else cop,
-                      step.slice_axis, step.slice_pos, step.op_axis, planar,
-                      batched)
-        elif isinstance(step, BitPairStep):
-            x = run(lambda v, step=step: apply_bitpair(
-                v, plan, step, bitpair_ops, planar, batched),
-                {step.slice_axis, step.op_axis})
-        elif isinstance(step, DiagPairStep):
-            real = plan.diag_real[step.index]
-            d = diag_ops[step.index]
-            d = d.select(b, 0) if real else _blocked(d, b)
-            spec = _diag_spec(rank, step.axis_a, step.axis_b, real, planar,
-                              batched)
-            x = run(lambda v, d=d, spec=spec: torch.einsum(spec, d, v),
-                    {step.axis_a, step.axis_b})
-        elif isinstance(step, DiagProductStep):
-            x = run(_prod_chunk_fn(prod_ops[step.index], rank, step.axes,
-                                   planar, batched), (), sliced=True)
-        else:  # GenericStep (never in an all-real plan, never an override)
-            op = program.ops[step.program_op]
-            if isinstance(params, torch.Tensor) and params.ndim == 2 \
-                    and op.static_matrix is None:
-                u = program.op_matrix_torch(op, params)   # one per row
-            else:
-                u = program.op_matrix(op, params)
-            if big:     # no complex copy of a state this size
-                tbits = tuple((layout.axis_of(q), layout.pos_in_axis(q))
-                              for q in op.targets)
-                ut = torch.as_tensor(u, dtype=CONFIG.dtype, device=x.device)
-                x = run(lambda v, ut=ut, tbits=tbits: apply_gate_bits(
-                    v, ut, tbits, planar, batched), {a for a, _ in tbits})
-                continue
-            lead_shape = tuple(x.shape[:b])
-            flat = torch.complex(x.select(b, 0), x.select(b, 1)).reshape(
-                lead_shape + (-1,))
-            shaped = apply_gate(flat, u, op.targets,
-                                layout.num_qubits).reshape(lead_shape + shape)
-            x = torch.stack([shaped.real, shaped.imag], dim=b)
+    with span("plan.execute"):
+        for step in plan.steps:
+            # einsum and transpose results may be strided views; the
+            # kernels take contiguous states
+            if isinstance(step, AxisMatmulStep):
+                with span("step.dense"):
+                    real = plan.dense_real[step.axis][step.op_index]
+                    op = axis_stacks[step.axis][step.op_index]
+                    x = dense(x.contiguous(), op.select(b, 0) if real else op,
+                              step.axis, planar, batched)
+            elif isinstance(step, CrossStep):
+                with span("step.cross"):
+                    real = plan.cross_real[step.index]
+                    cop = cross_ops[step.index]
+                    x = cross(x.contiguous(),
+                              cop.select(b, 0) if real else cop,
+                              step.slice_axis, step.slice_pos, step.op_axis,
+                              planar, batched)
+            elif isinstance(step, BitPairStep):
+                with span("step.bitpair"):
+                    x = run(lambda v, step=step: apply_bitpair(
+                        v, plan, step, bitpair_ops, planar, batched),
+                        {step.slice_axis, step.op_axis})
+            elif isinstance(step, DiagPairStep):
+                with span("step.diag"):
+                    real = plan.diag_real[step.index]
+                    d = diag_ops[step.index]
+                    d = d.select(b, 0) if real else _blocked(d, b)
+                    spec = _diag_spec(rank, step.axis_a, step.axis_b, real,
+                                      planar, batched)
+                    x = run(lambda v, d=d, spec=spec: torch.einsum(spec, d,
+                                                                   v),
+                            {step.axis_a, step.axis_b})
+            elif isinstance(step, DiagProductStep):
+                with span("step.prod"):
+                    x = run(_prod_chunk_fn(prod_ops[step.index], rank,
+                                           step.axes, planar, batched), (),
+                            sliced=True)
+            else:  # GenericStep (never in an all-real plan, never an override)
+                with span("step.generic"):
+                    op = program.ops[step.program_op]
+                    if isinstance(params, torch.Tensor) and params.ndim == 2 \
+                            and op.static_matrix is None:
+                        u = program.op_matrix_torch(op, params)  # per row
+                    else:
+                        u = program.op_matrix(op, params)
+                    if big:     # no complex copy of a state this size
+                        tbits = tuple((layout.axis_of(q),
+                                       layout.pos_in_axis(q))
+                                      for q in op.targets)
+                        ut = torch.as_tensor(u, dtype=CONFIG.dtype,
+                                             device=x.device)
+                        x = run(lambda v, ut=ut, tbits=tbits:
+                                apply_gate_bits(v, ut, tbits, planar,
+                                                batched),
+                                {a for a, _ in tbits})
+                        continue
+                    lead_shape = tuple(x.shape[:b])
+                    flat = torch.complex(x.select(b, 0),
+                                         x.select(b, 1)).reshape(
+                        lead_shape + (-1,))
+                    shaped = apply_gate(flat, u, op.targets,
+                                        layout.num_qubits).reshape(
+                        lead_shape + shape)
+                    x = torch.stack([shaped.real, shaped.imag], dim=b)
     return x
 
 
@@ -1555,13 +1591,14 @@ _PLANS: dict[tuple, GroupPlan] = {}
 def get_group_plan(program: prog.CircuitProgram) -> GroupPlan:
     """``build_group_plan`` cached by the program's compile key (the
     trajectory executors rebuild their segment programs per chunk)."""
-    plan = _PLANS.get(program.compile_key)
-    if plan is None:
-        plan = build_group_plan(program)
-        if len(_PLANS) > 128:
-            _PLANS.pop(next(iter(_PLANS)))
-        _PLANS[program.compile_key] = plan
-    return plan
+    with span("plan.lookup"):
+        plan = _PLANS.get(program.compile_key)
+        if plan is None:
+            plan = build_group_plan(program)
+            if len(_PLANS) > 128:
+                _PLANS.pop(next(iter(_PLANS)))
+            _PLANS[program.compile_key] = plan
+        return plan
 
 
 def group_forward_state_body(program: prog.CircuitProgram, params, device,

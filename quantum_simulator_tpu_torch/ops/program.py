@@ -31,6 +31,7 @@ import torch
 from ..config import CONFIG
 from ..gates import GateType
 from ..registry import GateRegistry
+from ..utils.profiling import span
 from .apply import (apply_cphase, apply_gate, basis_state_index,
                     collapse_qubit, prob_qubit_zero, probabilities)
 
@@ -108,58 +109,59 @@ class CircuitProgram:
 def compile_circuit(circuit) -> CircuitProgram:
     """Lower a QuantumCircuit to an ordered static op list + param vector
     (``quantum_simulator_tpu/ops/program.py:95-158``)."""
-    registry = GateRegistry.instance()
-    ops: list[ProgramOp] = []
-    params: list[float] = []
-    key_parts: list = [circuit.num_qubits, tuple(circuit.initial_states)]
+    with span("program.compile"):
+        registry = GateRegistry.instance()
+        ops: list[ProgramOp] = []
+        params: list[float] = []
+        key_parts: list = [circuit.num_qubits, tuple(circuit.initial_states)]
 
-    gate_ids = {id(g): gi for gi, g in enumerate(circuit.gates)}
-    columns = circuit.get_ordered_gates()
-    for col_idx, column in enumerate(columns):
-        for inst in column:
-            gd = registry.get(inst.gate_name)
-            if gd.gate_type in (GateType.MEASUREMENT, GateType.BARRIER):
-                continue
-            gate_index = gate_ids.get(id(inst), -1)
-            targets = tuple(inst.target_qubits)
-            if gd.num_params > 0 and gd.param_builder is not None:
-                if len(inst.params) != gd.num_params:
-                    raise ValueError(
-                        f"{inst.gate_name} takes {gd.num_params} "
-                        f"parameter(s), got {len(inst.params)}")
-                offset = len(params)
-                params.extend(float(p) for p in inst.params)
-                ops.append(ProgramOp(inst.gate_name, targets, offset,
-                                     gd.num_params, col_idx, None,
-                                     gd.param_builder, gate_index,
-                                     torch_builder=gd.torch_matrix_func))
-                key_parts.append((inst.gate_name, targets, col_idx))
-            elif gd.cphase_value is not None:
-                ops.append(ProgramOp(inst.gate_name, targets, 0, 0, col_idx,
-                                     None, None, gate_index,
-                                     cphase_value=gd.cphase_value))
-                key_parts.append((inst.gate_name, targets, col_idx,
-                                  complex(gd.cphase_value)))
-            else:
-                # Fixed gate, or a custom parameterized gate: bake the
-                # matrix and fold its values into the key.
-                mat = np.asarray(gd.matrix_func(*inst.params),
-                                 dtype=np.complex128)
-                ops.append(ProgramOp(inst.gate_name, targets, 0, 0, col_idx,
-                                     mat, None, gate_index))
-                key_parts.append((inst.gate_name, targets, col_idx,
-                                  mat.tobytes()))
-    key_parts.append(("columns", len(columns)))
+        gate_ids = {id(g): gi for gi, g in enumerate(circuit.gates)}
+        columns = circuit.get_ordered_gates()
+        for col_idx, column in enumerate(columns):
+            for inst in column:
+                gd = registry.get(inst.gate_name)
+                if gd.gate_type in (GateType.MEASUREMENT, GateType.BARRIER):
+                    continue
+                gate_index = gate_ids.get(id(inst), -1)
+                targets = tuple(inst.target_qubits)
+                if gd.num_params > 0 and gd.param_builder is not None:
+                    if len(inst.params) != gd.num_params:
+                        raise ValueError(
+                            f"{inst.gate_name} takes {gd.num_params} "
+                            f"parameter(s), got {len(inst.params)}")
+                    offset = len(params)
+                    params.extend(float(p) for p in inst.params)
+                    ops.append(ProgramOp(inst.gate_name, targets, offset,
+                                         gd.num_params, col_idx, None,
+                                         gd.param_builder, gate_index,
+                                         torch_builder=gd.torch_matrix_func))
+                    key_parts.append((inst.gate_name, targets, col_idx))
+                elif gd.cphase_value is not None:
+                    ops.append(ProgramOp(inst.gate_name, targets, 0, 0,
+                                         col_idx, None, None, gate_index,
+                                         cphase_value=gd.cphase_value))
+                    key_parts.append((inst.gate_name, targets, col_idx,
+                                      complex(gd.cphase_value)))
+                else:
+                    # Fixed gate, or a custom parameterized gate: bake the
+                    # matrix and fold its values into the key.
+                    mat = np.asarray(gd.matrix_func(*inst.params),
+                                     dtype=np.complex128)
+                    ops.append(ProgramOp(inst.gate_name, targets, 0, 0,
+                                         col_idx, mat, None, gate_index))
+                    key_parts.append((inst.gate_name, targets, col_idx,
+                                      mat.tobytes()))
+        key_parts.append(("columns", len(columns)))
 
-    return CircuitProgram(
-        num_qubits=circuit.num_qubits,
-        initial_index=basis_state_index(circuit.initial_states),
-        ops=tuple(ops),
-        num_columns=len(columns),
-        num_params=len(params),
-        initial_params=np.asarray(params, dtype=np.float64),
-        compile_key=tuple(key_parts),
-    )
+        return CircuitProgram(
+            num_qubits=circuit.num_qubits,
+            initial_index=basis_state_index(circuit.initial_states),
+            ops=tuple(ops),
+            num_columns=len(columns),
+            num_params=len(params),
+            initial_params=np.asarray(params, dtype=np.float64),
+            compile_key=tuple(key_parts),
+        )
 
 
 def forward_fn(program: CircuitProgram, device) -> Callable:

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from ..config import CONFIG
+from ..utils.profiling import span
 from . import program as prog
 from .bigtraj import phase_real_stack, trajectory_is_real
 from .plan import (
@@ -194,51 +195,53 @@ def draw_branches(spec: UnitaryInsertSpec, n_traj: int, device,
                   generator: torch.Generator | None) -> torch.Tensor:
     """(T, total_draws) branch indices: per stack, one inverse-CDF
     categorical over all of its T x draws (the probabilities are static)."""
-    branch = torch.zeros((n_traj, spec.total_draws), dtype=torch.long,
-                         device=device)
-    for sid, st in enumerate(spec.stacks):
-        cols = [d.draw_index for d in spec.draws if d.stack_id == sid]
-        if not cols:
-            continue
-        cdf = torch.cumsum(torch.as_tensor(st.probs, dtype=torch.float64,
-                                           device=device), dim=0)
-        u = torch.rand((n_traj, len(cols)), dtype=torch.float64,
-                       device=device, generator=generator) * cdf[-1]
-        sel = torch.searchsorted(cdf, u, right=True).clamp_(
-            max=len(st.probs) - 1)
-        branch[:, torch.as_tensor(cols, device=device)] = sel
-    return branch
+    with span("traj.draws"):
+        branch = torch.zeros((n_traj, spec.total_draws), dtype=torch.long,
+                             device=device)
+        for sid, st in enumerate(spec.stacks):
+            cols = [d.draw_index for d in spec.draws if d.stack_id == sid]
+            if not cols:
+                continue
+            cdf = torch.cumsum(torch.as_tensor(st.probs, dtype=torch.float64,
+                                               device=device), dim=0)
+            u = torch.rand((n_traj, len(cols)), dtype=torch.float64,
+                           device=device, generator=generator) * cdf[-1]
+            sel = torch.searchsorted(cdf, u, right=True).clamp_(
+                max=len(st.probs) - 1)
+            branch[:, torch.as_tensor(cols, device=device)] = sel
+        return branch
 
 
 def branch_overrides(spec: UnitaryInsertSpec,
                      branch: torch.Tensor) -> OperandOverrides:
     """Gather the chosen (exactly unitary) branch operators into operand
     overrides with a leading trajectory axis (``_draw_overrides_host``)."""
-    device = branch.device
-    pool_rows: list[torch.Tensor] = []
-    base = 0
-    pool_map: dict[int, int] = {}
-    per_op: dict[int, torch.Tensor] = {}
-    for sid, st in enumerate(spec.stacks):
-        dlist = [d for d in spec.draws if d.stack_id == sid]
-        if not dlist:
-            continue
-        units = torch.from_numpy(np.asarray(
-            st.units_real if spec.real else st.exact,
-            dtype=CONFIG.np_complex)).to(device)
-        chosen = units[branch[:, torch.as_tensor(
-            [d.draw_index for d in dlist], device=device)]]
-        if st.units.shape[1] == 2:
-            pool_rows.append(chosen)
-            for r, d in enumerate(dlist):
-                pool_map[d.aug_index] = base + r
-            base += len(dlist)
-        else:
-            for r, d in enumerate(dlist):
-                per_op[d.aug_index] = chosen[:, r]
-    return OperandOverrides(
-        pool_rows=torch.cat(pool_rows, dim=1) if pool_rows else None,
-        pool_map=pool_map, per_op=per_op)
+    with span("traj.overrides"):
+        device = branch.device
+        pool_rows: list[torch.Tensor] = []
+        base = 0
+        pool_map: dict[int, int] = {}
+        per_op: dict[int, torch.Tensor] = {}
+        for sid, st in enumerate(spec.stacks):
+            dlist = [d for d in spec.draws if d.stack_id == sid]
+            if not dlist:
+                continue
+            units = torch.from_numpy(np.asarray(
+                st.units_real if spec.real else st.exact,
+                dtype=CONFIG.np_complex)).to(device)
+            chosen = units[branch[:, torch.as_tensor(
+                [d.draw_index for d in dlist], device=device)]]
+            if st.units.shape[1] == 2:
+                pool_rows.append(chosen)
+                for r, d in enumerate(dlist):
+                    pool_map[d.aug_index] = base + r
+                base += len(dlist)
+            else:
+                for r, d in enumerate(dlist):
+                    per_op[d.aug_index] = chosen[:, r]
+        return OperandOverrides(
+            pool_rows=torch.cat(pool_rows, dim=1) if pool_rows else None,
+            pool_map=pool_map, per_op=per_op)
 
 
 def finalize(x: torch.Tensor, planar: bool) -> torch.Tensor:

@@ -47,6 +47,7 @@ from .ops.bigstate import (MarginalStateSummary, PlanarStateVector,
                            indices_to_counts)
 from .registry import GateRegistry
 from .state import StateVector
+from .utils.profiling import gauge, span
 from .utils.seeding import generator_from_rng
 
 # Device bytes a batch of trajectories or of parameter rows may take at
@@ -126,7 +127,9 @@ def _chunk_size(program, noise_model, n_traj: int) -> int:
         # one embedded cross operator per gate or draw
         ops = 4 * 128 ** 2 * CONFIG.dtype.itemsize
     per = 3 * (CONFIG.dtype.itemsize << program.num_qubits) + 4 * ops
-    return max(1, min(n_traj, TRAJECTORY_MEMORY_BYTES // per))
+    chunk = max(1, min(n_traj, TRAJECTORY_MEMORY_BYTES // per))
+    gauge("traj.batch_bytes_reckoned", chunk * per)
+    return chunk
 
 
 def param_rows_per_batch(program, n_rows: int) -> int:
@@ -222,45 +225,48 @@ class Simulator:
         ONE stochastic trajectory (use ``run_with_noise`` for a trajectory
         per shot); ``record_steps`` keeps the state after each column.
         At n >= 30 ``final_state`` is a ``PlanarStateVector``."""
-        _check_amplitude_cap(circuit)
-        if rng is None:
-            rng = np.random.default_rng(seed)
-        if _is_huge(circuit):
-            return self._run_huge(circuit, shots, record_steps, seed, rng,
-                                  measurement_basis)
-        noisy = self._noisy()
-        n = circuit.num_qubits
-        program = prog.compile_circuit(circuit)
-        params = program.initial_params
-        step_states = None
-        if record_steps:
-            if noisy:
-                stacked = prog.trajectory_fn(
-                    program, self._noise_model, self._device,
-                    record_columns=True)(params, self._generator(rng))
+        with span("simulator.run"):
+            _check_amplitude_cap(circuit)
+            if rng is None:
+                rng = np.random.default_rng(seed)
+            if _is_huge(circuit):
+                return self._run_huge(circuit, shots, record_steps, seed, rng,
+                                      measurement_basis)
+            noisy = self._noisy()
+            n = circuit.num_qubits
+            program = prog.compile_circuit(circuit)
+            params = program.initial_params
+            step_states = None
+            if record_steps:
+                if noisy:
+                    stacked = prog.trajectory_fn(
+                        program, self._noise_model, self._device,
+                        record_columns=True)(params, self._generator(rng))
+                else:
+                    stacked = prog.steps_fn(program, self._device)(params)
+                step_states = [StateVector.from_tensor(stacked[i], n)
+                               for i in range(1, stacked.shape[0])]
+                final_arr = stacked[-1]
+            elif noisy:
+                final_arr = prog.trajectory_fn(
+                    program, self._noise_model, self._device)(
+                        params, self._generator(rng))
             else:
-                stacked = prog.steps_fn(program, self._device)(params)
-            step_states = [StateVector.from_tensor(stacked[i], n)
-                           for i in range(1, stacked.shape[0])]
-            final_arr = stacked[-1]
-        elif noisy:
-            final_arr = prog.trajectory_fn(
-                program, self._noise_model, self._device)(
-                    params, self._generator(rng))
-        else:
-            final_arr = prog.forward_fn(program, self._device)(params)
-        final = StateVector.from_tensor(final_arr, n)
+                final_arr = prog.forward_fn(program, self._device)(params)
+            final = StateVector.from_tensor(final_arr, n)
 
-        has_measurement = any(g.gate_name == "Measure" for g in circuit.gates)
-        if has_measurement or shots > 0:
-            counts = MeasurementEngine.sample_with_basis(
-                final, shots, basis=measurement_basis,
-                readout_error=self._readout_error(), rng=rng)
-        else:
-            counts = {}
-        return SimulationResult(final_state=final, measurement_counts=counts,
-                                step_states=step_states, num_shots=shots,
-                                seed=seed)
+            has_measurement = any(g.gate_name == "Measure"
+                                  for g in circuit.gates)
+            if has_measurement or shots > 0:
+                counts = MeasurementEngine.sample_with_basis(
+                    final, shots, basis=measurement_basis,
+                    readout_error=self._readout_error(), rng=rng)
+            else:
+                counts = {}
+            return SimulationResult(final_state=final,
+                                    measurement_counts=counts,
+                                    step_states=step_states, num_shots=shots,
+                                    seed=seed)
 
     def _run_huge(self, circuit: QuantumCircuit, shots: int,
                   record_steps: bool, seed: int | None,
@@ -549,45 +555,47 @@ class Simulator:
         trajectory is a run of whole-state passes, so ``trajectories``
         defaults to ``min(shots, 16)`` there, and ``final_state`` is None
         (even the placeholder would be a state)."""
-        _check_amplitude_cap(circuit)
-        if self._noise_model is None:
-            return self.run(circuit, shots, seed=seed, rng=rng)
-        if rng is None:
-            rng = np.random.default_rng(seed)
-        if _is_huge(circuit) and self._noisy():
-            return self._run_with_noise_huge(circuit, shots, seed, rng,
-                                             trajectories)
-        T = shots if trajectories is None \
-            else max(1, min(shots, trajectories))
-        n = circuit.num_qubits
-        dim = 1 << n
-        counts = torch.zeros(dim, dtype=torch.long, device=self._device)
-        gen = None
-        base, extra = divmod(shots, T) if T else (0, 0)
-        start = 0
-        for states in self._trajectory_batches(circuit, T, rng):
-            if gen is None:
-                gen = self._generator(rng)
-            probs = states.real.square() + states.imag.square()
-            probs = probs / probs.sum(-1, keepdim=True)
-            take = base + (1 if extra else 0)
-            if take:
-                idx = sample_rows(probs, take, gen)
-                rows = torch.arange(start, start + states.shape[0],
-                                    device=idx.device)
-                keep = (torch.arange(take, device=idx.device)[None, :]
-                        < (base + (rows < extra).long())[:, None])
-                counts += torch.bincount(idx[keep], minlength=dim)
-            start += states.shape[0]
-            del states, probs
-        all_counts = counts_from_array(counts.cpu().numpy(), n)
-        readout = self._readout_error()
-        if all_counts and readout is not None:
-            all_counts = readout.corrupt_counts(all_counts, rng)
-        return SimulationResult(
-            final_state=StateVector.from_initial_states(
-                circuit.initial_states, device=self._device),
-            measurement_counts=all_counts, num_shots=shots, seed=seed)
+        with span("simulator.run_with_noise"):
+            _check_amplitude_cap(circuit)
+            if self._noise_model is None:
+                return self.run(circuit, shots, seed=seed, rng=rng)
+            if rng is None:
+                rng = np.random.default_rng(seed)
+            if _is_huge(circuit) and self._noisy():
+                return self._run_with_noise_huge(circuit, shots, seed, rng,
+                                                 trajectories)
+            T = shots if trajectories is None \
+                else max(1, min(shots, trajectories))
+            n = circuit.num_qubits
+            dim = 1 << n
+            counts = torch.zeros(dim, dtype=torch.long, device=self._device)
+            gen = None
+            base, extra = divmod(shots, T) if T else (0, 0)
+            start = 0
+            for states in self._trajectory_batches(circuit, T, rng):
+                if gen is None:
+                    gen = self._generator(rng)
+                with span("traj.sample"):
+                    probs = states.real.square() + states.imag.square()
+                    probs = probs / probs.sum(-1, keepdim=True)
+                    take = base + (1 if extra else 0)
+                    if take:
+                        idx = sample_rows(probs, take, gen)
+                        rows = torch.arange(start, start + states.shape[0],
+                                            device=idx.device)
+                        keep = (torch.arange(take, device=idx.device)[None, :]
+                                < (base + (rows < extra).long())[:, None])
+                        counts += torch.bincount(idx[keep], minlength=dim)
+                start += states.shape[0]
+                del states, probs
+            all_counts = counts_from_array(counts.cpu().numpy(), n)
+            readout = self._readout_error()
+            if all_counts and readout is not None:
+                all_counts = readout.corrupt_counts(all_counts, rng)
+            return SimulationResult(
+                final_state=StateVector.from_initial_states(
+                    circuit.initial_states, device=self._device),
+                measurement_counts=all_counts, num_shots=shots, seed=seed)
 
     def _run_with_noise_huge(self, circuit: QuantumCircuit, shots: int,
                              seed: int | None, rng: np.random.Generator,

@@ -543,22 +543,6 @@ def test_app_config_load_is_tolerant(tmp_path, monkeypatch):
     assert loaded.theme == "x" and not hasattr(loaded, "unknown")
 
 
-def test_profiling_roofline_math():
-    assert tprofiling.hbm_traffic_estimate(20, 3) == \
-        jprofiling.hbm_traffic_estimate(20, 3) == 3 * 2 * 2**20 * 8
-    assert tprofiling.hbm_traffic_estimate(10, 2, bytes_per_amp=4) == \
-        jprofiling.hbm_traffic_estimate(10, 2, bytes_per_amp=4)
-    # the same formula at the same rate; the port's default is the H100's
-    assert tprofiling.roofline_fraction(24, 10, 0.01,
-                                        hbm_bytes_per_s=819e9) == \
-        pytest.approx(jprofiling.roofline_fraction(24, 10, 0.01))
-    assert tprofiling.HBM_BYTES_PER_S == 3.35e12
-    assert "H100" in tprofiling.ROOFLINE_DEVICE
-    want = tprofiling.hbm_traffic_estimate(28, 15) / 3.35e12 / 0.05
-    assert tprofiling.roofline_fraction(28, 15, 0.05) == pytest.approx(want)
-    assert tprofiling.roofline_fraction(28, 15, 0.0) == float("inf")
-
-
 def test_time_compiled_and_trace(tmp_path):
     calls = []
 
