@@ -762,9 +762,12 @@ def phase_kernels(report: dict, card: str) -> dict:
         torch.cuda.empty_cache()
         x = random_state(shape, planar, seed=len(rows))
         x0 = x.clone()
+        c0 = cuda_exec.cross_bit_axis.cluster_launches
         got = kfn(x)
         torch.cuda.synchronize()
         check(got is x, f"{label}: the wrapper did not return its input")
+        path = ("cluster" if cuda_exec.cross_bit_axis.cluster_launches > c0
+                else "tile")
         want = pfn(x0, op)
         err = float((got - want).abs().max())
         check(err <= tol, f"{label}: max |kernel - plain| = {err} > {tol}")
@@ -785,18 +788,26 @@ def phase_kernels(report: dict, card: str) -> dict:
         K = shape[key[1]] if name == "dense_axis" else 2 * shape[key[1][2]]
         tbs, tfl, unit = rates(shape, planar, real, K, k_ms)
         max_err[name] = max(max_err[name], err)
-        row = {"kernel": name, "case": label, "max_abs_err": err,
-               "ms": k_ms, "plain_ms": p_ms, "TB_per_s": tbs,
-               f"{unit}_TFLOP_per_s": tfl, **f64}
+        row = {"kernel": name, "case": label, "path": path,
+               "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+               "TB_per_s": tbs, f"{unit}_TFLOP_per_s": tfl, **f64}
         rows.append(row)
         f64_txt = (f" f64 err kernel {f64['kernel_f64_err']:.3e} twin "
                    f"{f64['plain_f64_err']:.3e}" if f64 else "")
-        print(f"kernel {label} [{card}]: err {err:.3e}{f64_txt} kernel "
+        print(f"kernel {label} [{card}] ({path}): err {err:.3e}{f64_txt} "
+              f"kernel "
               f"{k_ms:.4f} ms plain {p_ms:.4f} ms; {tbs:.3f} TB/s "
               f"{tfl:.1f} {unit} TFLOP/s", flush=True)
         kind, sn, geom, sp, sr = SUMMARY[name]
         want_key = (sn, geom, sp, sr)
         if key == want_key:
+            if name == "cross_bit_axis":
+                # the n = 28 K = 256 complex step: the cluster kernel
+                check(path == "cluster", f"{label}: served by the {path} "
+                      f"kernel, not the cluster kernel")
+                row["clusters"] = _build.library().qs_cluster_wave(
+                    int(cuda_exec.copy_plan(cuda_exec.cross_geometry(
+                        shape, *geom, planar, sr))[0]))
             x0 = random_state(shape, planar, seed=len(rows))
             row["library_ms"] = event_ms(library_call(name, x0, op, geom,
                                                       planar))
@@ -7096,6 +7107,26 @@ def main() -> int:
             check(got == cuda_exec.tile_fibers_f64(k, real),
                   f"float64 tile fibers at K={k} real={real}: kernel "
                   f"{got}, wrapper {cuda_exec.tile_fibers_f64(k, real)}")
+    got = lib.qs_cluster_tile_fibers()
+    check(got == cuda_exec.tile_fibers(256, False, cluster=True),
+          f"cluster tile fibers: kernel {got}, wrapper "
+          f"{cuda_exec.tile_fibers(256, False, cluster=True)}")
+    for k in (128, 256):
+        for real in (True, False):
+            for op_stride in (0, 2 * k * k):
+                for vec in (1, 2, 4):
+                    got = bool(lib.qs_cross_path(k, int(not real), op_stride,
+                                                 vec))
+                    want = cuda_exec.takes_cluster(k, real, op_stride, vec)
+                    check(got == want,
+                          f"cluster path at K={k} real={real} op stride="
+                          f"{op_stride} vec={vec}: kernel {got}, wrapper "
+                          f"{want}")
+    print(f"cluster kernel (complex K = 256, shared operator): "
+          f"{lib.qs_cluster_tile_fibers()} fibers per tile, "
+          f"dynamic shared memory {lib.qs_cluster_smem_bytes(0)} / "
+          f"{lib.qs_cluster_smem_bytes(1)} bytes (fiber-major / row-major)",
+          flush=True)
     print("float64 kernels, fibers per tile / dynamic shared memory bytes "
           "(K: real, complex):",
           ", ".join(f"{k}: {lib.qs_tile_fibers_f64(k, 0)}/"

@@ -53,17 +53,57 @@
 //   SM where shared memory allows, so one block's copies, barriers and
 //   stores overlap the other's products.
 // * K = 256 (every cross step on a 128-wide axis): the operator (256 KB
-//   real, 512 KB complex) cannot stay in shared memory, so it streams from
-//   L2 (every block reads the same operator) through a double-buffered
-//   slab of R output rows while the fiber tile stays resident. Each slab's
-//   rows are written as they finish, which is safe in place because the
-//   whole input tile is already in shared memory. Part j of the next
-//   tile's copies goes into the same cp.async group as slab j + 1, so one
-//   wait at the top of each slab serves both streams (three barriers a
-//   slab: copies visible, products done, staging done). A slab is only R x F outputs,
-//   so KS warp groups split its contraction (each a contiguous K / KS
-//   range, giving every warp four independent accumulator tiles) and the
-//   epilogue sums their partials in group order.
+//   real, 512 KB complex) does not fit in one block's shared memory.
+//   - Complex, one operator for the whole launch (every ideal run): a
+//     thread-block cluster of kClusterCtas = 4 CTAs, one per SM, splits
+//     the 256 output rows, and each CTA keeps its 64 rows of both planes
+//     (135 KB) resident for the whole launch. A block of the streamed
+//     kernel below reads the whole 512 KB operator from L2 again for every
+//     32 fibers (64 GiB of L2 reads for an 8 GiB state at n = 30) and pays
+//     three barriers and a partial-sum epilogue per 16-row slab. The
+//     cluster walks tiles of F = 16 fibers. Each CTA copies a whole tile
+//     into a stage with cp.async; the four CTAs read it at about the same
+//     time, so it comes from device memory once and from L2 for the rest.
+//     A CTA is two groups of four warps that take alternate tiles, each
+//     into its own stage, and take turns on the tensor cores (named
+//     barriers): one group's copies, epilogue and stores run while the
+//     other's products do. Warp k of a group computes contraction group k
+//     (a contiguous K / 4 range) for all 64 x 16 outputs of both planes,
+//     and the epilogue sums the four partials in group order: the
+//     streamed kernel's grouping, so both give the same bits.
+//     What bounds it (n = 30, H100 at 700 W): the products, about 33 of
+//     42 ms with one warp of a group per scheduler, then about 5 ms of
+//     copies that the other group's products do not cover; 30 clusters
+//     fit (120 of 132 SMs). Measured and dropped: multicasting each tile
+//     with 1-D cp.async.bulk copies behind full / empty mbarriers (69 /
+//     56 ms: copies, remote barriers and products ran one after another),
+//     clusters of 8 CTAs (15 fit; slower), all eight warps on one tile at
+//     a time (53 / 51 ms), and an epilogue through one buffer shared by
+//     the groups or summed in registers, to refill stages sooner (44-48
+//     ms).
+//     In place with a cluster: a CTA overwrites only its own rows of a
+//     tile, but every CTA reads all of the tile's rows. So each thread
+//     arrives on the cluster barrier once its copies of the tile have
+//     landed and waits on it before the stores: no row of a tile is
+//     written until every CTA of the cluster holds the whole tile. The
+//     wait falls after the products, so its latency is hidden. One
+//     cluster owns each tile, so no other cluster reads those fibers, and
+//     only the group that owns a stage refills it, after its stores.
+//   - Otherwise (a real operator, one operator per trajectory, or copies
+//     narrower than 16 bytes; the rule is cluster_path in
+//     cross_bit_axis.cu and takes_cluster in ops/cuda_exec.py) the
+//     operator streams from L2 (every block reads the same operator)
+//     through a double-buffered slab of R output rows while the fiber
+//     tile stays resident. Each
+//     slab's rows are written as they finish, which is safe in place
+//     because the whole input tile is already in shared memory. Part j of
+//     the next tile's copies goes into the same cp.async group as slab
+//     j + 1, so one wait at the top of each slab serves both streams
+//     (three barriers a slab: copies visible, products done, staging
+//     done). A slab is only R x F outputs, so KS warp groups split its
+//     contraction (each a contiguous K / KS range, giving every warp four
+//     independent accumulator tiles) and the epilogue sums their partials
+//     in group order.
 // * Epilogue through shared memory, so stores are full vectors along the
 //   contiguous dimension in both layouts.
 //
@@ -83,9 +123,11 @@
 //   trajectory a block restages it when its trajectory changes, which the
 //   trajectory-major order keeps to about once per trajectory per block
 //   (not overlapped with the tile's copies).
-// * K = 256. The operator streams from L2 in slabs and every tile of a
-//   trajectory re-reads it; a real cross operator is 256 KB and a complex
-//   one 512 KB, more than a 16-qubit trajectory's 256 KB state. The walk
+// * K = 256. With one operator shared by the batch (stride 0) a complex
+//   step takes the cluster kernel. Otherwise the operator streams from L2
+//   in slabs and every tile of a trajectory re-reads it; a real cross
+//   operator is 256 KB and a complex one 512 KB, more than a 16-qubit
+//   trajectory's 256 KB state. The walk
 //   keeps one trajectory's tiles adjacent in time so its operator is
 //   still in the 50 MB L2 when the next of its tiles needs it.
 // * Small n. At n = 10, layout (8, 128), a trajectory has 8 fibers on its
@@ -721,6 +763,280 @@ mma_kernel(float* x, const float* __restrict__ w, FiberGeom g) {
 }
 
 // ---------------------------------------------------------------------------
+// Cluster path (complex K = 256, one operator for the whole launch)
+// ---------------------------------------------------------------------------
+
+constexpr int kClusterCtas = 4;
+
+// Each of the C CTAs holds R = 256 / C operator rows of both planes; a
+// tile is F fibers. The block is two groups of four warps that take
+// alternate tiles of the cluster, each into its own stage; warp k of a
+// group computes contraction group k of the tile, all R x F outputs of
+// both planes. The operator rows and a row-major tile have pitch K + 8, a
+// fiber-major tile F + 4, as in MmaTile. A stage also holds the
+// epilogue's KS partials once its tile is consumed.
+template <bool ROWS>
+struct ClusterTile {
+  static constexpr int K = 256, C = kClusterCtas, NP = 2;
+  static constexpr int R = K / C;
+  static constexpr int F = 16;
+  static constexpr int KS = 4;
+  static constexpr int MT = R / 16, NT = F / 8;  // one warp's tiles
+  static constexpr int GT = kThreads / 2;      // threads of a group
+  static constexpr int KWP = K + 8;
+  static constexpr int WPL = R * KWP;          // operator plane
+  static constexpr int XC = ROWS ? 1 : F + 4;  // stride of a row in a stage
+  static constexpr int XF = ROWS ? K + 8 : 1;  // stride of a fiber
+  static constexpr int XPL = ROWS ? F * (K + 8) : K * (F + 4);
+  static constexpr int SC = ROWS ? 1 : F + 4;  // epilogue staging strides
+  static constexpr int SF = ROWS ? R + 4 : 1;
+  static constexpr int SPL = ROWS ? F * (R + 4) : R * (F + 4);
+  static constexpr int XSTAGE =
+      NP * XPL > KS * NP * SPL ? NP * XPL : KS * NP * SPL;
+  static constexpr size_t smem_bytes =
+      sizeof(float) * ((size_t)NP * WPL + 2 * (size_t)XSTAGE);
+  static_assert(KS == GT / 32, "a contraction group per warp");
+  static_assert(smem_bytes + 1024 <= 233472, "shared memory");
+};
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Named block barriers: wait for `n` threads, or count this warp's threads
+// toward them and go on.
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+
+// The group's cp.async copies of the tile at fiber f0 into its stage, in
+// 16-byte chunks; fibers past n_fib are zero.
+template <class T, bool ROWS>
+__device__ __forceinline__ void copy_group_tile(float* stage, const float* x,
+                                                const FiberGeom& g,
+                                                long long f0, int gt) {
+  constexpr int K = T::K, F = T::F;
+  constexpr int PER_PLANE = K * F / 4;
+  for (int e = gt; e < T::NP * PER_PLANE; e += T::GT) {
+    const int p = e / PER_PLANE;
+    const int q = e - p * PER_PLANE;
+    const int c = ROWS ? (q % (K / 4)) * 4 : q / (F / 4);
+    const int f = ROWS ? q / (K / 4) : (q % (F / 4)) * 4;
+    const long long fib = f0 + f;
+    const bool valid = fib < g.n_fib;
+    const float* src = valid ? x + p * g.plane_stride + fiber_base(g, fib) +
+                                   row_offset(g, c)
+                             : x;
+    cp_async<16>(stage + p * T::XPL + c * T::XC + f * T::XF, src, valid);
+  }
+}
+
+// The group's stores of this CTA's rows [row0, row0 + R) of the tile at
+// fiber f0: the sum of the KS partials in group order, 16 bytes a store.
+template <class T, bool ROWS>
+__device__ __forceinline__ void store_group_tile(float* x, const float* st,
+                                                 const FiberGeom& g,
+                                                 long long f0, int row0,
+                                                 int gt) {
+  constexpr int F = T::F, R = T::R;
+  constexpr int PER_PLANE = R * F / 4;
+  for (int e = gt; e < T::NP * PER_PLANE; e += T::GT) {
+    const int p = e / PER_PLANE;
+    const int q = e - p * PER_PLANE;
+    const int r = ROWS ? (q % (R / 4)) * 4 : q / (F / 4);
+    const int f = ROWS ? q / (R / 4) : (q % (F / 4)) * 4;
+    const long long fib = f0 + f;
+    if (fib >= g.n_fib) continue;
+    const float* src = st + p * T::SPL + r * T::SC + f * T::SF;
+    float4 v = *reinterpret_cast<const float4*>(src);
+#pragma unroll
+    for (int kg = 1; kg < T::KS; ++kg) {
+      const float4 u =
+          *reinterpret_cast<const float4*>(src + kg * T::NP * T::SPL);
+      v.x += u.x;
+      v.y += u.y;
+      v.z += u.z;
+      v.w += u.w;
+    }
+    *reinterpret_cast<float4*>(x + p * g.plane_stride + fiber_base(g, fib) +
+                               row_offset(g, row0 + r)) = v;
+  }
+}
+
+template <bool ROWS>
+__global__ void __launch_bounds__(kThreads, 1)
+cluster_mma_kernel(float* x, const float* __restrict__ w, FiberGeom g) {
+  using T = ClusterTile<ROWS>;
+  constexpr int K = T::K, F = T::F, R = T::R, MT = T::MT, NT = T::NT;
+  constexpr int NP = T::NP, C = T::C, GT = T::GT;
+  constexpr int KK = K / T::KS;          // contraction range of a group
+  // named barriers: 1 and 2 pass the tensor cores to group 0 and 1;
+  // 3 and 4 are the groups' own
+  constexpr int kTurn = 1, kGroup = 3;
+
+  extern __shared__ __align__(16) float smem[];
+  float* wres = smem;                    // [NP][R][KWP]: this CTA's rows
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int grp = warp >> 2;             // the warp's group
+  const int gt = threadIdx.x & (GT - 1); // thread within the group
+  const int kg = warp & 3;               // the warp's contraction group
+  float* xs = smem + NP * T::WPL + grp * T::XSTAGE;   // the group's stage
+  const int rank = (int)cluster_rank();
+  const long long cid = blockIdx.x / C;    // clusters are C consecutive CTAs
+  const long long ncl = gridDim.x / C;
+  const long long tpt = (g.n_fib + F - 1) / F;   // tiles per trajectory
+  const long long n_tiles = tpt * g.n_batch;
+  // the cluster's tiles, trajectory-major; group grp takes every other one
+  const long long mine = (n_tiles - cid + ncl - 1) / ncl;
+  const long long rounds = (mine + 1) / 2;
+
+  // This CTA's operator rows of both planes, resident for the whole launch.
+  {
+    constexpr int CPR = K / 4;
+    for (int e = threadIdx.x; e < NP * R * CPR; e += kThreads) {
+      const int c4 = e % CPR;
+      const int pr = e / CPR;              // p * R + r
+      const int p = pr / R;
+      const int r = pr - p * R;
+      cp_async<16>(wres + p * T::WPL + r * T::KWP + c4 * 4,
+                   w + ((long long)p * K + rank * R + r) * K + c4 * 4, true);
+    }
+    cp_async_commit();
+  }
+
+  // Each round, group 0 takes the cluster's tile 2 rd and group 1 tile
+  // 2 rd + 1 (a group past the cluster's last tile only keeps the
+  // barriers). The groups take turns on the tensor cores, group 0 first:
+  // one's copies, epilogue and stores run while the other's products do.
+  // Every CTA of a cluster walks the same tiles and copies each whole
+  // tile into its own stage; the cluster's CTAs read it at about the same
+  // time, so L2 serves all but the first read.
+  for (long long rd = 0; rd < rounds; ++rd) {
+    const long long j = 2 * rd + grp;
+    const bool has = j < mine;
+    const long long tile = cid + j * ncl;
+    const long long b = tile / tpt;
+    const long long f0 = (tile - b * tpt) * F;
+    if (has) copy_group_tile<T, ROWS>(xs, x + b * g.xb, g, f0, gt);
+    cp_async_commit();
+    cp_async_wait_all();   // this thread's copies (and the operator) landed
+    bar_sync(kGroup + grp, GT);   // the group's copies are visible
+    if (rd == 0) __syncthreads();  // and everyone's operator rows
+    cluster_arrive();      // this thread's copies of the tile have landed
+
+    float acc[NP][MT][NT][4];
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[p][mt][nt][i] = 0.f;
+
+    if (grp == 1) bar_sync(kTurn + 1, kThreads);     // group 0 is done
+    else if (rd > 0) bar_sync(kTurn, kThreads);      // group 1 is done
+    if (has) {
+      // The products of mma_kernel's complex path, for contraction group
+      // kg of the tile over all of this CTA's rows.
+#pragma unroll 2
+      for (int k0 = kg * KK; k0 < (kg + 1) * KK; k0 += 8) {
+        float part[NP][MT][NT][4];
+        uint32_t bh[NP][NT][2], bl[NP][NT][2], nbh[NT][2], nbl[NT][2];
+        load_b<T>(xs, k0, 0, gid, tig, bh[0], bl[0]);
+        load_b<T>(xs + T::XPL, k0, 0, gid, tig, bh[1], bl[1]);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            nbh[nt][i] = bh[1][nt][i] ^ 0x80000000u;
+            nbl[nt][i] = bl[1][nt][i] ^ 0x80000000u;
+          }
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          const float* wrow = wres + (mt * 16 + gid) * T::KWP + k0;
+          uint32_t ah[4], al[4];
+          load_a<T>(wrow, tig, ah, al);          // Wr
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+            for (int p = 0; p < NP; ++p) {       // re: Wr Xr; im: Wr Xi
+              mma_tf32_zero(part[p][mt][nt], al, bh[p][nt]);
+              mma_tf32(part[p][mt][nt], ah, bl[p][nt]);
+              mma_tf32(part[p][mt][nt], ah, bh[p][nt]);
+            }
+          }
+          load_a<T>(wrow + T::WPL, tig, ah, al);  // Wi
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            // re += Wi (-Xi), the same products as (-Wi) Xi; im += Wi Xr
+            mma_tf32(part[0][mt][nt], al, nbh[nt]);
+            mma_tf32(part[0][mt][nt], ah, nbl[nt]);
+            mma_tf32(part[0][mt][nt], ah, nbh[nt]);
+            mma_tf32(part[1][mt][nt], al, bh[0][nt]);
+            mma_tf32(part[1][mt][nt], ah, bl[0][nt]);
+            mma_tf32(part[1][mt][nt], ah, bh[0][nt]);
+          }
+        }
+#pragma unroll
+        for (int p = 0; p < NP; ++p)
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+              for (int i = 0; i < 4; ++i)
+                acc[p][mt][nt][i] += part[p][mt][nt][i];
+      }
+    }
+    if (grp == 0) bar_arrive(kTurn + 1, kThreads);   // group 1's turn
+    else if (rd + 1 < rounds) bar_arrive(kTurn, kThreads);
+
+    if (has) {
+      bar_sync(kGroup + grp, GT);   // the group is done reading its tile
+      // Epilogue: the KS partials over the consumed tile.
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        float* sp = xs + (kg * NP + p) * T::SPL;
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            const int r = mt * 16 + gid;
+            const int f = nt * 8 + 2 * tig;
+            sp[r * T::SC + f * T::SF] = acc[p][mt][nt][0];
+            sp[r * T::SC + (f + 1) * T::SF] = acc[p][mt][nt][1];
+            sp[(r + 8) * T::SC + f * T::SF] = acc[p][mt][nt][2];
+            sp[(r + 8) * T::SC + (f + 1) * T::SF] = acc[p][mt][nt][3];
+          }
+      }
+      bar_sync(kGroup + grp, GT);
+    }
+    // Every CTA holds this round's tiles whole: their rows may change.
+    cluster_wait();
+    if (has) store_group_tile<T, ROWS>(x + b * g.xb, xs, g, f0, rank * R, gt);
+    bar_sync(kGroup + grp, GT);   // the stores have read the stage
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Launch
 // ---------------------------------------------------------------------------
 
@@ -777,6 +1093,51 @@ int launch_k(float* x, const float* w, int rows, const FiberGeom& g,
                              g.n_batch * ((g.n_fib + T::F - 1) / T::F),
                              resident, x, w, g, st);
   }
+}
+
+// One persistent wave of clusters of the cluster kernel on `stream`, as
+// many as fit at once (cudaOccupancyMaxActiveClusters, cached per card)
+// and at most one per tile; returns a CUDA error code, never synchronises.
+template <bool ROWS>
+int& cluster_wave() {
+  static int n = 0;                     // clusters resident at once
+  return n;
+}
+
+template <bool ROWS>
+int launch_cluster(float* x, const float* w, const FiberGeom& g,
+                   cudaStream_t stream) {
+  using T = ClusterTile<ROWS>;
+  int& max_clusters = cluster_wave<ROWS>();
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = T::C;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(T::C);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = T::smem_bytes;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  if (max_clusters == 0) {
+    cudaError_t err = cudaFuncSetAttribute(
+        cluster_mma_kernel<ROWS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)T::smem_bytes);
+    if (err != cudaSuccess) return (int)err;
+    int n = 0;
+    err = cudaOccupancyMaxActiveClusters(&n, cluster_mma_kernel<ROWS>, &cfg);
+    if (err != cudaSuccess) return (int)err;
+    if (n < 1) return (int)cudaErrorInvalidConfiguration;
+    max_clusters = n;
+  }
+  const long long n_tiles = g.n_batch * ((g.n_fib + T::F - 1) / T::F);
+  const long long nc = n_tiles < max_clusters ? n_tiles : max_clusters;
+  cfg.gridDim = dim3((unsigned)(nc * T::C));
+  cudaError_t err = cudaLaunchKernelEx(&cfg, cluster_mma_kernel<ROWS>, x, w, g);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 // One case of the K dispatch; depths outside [KMIN, KMAX] are not built.

@@ -132,6 +132,15 @@ def _load() -> ctypes.CDLL:
     lib.qs_tile_fibers_f64.restype = ctypes.c_int
     lib.qs_smem_bytes_f64.argtypes = [ctypes.c_int] * 2
     lib.qs_smem_bytes_f64.restype = ctypes.c_longlong
+    lib.qs_cross_path.argtypes = [ctypes.c_int] * 2 + [ctypes.c_longlong,
+                                                        ctypes.c_int]
+    lib.qs_cross_path.restype = ctypes.c_int
+    lib.qs_cluster_tile_fibers.argtypes = []
+    lib.qs_cluster_tile_fibers.restype = ctypes.c_int
+    lib.qs_cluster_wave.argtypes = [ctypes.c_int]
+    lib.qs_cluster_wave.restype = ctypes.c_int
+    lib.qs_cluster_smem_bytes.argtypes = [ctypes.c_int]
+    lib.qs_cluster_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 

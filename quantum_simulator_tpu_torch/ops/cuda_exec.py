@@ -13,7 +13,11 @@ Both are one CUDA template (``csrc/fiber_matmul.cuh``): the state is a
 set of "fibers", each a K-long column of rows whose offsets are
 ``(r // S) * bit_stride + (r % S) * op_stride``; one block owns each tile
 of fibers, multiplies the operator into it (3xTF32 on the tensor cores
-for K >= ``MMA_MIN_K``, fp32 FMA below) and writes the result over it.
+for K >= ``MMA_MIN_K``, fp32 FMA below) and writes the result over it. A
+complex K = 256 cross step whose operator serves the whole launch
+(``takes_cluster``) runs on a thread-block cluster instead: its CTAs split
+the operator's rows and keep them resident, and one cluster owns each
+tile.
 The wrappers below reduce the state to that strided view
 (``dense_geometry``, ``cross_geometry``), choose how a tile is copied
 (``copy_plan``), check what the kernel takes and raise on anything else.
@@ -24,7 +28,8 @@ Each wrapper has a plain PyTorch twin (``*_plain``: ``torch.einsum`` on the
 JAX package's ``_dense_spec`` / ``_cross_spec`` forms, in the state's
 dtype). The wrapper takes the twin only for a tensor on the CPU; a CUDA
 tensor launches the kernel or raises. ``<wrapper>.launches`` counts kernel
-launches.
+launches, ``cross_bit_axis.cluster_launches`` those of them that the
+cluster kernel served.
 
 A float64 state (``config.enable_complex128``) goes to the float64 kernels
 (``dense_axis_f64``, ``cross_bit_axis_f64``: ``csrc/fiber_matmul_f64.cu``,
@@ -236,14 +241,29 @@ def cross_geometry(shape: tuple[int, ...], slice_axis: int, slice_pos: int,
 MMA_MIN_K = 32
 
 
-def tile_fibers(K: int, real: bool) -> int:
+def tile_fibers(K: int, real: bool, cluster: bool = False) -> int:
     """Fibers per tile at depth K: ``SimtTile`` / ``MmaTile<K, ...>::F`` of
-    ``csrc/fiber_matmul.cuh`` (``chip_smoke.py`` checks the two agree)."""
+    ``csrc/fiber_matmul.cuh``, or ``ClusterTile::F`` for a launch that
+    ``takes_cluster`` (``chip_smoke.py`` checks the two agree)."""
+    if cluster:
+        return 16
     if K < MMA_MIN_K:
         return 4096 // K
     if real:
         return {32: 128, 128: 128}.get(K, 64)
     return 64 if K == 32 else 32
+
+
+def takes_cluster(K: int, real: bool, op_batch_stride: int,
+                  vec: int) -> bool:
+    """Whether a cross launch takes the cluster kernel: a complex K = 256
+    operator that serves the whole batch (stride 0), with 16-byte copies
+    (``copy_plan``). A cluster of CTAs splits the operator's rows, each
+    keeping its share resident, and one cluster owns each fiber tile
+    (``csrc/fiber_matmul.cuh``). ``cluster_path`` in
+    ``csrc/cross_bit_axis.cu`` is the kernel's side of the rule
+    (``chip_smoke.py`` checks the two agree)."""
+    return K == 256 and not real and op_batch_stride == 0 and vec == 4
 
 
 # Contraction depths from this one up take the float64 kernels' DMMA path
@@ -334,21 +354,23 @@ def _view(kind: str, shape: tuple[int, ...], geom, planar: bool,
 
 def _launch(fn_name: str, x: torch.Tensor, op: torch.Tensor, K: int,
             real: bool, view: tuple[Geometry, tuple[bool, int]],
-            batched: bool) -> None:
+            batched: bool) -> bool:
     """Launch a kernel over ``x`` in place on the current stream, with a
     launch record while the recorder is on (``utils/profiling.py``). A
     batch of B trajectories: trajectory b's state starts ``b *
     x[0].numel()`` elements in and its operator ``b * op.stride(0)``
-    elements in."""
-    profiling.launch(fn_name.removeprefix("qs_"), x, op, K, not real,
-                     batched)
+    elements in. Returns whether the cluster kernel served it."""
     g, (rows, vec) = view
+    n_batch, xb, wb = ((x.shape[0], x[0].numel(), op.stride(0)) if batched
+                       else (1, 0, 0))
+    cluster = fn_name == "qs_cross_bit_axis" and takes_cluster(K, real, wb,
+                                                               vec)
+    profiling.launch(fn_name.removeprefix("qs_"), x, op, K, not real,
+                     batched, "cluster" if cluster else "tile")
     chunk = x.element_size() * vec
     if x.data_ptr() % chunk or op.data_ptr() % 16:
         raise ValueError(f"{fn_name}: state or operator not aligned for "
                          f"{chunk}-byte copies")
-    n_batch, xb, wb = ((x.shape[0], x[0].numel(), op.stride(0)) if batched
-                       else (1, 0, 0))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = getattr(_build.library(), fn_name)(
@@ -358,6 +380,7 @@ def _launch(fn_name: str, x: torch.Tensor, op: torch.Tensor, K: int,
     if rc != 0:
         raise RuntimeError(f"{fn_name}: launch failed with CUDA error {rc} "
                            f"({_build.error_string(rc)})")
+    return cluster
 
 
 def _dense_launch(name: str, x: torch.Tensor, op: torch.Tensor, axis: int,
@@ -372,7 +395,7 @@ def _dense_launch(name: str, x: torch.Tensor, op: torch.Tensor, axis: int,
 
 def _cross_launch(name: str, x: torch.Tensor, cop: torch.Tensor,
                   slice_axis: int, slice_pos: int, op_axis: int,
-                  planar: bool, batched: bool) -> None:
+                  planar: bool, batched: bool) -> bool:
     shape = _layout_shape(x, planar, batched)
     S = shape[op_axis]
     if slice_axis == op_axis or not 0 <= slice_pos < \
@@ -380,9 +403,9 @@ def _cross_launch(name: str, x: torch.Tensor, cop: torch.Tensor,
         raise ValueError(f"{name}: bad geometry ({slice_axis}, "
                          f"{slice_pos}, {op_axis}) for shape {shape}")
     real = _check(x, cop, (2, S, 2, S), planar, batched, name)
-    _launch(f"qs_{name}", x, cop, 2 * S, real,
-            _view("cross", shape, (slice_axis, slice_pos, op_axis), planar,
-                  real, x.element_size()), batched)
+    return _launch(f"qs_{name}", x, cop, 2 * S, real,
+                   _view("cross", shape, (slice_axis, slice_pos, op_axis),
+                         planar, real, x.element_size()), batched)
 
 
 def dense_axis(x: torch.Tensor, op: torch.Tensor, axis: int,
@@ -425,8 +448,9 @@ def cross_bit_axis(x: torch.Tensor, cop: torch.Tensor, slice_axis: int,
     if x.dtype == torch.float64:
         return cross_bit_axis_f64(x, cop, slice_axis, slice_pos, op_axis,
                                   planar, batched)
-    _cross_launch("cross_bit_axis", x, cop, slice_axis, slice_pos, op_axis,
-                  planar, batched)
+    if _cross_launch("cross_bit_axis", x, cop, slice_axis, slice_pos,
+                     op_axis, planar, batched):
+        cross_bit_axis.cluster_launches += 1
     cross_bit_axis.launches += 1
     return x
 
@@ -447,6 +471,7 @@ def cross_bit_axis_f64(x: torch.Tensor, cop: torch.Tensor, slice_axis: int,
 
 dense_axis.launches = 0
 cross_bit_axis.launches = 0
+cross_bit_axis.cluster_launches = 0   # of them, on the cluster kernel
 dense_axis_f64.launches = 0
 cross_bit_axis_f64.launches = 0
 
@@ -459,3 +484,4 @@ KERNELS_F64 = (dense_axis_f64, cross_bit_axis_f64)
 def reset_launch_counts() -> None:
     for k in KERNELS + KERNELS_F64:
         k.launches = 0
+    cross_bit_axis.cluster_launches = 0

@@ -64,8 +64,11 @@ class Launch(NamedTuple):
     """One kernel launch: ``state_elems`` real elements of the state
     (planes and batch included), ``op_elems`` distinct real elements of
     the operator (one block when it is shared with stride 0), the depth
-    ``K``, whether the operator is complex, the precision, and the
-    innermost span open at the launch (-1 outside any)."""
+    ``K``, whether the operator is complex, the precision, the innermost
+    span open at the launch (-1 outside any), and the kernel that served
+    it: ``"cluster"`` for the cluster kernel of complex K = 256 steps
+    with a shared operator (``cuda_exec.takes_cluster``), else
+    ``"tile"`` (one block owns each fiber tile)."""
 
     kernel: str
     state_elems: int
@@ -74,6 +77,7 @@ class Launch(NamedTuple):
     complex_op: bool
     precision: str
     span: int
+    path: str = "tile"
 
 
 class Gauge(NamedTuple):
@@ -175,17 +179,17 @@ def gauge(name: str, value: float) -> None:
 
 
 def launch(kernel: str, x: torch.Tensor, op: torch.Tensor, K: int,
-           complex_op: bool, batched: bool) -> None:
+           complex_op: bool, batched: bool, path: str = "tile") -> None:
     """Record a kernel launch over the state ``x`` with the operator
     ``op`` (a batch of operators, or one repeated with stride 0, when
-    ``batched``) while a ``recording()`` is open."""
+    ``batched``), served by ``path``, while a ``recording()`` is open."""
     if _recording is None:
         return
     shared = batched and op.stride(0) == 0
     _recording.launches.append(Launch(
         kernel, x.numel(), (op[0] if shared else op).numel(), int(K),
         complex_op, "float64" if x.dtype == torch.float64 else "float32",
-        _recording._innermost()))
+        _recording._innermost(), path))
 
 
 @contextlib.contextmanager

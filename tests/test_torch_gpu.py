@@ -163,8 +163,9 @@ SMOKE_CROSS = [(16, 1, 0, 0), (16, 1, 6, 2), (28, 0, 6, 1), (28, 1, 6, 2),
 
 @pytest.mark.parametrize("n,s,pos,o", SMOKE_CROSS)
 def test_cross_slab_loop_on_main_path_geometries(cuda, n, s, pos, o):
-    """K = 256 streams the operator in slabs of output rows; every main
-    path geometry, real operator on a real state (complex at n = 16)."""
+    """K = 256 streams a real operator in slabs of output rows (a shared
+    complex one takes the cluster kernel); every main path geometry, real
+    operator on a real state (complex at n = 16)."""
     shape = LAYOUTS[n]
     S = shape[o]
     variants = [(False, True)] + ([(True, False)] if n == 16 else [])
@@ -373,6 +374,74 @@ def test_batched_shared_operator_equals_full_stride(cuda, planar, real):
         b = fn(x.clone(), shared.contiguous(), *geom, planar, True)
         torch.cuda.synchronize()
         assert torch.equal(a, b)
+
+
+def _k256_served(cuda, shape, geom, B=None, shared=True, seed=0):
+    """A complex K = 256 cross launch against the plain twin: at most 2x
+    the twin's error against float64 (the kernels' 3xTF32 bound). Returns
+    how many launches the cluster kernel served."""
+    S = shape[geom[2]]
+    if B is None:
+        x = _state(shape, True, cuda, seed)
+        cop = _scaled_op((2, S, 2, S), False, cuda, seed + 1)
+    else:
+        x = _batch_state(B, shape, True, cuda, seed)
+        cop = _batch_op(B, (2, S, 2, S), False, cuda, seed + 1, shared)
+    batched = B is not None
+    want = cuda_exec.cross_bit_axis_plain(x, cop, *geom, True, batched)
+    ref = cuda_exec.cross_bit_axis_plain(x.double(), cop.double(), *geom,
+                                         True, batched)
+    cuda_exec.reset_launch_counts()
+    got = cuda_exec.cross_bit_axis(x.clone(), cop, *geom, True, batched)
+    torch.cuda.synchronize()
+    err = float((got.double() - ref).abs().max())
+    twin = float((want.double() - ref).abs().max())
+    assert err <= 2 * twin, (err, twin)
+    assert cuda_exec.cross_bit_axis.launches == 1
+    return cuda_exec.cross_bit_axis.cluster_launches
+
+
+@pytest.mark.parametrize("shape,geom,rows", [
+    ((4, 128, 128), (1, 6, 2), True),      # rows contiguous
+    ((4, 128, 128), (2, 0, 1), False),     # runs of 64 fibers
+    ((8, 128, 128), (1, 3, 2), True),
+    ((8, 128, 128), (2, 1, 1), False),     # runs of 32 fibers
+])
+def test_cluster_kernel_matches_twin_in_both_layouts(cuda, shape, geom,
+                                                     rows):
+    g = cuda_exec.cross_geometry(shape, *geom, True, False)
+    assert cuda_exec.copy_plan(g) == (rows, 4)
+    assert _k256_served(cuda, shape, geom) == 1
+
+
+def test_narrow_copies_take_the_streamed_kernel(cuda):
+    """Copies narrower than 16 bytes keep a shared complex K = 256
+    operator on the streamed kernel."""
+    shape, geom = (4, 128, 128), (2, 5, 1)     # runs of 2 fibers: 8 bytes
+    g = cuda_exec.cross_geometry(shape, *geom, True, False)
+    assert cuda_exec.copy_plan(g) == (False, 2)
+    assert _k256_served(cuda, shape, geom) == 0
+
+
+@pytest.mark.parametrize("shape,geom,B", [
+    ((4, 128, 128), (2, 0, 1), 5),   # 80 tiles over the card's clusters
+    ((2, 128), (0, 0, 1), 7),        # one fiber a trajectory: ragged tiles
+    ((4, 2, 128), (1, 0, 2), 9),     # 4 fibers a trajectory
+])
+def test_cluster_kernel_ragged_last_cluster(cuda, shape, geom, B):
+    """Tile counts that leave the last clusters of the wave with one tile
+    fewer, and trajectories with fewer fibers than a tile holds."""
+    assert _k256_served(cuda, shape, geom, B) == 1
+
+
+def test_batched_shared_operator_takes_the_cluster_kernel(cuda):
+    assert _k256_served(cuda, (4, 128, 128), (1, 6, 2), B=3,
+                        shared=True) == 1
+
+
+def test_batched_per_trajectory_operators_take_the_streamed_kernel(cuda):
+    assert _k256_served(cuda, (4, 128, 128), (1, 6, 2), B=3,
+                        shared=False) == 0
 
 
 def test_batched_launch_is_in_place_and_counted(cuda):

@@ -146,8 +146,10 @@ def _lo(v: torch.Tensor) -> torch.Tensor:
     return (b & -0x2000).view(torch.float32)
 
 
-# Contraction groups per slab at K = 256 (``MmaTile::KS``): (real, complex).
-K_GROUPS = {256: (2, 4)}
+# Contraction groups at K = 256, (real, complex): ``MmaTile::KS`` of the
+# streamed kernel per slab and ``ClusterTile::KS`` of the cluster kernel per
+# tile, both four contiguous K / 4 ranges summed in group order.
+K_GROUPS = {256: (4, 4)}
 
 
 def _mma_emulated(pairs, K: int, groups: int = 1,
@@ -270,10 +272,12 @@ def _emulate_kernel(x: torch.Tensor, w: torch.Tensor, g: cuda_exec.Geometry,
                     K: int, real: bool) -> torch.Tensor:
     """What the kernel computes, with its index map and arithmetic:
     X[r, fib] <- sum_c W[r, c] X[c, fib] in place on the strided fiber
-    view, tiles of ``tile_fibers`` fibers each owned by one block, the
-    3xTF32 product for K >= MMA_MIN_K and fp32 below."""
-    F = cuda_exec.tile_fibers(K, real)
+    view, tiles of ``tile_fibers`` fibers each owned by one block (one
+    cluster where the launch ``takes_cluster``), the 3xTF32 product for
+    K >= MMA_MIN_K and fp32 below."""
     rows, vec = cuda_exec.copy_plan(g)
+    F = cuda_exec.tile_fibers(K, real,
+                              cuda_exec.takes_cluster(K, real, 0, vec))
     assert F % vec == 0  # a chunk never straddles two tiles
     addr = _chunk_addresses(g, K)
     planes = [addr] if real else [addr, addr + g.plane_stride]
@@ -394,6 +398,38 @@ def test_tile_fibers_split_the_two_paths():
         == [2048, 256, 128, 64, 128, 64]
     assert [cuda_exec.tile_fibers(k, False) for k in (32, 64, 128, 256)] \
         == [64, 32, 32, 32]
+    assert cuda_exec.tile_fibers(256, False, cluster=True) == 16
+
+
+@pytest.mark.parametrize("K,real,op_stride,vec,want", [
+    (256, False, 0, 4, True),              # the sweep's K = 256 steps
+    (256, False, 2 * 256 * 256, 4, False),  # one operator per trajectory
+    (256, True, 0, 4, False),              # a real operator
+    (256, False, 0, 2, False),             # 8-byte copies
+    (128, False, 0, 4, False),             # the resident K = 128 tile
+])
+def test_cluster_path_rule(K, real, op_stride, vec, want):
+    """Complex K = 256 launches whose operator serves the whole batch take
+    the cluster kernel where their copies are 16 bytes wide; nothing else
+    does."""
+    assert cuda_exec.takes_cluster(K, real, op_stride, vec) is want
+
+
+@pytest.mark.parametrize("n,s,pos,o", [(30, 1, 6, 2), (30, 2, 6, 3),
+                                       (30, 3, 6, 4), (28, 2, 6, 3)])
+def test_main_path_k256_steps_take_the_cluster_kernel(n, s, pos, o):
+    """Every K = 256 cross step of the n = 28 and 30 brickwork plans, in
+    both copy layouts, with its complex operator shared."""
+    shape = {28: (128,) * 4, 30: (4,) + (128,) * 4}[n]
+    g = cuda_exec.cross_geometry(shape, s, pos, o, True, False)
+    _, vec = cuda_exec.copy_plan(g)
+    assert cuda_exec.takes_cluster(2 * g.S, False, 0, vec)
+
+
+def test_reset_clears_the_cluster_count():
+    cuda_exec.cross_bit_axis.cluster_launches = 5
+    cuda_exec.reset_launch_counts()
+    assert cuda_exec.cross_bit_axis.cluster_launches == 0
 
 
 def test_cpu_tensor_takes_the_twin_and_counts_no_launch():
@@ -409,6 +445,7 @@ def test_cpu_tensor_takes_the_twin_and_counts_no_launch():
         cuda_exec.cross_bit_axis(x, cop, 0, 1, 1, True), x)
     assert cuda_exec.dense_axis.launches == 0
     assert cuda_exec.cross_bit_axis.launches == 0
+    assert cuda_exec.cross_bit_axis.cluster_launches == 0
 
 
 def test_other_devices_raise_instead_of_falling_back():
