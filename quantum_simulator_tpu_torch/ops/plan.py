@@ -39,7 +39,7 @@ import numpy as np
 import torch
 
 from ..config import CONFIG
-from ..utils.profiling import span
+from ..utils.profiling import is_recording, span, state_pass
 from . import cuda_exec
 from . import program as prog
 from .apply import apply_gate
@@ -1301,15 +1301,29 @@ def apply_in_chunks(x: torch.Tensor, lead: int, involved, fn,
     temporaries. ``sliced``: ``fn(view, axis, start, width)``, for
     transforms that slice an operand alongside. With no free axis the
     whole state goes through ``fn`` at once."""
-    shape = tuple(x.shape[lead:])
-    free = [a for a, s in enumerate(shape) if a not in involved and s > 1]
-    if not free:
+    ax = _chunk_axis(x, lead, involved)
+    if ax is None:
         return fn(x, None, 0, 0) if sliced else fn(x)
-    ax = max(free, key=lambda a: shape[a])
-    for start, width in chunk_ranges(shape[ax], x.numel()):
+    for start, width in chunk_ranges(x.shape[lead + ax], x.numel()):
         view = x.narrow(lead + ax, start, width)
         view.copy_(fn(view, ax, start, width) if sliced else fn(view))
     return x
+
+
+def _chunk_axis(x: torch.Tensor, lead: int, involved) -> int | None:
+    """The data axis ``apply_in_chunks`` cuts ``x`` along: its largest
+    outside ``involved``; None where there is none."""
+    shape = tuple(x.shape[lead:])
+    free = [a for a, s in enumerate(shape) if a not in involved and s > 1]
+    return max(free, key=lambda a: shape[a]) if free else None
+
+
+def chunk_count(x: torch.Tensor, lead: int, involved) -> int:
+    """How many pieces ``apply_in_chunks`` runs ``x`` in."""
+    ax = _chunk_axis(x, lead, involved)
+    if ax is None:
+        return 1
+    return len(chunk_ranges(x.shape[lead + ax], x.numel()))
 
 
 def expose_bits(shape: tuple[int, ...], tbits) -> tuple[tuple, dict]:
@@ -1442,6 +1456,51 @@ def apply_prod_diag(x, facs, cre: float, cim: float, rank: int,
                         xi + cre * ti + cim * tr], dim=b)
 
 
+def _whole_pass(x: torch.Tensor, lead: int, involved, fn, kind: str,
+                swap: bool = False) -> torch.Tensor:
+    """``fn`` over the whole state, or chunk by chunk over a big one
+    (``apply_in_chunks``); while a ``recording()`` is open, one pass
+    record of the state's bytes and the chunks it ran in."""
+    big = is_big(x)
+    if is_recording():
+        state_pass(kind, x, chunk_count(x, lead, involved) if big else 1,
+                   swap)
+    return apply_in_chunks(x, lead, involved, fn) if big else fn(x)
+
+
+def apply_bitpair_step(x: torch.Tensor, plan: GroupPlan, step: BitPairStep,
+                       bitpair_ops, planar: bool,
+                       batched: bool = False) -> torch.Tensor:
+    """One whole ``BitPairStep``: ``apply_bitpair`` over the state, or
+    chunk by chunk over a big one (``apply_in_chunks``)."""
+    with span("step.bitpair"):
+        def fn(v):
+            return apply_bitpair(v, plan, step, bitpair_ops, planar, batched)
+        return _whole_pass(x, int(batched) + int(planar),
+                           {step.slice_axis, step.op_axis}, fn, "bitpair",
+                           plan.bitpair_specs[step.index].is_swap)
+
+
+def apply_diag_pair_step(x: torch.Tensor, plan: GroupPlan,
+                         step: DiagPairStep, diag_ops, planar: bool,
+                         batched: bool = False) -> torch.Tensor:
+    """One whole ``DiagPairStep``: the pair diagonal as an elementwise
+    einsum over the state, or chunk by chunk over a big one
+    (``apply_in_chunks``)."""
+    with span("step.diag"):
+        b = int(batched)
+        real = plan.diag_real[step.index]
+        d = diag_ops[step.index]
+        d = d.select(b, 0) if real else _blocked(d, b)
+        spec = _diag_spec(len(plan.layout.axis_sizes), step.axis_a,
+                          step.axis_b, real, planar, batched)
+
+        def fn(v):
+            return torch.einsum(spec, d, v)
+        return _whole_pass(x, b + int(planar), {step.axis_a, step.axis_b},
+                           fn, "diag")
+
+
 def execute_group_plan(plan: GroupPlan, operands, program, params,
                        x: torch.Tensor, planar: bool = True,
                        plain: bool = False,
@@ -1499,20 +1558,11 @@ def execute_group_plan(plan: GroupPlan, operands, program, params,
                               step.slice_axis, step.slice_pos, step.op_axis,
                               planar, batched)
             elif isinstance(step, BitPairStep):
-                with span("step.bitpair"):
-                    x = run(lambda v, step=step: apply_bitpair(
-                        v, plan, step, bitpair_ops, planar, batched),
-                        {step.slice_axis, step.op_axis})
+                x = apply_bitpair_step(x, plan, step, bitpair_ops, planar,
+                                       batched)
             elif isinstance(step, DiagPairStep):
-                with span("step.diag"):
-                    real = plan.diag_real[step.index]
-                    d = diag_ops[step.index]
-                    d = d.select(b, 0) if real else _blocked(d, b)
-                    spec = _diag_spec(rank, step.axis_a, step.axis_b, real,
-                                      planar, batched)
-                    x = run(lambda v, d=d, spec=spec: torch.einsum(spec, d,
-                                                                   v),
-                            {step.axis_a, step.axis_b})
+                x = apply_diag_pair_step(x, plan, step, diag_ops, planar,
+                                         batched)
             elif isinstance(step, DiagProductStep):
                 with span("step.prod"):
                     x = run(_prod_chunk_fn(prod_ops[step.index], rank,

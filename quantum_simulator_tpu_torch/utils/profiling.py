@@ -8,7 +8,9 @@ port's own recorder:
   spans (``span(name)`` at its layer boundaries: the entry points, host
   preparation, the trajectory engine, each executor step, the
   reductions), one record per kernel launch (``launch``, from
-  ``ops/cuda_exec._launch``) and its gauges (``gauge(name, value)``).
+  ``ops/cuda_exec._launch``), one per whole-state pass that no kernel
+  serves (``state_pass``, from ``ops/plan``'s pair-diagonal and bit-pair
+  steps) and its gauges (``gauge(name, value)``).
   Nothing is written to disk. Off, the default, a span is one check of a
   module-level variable: no record, no clock read, no profiler range.
   On, each span is also a ``torch.profiler.record_function`` range, so it
@@ -80,18 +82,33 @@ class Launch(NamedTuple):
     path: str = "tile"
 
 
+class Pass(NamedTuple):
+    """One whole-state pass of the executor that no kernel serves: a
+    pair-diagonal step (``"diag"``) or a bit-pair step (``"bitpair"``),
+    the state's bytes (planes and batch included), the chunks it ran in
+    (1: the whole state at once), whether it was an exact swap, and the
+    innermost span open (-1 outside any)."""
+
+    kind: str
+    state_bytes: int
+    chunks: int
+    swap: bool
+    span: int
+
+
 class Gauge(NamedTuple):
     name: str
     value: float
 
 
 class Recording:
-    """Spans (in the order they were entered), launches and gauges of
-    one ``recording()``."""
+    """Spans (in the order they were entered), launches, passes and
+    gauges of one ``recording()``."""
 
     def __init__(self):
         self.spans: list[Span] = []
         self.launches: list[Launch] = []
+        self.passes: list[Pass] = []
         self.gauges: list[Gauge] = []
         self._open: list[int] = []
         self._requests = 0
@@ -190,6 +207,23 @@ def launch(kernel: str, x: torch.Tensor, op: torch.Tensor, K: int,
         kernel, x.numel(), (op[0] if shared else op).numel(), int(K),
         complex_op, "float64" if x.dtype == torch.float64 else "float32",
         _recording._innermost(), path))
+
+
+def is_recording() -> bool:
+    """Whether a ``recording()`` is open: one check, for records whose
+    fields cost something to work out."""
+    return _recording is not None
+
+
+def state_pass(kind: str, x: torch.Tensor, chunks: int,
+               swap: bool = False) -> None:
+    """Record a whole-state pass over ``x`` in ``chunks`` pieces while a
+    ``recording()`` is open."""
+    if _recording is None:
+        return
+    _recording.passes.append(Pass(kind, x.numel() * x.element_size(),
+                                  int(chunks), bool(swap),
+                                  _recording._innermost()))
 
 
 @contextlib.contextmanager

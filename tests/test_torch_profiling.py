@@ -1,8 +1,8 @@
 """The port's recorder (``utils/profiling.py``): off, a span is one check
 and nothing else; on, spans nest under one request per root span, land in
 a ``torch.profiler`` trace as ranges in the order they were entered, and
-the launch records and the trajectory batches' gauge hold what their
-sites saw. No span call site synchronizes the device."""
+the launch records, the pass records and the trajectory batches' gauge
+hold what their sites saw. No span call site synchronizes the device."""
 
 import ast
 import contextlib
@@ -201,6 +201,62 @@ def test_launch_record_at_the_launch(monkeypatch, batched, shared, real):
         "dense_axis", x.numel(), op_elems, S, not real, "float32", 0)]
 
 
+def qft_circuit(n):
+    """H on every qubit, then the port's QFT template: pair-diagonal
+    steps and swap bit-pair steps past one axis."""
+    from quantum_simulator_tpu_torch.algorithms import AlgorithmTemplate
+
+    c = AlgorithmTemplate.quantum_fourier_transform(n)
+    for q in range(n):
+        c.add_gate(tq.GateInstance("H", [q], [], column=-1))
+    return c
+
+
+@pytest.mark.parametrize("chunked", [False, True])
+def test_pass_record_per_diag_and_bitpair_step(monkeypatch, chunked):
+    """A recorded QFT run: one pass record per ``DiagPairStep`` and
+    ``BitPairStep`` of its plan, in plan order, each under its step's
+    span, with the state's bytes, the chunks it ran in (the calls of
+    ``apply_bitpair`` for a bit pair) and whether it swapped."""
+    if chunked:
+        monkeypatch.setattr(gplan, "INPLACE_MIN_BYTES", 0)
+        monkeypatch.setattr(gplan, "CHUNK_ELEMS", 512)
+    calls = []
+    orig = gplan.apply_bitpair
+    monkeypatch.setattr(gplan, "apply_bitpair",
+                        lambda *a, **k: calls.append(1) or orig(*a, **k))
+    n = 16
+    c = qft_circuit(n)
+    plan = gplan.build_group_plan(prog.compile_circuit(c))
+    want = [("diag", False) if isinstance(s, gplan.DiagPairStep)
+            else ("bitpair", plan.bitpair_specs[s.index].is_swap)
+            for s in plan.steps
+            if isinstance(s, (gplan.DiagPairStep, gplan.BitPairStep))]
+    assert ("diag", False) in want and ("bitpair", True) in want
+    with profiling.recording() as rec:
+        tq.Simulator(device="cpu").run(c, shots=16, seed=1)
+    assert [(p.kind, p.swap) for p in rec.passes] == want
+    assert all(p.state_bytes == 2 * 4 << n for p in rec.passes)
+    assert all(rec.spans[p.span].name == f"step.{p.kind}"
+               for p in rec.passes)
+    swaps = [p.chunks for p in rec.passes if p.kind == "bitpair"]
+    assert sum(swaps) == len(calls)
+    chunks = [p.chunks for p in rec.passes]
+    assert (max(chunks) > 1) == chunked and min(chunks) >= 1
+
+
+def test_no_pass_record_with_the_recorder_off(monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("a pass was recorded with the recorder off")
+
+    monkeypatch.setattr(profiling, "Pass", refuse)
+    monkeypatch.setattr(gplan, "chunk_count", refuse)
+    tq.Simulator(device="cpu").run(qft_circuit(12), shots=16, seed=1)
+    with profiling.recording() as rec:
+        pass
+    assert rec.passes == []
+
+
 def _calls(node, attr):
     return [n for n in ast.walk(node) if isinstance(n, ast.Call)
             and isinstance(n.func, (ast.Attribute, ast.Name))
@@ -222,7 +278,8 @@ def test_no_span_site_synchronizes():
                 recorder = True
             else:
                 recorder = any(_calls(fn, a) for a in ("span", "gauge",
-                                                       "launch"))
+                                                       "launch",
+                                                       "state_pass"))
             if recorder:
                 sites += 1
                 assert not _calls(fn, "synchronize"), f"{path}:{fn.name}"
