@@ -449,6 +449,16 @@ The slice that carries the complex128 mode past n = 29 adds:
     card against CPU on the same draws (1e-10), the correlator n = 8
     against the dense product of its Trotter factors (1e-10), with the
     batched QR rows that had to be redone counted.
+20. The pair-diagonal kernel (``cuda_exec.diag_pair``,
+    ``csrc/diag_pair.cu``) at the QFT-30 plan's shapes: each of its
+    pair-diagonal steps, on a fresh N(0, 1) 8 GiB planar state, through
+    the kernel (in place, one launch) against the chunked einsum twin
+    (``apply_diag_pair_step(..., plain=True)``) within 2e-5; for each
+    distinct axis pair the kernel's ms and the twin's in turns, one
+    whole-state ``torch.einsum``'s ms (the library yardstick) and the
+    bound, the state read and written once at 3.35 TB/s; then one QFT-30
+    ``Simulator.run`` whose ``diag_pair`` launches must equal its plan's
+    pair-diagonal steps.
 
 ``--phases 2c,6`` runs only the named phases (and then prints no summary
 and no result line): for bringing up one phase on the card.
@@ -549,7 +559,7 @@ F64_SIZES = (16, 28)
 RUN_PEAK_LIMIT = 6.1 * 2**30
 SEED = 42
 PHASES = ("2", "2b", "2c", "3", "3b", "4", "4b", "5", "6", "7", "8", "9",
-          "10", "11", "12", "13", "14", "15", "16", "17", "18", "19")
+          "10", "11", "12", "13", "14", "15", "16", "17", "18", "19", "20")
 
 # Layouts of n = 16, 28 and 30 qubits (GroupLayout.for_qubits).
 LAYOUTS = {16: (4, 128, 128), 28: (128,) * 4, 30: (4,) + (128,) * 4}
@@ -7059,6 +7069,87 @@ def phase_complex128_mesh_mps(report: dict, card: str) -> dict:
     return {"launches": path, "max_err": max_err}
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: the pair-diagonal kernel at the QFT-30 shapes
+# ---------------------------------------------------------------------------
+
+DIAG_TOL = 2e-5    # one fp32 complex product an amplitude, |x| <= ~6
+DIAG_N = 30
+
+
+def phase_diag_pair(report: dict, card: str) -> dict:
+    circuit = qft(DIAG_N)
+    program = tprog.compile_circuit(circuit)
+    plan = tplan.get_group_plan(program)
+    ops = tplan.operands_to(tplan.build_group_operands(
+        program, plan, program.initial_params), "cuda")[2]
+    steps = [s for s in plan.steps if isinstance(s, tplan.DiagPairStep)]
+    shape = (2,) + tuple(plan.layout.axis_sizes)
+    bound_ms = 2 * 4 * int(np.prod(shape)) / 3.35e9
+    gen = torch.Generator(device="cuda")
+    rows, timed, max_err = [], set(), 0.0
+    for k, step in enumerate(steps):
+        torch.cuda.empty_cache()
+        gen.manual_seed(k)
+        x = torch.randn(shape, generator=gen, device="cuda")
+        x0 = x.clone()
+        before = cuda_exec.diag_pair.launches
+        got = tplan.apply_diag_pair_step(x, plan, step, ops, True)
+        want = tplan.apply_diag_pair_step(x0, plan, step, ops, True,
+                                          plain=True)
+        torch.cuda.synchronize()
+        check(got.data_ptr() == x.data_ptr(), f"diag step {k}: not in place")
+        check(cuda_exec.diag_pair.launches == before + 1,
+              f"diag step {k}: {cuda_exec.diag_pair.launches - before} "
+              f"launches, expected 1")
+        err = max(float((got[:, i] - want[:, i]).abs().max())
+                  for i in range(shape[1]))
+        check(err <= DIAG_TOL, f"diag step {k}: max |kernel - twin| = "
+              f"{err} > {DIAG_TOL}")
+        max_err = max(max_err, err)
+        row = {"step": k, "axes": (step.axis_a, step.axis_b),
+               "max_abs_err": err}
+        if row["axes"] not in timed:
+            timed.add(row["axes"])
+            # in place on x (the kernel) and on x0 (the chunked twin):
+            # a unit-modulus table keeps both bounded over the repeats
+            row["ms"], row["plain_ms"] = in_turns(
+                lambda: tplan.apply_diag_pair_step(x0, plan, step, ops, True,
+                                                   plain=True),
+                lambda: tplan.apply_diag_pair_step(x, plan, step, ops, True))
+            del x0
+            torch.cuda.empty_cache()
+            d = cuda_exec._blocked(ops[step.index])
+            spec = cuda_exec._diag_spec(len(shape) - 1, step.axis_a,
+                                        step.axis_b)
+            row["library_ms"] = event_ms(lambda: torch.einsum(spec, d, x))
+            row["bound_ms"] = bound_ms
+            print(f"diag_pair axes {row['axes']} [{card}]: err {err:.3e} "
+                  f"kernel {row['ms']:.4f} ms ({bound_ms / row['ms']:.1%} "
+                  f"of the {bound_ms:.3f} ms bound) chunked twin "
+                  f"{row['plain_ms']:.4f} ms whole-state einsum "
+                  f"{row['library_ms']:.4f} ms", flush=True)
+        rows.append(row)
+        del x, got, want
+    torch.cuda.empty_cache()
+    cuda_exec.reset_launch_counts()
+    res = Simulator(device="cuda").run(circuit, shots=256, seed=SEED)
+    torch.cuda.synchronize()
+    launches = cuda_exec.diag_pair.launches
+    check(launches == len(steps), f"QFT-{DIAG_N} run: {launches} diag_pair "
+          f"launches, plan has {len(steps)} pair-diagonal steps")
+    check(sum(res.measurement_counts.values()) == 256, "QFT-30 run: shots")
+    del res
+    torch.cuda.empty_cache()
+    print(f"diag_pair: {len(steps)} steps within {max_err:.3e} of the "
+          f"chunked twin; QFT-{DIAG_N} run {launches} launches [{card}]",
+          flush=True)
+    report["diag_pair"] = rows
+    first = next(r for r in rows if "ms" in r)
+    return {"summary": {**first, "max_abs_err": max_err},
+            "launches": launches}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every measurement as JSON")
@@ -7155,7 +7246,8 @@ def main() -> int:
               "16": lambda: phase_acceptance(report, card, args.reference),
               "17": lambda: phase_complex128(report, card),
               "18": lambda: phase_complex128_huge(report, card),
-              "19": lambda: phase_complex128_mesh_mps(report, card)}
+              "19": lambda: phase_complex128_mesh_mps(report, card),
+              "20": lambda: phase_diag_pair(report, card)}
     out = {}
     for name in PHASES:
         if name in chosen:
@@ -7203,6 +7295,15 @@ def main() -> int:
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"]})
+    row = out["20"]["summary"]
+    summary["kernels"].append({
+        "name": "diag_pair", "route": "cuda",
+        "source": "quantum_simulator_tpu_torch/csrc/diag_pair.cu",
+        "replaces": "none (an XLA einsum in the JAX package)",
+        "launches": out["20"]["launches"], "max_abs_err": row["max_abs_err"],
+        "ms": row["ms"], "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"], "bound_by": "bytes",
+        "library_ms": row["library_ms"]})
     report["summary"] = summary
     if args.out:
         with open(args.out, "w") as f:

@@ -38,6 +38,11 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 # over x. The ``_f64`` ones take float64 state and operator.
 _ENTRY_POINTS = ("qs_dense_axis", "qs_cross_bit_axis", "qs_dense_axis_f64",
                  "qs_cross_bit_axis_f64")
+# ``qs_diag_pair`` (``csrc/diag_pair.cu``): (x, d, f64, form, vec, n_plane,
+# shift_a, size_a, shift_b, size_b, n_batch, x_batch_stride,
+# d_batch_stride, stream) -> cudaError_t, the table multiplied into x.
+DIAG_PAIR_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+                      + [ctypes.c_longlong] * 8 + [ctypes.c_void_p])
 
 
 def _sources() -> list[Path]:
@@ -122,6 +127,8 @@ def _load() -> ctypes.CDLL:
         fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
                        + [ctypes.c_longlong] * 12 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+    lib.qs_diag_pair.argtypes = DIAG_PAIR_ARGTYPES
+    lib.qs_diag_pair.restype = ctypes.c_int
     lib.qs_error_string.argtypes = [ctypes.c_int]
     lib.qs_error_string.restype = ctypes.c_char_p
     lib.qs_smem_bytes.argtypes = [ctypes.c_int] * 3

@@ -1,7 +1,8 @@
-"""Hand-written CUDA kernels for the dense and cross group-plan steps.
+"""Hand-written CUDA kernels for the dense, cross and pair-diagonal
+group-plan steps.
 
 Counterpart of ``quantum_simulator_tpu/ops/pallas_exec.py``. Two kernels
-carry every FLOP of the main path:
+carry every matrix product of the main path:
 
 * ``dense_axis`` replaces ``lower_dense`` (``pallas_exec.py:178-222``):
   ``x <- U x`` along one grouped axis of size S <= 128;
@@ -23,6 +24,13 @@ The wrappers below reduce the state to that strided view
 (``copy_plan``), check what the kernel takes and raise on anything else.
 Every geometry the planner emits is covered, including a sliced bit
 inside the last axis, which Pallas declines.
+
+A third kernel, ``diag_pair`` (``csrc/diag_pair.cu``), serves every
+``DiagPairStep``: ``x[i] <- d[i_a, i_b] x[i]`` over the whole state in
+place, one launch, where the JAX package leaves the step to XLA as an
+elementwise einsum (``_diag_spec``, its plain twin here). It replaces no
+Pallas kernel and is no fiber kernel: it launches outside ``_launch``,
+leaves no launch record and is not in ``KERNELS``.
 
 Each wrapper has a plain PyTorch twin (``*_plain``: ``torch.einsum`` on the
 JAX package's ``_dense_spec`` / ``_cross_spec`` forms, in the state's
@@ -106,6 +114,17 @@ def _cross_spec(rank_new: int, bit_axis: int, op_axis_new: int,
     return f"{t}cdiykx,{t}d{''.join(subs)}->{t}c{''.join(out)}"
 
 
+def _diag_spec(rank: int, axis_a: int, axis_b: int, op_real: bool = False,
+               planar: bool = True, batched: bool = False) -> str:
+    t = "T" if batched else ""
+    subs = "".join(_AXIS_LETTERS[:rank])
+    if op_real and not planar:
+        return f"{t}{subs[axis_a]}{subs[axis_b]},{t}{subs}->{t}{subs}"
+    if op_real:
+        return f"{t}{subs[axis_a]}{subs[axis_b]},{t}d{subs}->{t}d{subs}"
+    return f"{t}cd{subs[axis_a]}{subs[axis_b]},{t}d{subs}->{t}c{subs}"
+
+
 def _split_axis_bit(shape: tuple[int, ...], axis: int, pos: int):
     """New shape exposing bit ``pos`` (MSB-first) of ``axis`` as its own
     dimension; returns (new_shape, bit_axis_index)."""
@@ -167,6 +186,22 @@ def cross_bit_axis_plain(x: torch.Tensor, cop: torch.Tensor,
         _cross_spec(len(new_shape), bit_axis, o, real, planar, batched),
         cop if real else _blocked(cop, b), xr)
     return out.reshape(x.shape)
+
+
+def diag_pair_plain(x: torch.Tensor, d: torch.Tensor, axis_a: int,
+                    axis_b: int, planar: bool,
+                    batched: bool = False) -> torch.Tensor:
+    """``x[i] <- d[i_a, i_b] x[i]``: ``d`` is a real (S_a, S_b) or complex
+    (2, S_a, S_b) (re, im) table over ``axis_a`` x ``axis_b``; ``batched``
+    as for ``dense_axis_plain``. One elementwise einsum, out of place."""
+    b = int(batched)
+    real = d.ndim == 2 + b
+    if not real and not planar:
+        raise ValueError("a complex table needs a planar state")
+    rank = len(_layout_shape(x, planar, batched))
+    return torch.einsum(_diag_spec(rank, axis_a, axis_b, real, planar,
+                                   batched),
+                        d if real else _blocked(d, b), x)
 
 
 # ---------------------------------------------------------------------------
@@ -469,11 +504,107 @@ def cross_bit_axis_f64(x: torch.Tensor, cop: torch.Tensor, slice_axis: int,
     return x
 
 
+class DiagGeometry(NamedTuple):
+    """Amplitude ``i`` of a plane (``n_plane`` of them) reads table entry
+    ``((i >> shift_a) & (size_a - 1)) * size_b + ((i >> shift_b) &
+    (size_b - 1))``: the shifts are log2 of the elements after each axis."""
+
+    n_plane: int
+    shift_a: int
+    size_a: int
+    shift_b: int
+    size_b: int
+
+
+def diag_geometry(shape: tuple[int, ...], axis_a: int,
+                  axis_b: int) -> DiagGeometry:
+    if axis_a == axis_b or not (0 <= axis_a < len(shape)
+                                and 0 <= axis_b < len(shape)):
+        raise ValueError(f"diag_pair: bad axes ({axis_a}, {axis_b}) for "
+                         f"shape {shape}")
+    if any(s < 1 or s & (s - 1) for s in shape):
+        raise ValueError(f"diag_pair: shape {shape} has an axis that is "
+                         "not a power of two")
+
+    def shift(axis: int) -> int:
+        return _prod(shape[axis + 1:]).bit_length() - 1
+    return DiagGeometry(_prod(shape), shift(axis_a), shape[axis_a],
+                        shift(axis_b), shape[axis_b])
+
+
+def diag_packs(g: DiagGeometry, inner: int, itemsize: int, x_ptr: int,
+               d_ptr: int, d_batch_stride: int) -> bool:
+    """Whether the kernel moves 16-byte packs: the innermost axis
+    (``inner`` elements) holds whole packs and the state is aligned; where
+    ``axis_b`` is innermost, the table's packs are aligned too. Else one
+    amplitude a thread."""
+    return (x_ptr % 16 == 0 and inner * itemsize % 16 == 0
+            and (g.shift_b != 0 or (d_ptr % 16 == 0
+                                    and d_batch_stride * itemsize % 16 == 0)))
+
+
+def diag_pair(x: torch.Tensor, d: torch.Tensor, axis_a: int, axis_b: int,
+              planar: bool, batched: bool = False) -> torch.Tensor:
+    """DiagPairStep: the ``diag_pair`` kernel on a CUDA tensor (in place,
+    one launch over the whole state: returns ``x``), the plain twin on a
+    CPU one (a new tensor). ``d``: a real ``([T,] S_a, S_b)`` or complex
+    ``([T,] 2, S_a, S_b)`` table, one per trajectory or one shared with
+    stride 0. float32 or float64, state and table alike. Not a fiber
+    kernel: no ``_launch``, no launch record."""
+    if x.device.type == "cpu":
+        return diag_pair_plain(x, d, axis_a, axis_b, planar, batched)
+    if x.device.type != "cuda":
+        raise ValueError(f"diag_pair: state on {x.device}, expected CUDA "
+                         "or CPU")
+    if x.dtype not in (torch.float32, torch.float64) or d.dtype != x.dtype:
+        raise TypeError(f"diag_pair: needs a float32 or float64 state and "
+                        f"table of one dtype, got {x.dtype} / {d.dtype}")
+    if d.device != x.device:
+        raise ValueError(f"diag_pair: table on {d.device}, state on "
+                         f"{x.device}")
+    b = int(batched)
+    shape = _layout_shape(x, planar, batched)
+    g = diag_geometry(shape, axis_a, axis_b)
+    block = d[0] if batched else d
+    if not x.is_contiguous() or not block.is_contiguous():
+        raise ValueError("diag_pair: state and table must be contiguous")
+    if batched and d.shape[0] != x.shape[0]:
+        raise ValueError(f"diag_pair: batched table of shape "
+                         f"{tuple(d.shape)} for {x.shape[0]} trajectories")
+    if planar and x.shape[b] != 2:
+        raise ValueError(f"diag_pair: planar state needs a plane axis of 2 "
+                         f"after {b} batch axes, got shape {tuple(x.shape)}")
+    table = (g.size_a, g.size_b)
+    real = tuple(block.shape) == table
+    if not real and tuple(block.shape) != (2,) + table:
+        raise ValueError(f"diag_pair: table shape {tuple(d.shape)}, "
+                         f"expected {table} or {(2,) + table}"
+                         f"{' per trajectory' if batched else ''}")
+    if not real and not planar:
+        raise ValueError("diag_pair: a complex table needs a planar state")
+    n_batch, xb, db = ((x.shape[0], x[0].numel(), d.stride(0)) if batched
+                       else (1, 0, 0))
+    vec = diag_packs(g, shape[-1], x.element_size(), x.data_ptr(),
+                     d.data_ptr(), db)
+    form = 2 if not planar else (1 if real else 0)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = _build.library().qs_diag_pair(
+            x.data_ptr(), d.data_ptr(), int(x.dtype == torch.float64), form,
+            int(vec), *g, n_batch, xb, db, stream)
+    if rc != 0:
+        raise RuntimeError(f"qs_diag_pair: launch failed with CUDA error "
+                           f"{rc} ({_build.error_string(rc)})")
+    diag_pair.launches += 1
+    return x
+
+
 dense_axis.launches = 0
 cross_bit_axis.launches = 0
 cross_bit_axis.cluster_launches = 0   # of them, on the cluster kernel
 dense_axis_f64.launches = 0
 cross_bit_axis_f64.launches = 0
+diag_pair.launches = 0        # float32 and float64 alike
 
 # The float32 kernels (the default engine) and the float64 ones
 # (``config.enable_complex128``).
@@ -482,6 +613,6 @@ KERNELS_F64 = (dense_axis_f64, cross_bit_axis_f64)
 
 
 def reset_launch_counts() -> None:
-    for k in KERNELS + KERNELS_F64:
+    for k in KERNELS + KERNELS_F64 + (diag_pair,):
         k.launches = 0
     cross_bit_axis.cluster_launches = 0

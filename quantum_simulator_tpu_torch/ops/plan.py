@@ -13,7 +13,10 @@ are, so the port takes the same steps as the JAX package:
 * ``AxisMatmulStep`` -> the ``dense_axis`` CUDA kernel (``cuda_exec.py``);
 * ``CrossStep`` -> the ``cross_bit_axis`` CUDA kernel;
 * ``BitPairStep`` -> a transpose for an exact SWAP, else a K=4 einsum;
-* ``DiagPairStep`` / ``DiagProductStep`` -> elementwise torch ops;
+* ``DiagPairStep`` -> the ``diag_pair`` CUDA kernel, in place over the
+  whole state in one launch (its plain twin, an elementwise einsum, on the
+  CPU);
+* ``DiagProductStep`` -> elementwise torch ops;
 * ``GenericStep`` -> the segmented einsum of ``ops/apply.py``.
 
 An ideal run builds its operands once on the host and moves them to the
@@ -1389,17 +1392,6 @@ def apply_gate_bits(x: torch.Tensor, u: torch.Tensor, tbits, planar: bool,
     return torch.einsum(spec, opnd, xr).reshape(x.shape)
 
 
-def _diag_spec(rank: int, axis_a: int, axis_b: int, op_real: bool = False,
-               planar: bool = True, batched: bool = False) -> str:
-    t = "T" if batched else ""
-    subs = "".join(cuda_exec._AXIS_LETTERS[:rank])
-    if op_real and not planar:
-        return f"{t}{subs[axis_a]}{subs[axis_b]},{t}{subs}->{t}{subs}"
-    if op_real:
-        return f"{t}{subs[axis_a]}{subs[axis_b]},{t}d{subs}->{t}d{subs}"
-    return f"{t}cd{subs[axis_a]}{subs[axis_b]},{t}d{subs}->{t}c{subs}"
-
-
 def _split_two_bits(shape: tuple[int, ...], ax_a: int, pos_a: int,
                     ax_b: int, pos_b: int):
     """Shape exposing bit ``pos_a`` of ``ax_a`` and bit ``pos_b`` of
@@ -1483,20 +1475,27 @@ def apply_bitpair_step(x: torch.Tensor, plan: GroupPlan, step: BitPairStep,
 
 def apply_diag_pair_step(x: torch.Tensor, plan: GroupPlan,
                          step: DiagPairStep, diag_ops, planar: bool,
-                         batched: bool = False) -> torch.Tensor:
-    """One whole ``DiagPairStep``: the pair diagonal as an elementwise
-    einsum over the state, or chunk by chunk over a big one
-    (``apply_in_chunks``)."""
+                         batched: bool = False,
+                         plain: bool = False) -> torch.Tensor:
+    """One whole ``DiagPairStep``. On a CUDA state the ``diag_pair``
+    kernel multiplies the pair diagonal into the whole state in place, in
+    one launch, big or not (one pass of one chunk). On the CPU, or with
+    ``plain=True``, its plain twin: an elementwise einsum over the state,
+    or chunk by chunk over a big one (``apply_in_chunks``)."""
     with span("step.diag"):
         b = int(batched)
-        real = plan.diag_real[step.index]
         d = diag_ops[step.index]
-        d = d.select(b, 0) if real else _blocked(d, b)
-        spec = _diag_spec(len(plan.layout.axis_sizes), step.axis_a,
-                          step.axis_b, real, planar, batched)
+        if plan.diag_real[step.index]:
+            d = d.select(b, 0)
+        if not plain and x.device.type != "cpu":
+            if is_recording():
+                state_pass("diag", x, 1)
+            return cuda_exec.diag_pair(x.contiguous(), d, step.axis_a,
+                                       step.axis_b, planar, batched)
 
         def fn(v):
-            return torch.einsum(spec, d, v)
+            return cuda_exec.diag_pair_plain(v, d, step.axis_a, step.axis_b,
+                                             planar, batched)
         return _whole_pass(x, b + int(planar), {step.axis_a, step.axis_b},
                            fn, "diag")
 
@@ -1507,21 +1506,24 @@ def execute_group_plan(plan: GroupPlan, operands, program, params,
                        batched: bool = False) -> torch.Tensor:
     """Run all steps on ``x``: planar ``(2, *axis_sizes)``, or real
     ``(*axis_sizes,)`` with ``planar=False`` (only for ``plan.all_real``).
-    Dense and cross steps go through the ``cuda_exec`` kernel wrappers;
-    ``plain=True`` calls their plain PyTorch twins instead on any device
-    (the reference executor the kernels are checked and timed against).
+    Dense, cross and pair-diagonal steps go through the ``cuda_exec``
+    kernel wrappers; ``plain=True`` calls their plain PyTorch twins instead
+    on any device (the reference executor the kernels are checked and
+    timed against).
 
     ``batched``: ``x`` has a leading trajectory axis ``(T, [2,] ...)`` and
-    ``operands`` come from ``build_group_operands_batched``; every dense
-    and cross step is then one batched kernel launch with one operator
-    per trajectory, and the other steps take the batch as a leading dim.
+    ``operands`` come from ``build_group_operands_batched``; every dense,
+    cross and pair-diagonal step is then one batched kernel launch with
+    one operator per trajectory, and the other steps take the batch as a
+    leading dim.
     ``params`` may then be a ``(T, P)`` tensor of parameter rows.
 
     Takes ownership of ``x``: on a CUDA tensor the kernels write in place,
     so ``x`` may be overwritten by the run; pass a state you no longer
     need (or a clone). A state of ``INPLACE_MIN_BYTES`` or more also runs
     its other steps in place, chunk by chunk (``apply_in_chunks``), so no
-    step holds a second state."""
+    step holds a second state (the pair-diagonal kernel needs no chunks:
+    it writes each amplitude where it read it)."""
     layout = plan.layout
     shape = tuple(layout.axis_sizes)
     rank = len(shape)
@@ -1562,7 +1564,7 @@ def execute_group_plan(plan: GroupPlan, operands, program, params,
                                        batched)
             elif isinstance(step, DiagPairStep):
                 x = apply_diag_pair_step(x, plan, step, diag_ops, planar,
-                                         batched)
+                                         batched, plain=plain)
             elif isinstance(step, DiagProductStep):
                 with span("step.prod"):
                     x = run(_prod_chunk_fn(prod_ops[step.index], rank,

@@ -1775,3 +1775,200 @@ def test_complex128_mps_family_card_equals_cpu(cuda):
     assert abs(card[3] - cpu[3]) <= 1e-10
     assert np.abs(card[4] - cpu[4]).max() <= 1e-10
     assert np.abs(card[5] - cpu[5]).max() <= 1e-10
+
+
+# ---------------------------------------------------------------------------
+# The pair-diagonal kernel (csrc/diag_pair.cu)
+# ---------------------------------------------------------------------------
+
+DIAG_FORMS = [(True, False), (True, True), (False, True)]  # (planar, real)
+# Each output is one complex (or real) product of two numbers of the
+# state's dtype: the kernel's FMA and the twin's K = 2 GEMM round it
+# differently by a few ulp of |x d| <= ~30 for N(0, 1) inputs.
+DIAG_TOL = {torch.float32: 2e-5, torch.float64: 1e-13}
+
+
+def _diag_table(shape, axis_a, axis_b, real, device, seed, dtype,
+                batch=None, shared=False):
+    rng = np.random.default_rng(seed)
+    tab = ((1 if real else 2), shape[axis_a], shape[axis_b])
+    rows = 1 if (batch is None or shared) else batch
+    d = torch.from_numpy(rng.standard_normal((rows,) + tab)).to(
+        device=device, dtype=dtype)
+    if real:
+        d = d[:, 0]
+    if batch is None:
+        return d[0]
+    return d.expand((batch,) + tuple(d.shape[1:])) if shared else d
+
+
+def _check_diag(x, d, axis_a, axis_b, planar, batched=False):
+    want = cuda_exec.diag_pair_plain(x, d, axis_a, axis_b, planar, batched)
+    ptr = x.data_ptr()
+    before = cuda_exec.diag_pair.launches
+    got = cuda_exec.diag_pair(x, d, axis_a, axis_b, planar, batched)
+    torch.cuda.synchronize()
+    assert got is x and x.data_ptr() == ptr
+    assert cuda_exec.diag_pair.launches == before + 1
+    tol = DIAG_TOL[x.dtype]
+    torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("planar,real", DIAG_FORMS)
+def test_diag_pair_matches_twin_on_every_axis_pair(cuda, planar, real,
+                                                   dtype):
+    """Every axis pair of a 5-axis layout, both orders: the table read
+    one entry a pack, the next entries (axis_b innermost) or entries S_b
+    apart (axis_a innermost); in place, each launch counted."""
+    shape = (4, 8, 8, 8, 8)
+    for a in range(5):
+        for b in range(5):
+            if a == b:
+                continue
+            x = _state(shape, planar, cuda, seed=5 * a + b).to(dtype)
+            d = _diag_table(shape, a, b, real, cuda, 10 * a + b, dtype)
+            _check_diag(x, d, a, b, planar)
+
+
+@pytest.mark.parametrize("shape,pairs", [((8, 2), [(0, 1), (1, 0)]),
+                                         ((2, 16, 2), [(0, 2), (1, 2),
+                                                       (0, 1)])])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("planar,real", DIAG_FORMS)
+def test_diag_pair_innermost_axis_under_a_pack(cuda, shape, pairs, planar,
+                                               real, dtype):
+    """An innermost axis of 2 holds no 16-byte pack of float32 (nor, with
+    (8, 2), past one of float64): one amplitude a thread."""
+    for a, b in pairs:
+        x = _state(shape, planar, cuda, seed=a + 3 * b).to(dtype)
+        d = _diag_table(shape, a, b, real, cuda, a * 7 + b, dtype)
+        _check_diag(x, d, a, b, planar)
+
+
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("planar,real", DIAG_FORMS)
+def test_diag_pair_batched_matches_twin(cuda, planar, real, dtype, shared):
+    """One launch for a batch of trajectories: one table each, or one
+    shared with stride 0, which gives bit for bit what its copies give."""
+    shape = (4, 16, 128)
+    for a, b in ((0, 2), (1, 2), (0, 1)):
+        x = _batch_state(5, shape, planar, cuda, seed=a + b).to(dtype)
+        d = _diag_table(shape, a, b, real, cuda, 30 + a + b, dtype, batch=5,
+                        shared=shared)
+        assert (d.stride(0) == 0) == shared
+        loop = torch.stack([cuda_exec.diag_pair_plain(x[t], d[t], a, b,
+                                                      planar)
+                            for t in range(5)])
+        torch.testing.assert_close(
+            cuda_exec.diag_pair_plain(x, d, a, b, planar, True), loop)
+        copied = cuda_exec.diag_pair(x.clone(), d.contiguous(), a, b, planar,
+                                     True)
+        _check_diag(x, d, a, b, planar, True)
+        if shared:
+            assert torch.equal(x, copied)
+
+
+def test_diag_pair_strided_and_unaligned_inputs(cuda):
+    """A transposed view (what an einsum or a swap below 4 GiB may leave)
+    is refused by the wrapper and taken as ``.contiguous()`` by the step;
+    a state 4 bytes off a 16-byte boundary takes the one-amplitude path."""
+    shape = (4, 16, 16, 8)
+    x = _state(shape, True, cuda, seed=3).transpose(2, 3)
+    assert not x.is_contiguous()
+    d = _diag_table(shape, 1, 3, False, cuda, 4, torch.float32)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_exec.diag_pair(x, d, 1, 3, True)
+    p = tprog.compile_circuit(QuantumCircuit.from_dict({
+        "version": "1.0", "num_qubits": 14,
+        "gates": [{"name": "H", "targets": [q], "params": [], "column": 0}
+                  for q in range(14)]
+        + [{"name": "CPhase", "targets": [4, 13], "params": [0.3],
+            "column": 1},
+           {"name": "SWAP", "targets": [5, 12], "params": [],
+            "column": 2},
+           {"name": "CPhase", "targets": [5, 12], "params": [0.7],
+            "column": 3}]}))
+    plan = tplan.build_group_plan(p)
+    ops = tplan.operands_to(
+        tplan.build_group_operands(p, plan, p.initial_params), cuda)
+    kinds = [type(s).__name__ for s in plan.steps]
+    assert "DiagPairStep" in kinds and "BitPairStep" in kinds
+    x0 = tplan.basis_state(plan, p.initial_index, cuda, True)
+    want = tplan.execute_group_plan(plan, ops, p, p.initial_params,
+                                    x0.clone(), True, plain=True)
+    cuda_exec.reset_launch_counts()
+    got = tplan.execute_group_plan(plan, ops, p, p.initial_params, x0, True)
+    torch.cuda.synchronize()
+    assert cuda_exec.diag_pair.launches == kinds.count("DiagPairStep")
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
+    flat = torch.empty(2 * 4 * 16 * 16 * 8 + 1, device=cuda)
+    xu = flat[1:].view((2,) + shape)
+    assert xu.data_ptr() % 16 == 4
+    xu.copy_(_state(shape, True, cuda, seed=5))
+    _check_diag(xu, d, 1, 3, True)
+
+
+def _qft_30_circuit():
+    from qsbench.families import qft as qft_family
+
+    return QuantumCircuit.from_dict(qft_family.circuit(
+        {"num_qubits": 30, "approximation_degree": 0, "do_swaps": True},
+        np.random.default_rng(11)))
+
+
+def test_diag_pair_n30_qft_first_diagonal_matches_chunked_twin(cuda):
+    """The QFT-30 plan's first pair diagonal, on an 8 GiB planar state:
+    the kernel over the whole state in one launch against the chunked
+    einsum twin (``plain=True``, 32 chunks), compared chunk by chunk. One
+    fp32 complex product an amplitude on both sides: 2e-5 for N(0, 1)
+    amplitudes and a unit-modulus table."""
+    p = tprog.compile_circuit(_qft_30_circuit())
+    plan = tplan.get_group_plan(p)
+    step = next(s for s in plan.steps if isinstance(s, tplan.DiagPairStep))
+    ops = tplan.operands_to(
+        tplan.build_group_operands(p, plan, p.initial_params), cuda)
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    x = torch.randn((2,) + tuple(plan.layout.axis_sizes), generator=gen,
+                    device=cuda)
+    want = tplan.apply_diag_pair_step(x.clone(), plan, step, ops[2], True,
+                                      plain=True)
+    cuda_exec.reset_launch_counts()
+    got = tplan.apply_diag_pair_step(x, plan, step, ops[2], True)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == x.data_ptr()
+    assert cuda_exec.diag_pair.launches == 1
+    worst = max(float((got[:, i] - want[:, i]).abs().max())
+                for i in range(got.shape[1]))
+    del got, want, x
+    torch.cuda.empty_cache()
+    assert worst <= 2e-5, worst
+
+
+def test_qft_30_request_counts_one_diag_launch_a_step(cuda):
+    """A QFT-30 ``Simulator.run``: one ``diag_pair`` launch per
+    ``DiagPairStep`` (10), each step's pass record one chunk, and the
+    fiber kernels' launch records untouched by them."""
+    from quantum_simulator_tpu_torch.utils import profiling
+
+    c = _qft_30_circuit()
+    plan = tplan.get_group_plan(tprog.compile_circuit(c))
+    n_diag = sum(isinstance(s, tplan.DiagPairStep) for s in plan.steps)
+    n_fiber = sum(isinstance(s, (tplan.AxisMatmulStep, tplan.CrossStep))
+                  for s in plan.steps)
+    assert n_diag == 10
+    torch.cuda.empty_cache()
+    cuda_exec.reset_launch_counts()
+    with profiling.recording() as rec:
+        res = Simulator(device="cuda").run(c, shots=256, seed=1)
+        torch.cuda.synchronize()
+    assert sum(res.measurement_counts.values()) == 256
+    del res
+    torch.cuda.empty_cache()
+    assert cuda_exec.diag_pair.launches == n_diag
+    diag = [ps for ps in rec.passes if ps.kind == "diag"]
+    assert len(diag) == n_diag and all(ps.chunks == 1 for ps in diag)
+    assert len(rec.launches) == n_fiber

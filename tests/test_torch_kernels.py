@@ -465,3 +465,218 @@ def test_complex_operator_needs_a_planar_state():
     with pytest.raises(ValueError):
         cuda_exec.cross_bit_axis(x, torch.zeros(2, 2, 16, 2, 16), 0, 1, 1,
                                  False)
+
+
+# ---------------------------------------------------------------------------
+# The pair-diagonal kernel (csrc/diag_pair.cu)
+# ---------------------------------------------------------------------------
+
+DIAG_LAYOUT = (4, 8, 8, 8, 8)
+DIAG_PAIRS = [(a, b) for a in range(5) for b in range(5) if a < b]
+# (planar, real table): the three forms the kernel takes
+DIAG_FORMS = [(True, False), (True, True), (False, True)]
+
+
+def _diag_table(shape, axis_a, axis_b, real, batch, shared, dtype, seed):
+    """Port table ``([T,] [2,] S_a, S_b)`` (stride 0 where shared) and its
+    complex values ``([T,] S_a, S_b)`` for the reference."""
+    rng = np.random.default_rng(seed)
+    rows = 1 if shared else max(batch, 1)
+    tab = (shape[axis_a], shape[axis_b])
+    vals = rng.standard_normal((rows,) + tab)
+    if not real:
+        vals = vals + 1j * rng.standard_normal((rows,) + tab)
+    planes = vals.real[:, None] if real else np.stack([vals.real, vals.imag],
+                                                      axis=1)
+    port = torch.from_numpy(planes.astype(dtype))
+    if real:
+        port = port[:, 0]
+    if not batch:
+        return port[0], vals[0]
+    if shared:
+        return port.expand((batch,) + tuple(port.shape[1:])), np.repeat(
+            vals, batch, axis=0)
+    return port, vals
+
+
+def _jax_diag(x: np.ndarray, vals: np.ndarray, axis_a, axis_b, planar,
+              real):
+    """The einsum the JAX package runs for the step (its ``_diag_spec``),
+    in float64 NumPy on the blocked table."""
+    from quantum_simulator_tpu.ops.plan import _diag_spec as jax_diag_spec
+
+    spec = jax_diag_spec(x.ndim - int(planar), axis_a, axis_b, real, planar)
+    op = vals.real if real else _blocked_np(vals.real, vals.imag)
+    return np.einsum(spec, op, x)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("batch,shared", [(0, False), (3, False), (3, True)])
+@pytest.mark.parametrize("planar,real", DIAG_FORMS)
+def test_diag_pair_cpu_takes_the_twin(planar, real, batch, shared, dtype):
+    """On a CPU tensor ``diag_pair`` is the plain twin: the JAX package's
+    einsum in every form (complex and real table, planar and real state,
+    one table, one per trajectory, one shared with stride 0, float32 and
+    float64), out of place, with no launch counted."""
+    cuda_exec.reset_launch_counts()
+    shape, axis_a, axis_b = (4, 8, 16), 0, 2
+    rng = np.random.default_rng(7)
+    lead = ((batch,) if batch else ()) + ((2,) if planar else ())
+    x = rng.standard_normal(lead + shape).astype(dtype)
+    d, vals = _diag_table(shape, axis_a, axis_b, real, batch, shared, dtype,
+                          seed=8)
+    got = cuda_exec.diag_pair(torch.from_numpy(x), d, axis_a, axis_b,
+                              planar, bool(batch))
+    if batch:
+        want = np.stack([_jax_diag(x[t], vals[t], axis_a, axis_b, planar,
+                                   real) for t in range(batch)])
+    else:
+        want = _jax_diag(x, vals, axis_a, axis_b, planar, real)
+    assert got.dtype == torch.from_numpy(x).dtype
+    tol = 1e-5 if dtype == np.float32 else 1e-12
+    np.testing.assert_allclose(got.numpy(), want, rtol=tol, atol=tol)
+    np.testing.assert_array_equal(got.numpy(), cuda_exec.diag_pair_plain(
+        torch.from_numpy(x), d, axis_a, axis_b, planar, bool(batch)).numpy())
+    assert cuda_exec.diag_pair.launches == 0
+
+
+def _emulate_diag_kernel(x: np.ndarray, table: np.ndarray, g, planar, real,
+                         vec: bool) -> np.ndarray:
+    """``csrc/diag_pair.cu``'s index arithmetic in NumPy: amplitude i of a
+    plane reads entry ``((i >> shift_a) & mask_a) * size_b + ((i >> shift_b)
+    & mask_b)``; with packs, the V amplitudes of a pack read the first
+    entry plus 0, 1 or size_b per amplitude, as the kernel's TableStep
+    says."""
+    flat = x.reshape(((2,) if planar else ()) + (g.n_plane,)).astype(
+        np.complex128 if planar else np.float64)
+    t = table.reshape(((1,) if real else (2,)) + (-1,))
+    dvals = t[0] if real else t[0] + 1j * t[1]
+    i = np.arange(g.n_plane, dtype=np.int64)
+    if vec:
+        V = 4
+        first = i - i % V
+        idx = (((first >> g.shift_a) & (g.size_a - 1)) * g.size_b
+               + ((first >> g.shift_b) & (g.size_b - 1)))
+        step = (1 if g.shift_b == 0 else g.size_b if g.shift_a == 0
+                else 0)
+        idx = idx + (i % V) * step
+    else:
+        idx = (((i >> g.shift_a) & (g.size_a - 1)) * g.size_b
+               + ((i >> g.shift_b) & (g.size_b - 1)))
+    if not planar:
+        return (flat * dvals[idx].real).reshape(x.shape)
+    z = (flat[0] + 1j * flat[1]) * dvals[idx]
+    return np.stack([z.real, z.imag]).reshape(x.shape)
+
+
+@pytest.mark.parametrize("shape,pairs", [
+    (DIAG_LAYOUT, DIAG_PAIRS + [(4, 0), (3, 1)]),
+    ((8, 2), [(0, 1), (1, 0)]),              # innermost axis under 4
+    ((4, 128, 128, 128, 128), [(0, 4), (1, 4), (3, 4), (1, 2)]),
+])
+@pytest.mark.parametrize("planar,real", DIAG_FORMS)
+def test_diag_geometry_emulated_matches_twin(shape, pairs, planar, real):
+    """The shifts and masks the wrapper hands the kernel, and the kernel's
+    table step within a 16-byte pack, emulated on every amplitude and held
+    against the twin; at the n = 30 layout (2^30 amplitudes a plane) the
+    geometry and the pack rule alone."""
+    for axis_a, axis_b in pairs:
+        if len(shape) == 5 and shape[1] == 128:
+            # the n = 30 layout: emulate the geometry, not a 2^30 state
+            g = cuda_exec.diag_geometry(shape, axis_a, axis_b)
+            assert g.n_plane == 1 << 30
+            assert g.shift_b == 7 * (4 - axis_b)
+            assert g.shift_a == 7 * (4 - axis_a)
+            assert cuda_exec.diag_packs(g, shape[-1], 4, 0, 0, 0)
+            continue
+        rng = np.random.default_rng(axis_a * 5 + axis_b)
+        x = rng.standard_normal(((2,) if planar else ()) + shape)
+        d, vals = _diag_table(shape, axis_a, axis_b, real, 0, False,
+                              np.float64, seed=axis_b)
+        g = cuda_exec.diag_geometry(shape, axis_a, axis_b)
+        vec = cuda_exec.diag_packs(g, shape[-1], 4, 0, 0, 0)
+        assert vec == (shape[-1] >= 4)
+        got = _emulate_diag_kernel(x, d.numpy(), g, planar, real, vec)
+        want = cuda_exec.diag_pair_plain(torch.from_numpy(x), d, axis_a,
+                                         axis_b, planar).numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("inner,item,x_ptr,d_ptr,db,shift_b,want", [
+    (8, 4, 0, 0, 0, 3, True),       # the layout's last axis, not in the pair
+    (2, 4, 0, 0, 0, 2, False),      # innermost axis under a 16-byte pack
+    (8, 4, 8, 0, 0, 3, False),      # a state 8 bytes off alignment
+    (8, 4, 0, 8, 0, 0, False),      # axis_b innermost, table off alignment
+    (8, 4, 0, 8, 0, 3, True),       # ... which a broadcast entry ignores
+    (8, 4, 0, 0, 2 * 64 + 2, 0, False),  # per-trajectory tables unaligned
+    (2, 8, 0, 0, 2 * 4, 0, True),   # float64: two amplitudes a pack
+])
+def test_diag_packs_follow_the_shape_and_alignment(inner, item, x_ptr,
+                                                   d_ptr, db, shift_b, want):
+    g = cuda_exec.DiagGeometry(1 << 10, 5, 8, shift_b, 8)
+    assert cuda_exec.diag_packs(g, inner, item, x_ptr, d_ptr, db) is want
+
+
+def test_diag_pair_is_no_fiber_kernel():
+    """The fiber rooflines pair ``_launch``'s records with the device
+    events that ``qsbench.devtrace.FIBER_KERNEL`` matches, by count: the
+    pair-diagonal kernel's device name must match none of them, it is kept
+    out of ``KERNELS``, and its launch writes no launch record."""
+    import inspect
+    import re
+    from pathlib import Path
+
+    from qsbench.devtrace import FIBER_KERNEL
+
+    src = (Path(cuda_exec.__file__).resolve().parent.parent / "csrc"
+           / "diag_pair.cu").read_text()
+    names = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)"
+                       r"\s+)?(\w+)\s*\(", src)
+    assert names == ["diag_pair_kernel"]
+    assert not any(FIBER_KERNEL.search(n) for n in names)
+    assert FIBER_KERNEL.search("qs::mma_kernel<128, true, false>")
+    assert cuda_exec.diag_pair not in cuda_exec.KERNELS + cuda_exec.KERNELS_F64
+    body = inspect.getsource(cuda_exec.diag_pair)
+    assert "_launch(" not in body and "profiling" not in body
+
+
+def test_build_binds_diag_pair_with_its_own_argtypes(monkeypatch):
+    """``_build`` binds ``qs_diag_pair`` with an argument list of its own:
+    two pointers, three ints, eight 64-bit sizes and strides, the stream;
+    the fiber entry points keep theirs."""
+    import ctypes
+    from types import SimpleNamespace
+
+    from quantum_simulator_tpu_torch.ops import _build
+
+    class FakeLib:
+        def __getattr__(self, name):
+            fn = SimpleNamespace(argtypes=None, restype=None)
+            setattr(self, name, fn)
+            return fn
+
+    monkeypatch.setattr(_build, "build", lambda: "libqs_kernels.so")
+    monkeypatch.setattr(_build.ctypes, "CDLL", lambda path: FakeLib())
+    lib = _build._load.__wrapped__()
+    want = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+            + [ctypes.c_longlong] * 8 + [ctypes.c_void_p])
+    assert lib.qs_diag_pair.argtypes == want
+    assert lib.qs_diag_pair.restype is ctypes.c_int
+    assert len(lib.qs_diag_pair.argtypes) == len(
+        cuda_exec.DiagGeometry._fields) + 9
+    assert lib.qs_dense_axis.argtypes != want
+    assert len(lib.qs_dense_axis.argtypes) == 19
+
+
+def test_diag_pair_rejects_what_the_kernel_does_not_take():
+    x = torch.empty((2, 4, 16, 128), device="meta")
+    with pytest.raises(ValueError, match="expected CUDA or CPU"):
+        cuda_exec.diag_pair(x, torch.empty((2, 4, 128), device="meta"), 0,
+                            2, True)
+    with pytest.raises(ValueError, match="complex table"):
+        cuda_exec.diag_pair(torch.zeros(4, 16, 128), torch.zeros(2, 4, 128),
+                            0, 2, False)
+    with pytest.raises(ValueError, match="bad axes"):
+        cuda_exec.diag_geometry((4, 16, 128), 1, 1)
+    with pytest.raises(ValueError, match="power of two"):
+        cuda_exec.diag_geometry((4, 12, 128), 0, 1)
