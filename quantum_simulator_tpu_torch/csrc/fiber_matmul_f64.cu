@@ -68,7 +68,7 @@
 // of blocks sharing each operator slab over distributed shared memory
 // would divide that by the cluster size; this design does not use one,
 // because the cross launch, with four times the dense one's operator
-// bytes, reaches the higher share of its bound (chip_smoke.py 17d): L2 is
+// bytes, reaches the higher share of its bound (PERF.md's kernel table): L2 is
 // not what limits either.
 //
 // Below kF64MmaMinK (K = 2, 4, 8: the leading axis of small n and cross

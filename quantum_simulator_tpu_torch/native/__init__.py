@@ -14,7 +14,8 @@ never load half a file.
 ``native_module()`` returns the loaded module, or ``None`` when it cannot
 be built (callers then take their pure-Python twins);
 ``native_module(required=True)`` raises instead, for the places where a
-silent fallback would hide the host hot loop (``chip_smoke.py``).
+silent fallback would hide the host hot loop (the card's check in
+``tests/test_torch_gpu.py``).
 """
 
 from __future__ import annotations

@@ -279,7 +279,8 @@ MMA_MIN_K = 32
 def tile_fibers(K: int, real: bool, cluster: bool = False) -> int:
     """Fibers per tile at depth K: ``SimtTile`` / ``MmaTile<K, ...>::F`` of
     ``csrc/fiber_matmul.cuh``, or ``ClusterTile::F`` for a launch that
-    ``takes_cluster`` (``chip_smoke.py`` checks the two agree)."""
+    ``takes_cluster`` (``tests/test_torch_gpu.py`` checks the two
+    agree)."""
     if cluster:
         return 16
     if K < MMA_MIN_K:
@@ -297,7 +298,7 @@ def takes_cluster(K: int, real: bool, op_batch_stride: int,
     keeping its share resident, and one cluster owns each fiber tile
     (``csrc/fiber_matmul.cuh``). ``cluster_path`` in
     ``csrc/cross_bit_axis.cu`` is the kernel's side of the rule
-    (``chip_smoke.py`` checks the two agree)."""
+    (``tests/test_torch_gpu.py`` checks the two agree)."""
     return K == 256 and not real and op_batch_stride == 0 and vec == 4
 
 
@@ -309,7 +310,7 @@ F64_MMA_MIN_K = 16
 def tile_fibers_f64(K: int, real: bool) -> int:
     """Fibers per tile of the float64 kernels at depth K:
     ``F64FmaTile`` / ``F64MmaTile<K, ...>::F`` of ``csrc/fiber_matmul_f64.cu``
-    (``chip_smoke.py`` checks the two agree)."""
+    (``tests/test_torch_gpu.py`` checks the two agree)."""
     if K < F64_MMA_MIN_K:
         return 256 * min(K, 4) * 4 // K
     if real:

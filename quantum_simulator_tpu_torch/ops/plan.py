@@ -434,26 +434,6 @@ def build_group_plan(program: prog.CircuitProgram) -> GroupPlan:
                      all_real=all_real)
 
 
-def count_state_passes(plan: GroupPlan) -> int:
-    """Whole-state sweeps: one per dense / cross / diag-pair step and per
-    non-swap bit-pair step; a run of adjacent swap bit-pairs counts once.
-    DiagProductSteps are excluded (``plan.py:1234-1253``)."""
-    passes = 0
-    prev_swap = False
-    for s in plan.steps:
-        if (isinstance(s, BitPairStep)
-                and plan.bitpair_specs[s.index].is_swap):
-            if not prev_swap:
-                passes += 1
-            prev_swap = True
-            continue
-        prev_swap = False
-        if isinstance(s, (AxisMatmulStep, CrossStep, DiagPairStep,
-                          BitPairStep)):
-            passes += 1
-    return passes
-
-
 # ---------------------------------------------------------------------------
 # Operator building on the host (NumPy)
 # ---------------------------------------------------------------------------

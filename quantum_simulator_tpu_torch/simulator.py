@@ -105,11 +105,11 @@ def _chunk_size(program, noise_model, n_traj: int) -> int:
     temporary (basis sampling, reductions), its complex result (8 bytes
     an amplitude, 16 under ``enable_complex128``), and
     four times its operands: the batched build holds the kron chains and
-    compositions beside the finished operands (3.2x measured at n=16
-    depth-40 on an H100, ``chip_smoke.py`` phase 4b). Its regime ends at
-    n = 29, where it has long returned 1 (a planar n = 28 trajectory
-    already reckons 6 GiB): the n >= 30 paths run one trajectory at a time
-    on one grouped state and do not come here."""
+    compositions beside the finished operands (3.2x, measured at n=16
+    depth-40 on an H100). Its regime ends at n = 29, where it has long
+    returned 1 (a planar n = 28 trajectory already reckons 6 GiB): the
+    n >= 30 paths run one trajectory at a time on one grouped state and do
+    not come here."""
     from .ops import plan as gplan
 
     route = prog.trajectory_route(program, noise_model)

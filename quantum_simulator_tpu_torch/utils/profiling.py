@@ -83,10 +83,11 @@ class Launch(NamedTuple):
 
 
 class Pass(NamedTuple):
-    """One whole-state pass of the executor that no kernel serves: a
-    pair-diagonal step (``"diag"``) or a bit-pair step (``"bitpair"``),
-    the state's bytes (planes and batch included), the chunks it ran in
-    (1: the whole state at once), whether it was an exact swap, and the
+    """One whole-state pass of the executor outside the fiber kernels: a
+    pair-diagonal step (``"diag"``; on the card the ``diag_pair`` kernel,
+    one pass with ``chunks`` = 1) or a bit-pair step (``"bitpair"``), the
+    state's bytes (planes and batch included), the chunks it ran in (1:
+    the whole state at once), whether it was an exact swap, and the
     innermost span open (-1 outside any)."""
 
     kind: str

@@ -6,18 +6,24 @@ not installed. Run on a machine with a card from the repository root:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py -m gpu
 
-(``--noconftest`` because ``tests/conftest.py`` sets JAX up.)
+(``--noconftest`` because ``tests/conftest.py`` sets JAX up.) These tests
+are the port's one card check; the benchmark (``qsbench/``) times it.
 Tolerances are those of ``tests/test_pallas_exec.py``: 2e-4 dense, 2e-3
 cross, as the sums run in another order than cuBLAS's. The kernels write
 in place, so every twin runs on the state before the kernel does.
 """
+
+import contextlib
+import os
+import subprocess
 
 import numpy as np
 import pytest
 import torch
 
 from bench import build_circuit_dict
-from quantum_simulator_tpu_torch import QuantumCircuit, Simulator
+from quantum_simulator_tpu_torch import (NoiseChannel, QuantumCircuit,
+                                         Simulator)
 from quantum_simulator_tpu_torch.ops import cuda_exec
 from quantum_simulator_tpu_torch.ops import plan as tplan
 from quantum_simulator_tpu_torch.ops import program as tprog
@@ -31,6 +37,48 @@ def cuda():
         pytest.skip("needs a CUDA device (torch.cuda.is_available() is "
                     "false)")
     return torch.device("cuda")
+
+
+@contextlib.contextmanager
+def _precision(precision):
+    """Run the block under ``enable_complex128`` for "complex128" (yields
+    whether it does); complex64 is restored after either way."""
+    from quantum_simulator_tpu_torch import config
+
+    wide = precision == "complex128"
+    if wide:
+        config.enable_complex128()
+    try:
+        yield wide
+    finally:
+        config.enable_complex64()
+
+
+def _launches(wide):
+    """(dense, cross, the other precision's total) launches so far."""
+    mine = cuda_exec.KERNELS_F64 if wide else cuda_exec.KERNELS
+    other = cuda_exec.KERNELS if wide else cuda_exec.KERNELS_F64
+    return (mine[0].launches, mine[1].launches,
+            sum(k.launches for k in other))
+
+
+def _grouped_max_diff(a, b):
+    """max |a - b| of two states, chunk by chunk (no state-sized
+    temporary)."""
+    fa, fb = a.reshape(-1), b.reshape(-1)
+    err = torch.zeros((), dtype=a.dtype, device=a.device)
+    for s in range(0, fa.numel(), tplan.CHUNK_ELEMS):
+        e = s + tplan.CHUNK_ELEMS
+        err = torch.maximum(err, (fa[s:e] - fb[s:e]).abs().max())
+    return float(err)
+
+
+def _global_noise(channel):
+    from quantum_simulator_tpu_torch import NoiseModel
+
+    nm = NoiseModel()
+    nm.add_global_noise(channel)
+    return nm
 
 
 def _state(shape, planar, device, seed=0):
@@ -48,6 +96,98 @@ def _op(shape, real, device, seed=1):
 
 
 VARIANTS = [(False, True), (True, True), (True, False)]  # (planar, real)
+
+
+# ---------------------------------------------------------------------------
+# The build: what ptxas and the SASS say, and the tile sizes the wrapper
+# assumes (the CPU tests' model of the tile walk rests on them)
+# ---------------------------------------------------------------------------
+
+def _built():
+    """The kernel library, built if need be; skips where the CUDA toolkit
+    is absent, as the build itself needs it."""
+    from quantum_simulator_tpu_torch.ops import _build
+
+    try:
+        _build._nvcc()
+    except RuntimeError as e:
+        pytest.skip(str(e))
+    return _build.build()
+
+
+def test_no_kernel_spills(cuda):
+    """``ptxas -v`` of every kernel instance: no spill store or load."""
+    from quantum_simulator_tpu_torch.ops import _build
+
+    _built()
+    spills, entry = {}, None
+    for line in _build.build_log().splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif entry and "spill stores" in line:
+            nums = [int(t) for t in line.replace(",", " ").split()
+                    if t.isdigit()]
+            spills[entry] = nums[1] + nums[2]   # stack, stores, loads
+    names = " ".join(spills)
+    for kernel in ("simt_kernel", "cluster_mma_kernel", "f64_fma_kernel",
+                   "f64_mma_kernel", "diag_pair_kernel"):
+        assert kernel in names
+    assert {k: v for k, v in spills.items() if v} == {}
+
+
+def test_f64_dmma_exactly_on_the_dmma_path(cuda):
+    """``cuobjdump -sass``: DMMA in every float64 instance of the DMMA path
+    (K >= ``F64_MMA_MIN_K``), none in the FP64 FMA ones."""
+    from quantum_simulator_tpu_torch.ops import _build
+
+    lib = _built()
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        pytest.skip(f"needs {tool}")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    dmma, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            fn = fn if "f64_" in fn else None
+            if fn:
+                dmma[fn] = 0
+        elif fn and "*/" in line:
+            words = line.split("*/")[1].split()
+            op = next((t for t in words if not t.startswith("@")), "")
+            dmma[fn] += op.startswith("DMMA")
+    mma = {k: v for k, v in dmma.items() if "f64_mma_kernel" in k}
+    fma = {k: v for k, v in dmma.items() if "f64_mma_kernel" not in k}
+    assert mma and fma
+    assert all(mma.values()), mma
+    assert not any(fma.values()), fma
+
+
+def test_kernel_tile_sizes_agree_with_the_wrapper(cuda):
+    """The kernels' fibers per tile and cluster rule, as the library
+    reports them, equal ``tile_fibers``, ``tile_fibers_f64`` and
+    ``takes_cluster``."""
+    from quantum_simulator_tpu_torch.ops import _build
+
+    _built()
+    lib = _build.library()
+    for k in (2, 4, 8, 16, 32, 64, 128, 256):
+        for real in (True, False):
+            assert lib.qs_tile_fibers(k, int(not real)) == \
+                cuda_exec.tile_fibers(k, real), (k, real)
+            assert lib.qs_tile_fibers_f64(k, int(not real)) == \
+                cuda_exec.tile_fibers_f64(k, real), (k, real)
+    assert lib.qs_cluster_tile_fibers() == cuda_exec.tile_fibers(
+        256, False, cluster=True)
+    for k in (128, 256):
+        for real in (True, False):
+            for op_stride in (0, 2 * k * k):
+                for vec in (1, 2, 4):
+                    assert bool(lib.qs_cross_path(
+                        k, int(not real), op_stride, vec)) == \
+                        cuda_exec.takes_cluster(k, real, op_stride, vec), \
+                        (k, real, op_stride, vec)
 
 
 @pytest.mark.parametrize("shape", [(4, 16, 128), (4, 128, 128)])
@@ -153,8 +293,8 @@ def test_copy_widths(cuda, geom, width, planar, real):
         (2, S, 2, S), real, cuda, 7), *geom, planar)
 
 
-# chip_smoke.py's CROSS_CASES: every cross geometry of the brickwork plans
-# at n = 16, 28 and 30, plus a sliced bit inside the last axis.
+# Every cross geometry of the brickwork plans at n = 16, 28 and 30, plus a
+# sliced bit inside the last axis.
 LAYOUTS = {16: (4, 128, 128), 28: (128,) * 4, 30: (4,) + (128,) * 4}
 SMOKE_CROSS = [(16, 1, 0, 0), (16, 1, 6, 2), (28, 0, 6, 1), (28, 1, 6, 2),
                (28, 2, 6, 3), (30, 1, 0, 0), (30, 1, 6, 2), (30, 2, 6, 3),
@@ -173,6 +313,188 @@ def test_cross_slab_loop_on_main_path_geometries(cuda, n, s, pos, o):
         cop = _scaled_op((2, S, 2, S), real, cuda, seed=8)
         _check_cross(_state(shape, planar, cuda), cop, s, pos, o, planar)
         torch.cuda.empty_cache()
+
+
+def _brick(n, depth, mix_rz=False, seed=42):
+    return QuantumCircuit.from_dict(build_circuit_dict(n, depth, seed,
+                                                       mix_rz))
+
+
+def _noisy_plans(program, nm):
+    """The group plans one batch of trajectories runs: the spliced
+    program's (mixed-unitary noise) or every window's segment's
+    (monomial noise)."""
+    from quantum_simulator_tpu_torch.ops import monomial_traj as tmono
+    from quantum_simulator_tpu_torch.ops import unitary_traj as tunit
+
+    if tprog.trajectory_route(program, nm) == "unitary":
+        return [tplan.get_group_plan(
+            tunit.unitary_insert_spec(program, nm).aug)]
+    return [tplan.get_group_plan(s)
+            for s in tmono.monomial_spec(program, nm).segments]
+
+
+def _cross_geometries(plans):
+    return sorted({(s.slice_axis, s.slice_pos, s.op_axis) for p in plans
+                   for s in p.steps if isinstance(s, tplan.CrossStep)})
+
+
+def _brickwork_plans(n, depth=8, noisy=False):
+    """The Ry+CNOT and Ry/Rz brickwork plans, or (``noisy``) the Ry+CNOT
+    trajectory plans under depolarizing and amplitude damping noise."""
+    from quantum_simulator_tpu_torch import (AmplitudeDampingNoise,
+                                             DepolarizingNoise)
+
+    if not noisy:
+        return [tplan.get_group_plan(tprog.compile_circuit(
+            _brick(n, depth, mix))) for mix in (False, True)]
+    program = tprog.compile_circuit(_brick(n, depth))
+    return [p for ch in (DepolarizingNoise(0.05), AmplitudeDampingNoise(0.05))
+            for p in _noisy_plans(program, _global_noise(ch))]
+
+
+def _step_cases(shape, geoms):
+    """(kernel, twin, geometry, operator shape, axes touched, fp32
+    tolerance) of every dense axis and of each cross geometry."""
+    for a, S in enumerate(shape):
+        yield (cuda_exec.dense_axis, cuda_exec.dense_axis_plain, (a,),
+               (S, S), {a}, 2e-4)
+    for s, pos, o in geoms:
+        S = shape[o]
+        yield (cuda_exec.cross_bit_axis, cuda_exec.cross_bit_axis_plain,
+               (s, pos, o), (2, S, 2, S), {s, o}, 2e-3)
+
+
+def _rand_op(op_shape, real, gen, dtype=torch.float32, batch=None,
+             shared=True):
+    """N(0, 1/K) entries, K the contraction depth; with ``batch``, one
+    operator per trajectory or one shared with stride 0."""
+    k = op_shape[-1] * (2 if len(op_shape) == 4 else 1)
+    full = tuple(op_shape) if real else (2,) + tuple(op_shape)
+    rows = 1 if batch is None or shared else batch
+    a = torch.randn((rows,) + full, generator=gen, device=gen.device,
+                    dtype=dtype) / k ** 0.5
+    return a[0] if batch is None else a.expand((batch,) + full)
+
+
+# (layout, batch, depth of the noisy plans whose cross steps are taken):
+# the headline's and the n = 28 layout alone, and the noisy batches' n = 10
+# and 16 layouts with 16 trajectories.
+F64_REF_CASES = {"n16": ((4, 128, 128), None, None),
+                 "n28": ((128,) * 4, None, None),
+                 "n10-B16": ((8, 128), 16, 10),
+                 "n16-B16": ((4, 128, 128), 16, 40)}
+
+
+@pytest.mark.parametrize("case", list(F64_REF_CASES))
+def test_kernel_error_against_float64_at_most_twice_the_twins(cuda, case):
+    """Against the twin run in float64, a kernel's max error is at most
+    twice the fp32 twin's (3xTF32 and SIMT fp32 keep fp32 accuracy): every
+    dense axis in the three forms and every cross geometry of the layout's
+    plans, batched with a shared and with a per-trajectory operator."""
+    shape, B, depth = F64_REF_CASES[case]
+    n = int(np.log2(np.prod(shape)))
+    geoms = ([g[1:] for g in SMOKE_CROSS if g[0] == n] if B is None else
+             _cross_geometries(_brickwork_plans(n, depth, noisy=True)))
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(n)
+    lead = () if B is None else (B,)
+    for shared in ((True,) if B is None else (True, False)):
+        for fn, twin, geom, op_shape, _, tol in _step_cases(shape, geoms):
+            dense = fn is cuda_exec.dense_axis
+            for planar, real in (VARIANTS if dense else VARIANTS[::2]):
+                x = torch.randn(lead + ((2,) if planar else ()) + shape,
+                                generator=gen, device=cuda)
+                op = _rand_op(op_shape, real, gen, batch=B, shared=shared)
+                args = geom + (planar, B is not None)
+                want = twin(x, op, *args)
+                ref = twin(x.double(), op.double(), *args)
+                got = fn(x, op, *args)
+                torch.cuda.synchronize()
+                assert got is x
+                torch.testing.assert_close(got, want, atol=tol, rtol=0)
+                err = float((got.double() - ref).abs().max())
+                twin_err = float((want.double() - ref).abs().max())
+                assert err <= 2 * twin_err, (geom, planar, real, shared,
+                                             err, twin_err)
+                del x, op, want, ref, got
+        torch.cuda.empty_cache()
+
+
+# Layouts past 2^31 elements (the kernels' 64-bit offsets): (layout, dtype,
+# batch). n = 30 - 32 as the large-state path holds them, a noisy batch of
+# 64 planar trajectories at n = 24, and the mesh's 8 stacked planar shards
+# of n = 30 in float64.
+HUGE_KERNEL_CASES = {
+    "n30": ((4,) + (128,) * 4, torch.float32, None),
+    "n31": ((8,) + (128,) * 4, torch.float32, None),
+    "n32": ((16,) + (128,) * 4, torch.float32, None),
+    "n30-f64": ((4,) + (128,) * 4, torch.float64, None),
+    "n31-f64": ((8,) + (128,) * 4, torch.float64, None),
+    "n24-B64": ((8, 128, 128, 128), torch.float32, 64),
+    "mesh-n30-f64": ((64, 128, 128, 128), torch.float64, 8),
+}
+SLICE_ELEMS = 1 << 28      # elements of one slice of a twin run slice-wise
+
+
+def _sliced_max_err(got, x0, twin, planar, touched):
+    """max |got - twin(x0)| with the twin run slice by slice along the
+    widest data axis the step does not touch (two states and one slice's
+    temporaries at the peak)."""
+    lead = int(planar)
+    shape = tuple(x0.shape[lead:])
+    ax = max((a for a in range(len(shape)) if a not in touched),
+             key=lambda a: shape[a])
+    width = min(shape[ax], max(1, shape[ax] * SLICE_ELEMS // x0.numel()))
+    err = 0.0
+    for start in range(0, shape[ax], width):
+        want = twin(x0.narrow(lead + ax, start, width))
+        err = max(err, float((got.narrow(lead + ax, start, width)
+                              - want).abs().max()))
+        del want
+    return err
+
+
+@pytest.mark.parametrize("case", list(HUGE_KERNEL_CASES))
+def test_kernels_match_twins_past_2_31_elements(cuda, case):
+    """Every dense axis and every cross geometry of the brickwork plans at
+    the layout (unbatched: the three forms; batched: a planar state with a
+    shared and with a per-trajectory complex operator), against the twin
+    run slice by slice (trajectory by trajectory when batched): 2e-4 dense
+    and 2e-3 cross in float32, 1e-12 x max |x| in float64."""
+    shape, dtype, B = HUGE_KERNEL_CASES[case]
+    n = int(np.log2(np.prod(shape)))
+    geoms = _cross_geometries(_brickwork_plans(n, noisy=B == 64))
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(n)
+    for fn, twin, geom, op_shape, touched, tol in _step_cases(shape, geoms):
+        dense = fn is cuda_exec.dense_axis
+        forms = ((VARIANTS if dense else VARIANTS[::2]) if B is None
+                 else [(True, False)])
+        for planar, real in forms:
+            for shared in ((True,) if B is None else (True, False)):
+                torch.cuda.empty_cache()
+                lead = (() if B is None else (B,)) + ((2,) if planar else ())
+                x = torch.randn(lead + shape, generator=gen, device=cuda,
+                                dtype=dtype)
+                x0 = x.clone()
+                op = _rand_op(op_shape, real, gen, dtype, B, shared)
+                got = fn(x, op, *geom, planar, B is not None)
+                torch.cuda.synchronize()
+                assert got is x
+                if B is None:
+                    err = _sliced_max_err(
+                        got, x0, lambda v: twin(v, op, *geom, planar),
+                        planar, touched)
+                else:
+                    err = max(float((got[b] - twin(x0[b], op[b], *geom,
+                                                   planar)).abs().max())
+                              for b in range(B))
+                if dtype == torch.float64:
+                    tol = 1e-12 * max(float(x0.max()), -float(x0.min()))
+                assert err <= tol, (geom, planar, real, shared, err)
+                del x, x0, op, got
+    torch.cuda.empty_cache()
 
 
 @pytest.mark.parametrize("planar,real", VARIANTS)
@@ -263,25 +585,63 @@ def test_simulator_run_goes_through_the_kernels(cuda, mix_rz):
     assert sum(res.measurement_counts.values()) == 256
 
 
-def test_qft_with_strided_steps_goes_through_the_kernels(cuda):
-    """QFT's pair diagonals and swaps hand the kernels strided views."""
-    c = QuantumCircuit(12)
+def _qft(n):
+    """H + controlled-phase ladder + bit-reversal SWAPs."""
+    c = QuantumCircuit(n)
     col = 0
-    for i in range(12):
+    for i in range(n):
         c.add("H", [i], [], col)
         col += 1
-        for j in range(i + 1, 12):
+        for j in range(i + 1, n):
             c.add("CPhase", [j, i], [np.pi / 2 ** (j - i)], col)
             col += 1
-    for i in range(6):
-        c.add("SWAP", [i, 11 - i], [], col)
+    for i in range(n // 2):
+        c.add("SWAP", [i, n - 1 - i], [], col)
         col += 1
-    p = tprog.compile_circuit(c)
+    return c
+
+
+def _ghz(n):
+    c = QuantumCircuit(n)
+    c.add("H", [0], [], 0)
+    for q in range(n - 1):
+        c.add("CNOT", [q, q + 1], [], q + 1)
+    return c
+
+
+def test_qft_with_strided_steps_goes_through_the_kernels(cuda):
+    """QFT's pair diagonals and swaps hand the kernels strided views."""
+    p = tprog.compile_circuit(_qft(12))
     cuda_exec.reset_launch_counts()
     got = tplan.group_forward_body(p, p.initial_params, cuda)
     assert cuda_exec.dense_axis.launches > 0
     probs = got.abs().square()
     assert float((probs - 2.0 ** -12).abs().max()) <= 1e-9
+
+
+def test_simulator_run_n28_samples_on_the_card_within_its_peak(cuda):
+    """n = 28, the widest state below the large-state path: GHZ-28's 4096
+    shots through the device sampler give only 0..0 and 1..1, each 40-60 %;
+    the Ry/Rz brickwork (only dense and cross steps) peaks at one planar
+    state in place plus the complex result, under 6.1 GiB."""
+    from quantum_simulator_tpu_torch.measurement import MeasurementEngine
+
+    assert 1 << 28 >= MeasurementEngine.DEVICE_SAMPLING_MIN_DIM
+    counts = Simulator(device="cuda").run(
+        _ghz(28), shots=4096, seed=42).measurement_counts
+    zeros, ones = counts.get("0" * 28, 0), counts.get("1" * 28, 0)
+    assert zeros + ones == 4096 and 0.4 <= zeros / 4096 <= 0.6, counts
+    circuit = _brick(28, 8, mix_rz=True)
+    plan = tplan.build_group_plan(tprog.compile_circuit(circuit))
+    assert all(isinstance(s, (tplan.AxisMatmulStep, tplan.CrossStep))
+               for s in plan.steps)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res = Simulator(device="cuda").run(circuit, shots=0)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() <= 6.1 * 2**30
+    del res
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -489,6 +849,199 @@ def test_noisy_batches_go_through_the_kernels(cuda):
     assert float((got - want).abs().max()) <= 1e-5
 
 
+class _XDamp(NoiseChannel):
+    """Amplitude damping 0.05 conjugated by H: trace preserving, neither
+    mixed-unitary nor monomial, so it takes the fold executor."""
+
+    @property
+    def probability(self):
+        return 0.05
+
+    def get_kraus_operators(self):
+        from quantum_simulator_tpu_torch import AmplitudeDampingNoise
+
+        h = np.array([[1.0, 1.0], [1.0, -1.0]]) / np.sqrt(2.0)
+        return [h @ np.asarray(k) @ h for k in
+                AmplitudeDampingNoise(0.05).get_kraus_operators()]
+
+
+def _route_noise(route):
+    """A noise model each trajectory route serves."""
+    from quantum_simulator_tpu_torch import (AmplitudeDampingNoise,
+                                             DepolarizingNoise)
+
+    if route == "unitary":
+        return _global_noise(DepolarizingNoise(0.05))
+    if route == "monomial":
+        return _global_noise(AmplitudeDampingNoise(0.05))
+    return _global_noise(_XDamp())
+
+
+def _route_body(route):
+    from quantum_simulator_tpu_torch.ops import bigtraj
+    from quantum_simulator_tpu_torch.ops import monomial_traj as tmono
+    from quantum_simulator_tpu_torch.ops import unitary_traj as tunit
+
+    return {"unitary": tunit.unitary_insert_trajectory_body,
+            "monomial": tmono.monomial_trajectory_body,
+            "fold": bigtraj.fold_trajectory_body,
+            "per-gate": tplan.group_trajectory_body}[route]
+
+
+@pytest.mark.parametrize("route", ["unitary", "monomial", "fold"])
+def test_trajectory_batches_launch_each_step_once_a_batch(cuda, route,
+                                                          monkeypatch):
+    """``trajectory_states`` cut into batches (the memory budget lowered):
+    each batch launches its plans' dense and cross steps once, the fold
+    body one kernel per gate for the whole batch; norms 1 +- 1e-4; the
+    route's body through the kernels within 1e-5 of its twins on the same
+    draws; ``run_with_noise`` with readout error returns its shots."""
+    from quantum_simulator_tpu_torch import ReadoutError
+    from quantum_simulator_tpu_torch import simulator as tsim
+
+    circuit = _brick(12, 6)
+    program = tprog.compile_circuit(circuit)
+    nm = _route_noise(route)
+    assert tprog.trajectory_route(program, nm) == route
+    monkeypatch.setattr(tsim, "TRAJECTORY_MEMORY_BYTES", 32 << 20)
+    T = 64
+    batches = -(-T // tsim._chunk_size(program, nm, T))
+    assert batches >= 2
+    cuda_exec.reset_launch_counts()
+    states = Simulator(noise_model=nm, device="cuda").trajectory_states(
+        circuit, T, seed=1)
+    torch.cuda.synchronize()
+    assert tuple(states.shape) == (T, 1 << 12)
+    if route == "fold":
+        assert sum(k.launches for k in cuda_exec.KERNELS) == \
+            batches * len(program.ops)
+    else:
+        n_dense, n_cross = _step_counts(*_noisy_plans(program, nm))
+        assert cuda_exec.dense_axis.launches == batches * n_dense > 0
+        assert cuda_exec.cross_bit_axis.launches == batches * n_cross
+    norms = states.abs().square().sum(-1)
+    assert float((norms - 1).abs().max()) <= 1e-4
+    body = _route_body(route)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    got, draws = body(program, nm, program.initial_params, 9, "cuda", gen)
+    want, _ = body(program, nm, program.initial_params, 9, "cuda", None,
+                   draws, plain=True)
+    assert float((got - want).abs().max()) <= 1e-5
+    nm.set_readout_error(ReadoutError(0.01, 0.02))
+    res = Simulator(noise_model=nm, device="cuda").run_with_noise(
+        circuit, shots=1024, seed=3)
+    assert sum(res.measurement_counts.values()) == 1024
+
+
+@pytest.mark.parametrize("channel", ["depolarizing", "amplitude damping",
+                                     "two-qubit depolarizing"])
+def test_trajectory_ensemble_law_n4(cuda, channel):
+    """2000 trajectories drawn on the card: the mean |psi|^2 within 0.05
+    of the density matrix's diagonal (the CPU's dense route)."""
+    from quantum_simulator_tpu_torch import (AmplitudeDampingNoise,
+                                             DensityMatrixSimulator,
+                                             DepolarizingNoise, NoiseModel,
+                                             TwoQubitDepolarizingNoise)
+
+    nm = NoiseModel()
+    if channel == "two-qubit depolarizing":
+        nm.add_gate_noise("CNOT", TwoQubitDepolarizingNoise(0.3))
+    else:
+        nm.add_global_noise(DepolarizingNoise(0.1) if channel ==
+                            "depolarizing" else AmplitudeDampingNoise(0.2))
+    circuit = _brick(4, 6, mix_rz=True)
+    states = Simulator(noise_model=nm, device="cuda").trajectory_states(
+        circuit, 2000, seed=42)
+    got = states.abs().square().mean(0).double().cpu().numpy()
+    want = DensityMatrixSimulator(noise_model=nm, device="cpu").run(
+        circuit, method="dense").probabilities
+    assert float(np.abs(got - want).max()) <= 0.05
+
+
+@pytest.mark.parametrize("route", ["unitary", "monomial", "fold", "per-gate",
+                                   "monitored"])
+def test_complex128_trajectory_routes_card_equal_cpu(cuda, route):
+    """Under ``enable_complex128`` each trajectory body (and a monitored
+    one) at n = 12 on the card and on the CPU with the card's draws:
+    within 1e-12, every launch a float64 one, the outcomes equal."""
+    from quantum_simulator_tpu_torch import AmplitudeDampingNoise
+    from quantum_simulator_tpu_torch.ops import monomial_traj as tmono
+
+    T = 4
+    with _precision("complex128"):
+        cuda_exec.reset_launch_counts()
+        gen = torch.Generator(device="cuda").manual_seed(42)
+        if route == "monitored":
+            circuit = _monitored_brickwork(12, 6)
+            program = tprog.compile_circuit(circuit)
+            args = (program, _global_noise(AmplitudeDampingNoise(0.05)),
+                    _monitored_events(circuit), program.initial_params, T)
+            states, outs, draws = tmono.monomial_monitored_body(
+                *args, "cuda", gen)
+            cpu, cpu_outs, _ = tmono.monomial_monitored_body(
+                *args, "cpu", None, _to_device(draws, "cpu"))
+            assert torch.equal(outs.cpu(), cpu_outs)
+        else:
+            program = tprog.compile_circuit(_brick(12, 6, mix_rz=True))
+            nm = _route_noise(route)
+            if route != "per-gate":
+                assert tprog.trajectory_route(program, nm) == route
+            args = (program, nm, program.initial_params, T)
+            states, draws = _route_body(route)(*args, "cuda", gen)
+            cpu, _ = _route_body(route)(*args, "cpu", None,
+                                        _to_device(draws, "cpu"))
+        torch.cuda.synchronize()
+    dense, cross, f32 = _launches(True)
+    assert f32 == 0 and dense + cross > 0
+    assert states.dtype == torch.complex128
+    assert float((states.cpu() - cpu).abs().max()) <= 1e-12
+
+
+def _to_device(draws, device):
+    """A body's draws (a tensor, or lists and tuples of them) on
+    ``device``."""
+    if isinstance(draws, torch.Tensor):
+        return draws.to(device)
+    return type(draws)(_to_device(d, device) for d in draws)
+
+
+def _monitored_brickwork(n, depth, seed=42):
+    """Ry+CNOT brickwork with a ``Measure`` on every fourth qubit after
+    each second layer; the first measurement of qubit 0 is repeated at
+    once, with no gate between."""
+    rng = np.random.default_rng(seed)
+    c = QuantumCircuit(n)
+    col = 0
+    for layer in range(depth):
+        if layer % 2 == 0:
+            for q in range(n):
+                c.add("Ry", [q], [float(rng.uniform(0, 2 * np.pi))], col)
+        else:
+            for q in range((layer // 2) % 2, n - 1, 2):
+                c.add("CNOT", [q, q + 1], [], col)
+            col += 1
+            for q in range(0, n, 4):
+                c.add("Measure", [q], [], col)
+            if layer == 1:
+                col += 1
+                c.add("Measure", [0], [], col)
+        col += 1
+    return c
+
+
+def _monitored_events(circuit):
+    """``(op_position, qubit)`` of every ``Measure``, as
+    ``Simulator.monitored_trajectories`` derives them."""
+    events, pos = [], 0
+    for column in circuit.get_ordered_gates():
+        for g in column:
+            if g.gate_name == "Measure":
+                events.append((pos, g.target_qubits[0]))
+            else:
+                pos += 1
+    return tuple(events)
+
+
 # ---------------------------------------------------------------------------
 # Parameter batches: the variational path
 # ---------------------------------------------------------------------------
@@ -507,9 +1060,11 @@ def _variational(kind):
             topt.CostFunction.qaoa_maxcut(edges))
 
 
-def _step_counts(plan):
-    return (sum(isinstance(s, tplan.AxisMatmulStep) for s in plan.steps),
-            sum(isinstance(s, tplan.CrossStep) for s in plan.steps))
+def _step_counts(*plans):
+    """(dense, cross) steps of the plans together."""
+    steps = [s for p in plans for s in p.steps]
+    return (sum(isinstance(s, tplan.AxisMatmulStep) for s in steps),
+            sum(isinstance(s, tplan.CrossStep) for s in steps))
 
 
 @pytest.mark.parametrize("kind", ["real", "planar"])
@@ -567,33 +1122,86 @@ def test_gradients_on_cuda(cuda, kind):
     np.testing.assert_allclose(ad, grad, atol=1e-3)
 
 
+@pytest.mark.parametrize("kind", ["real", "planar"])
+def test_optimizer_and_multi_start_on_cuda(cuda, kind):
+    """``CircuitOptimizer.run`` (3 parameter-shift iterations) launches per
+    iteration its gradient's batches and one cost row's, and never rises
+    above its first cost; ``multi_start`` ends at or below the mean of its
+    starts' first costs."""
+    from quantum_simulator_tpu_torch import optimizer as topt
+    from quantum_simulator_tpu_torch import simulator as tsim
+
+    circuit, cost = _variational(kind)
+    cfg = topt.ParameterizedCircuitConfig.auto_detect(circuit)
+    program, _ = cfg.compiled()
+    values = np.random.default_rng(7).uniform(-np.pi, np.pi, cfg.num_params)
+    rows = 2 * cfg.num_params
+    batches = -(-rows // tsim.param_rows_per_batch(program, rows)) + 1
+    start = topt.ParameterizedCircuitConfig.auto_detect(
+        cfg.bind_values(values))
+    opt = topt.CircuitOptimizer(start, cost, max_iterations=3,
+                                gradient_method="parameter_shift",
+                                device="cuda")
+    cuda_exec.reset_launch_counts()
+    res = opt.run(seed=42)
+    n_dense, n_cross = _step_counts(tplan.get_group_plan(program))
+    assert res.iterations == 3
+    assert cuda_exec.dense_axis.launches == 3 * batches * n_dense
+    assert cuda_exec.cross_bit_axis.launches == 3 * batches * n_cross
+    costs = [c for _, c in res.history]
+    assert all(c <= costs[0] for c in costs), costs
+    ms = topt.CircuitOptimizer.multi_start(cfg, cost, n_starts=4,
+                                           max_iterations=10, seed=42,
+                                           device="cuda")
+    assert ms.cost_histories.shape == (4, 10)
+    assert ms.optimal_cost <= float(ms.cost_histories[:, 0].mean())
+
+
 # ---------------------------------------------------------------------------
 # Large states (n >= 30)
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("precision", ["complex64", "complex128"])
-def test_simulator_run_n30_holds_under_two_states(cuda, precision):
+def _x_rotated(circuit):
+    """The circuit ``Simulator.run`` samples for the X basis at n >= 30."""
+    rotated = circuit.copy()
+    col = rotated.get_column_count()
+    for q in range(circuit.num_qubits):
+        rotated.add("H", [q], [], col)
+    return rotated
+
+
+@pytest.mark.parametrize("precision,basis", [
+    ("complex64", "Z"), ("complex64", "X"), ("complex128", "Z"),
+    ("complex128", "X")])
+def test_simulator_run_n30_holds_under_two_states(cuda, precision, basis):
     """``Simulator.run`` at n = 30 returns the executor's planar state as
     it is: its peak stays under 1.75x the state, 8 GiB in float32 and
     16 GiB in float64 under ``enable_complex128`` (a complex copy, a full
-    probability vector or a 2^n histogram would each break that)."""
-    from quantum_simulator_tpu_torch import PlanarStateVector, config
+    probability vector or a 2^n histogram would each break that). Each
+    dense and cross step is one launch (in the X basis the rotated
+    circuit's too). In the Z basis the complex64 state equals the
+    plain-twin executor's within 1e-5, and the float64 one's per-axis
+    marginals the complex64 run's within 1e-5 (the float64 twin executor
+    holds more than the card: five 16 GiB states)."""
+    from quantum_simulator_tpu_torch import MeasurementBasis, PlanarStateVector
 
-    wide = precision == "complex128"
     circuit = QuantumCircuit.from_dict(
         build_circuit_dict(30, 4, seed=1, mix_rz=True))
     program = tprog.compile_circuit(circuit)
     plan = tplan.get_group_plan(program)
     assert not plan.all_real
+    plans = [plan] + ([tplan.get_group_plan(tprog.compile_circuit(
+        _x_rotated(circuit)))] if basis == "X" else [])
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     cuda_exec.reset_launch_counts()
-    if wide:
-        config.enable_complex128()
-    try:
-        res = Simulator(device="cuda").run(circuit, shots=4096, seed=0)
+    with _precision(precision) as wide:
+        res = Simulator(device="cuda").run(
+            circuit, shots=4096, seed=0,
+            measurement_basis=getattr(MeasurementBasis, basis))
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated()
+        launches = _launches(wide)
         fs = res.final_state
         assert isinstance(fs, PlanarStateVector) and fs.is_planar
         assert fs.state_data.dtype == (torch.float64 if wide
@@ -602,19 +1210,24 @@ def test_simulator_run_n30_holds_under_two_states(cuda, precision):
         assert peak < 1.75 * size, peak / 2**30
         assert sum(res.measurement_counts.values()) == 4096
         assert abs(fs.norm_sq() - 1.0) < (1e-12 if wide else 1e-4)
-        del res, fs
+        del res
+        if basis == "Z" and wide:
+            marginals = fs._get_marginals()
+        elif basis == "Z":
+            want, _ = tplan.group_forward_state_body(
+                program, program.initial_params, "cuda", plain=True)
+            assert _grouped_max_diff(fs.state_data, want) <= 1e-5
+            del want
+        del fs
         torch.cuda.empty_cache()
-    finally:
-        config.enable_complex64()
-    n_dense = sum(isinstance(s, tplan.AxisMatmulStep) for s in plan.steps)
-    n_cross = sum(isinstance(s, tplan.CrossStep) for s in plan.steps)
-    dense, cross = ((cuda_exec.dense_axis_f64, cuda_exec.cross_bit_axis_f64)
-                    if wide else (cuda_exec.dense_axis,
-                                  cuda_exec.cross_bit_axis))
-    assert dense.launches == n_dense
-    assert cross.launches == n_cross
-    assert sum(k.launches for k in cuda_exec.KERNELS + cuda_exec.KERNELS_F64
-               ) == n_dense + n_cross
+    assert launches == (*_step_counts(*plans), 0)
+    if basis == "Z" and wide:
+        fs = Simulator(device="cuda").run(circuit, shots=0).final_state
+        m64 = fs._get_marginals()
+        del fs
+        torch.cuda.empty_cache()
+        assert max(np.abs(a - b).max() for a, b in zip(marginals, m64)) \
+            <= 1e-5
 
 
 def test_sampler_returns_indices_beyond_int32(cuda):
@@ -642,28 +1255,83 @@ def test_sampler_returns_indices_beyond_int32(cuda):
 
 
 @pytest.mark.parametrize("precision", ["complex64", "complex128"])
+def test_ghz_30_strings_and_steps_on_the_large_state_path(cuda, precision):
+    """GHZ-30's Z and Pauli strings take their values within 1e-5 (1e-12
+    in float64), summed over 2^30 amplitudes; ``run_step_by_step`` at
+    n = 30 yields marginal summaries (float64 marginals under
+    ``enable_complex128``), the last one's qubit probabilities equal to the
+    final state's."""
+    from quantum_simulator_tpu_torch import MarginalStateSummary
+
+    n, last = 30, 29
+    with _precision(precision) as wide:
+        tol = 1e-12 if wide else 1e-5
+        fs = Simulator(device="cuda").run(_ghz(n), shots=0).final_state
+        strings = [(fs.expectation_z(0), 0.0),
+                   (fs.expectation_z_string([3, 4]), 1.0),
+                   (fs.expectation_z_string([0, last]), 1.0),
+                   (fs.expectation_z_string([0, 5, last]), 0.0),
+                   (fs.expectation_pauli_string([0, 1], "XX"), 0.0),
+                   (fs.expectation_pauli_string(list(range(n)), "X" * n),
+                    1.0),
+                   (fs.expectation_pauli_string(list(range(n)),
+                                                "YY" + "X" * (n - 2)), -1.0)]
+        del fs
+        torch.cuda.empty_cache()
+        circuit = _brick(n, 4, mix_rz=True)
+        final = Simulator(device="cuda").run(circuit, shots=0).final_state
+        qp = final.qubit_probabilities()
+        del final
+        torch.cuda.empty_cache()
+        steps = list(Simulator(device="cuda").run_step_by_step(circuit))
+    assert all(abs(got - want) <= tol for got, want in strings), strings
+    assert [c for _, c in steps] == list(range(-1, 4))
+    assert all(isinstance(s, MarginalStateSummary) for s, _ in steps)
+    assert not wide or all(s.axis_marginals[0].dtype == torch.float64
+                           for s, _ in steps)
+    assert np.abs(steps[-1][0].qubit_probabilities() - qp).max() <= tol
+    del steps
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("precision", ["complex64", "complex128"])
+def test_qft_30_from_zero_is_flat_under_two_states(cuda, precision):
+    """QFT-30 from |0..0> (pair diagonals and swaps in place): one launch
+    per dense and cross step, 4096 shots, 2^n |a|^2 within 1e-3 of 1
+    (1e-12 in float64), the peak under 1.75x the state."""
+    circuit = _qft(30)
+    plan = tplan.get_group_plan(tprog.compile_circuit(circuit))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_exec.reset_launch_counts()
+    with _precision(precision) as wide:
+        res = Simulator(device="cuda").run(circuit, shots=4096, seed=42)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        launches = _launches(wide)
+        p = res.final_state.probabilities_device
+        dev = max(float((p[s:s + tplan.CHUNK_ELEMS] * 2.0 ** 30 - 1.0)
+                        .abs().max())
+                  for s in range(0, p.numel(), tplan.CHUNK_ELEMS))
+        shots = sum(res.measurement_counts.values())
+        del p, res
+        torch.cuda.empty_cache()
+    assert launches == (*_step_counts(plan), 0)
+    assert peak < 1.75 * ((16 if wide else 8) << 30), peak / 2**30
+    assert dev <= (1e-12 if wide else 1e-3), dev
+    assert shots == 4096
+
+
+@pytest.mark.parametrize("precision", ["complex64", "complex128"])
 def test_fold_trajectory_n30_launches_one_kernel_per_gate(cuda, precision):
     """One fold-executor trajectory at n = 30 (a channel that is neither
     mixed-unitary nor monomial): every gate with its draws is one launch,
     on one real state of 4 GiB (8 GiB in float64 under
     ``enable_complex128``, every launch a float64 one)."""
-    from quantum_simulator_tpu_torch import (AmplitudeDampingNoise,
-                                             NoiseChannel, NoiseModel,
-                                             config)
+    from quantum_simulator_tpu_torch import config
     from quantum_simulator_tpu_torch.ops import bigtraj
 
-    class XDamp(NoiseChannel):
-        @property
-        def probability(self):
-            return 0.05
-
-        def get_kraus_operators(self):
-            h = np.array([[1.0, 1.0], [1.0, -1.0]]) / np.sqrt(2.0)
-            return [h @ np.asarray(k) @ h for k in
-                    AmplitudeDampingNoise(0.05).get_kraus_operators()]
-
-    nm = NoiseModel()
-    nm.add_global_noise(XDamp())
+    nm = _route_noise("fold")
     program = tprog.compile_circuit(
         QuantumCircuit.from_dict(build_circuit_dict(30, 2, seed=2)))
     assert bigtraj.trajectory_evolve_route(program, nm) == "fold"
@@ -695,6 +1363,162 @@ def test_fold_trajectory_n30_launches_one_kernel_per_gate(cuda, precision):
     assert draws.shape == (1, sum(len(op.targets) for op in program.ops))
 
 
+def _state_bytes(n, planar, wide):
+    return (2 if planar else 1) * (8 if wide else 4) << n
+
+
+@pytest.mark.parametrize("precision", ["complex64", "complex128"])
+@pytest.mark.parametrize("route", ["unitary", "monomial", "fold"])
+def test_trajectory_n30_routes_match_their_twins(cuda, route, precision):
+    """One noisy ``Simulator.run`` trajectory at n = 30 on each evolution
+    route: a grouped final state of norm 1, the shots, one launch per
+    dense and cross step of the spliced plans (one per gate on the fold
+    route), all in the mode's precision; then one trajectory through the
+    kernels against the twins on the same draws, 1e-5 (1e-12 in
+    float64)."""
+    from quantum_simulator_tpu_torch import PlanarStateVector
+    from quantum_simulator_tpu_torch.ops import bigtraj
+
+    circuit = _brick(30, 4)
+    program = tprog.compile_circuit(circuit)
+    nm = _route_noise(route)
+    assert bigtraj.trajectory_evolve_route(program, nm) == route
+    planar = not bigtraj.trajectory_is_real(program, nm)
+    torch.cuda.empty_cache()
+    cuda_exec.reset_launch_counts()
+    with _precision(precision) as wide:
+        res = Simulator(noise_model=nm, device="cuda").run(
+            circuit, shots=1024, seed=42)
+        torch.cuda.synchronize()
+        dense, cross, other = _launches(wide)
+        fs = res.final_state
+        assert isinstance(fs, PlanarStateVector) and fs.is_planar == planar
+        assert abs(fs.norm_sq() - 1.0) <= (1e-12 if wide else 1e-4)
+        assert sum(res.measurement_counts.values()) == 1024
+        del res, fs
+        torch.cuda.empty_cache()
+        gen = torch.Generator(device="cuda").manual_seed(42)
+        x, _, draws = bigtraj.huge_trajectory_state_body(
+            program, nm, program.initial_params, 1, "cuda", gen)
+        want, _, _ = bigtraj.huge_trajectory_state_body(
+            program, nm, program.initial_params, 1, "cuda", None, draws,
+            plain=True)
+        assert x.dtype == (torch.float64 if wide else torch.float32)
+        err = _grouped_max_diff(x, want)
+        del x, want, draws
+        torch.cuda.empty_cache()
+    assert other == 0
+    if route == "fold":
+        assert dense + cross == len(program.ops)
+    else:
+        assert (dense, cross) == _step_counts(*_noisy_plans(program, nm))
+    assert err <= (1e-12 if wide else 1e-5), err
+
+
+def test_run_with_noise_and_ensemble_n30(cuda):
+    """n = 30 with depolarizing noise: ``run_with_noise`` spreads 256 shots
+    over 4 trajectories and ``ensemble_qubit_density_matrices`` averages 2,
+    each trajectory one launch per step of the spliced plan; the
+    one-qubit density matrices Hermitian with trace 1 +- 1e-4."""
+    circuit = _brick(30, 4)
+    program = tprog.compile_circuit(circuit)
+    nm = _route_noise("unitary")
+    n_dense, n_cross = _step_counts(_noisy_plans(program, nm)[0])
+    sim = Simulator(noise_model=nm, device="cuda")
+    torch.cuda.empty_cache()
+    cuda_exec.reset_launch_counts()
+    res = sim.run_with_noise(circuit, shots=256, seed=42, trajectories=4)
+    assert res.final_state is None
+    assert sum(res.measurement_counts.values()) == 256
+    assert _launches(False) == (4 * n_dense, 4 * n_cross, 0)
+    cuda_exec.reset_launch_counts()
+    rhos = sim.ensemble_qubit_density_matrices(circuit, n_trials=2, seed=42)
+    assert _launches(False) == (2 * n_dense, 2 * n_cross, 0)
+    assert rhos.shape == (30, 2, 2)
+    assert np.abs(np.trace(rhos, axis1=1, axis2=2) - 1.0).max() <= 1e-4
+    assert np.abs(rhos - rhos.conj().transpose(0, 2, 1)).max() <= 1e-6
+
+
+@pytest.mark.parametrize("n,T,final_shots,precision", [
+    (20, 64, None, "complex64"), (30, 2, 256, "complex64"),
+    (30, 2, 256, "complex128")])
+def test_monitored_trajectories_on_the_card(cuda, n, T, final_shots,
+                                            precision):
+    """``Simulator.monitored_trajectories`` on a brickwork measured every
+    second layer: outcomes in {0, 1}, a measurement repeated at once gives
+    the same bit, each batch one launch per step of the segment plans (at
+    n = 20 all T trajectories in one batch, of norm 1; at n = 30 one at a
+    time with their final shots, the peak under 1.75x the state); at
+    n = 30 the kernels against the twins replayed on the same draws, 1e-5
+    (1e-12 in float64), the outcomes equal."""
+    from quantum_simulator_tpu_torch.ops import monomial_traj as tmono
+
+    mc = _monitored_brickwork(n, 4)
+    program = tprog.compile_circuit(mc)
+    events = _monitored_events(mc)
+    spec = tmono.monomial_spec(program, tprog._NoNoise, events)
+    n_dense, n_cross = _step_counts(*map(tplan.get_group_plan,
+                                         spec.segments))
+    batches = 1 if final_shots is None else T
+    repeat = len(range(0, n, 4))      # slot of the repeated measurement
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_exec.reset_launch_counts()
+    with _precision(precision) as wide:
+        outcomes, sites, third = Simulator(
+            device="cuda").monitored_trajectories(mc, T, seed=42,
+                                                  final_shots=final_shots)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        assert _launches(wide) == (batches * n_dense, batches * n_cross, 0)
+        if final_shots is None:
+            assert len(third) == T
+            assert all(abs(float(s.device_data.abs().square().sum()) - 1.0)
+                       <= 1e-4 for s in third[:4])
+        else:
+            assert all(sum(d.values()) == final_shots for d in third)
+            assert peak < 1.75 * _state_bytes(n, not spec.real, wide)
+            del third
+            layout = tplan.GroupLayout.for_qubits(n)
+            gen = torch.Generator(device="cuda").manual_seed(42)
+            x = tplan.layout_basis_state(layout, program.initial_index,
+                                         "cuda", not spec.real, 1)
+            x, outs, record = tmono.monomial_monitored_evolve(
+                program, tprog._NoNoise, events, program.initial_params, x,
+                gen)
+            x0 = tplan.layout_basis_state(layout, program.initial_index,
+                                          "cuda", not spec.real, 1)
+            ref, ref_outs, _ = tmono.monomial_monitored_evolve(
+                program, tprog._NoNoise, events, program.initial_params, x0,
+                None, record, plain=True)
+            assert torch.equal(outs, ref_outs)
+            assert _grouped_max_diff(x, ref) <= (1e-12 if wide else 1e-5)
+            del x, x0, ref
+            torch.cuda.empty_cache()
+    assert outcomes.shape == (T, len(events)) and len(sites) == len(events)
+    assert set(np.unique(outcomes)) <= {0, 1}
+    assert sites[0][1] == 0 and sites[repeat][1] == 0
+    assert (outcomes[:, 0] == outcomes[:, repeat]).all()
+
+
+def test_monitored_law_n4(cuda):
+    """Ry on every qubit, measure 0, CNOT(0, 1), measure 1: over 4000
+    trajectories on the card the outcome frequencies within 0.05 of the
+    exact ones."""
+    theta = [0.9, 2.1, 0.4, 1.3]
+    c = QuantumCircuit(4)
+    for q, t in enumerate(theta):
+        c.add("Ry", [q], [t], 0)
+    c.add("Measure", [0], [], 1)
+    c.add("CNOT", [0, 1], [], 2)
+    c.add("Measure", [1], [], 3)
+    a, b = np.sin(theta[0] / 2) ** 2, np.sin(theta[1] / 2) ** 2
+    outcomes, _, _ = Simulator(device="cuda").monitored_trajectories(
+        c, 4000, seed=42)
+    want = np.array([a, a * (1 - b) + (1 - a) * b])
+    assert np.abs(outcomes.mean(axis=0) - want).max() <= 0.05
+
+
 # ---------------------------------------------------------------------------
 # The exact open-system path (density matrices, Lindblad)
 # ---------------------------------------------------------------------------
@@ -709,17 +1533,19 @@ def _open_noise():
     return nm
 
 
-@pytest.mark.parametrize("mix_rz", [False, True])
-def test_superop_program_goes_through_the_kernels(cuda, mix_rz):
+@pytest.mark.parametrize("mix_rz,noisy", [(False, True), (True, True),
+                                          (True, False)])
+def test_superop_program_goes_through_the_kernels(cuda, mix_rz, noisy):
     """vec(rho) at 2n = 24 through ``DensityMatrixSimulator``: one launch
     per dense and cross step of the vec(rho) plan, within 1e-5 of the
-    twin executor and 2e-5 of the dense route."""
+    twin executor and 2e-5 of the dense route; mixed with noise, pure
+    (1 +- 1e-4) without."""
     from quantum_simulator_tpu_torch import DensityMatrixSimulator
     from quantum_simulator_tpu_torch.density import superop_program
 
     circuit = QuantumCircuit.from_dict(
         build_circuit_dict(12, 4, seed=3, mix_rz=mix_rz))
-    nm = _open_noise()
+    nm = _open_noise() if noisy else None
     program2 = superop_program(tprog.compile_circuit(circuit), nm)
     plan = tplan.get_group_plan(program2)
     assert plan.all_real == (not mix_rz)
@@ -736,29 +1562,65 @@ def test_superop_program_goes_through_the_kernels(cuda, mix_rz):
     dense = sim.run(circuit, method="dense")
     assert float((res.device_rho - dense.device_rho).abs().max()) <= 2e-5
     assert abs(res.trace() - 1.0) <= 1e-4
-    assert res.purity() < 0.999
+    if noisy:
+        assert res.purity() < 0.999
+    else:
+        assert abs(res.purity() - 1.0) <= 1e-4
 
 
-def test_superop_n15_is_a_grouped_state_under_two_states(cuda):
-    """n = 15: vec(rho) is a 30-qubit real grouped state (4 GiB) that is
-    never copied; ``.rho`` raises."""
+@pytest.mark.parametrize("precision,noisy", [
+    ("complex64", True), ("complex64", False), ("complex128", True)])
+def test_superop_n15_is_a_grouped_state_under_two_states(cuda, precision,
+                                                         noisy):
+    """n = 15: vec(rho) is a 30-qubit real grouped state (4 GiB; 8 GiB in
+    float64) that is never copied, its peak under 1.75x; ``.rho`` raises.
+    With noise its <Z_q> lie within 0.05 of the mean over 2000
+    trajectories, and under ``enable_complex128`` its trace is 1 +- 1e-12
+    and its diagonal and purity within 1e-5 of the complex64 run's;
+    without noise it is pure and its diagonal is ``Simulator.run``'s
+    within 1e-5."""
     from quantum_simulator_tpu_torch import DensityMatrixSimulator
     from quantum_simulator_tpu_torch.density import SuperopDensityResult
 
-    circuit = QuantumCircuit.from_dict(build_circuit_dict(15, 4, seed=4))
-    sim = DensityMatrixSimulator(noise_model=_open_noise(), device="cuda")
+    n = 15
+    circuit = QuantumCircuit.from_dict(build_circuit_dict(n, 4, seed=4))
+    nm = _open_noise() if noisy else None
+    sim = DensityMatrixSimulator(noise_model=nm, device="cuda")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    res = sim.run(circuit)
-    torch.cuda.synchronize()
-    assert isinstance(res, SuperopDensityResult) and not res.is_planar
-    assert torch.cuda.max_memory_allocated() < 1.75 * (4 << 30)
-    with pytest.raises(MemoryError):
-        res.rho
-    assert abs(res.trace() - 1.0) <= 1e-4
-    assert 0.0 < res.purity() < 0.999
-    counts = sim.sample(res, 1000, rng=np.random.default_rng(0))
+    with _precision(precision) as wide:
+        res = sim.run(circuit)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        assert isinstance(res, SuperopDensityResult) and not res.is_planar
+        assert res.state_data.dtype == (torch.float64 if wide
+                                        else torch.float32)
+        with pytest.raises(MemoryError):
+            res.rho
+        trace, purity, diag = res.trace(), res.purity(), res.probabilities
+        z = np.array([res.expectation_z(q) for q in range(n)])
+        counts = sim.sample(res, 1000, rng=np.random.default_rng(0))
+        del res
+        torch.cuda.empty_cache()
+    assert peak < 1.75 * _state_bytes(2 * n, False, wide)
+    assert abs(trace - 1.0) <= (1e-12 if wide else 1e-4)
     assert sum(counts.values()) == 1000
+    if not noisy:
+        assert abs(purity - 1.0) <= 1e-4
+        psi = Simulator(device="cuda").run(circuit, shots=0).final_state
+        assert np.abs(diag - psi.probabilities).max() <= 1e-5
+    elif wide:
+        r64 = sim.run(circuit)
+        assert np.abs(diag - r64.probabilities).max() <= 1e-5
+        assert abs(purity - r64.purity()) <= 1e-5
+    else:
+        assert 0.0 < purity < 0.999
+        states = Simulator(noise_model=nm, device="cuda").trajectory_states(
+            circuit, 2000, seed=42)
+        p = states.abs().square().double().mean(0).cpu().numpy()
+        del states
+        bits = (np.arange(1 << n)[:, None] >> (n - 1 - np.arange(n))) & 1
+        assert np.abs(z - p @ (1.0 - 2.0 * bits)).max() <= 0.05
 
 
 def test_lindblad_step_on_cuda(cuda):
@@ -1020,6 +1882,65 @@ def test_native_module_loads_on_the_card_machine(cuda):
     assert np.array_equal(c_out, qm.decode_batch(g, syn, force_python=True))
 
 
+@pytest.mark.parametrize("code", ["BitFlipCode", "PhaseFlipCode",
+                                  "SteaneCode", "RotatedSurfaceCode"])
+def test_statevector_qec_equals_frame_on_the_card(cuda, code):
+    """``QECSimulator`` (encodes through ``Simulator``, cycles on the card)
+    against ``FrameQECSimulator.from_code`` on the same 512 trials'
+    uniforms: per-trial flags identical, the threshold sweeps equal under
+    one seed; each encode one launch per plan step, its state within 1e-5
+    of the plain-twin executor and the state the cycles use."""
+    from quantum_simulator_tpu_torch import qec, qec_frame as qf
+
+    code = getattr(qec, code)()
+    trials = 512
+    sv = qec.QECSimulator(code, device="cuda")
+    for b in ((0, 1) if hasattr(code, "_encoding_circuit") else ()):
+        c = code._encoding_circuit(b)
+        p = tprog.compile_circuit(c)
+        cuda_exec.reset_launch_counts()
+        got = Simulator(device="cuda").run(c, shots=0).final_state.device_data
+        assert _launches(False) == (*_step_counts(tplan.build_group_plan(p)),
+                                    0)
+        want = tplan.group_forward_body(p, p.initial_params, "cuda",
+                                        plain=True)
+        assert float((got - want).abs().max()) <= 1e-5
+        assert torch.equal(sv._encoded(b).device_data, got)
+    ideals = sv._ideals(trials)
+    frs = qf.FrameQECSimulator.from_code(code, device="cuda")
+    u = qec.trial_uniforms(np.random.default_rng(42), trials,
+                           code.data_qubits, "cuda")
+    fb, fa, z_exp, *_ = sv.cycles("depolarizing", 0.05, ideals, u)
+    ok_b, ok_a, flip = frs.sweep_raw(0.05, trials, "depolarizing",
+                                     uniforms=u)
+    signs = np.where(np.arange(trials) % 2 == 0, 1.0, -1.0)
+    assert torch.equal((fb > 0.5).int(), ok_b)
+    assert torch.equal((fa > 0.5).int(), ok_a)
+    assert np.array_equal((z_exp.cpu().numpy() * signs < 0).astype(np.int32),
+                          flip.cpu().numpy())
+    a = sv.threshold_sweep([0.05], trials, "depolarizing", 42)[0]
+    b = frs.threshold_sweep([0.05], trials, "depolarizing", 42)[0]
+    assert a.success_rate == b.success_rate
+    assert a.decoder_success_rate == b.decoder_success_rate
+
+
+@pytest.mark.parametrize("engine", ["frame", "clifford"])
+def test_circuit_level_engines_agree_on_the_card(cuda, engine):
+    """The surface code at d = 3, R = 3: the engine's detection events on
+    256 rows of uniforms on the card equal the linear engine's."""
+    from quantum_simulator_tpu_torch import qec_circuit as qc
+
+    events = {}
+    for name in ("linear", engine):
+        run, lay = qc._trajectory_fn(3, 3, 0.01, "z", name, device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(42)
+        u = torch.rand((256, run.schedule_length), generator=gen,
+                       device="cuda")
+        events[name] = qc.detection_events(
+            lay, run(u).cpu().numpy().astype(np.uint8))
+    assert np.array_equal(events["linear"], events[engine])
+
+
 def _pauli_string_np(psi, pauli, qubits, n):
     mats = {"X": np.array([[0, 1], [1, 0]], complex),
             "Y": np.array([[0, -1j], [1j, 0]]),
@@ -1204,6 +2125,82 @@ def test_mps_amplitude_and_entropy_hold_float64(cuda):
             want, abs=1e-5)
 
 
+def test_mps_samples_in_the_x_basis_on_cuda(cuda):
+    """The MPS sampler on the card in the Z and the X basis: every shot a
+    full-width bit string."""
+    c = _mps_brick(24, 6, 7)
+    sim = _mps_on("cuda")
+    for basis in ("Z", "X"):
+        counts, _ = sim.run(c, shots=256, seed=1, basis=basis)
+        assert sum(counts.values()) == 256
+        assert all(len(k) == 24 for k in counts)
+
+
+def test_mps_shadows_of_ghz_on_cuda(cuda):
+    """Classical shadows of GHZ-16 on the MPS engine on the card: wherever
+    two neighbours were both read in Z they agree; the nearest-neighbour
+    <ZZ> estimates average within 0.1 of 1, each within 5 standard
+    errors."""
+    from quantum_simulator_tpu_torch import shadows as tsh
+
+    n, S = 16, 2048
+    data = tsh.collect_shadows(_ghz(n), S, seed=4, engine="mps", chi=16,
+                               chunk=512, device="cuda")
+    both_z = (data.bases[:, :-1] == 2) & (data.bases[:, 1:] == 2)
+    agree = data.outcomes[:, :-1] == data.outcomes[:, 1:]
+    assert bool(agree[both_z].all())
+    zz = np.array([data.estimate_pauli("ZZ", [q, q + 1])
+                   for q in range(n - 1)])
+    assert abs(zz.mean() - 1.0) <= 0.1
+    assert np.abs(zz - 1.0).max() <= 5 * np.sqrt(8.0 / S)
+
+
+def _dense_ham(n, terms):
+    from quantum_simulator_tpu_torch import lindblad
+
+    h = np.zeros((1 << n, 1 << n), complex)
+    for coeff, pstr, qubits in terms:
+        full = ["I"] * n
+        for p, q in zip(pstr, qubits):
+            full[q] = p
+        h += coeff * lindblad._pauli_term_matrix("".join(full))
+    return h
+
+
+def test_dmrg_excited_states_on_cuda(cuda):
+    """Three TFIM levels at n = 8 by DMRG on the card within 5e-4 of
+    ``eigvalsh``."""
+    from quantum_simulator_tpu_torch import dmrg as td
+    from quantum_simulator_tpu_torch.models import tfim_chain
+
+    terms = tfim_chain(8, j=-1.0, h=-0.9)
+    res = td.dmrg_excited_states(terms, 8, n_states=3, chi=8, sweeps=5,
+                                 device="cuda")
+    want = np.linalg.eigvalsh(_dense_ham(8, terms))[:3]
+    assert np.abs(np.array([r.energy for r in res]) - want).max() <= 5e-4
+
+
+def test_complex128_mps_gradient_matches_statevector(cuda):
+    """Under ``enable_complex128`` the exact (chi = 32) MPS parameter-shift
+    gradient of ``hardware_efficient_ansatz(10, 2)`` on ``tfim_chain(10)``
+    within 1e-10 of the statevector gradient, both on the card."""
+    from quantum_simulator_tpu_torch import models
+    from quantum_simulator_tpu_torch import optimizer as topt
+
+    c = models.hardware_efficient_ansatz(10, 2)
+    with _precision("complex128"):
+        cost = topt.CostFunction.vqe_hamiltonian(models.tfim_chain(10))
+        mcfg = topt.MPSParameterizedConfig.auto_detect(c, chi=32)
+        scfg = topt.ParameterizedCircuitConfig.auto_detect(c)
+        v = np.random.default_rng(43).uniform(-np.pi, np.pi,
+                                              mcfg.num_params)
+        g_mps = topt.GradientEstimator.parameter_shift(mcfg, cost, v,
+                                                       device="cuda")
+        g_sv = topt.GradientEstimator.parameter_shift(scfg, cost, v,
+                                                      device="cuda")
+    assert np.abs(g_mps - g_sv).max() <= 1e-10
+
+
 # ---------------------------------------------------------------------------
 # The parallel layer: a shard mesh on the card
 # ---------------------------------------------------------------------------
@@ -1265,6 +2262,306 @@ def test_mesh_exchange_in_place_equals_twin_on_a_slice(cuda, n):
         del before, after, want
     del x
     torch.cuda.empty_cache()
+
+
+def _random_ansatz(n, layers):
+    """``hardware_efficient_ansatz(n, layers)`` at seeded random angles."""
+    from quantum_simulator_tpu_torch import models
+
+    d = models.hardware_efficient_ansatz(n, layers).to_dict()
+    rng = np.random.default_rng(42)
+    for gd in d["gates"]:
+        gd["params"] = [float(rng.uniform(-np.pi, np.pi))
+                        for _ in gd.get("params", [])]
+    return QuantumCircuit.from_dict(d)
+
+
+def _mini_plan_launches(body):
+    """Dense and cross steps of a shard body's mini plans: one launch each
+    for all the shards."""
+    return _step_counts(*(tplan.build_group_plan(seg[1])
+                          for seg in body.segments if seg[0] == "run"))
+
+
+def _count_exchanges(monkeypatch):
+    """The list that grows by one at each mesh exchange."""
+    from quantum_simulator_tpu_torch.parallel import distributed as tdist
+
+    calls, swap = [], tdist._swap_global_local
+
+    def counted(*args):
+        calls.append(None)          # a mark: the args hold the state
+        return swap(*args)
+
+    monkeypatch.setattr(tdist, "_swap_global_local", counted)
+    return calls
+
+
+def _mesh_vs_single(stack, single, planar):
+    """max |mesh - one device| of an ``(L, 2, N)`` shard stack and the
+    grouped state, planar ``(2, *axes)`` or real ``(*axes,)`` (whose
+    evolution leaves the mesh's imaginary plane 0), shard by shard."""
+    L = stack.shape[0]
+    if planar:
+        flat = single.reshape(2, L, -1)
+        return max(_grouped_max_diff(stack[l], flat[:, l]) for l in range(L))
+    flat = single.reshape(L, -1)
+    return max(max(_grouped_max_diff(stack[l, 0], flat[l]),
+                   float(stack[l, 1].abs().max())) for l in range(L))
+
+
+@pytest.mark.parametrize("precision", ["complex64", "complex128"])
+@pytest.mark.parametrize("kind", ["brickwork", "ansatz"])
+def test_mesh_n30_matches_one_device_under_two_states(cuda, kind, precision,
+                                                      monkeypatch):
+    """n = 30 over 8 stacked shards (27 local qubits: mini plans, each
+    dense and cross step one launch for all shards): the Ry/Rz brickwork
+    and ``hardware_efficient_ansatz(30, 4)`` within 2e-5 of
+    ``Simulator.run`` (1e-12 in float64), shard by shard, and (complex64)
+    within 1e-5 of the same body through the twins; exchanges as the
+    schedule's, launches as the mini plans', the peak under 1.75x the
+    state."""
+    from quantum_simulator_tpu_torch import PlanarStateVector
+    from quantum_simulator_tpu_torch.parallel import (DistributedSimulator,
+                                                      make_mesh)
+    from quantum_simulator_tpu_torch.parallel import distributed as tdist
+
+    c = (_brick(30, 8, mix_rz=True) if kind == "brickwork"
+         else _random_ansatz(30, 4))
+    program = tprog.compile_circuit(c)
+    calls = _count_exchanges(monkeypatch)
+    torch.cuda.empty_cache()
+    with _precision(precision) as wide:
+        mesh = make_mesh(8, device="cuda")
+        body = tdist._ShardBody(program, mesh)
+        assert body.grouped
+        fs = Simulator(device="cuda").run(c, shots=0).final_state
+        assert isinstance(fs, PlanarStateVector)
+        single, planar = fs.state_data, fs.is_planar
+        del fs
+        calls.clear()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_exec.reset_launch_counts()
+        st = DistributedSimulator(mesh).run(c)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        launches, exchanges = _launches(wide), len(calls)
+        err = _mesh_vs_single(st.device_data, single, planar)
+        del single
+        twin_err = 0.0
+        if not wide:
+            twin = body.forward(program.initial_params, plain=True)
+            twin_err = max(_grouped_max_diff(st.device_data[l], twin[l])
+                           for l in range(8))
+            del twin
+        del st
+        torch.cuda.empty_cache()
+    assert peak <= 1.75 * _state_bytes(30, True, wide), peak / 2**30
+    assert err <= (1e-12 if wide else 2e-5), err
+    assert twin_err <= 1e-5, twin_err
+    assert exchanges == body.swaps
+    assert launches == (*_mini_plan_launches(body), 0)
+    assert launches[0] > 0 and (kind == "brickwork" or launches[1] > 0)
+
+
+@pytest.mark.parametrize("precision", ["complex64", "complex128"])
+def test_mesh_qft_on_a_basis_input(cuda, precision):
+    """QFT-20 on a basis input over 8 shards (whole in complex64, by
+    ``run_segmented(4)`` in float64): no CPhase schedules an exchange,
+    launches as the mini plans', fidelity against the analytic DFT row
+    above 1 - 1e-4 (1 - 1e-12), every <Z_q> within 1e-4 of 0, 1000
+    shots that a seed repeats; an n = 32 mesh is refused in float64."""
+    from quantum_simulator_tpu_torch.parallel import (DistributedSimulator,
+                                                      make_mesh)
+    from quantum_simulator_tpu_torch.parallel import distributed as tdist
+    from quantum_simulator_tpu_torch.scripts import mesh_stretch_check
+
+    n, cols = 20, 4
+    b = int(np.random.default_rng(42).integers(0, 1 << n))
+    c = _qft(n)
+    c.initial_states = [(b >> (n - 1 - q)) & 1 for q in range(n)]
+    bare = QuantumCircuit.from_dict({**c.to_dict(), "gates": [
+        gd for gd in c.to_dict()["gates"] if gd["name"] != "CPhase"]})
+    with _precision(precision) as wide:
+        mesh = make_mesh(8, device="cuda")
+        sim = DistributedSimulator(mesh)
+        kinds = [it[0] for it in tdist._ShardBody(
+            tprog.compile_circuit(c), mesh).schedule]
+        assert "cphase" in kinds
+        assert kinds.count("swap") == tdist._ShardBody(
+            tprog.compile_circuit(bare), mesh).swaps <= 4 * 3
+        cuda_exec.reset_launch_counts()
+        st = sim.run_segmented(c, cols) if wide else sim.run(c)
+        torch.cuda.synchronize()
+        launches = _launches(wide)
+        ov = mesh_stretch_check.dft_overlap(st.device_data, mesh, b, n)
+        fid = abs(ov) ** 2 / st.norm()
+        rho = sim.qubit_density_matrices(st)
+        counts = [sim.sample(st, 1000, np.random.default_rng(7))
+                  for _ in range(2)]
+        if wide:
+            with pytest.raises(ValueError, match="64 GiB"):
+                sim.run(_brick(32, 1, mix_rz=True))
+    assert launches[0] > 0 and launches[2] == 0
+    if not wide:
+        body = tdist._ShardBody(tprog.compile_circuit(c), mesh)
+        assert launches == (*_mini_plan_launches(body), 0)
+    assert 1.0 - fid <= (1e-12 if wide else 1e-4), fid
+    assert np.abs((rho[:, 0, 0] - rho[:, 1, 1]).real).max() <= 1e-4
+    assert counts[0] == counts[1] and sum(counts[0].values()) == 1000
+
+
+@pytest.mark.parametrize("precision", ["complex64", "complex128"])
+def test_mesh_noisy_card_equals_cpu_on_the_same_draws(cuda, precision):
+    """The mesh's noisy trajectories on the card and on the CPU mesh from
+    the same Gumbel rows: within 1e-5 (1e-12 in float64) wherever no draw
+    sits nearer a tie than 1e-4 (1e-9), at least half of them;
+    ``run_with_noise`` on the card returns its shots."""
+    from quantum_simulator_tpu_torch import DepolarizingNoise
+    from quantum_simulator_tpu_torch.parallel import (DistributedSimulator,
+                                                      make_mesh)
+    from quantum_simulator_tpu_torch.parallel import distributed as tdist
+
+    T = 16
+    nm = _global_noise(DepolarizingNoise(0.05))
+    with _precision(precision) as wide:
+        n = 12 if wide else 10
+        prog_s = tprog.compile_circuit(_brick(n, 8, mix_rz=True))
+        draws, width = tdist.noisy_draw_shape(prog_s, nm)
+        g = tdist.draw_gumbels((T, draws, width),
+                               torch.Generator().manual_seed(42), "cpu")
+        rec = []
+        want = tdist.sharded_trajectory_fn(
+            prog_s, nm, make_mesh(8, device="cpu"))(
+                prog_s.initial_params, g, rec)
+        got = tdist.sharded_trajectory_fn(
+            prog_s, nm, make_mesh(8, device="cuda"))(
+                prog_s.initial_params, g.cuda()).cpu()
+        counts = DistributedSimulator(make_mesh(8, device="cuda")) \
+            .run_with_noise(_brick(n, 4), nm, 256, trajectories=4, seed=42)
+    assert got.dtype == want.dtype == (torch.float64 if wide
+                                       else torch.float32)
+    margins = torch.stack([m for _, m in rec], 1).min(1).values
+    clear = margins > (1e-9 if wide else 1e-4)
+    assert int(clear.sum()) >= T // 2
+    err = float((got - want).abs().amax((1, 2, 3))[clear].max())
+    assert err <= (1e-12 if wide else 1e-5), err
+    assert sum(counts.values()) == 256
+
+
+def test_sharded_vqe_step_matches_one_device_parameter_shift(cuda):
+    """The sharded VQE step (traj 2 x amp 4) on
+    ``hardware_efficient_ansatz(12, 3)`` with a ZZ chain: its cost and its
+    gradient (Adam's first moment over 0.1 after one step) within 1e-4 of
+    the one-device parameter-shift rows; three more steps stay finite."""
+    from quantum_simulator_tpu_torch.parallel import (make_vqe_mesh,
+                                                      sharded_vqe_step)
+
+    n = 12
+    c = _random_ansatz(n, 3)
+    ham = [(1.0, [i, i + 1]) for i in range(n - 1)]
+    mesh = make_vqe_mesh(8, device="cuda")
+    assert mesh.shape["traj"] == 2 and mesh.shape["amp"] == 4
+    step = sharded_vqe_step(c, mesh, observable=ham)
+    state, cost = step.step(step.init)
+    grad = (state.m / 0.1).cpu().numpy()
+    program = tprog.compile_circuit(c)
+    P = program.num_params
+    v = torch.as_tensor(program.initial_params, dtype=torch.float32,
+                        device="cuda")
+    eye = torch.eye(P, device="cuda") * (np.pi / 2)
+    rows = torch.cat([v[None], v[None] + eye, v[None] - eye])
+    psi = tplan.group_batched_forward(program, rows, "cuda")
+    probs = psi.real.square() + psi.imag.square()
+    idx = torch.arange(1 << n, device="cuda")
+    costs = torch.zeros(rows.shape[0], dtype=torch.float64, device="cuda")
+    for coeff, qs in ham:
+        sign = torch.ones(1 << n, device="cuda")
+        for q in qs:
+            sign = sign * (1 - 2 * ((idx >> (n - 1 - q)) & 1)).float()
+        costs += coeff * (probs * sign).sum(1, dtype=torch.float64)
+    want = ((costs[1:1 + P] - costs[1 + P:]) / 2).cpu().numpy()
+    assert abs(float(cost) - float(costs[0])) <= 1e-4
+    assert np.abs(grad - want).max() <= 1e-4
+    for _ in range(3):
+        state, cost = step.step(state)
+        assert np.isfinite(float(cost))
+
+
+@pytest.mark.parametrize("precision", ["complex64", "complex128"])
+def test_mesh_checkpoint_resume_equals_uninterrupted(cuda, precision,
+                                                     tmp_path):
+    """A checkpointed ``run_segmented`` stopped from its progress callback
+    after segment 1 and resumed (rerunning that segment, whose progress
+    call comes before its checkpoint) equals an uninterrupted run (1e-6;
+    1e-12 in float64, whose manifest says "complex128" and whose save and
+    load round trip is bit for bit)."""
+    from quantum_simulator_tpu_torch.parallel import (DistributedSimulator,
+                                                      make_mesh)
+    from quantum_simulator_tpu_torch.parallel import checkpoint as tckpt
+
+    depth, cols, stop = 8, 2, 1
+    c = _brick(12, depth, mix_rz=True)
+
+    class Stop(Exception):
+        pass
+
+    def stopper(i, ns, w):
+        if i == stop:
+            raise Stop()
+
+    root = str(tmp_path / "run")
+    done = []
+    with _precision(precision) as wide:
+        sim = DistributedSimulator(make_mesh(8, device="cuda"))
+        whole = sim.run_segmented(c, cols)
+        with pytest.raises(Stop):
+            sim.run_segmented(c, cols, progress=stopper, checkpoint_dir=root)
+        dtype = tckpt.load_manifest(tckpt.read_latest(root))["dtype"]
+        res = sim.run_segmented(c, cols, checkpoint_dir=root,
+                                progress=lambda i, ns, w: done.append(i))
+        saved = str(tmp_path / "saved")
+        tckpt.save_sharded_state(whole.device_data, saved, sim.mesh)
+        again = tckpt.load_sharded_state(saved, sim.mesh)
+    assert done == list(range(stop, -(-depth // cols)))
+    assert dtype == precision
+    assert torch.equal(again, whole.device_data)
+    err = max(_grouped_max_diff(whole.device_data[l], res.device_data[l])
+              for l in range(8))
+    assert err <= (1e-12 if wide else 1e-6), err
+
+
+def test_mesh_engines_equal_mesh_none(cuda):
+    """The ``mesh=`` engines on one rank reach the same engine and repeat
+    it: the Steane frame sweep, the surface-code circuit-level memory and
+    the MPS Lindblad trajectories (their Gumbel rows drawn up front)
+    identical to ``mesh=None``."""
+    from quantum_simulator_tpu_torch import lindblad_mps as tl
+    from quantum_simulator_tpu_torch import qec, qec_circuit as qc
+    from quantum_simulator_tpu_torch import qec_frame as qf
+    from quantum_simulator_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(8, device="cuda")
+    fr = qf.FrameQECSimulator.from_code(qec.SteaneCode(), "cuda")
+    a = fr.sweep_raw(0.05, 4096, "depolarizing", seed=42)
+    b = fr.sweep_raw(0.05, 4096, "depolarizing", seed=42, mesh=mesh)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    kw = dict(n_trials=2000, seed=42, device="cuda")
+    assert qc.circuit_level_memory(3, 3, 0.003, **kw) == \
+        qc.circuit_level_memory(3, 3, 0.003, mesh=mesh, **kw)
+    n = 8
+    lsim = tl.MPSLindbladSimulator(
+        n, [(1.0, "ZZ", [i, i + 1]) for i in range(n - 1)]
+        + [(0.7, "X", [i]) for i in range(n)],
+        [(0.1, "sigma_minus", q) for q in range(n)], chi=16, device="cuda")
+    kw = dict(n_trajectories=16, observables=[("Z", [0]), ("Z", [n // 2])],
+              seed=42)
+    r0 = lsim.evolve(1.0, 10, **kw)
+    r1 = lsim.evolve(1.0, 10, mesh=mesh, **kw)
+    assert np.array_equal(r0.expectations, r1.expectations)
+    assert r0.truncation_weight == r1.truncation_weight
 
 
 def _front_end_circuit(n=16, depth=8):
@@ -1342,6 +2639,115 @@ def test_simulation_controller_card_equals_cpu(cuda):
         assert np.abs(a - b).max() <= 1e-5
 
 
+def _batch_launches(program, nm, T):
+    """(dense, cross) launches of T trajectories: the plans of one batch
+    times the batches ``simulator._chunk_size`` cuts."""
+    from quantum_simulator_tpu_torch import simulator as tsim
+
+    batches = -(-T // tsim._chunk_size(program, nm, T))
+    return tuple(batches * k
+                 for k in _step_counts(*_noisy_plans(program, nm)))
+
+
+def test_bridge_noise_sweep_and_mps_requests_on_the_card(cuda):
+    """The bridge's handler on the card: ``set_noise`` (depolarizing +
+    readout) then ``run`` (1024 shots, the trajectory batches' plans
+    launched); ``sweep_parameter`` (the ideal plan and each noisy point's
+    batches launched, fidelity in (0, 1] and falling with p, each point's
+    fidelity and purity within 1e-5 of the same trajectories from the
+    sweep's seed stream in float64); the MPS engine (no kernel launch,
+    shots adding up, a finite truncation); an unknown action answered
+    with an error, and the server answering on."""
+    from quantum_simulator_tpu_torch import DepolarizingNoise, ReadoutError
+    from quantum_simulator_tpu_torch.bridge import (BridgeCommandHandler,
+                                                    BridgeServer,
+                                                    SimulatorClient)
+    from quantum_simulator_tpu_torch.bridge.client import BridgeError
+
+    circuit = _brick(12, 8)
+    program = tprog.compile_circuit(circuit)
+    nm = _global_noise(DepolarizingNoise(0.05))
+    nm.set_readout_error(ReadoutError(0.01, 0.02))
+    values, trials = (0.0, 0.01, 0.05), 256
+    srv = BridgeServer(BridgeCommandHandler(device="cuda"), port=0)
+    srv.start()
+    try:
+        with SimulatorClient(port=srv.port, timeout=600) as c:
+            c.set_circuit(circuit.to_dict())
+            assert c.set_noise(nm.to_dict()) == {}
+            cuda_exec.reset_launch_counts()
+            run = c.run(shots=1024, seed=42)
+            assert _launches(False) == (*_batch_launches(program, nm, 1024),
+                                        0)
+            assert sum(run["measurement_counts"].values()) == 1024
+            assert c.clear_noise() == {}
+            cuda_exec.reset_launch_counts()
+            sweep = c.sweep_parameter("noise_p", list(values), trials=trials,
+                                      seed=42)["sweep"]
+            want = [_step_counts(tplan.get_group_plan(program))] + [
+                _batch_launches(program, _global_noise(DepolarizingNoise(p)),
+                                trials) for p in values if p]
+            assert _launches(False) == (*map(sum, zip(*want)), 0)
+            c.set_circuit(_mps_brick(24, 4, 1).to_dict())
+            cuda_exec.reset_launch_counts()
+            mps = c.run(shots=64, seed=42, engine="mps", chi=16)
+            assert _launches(False) == (0, 0, 0)
+            with pytest.raises(BridgeError, match="Unknown action"):
+                c._send_request("no_such_action")
+            assert c.ping()
+    finally:
+        srv.stop()
+    assert mps["engine"] == "mps" and np.isfinite(mps["truncation_weight"])
+    assert sum(mps["measurement_counts"].values()) == 64
+    fids = [pt["fidelity"] for pt in sweep]
+    assert all(0 < f <= 1 for f in fids)
+    assert all(a > b for a, b in zip(fids, fids[1:]))
+    assert sweep[0] == {"value": 0.0, "fidelity": 1.0, "purity": 1.0}
+    rng = np.random.default_rng(42)
+    ideal = Simulator(device="cuda").run(
+        circuit, shots=0, rng=np.random.default_rng(rng.integers(0, 2**63))
+    ).final_state.device_data.to(torch.complex128)
+    for pt, p in zip(sweep[1:], values[1:]):
+        states = Simulator(noise_model=_global_noise(DepolarizingNoise(p)),
+                           device="cuda").trajectory_states(
+            circuit, trials, seed=int(rng.integers(0, 2**63))
+        ).to(torch.complex128)
+        purity = float((states.conj() @ states.T).abs().square().mean())
+        fid = float((states @ ideal.conj()).abs().square().mean())
+        assert abs(pt["purity"] - purity) <= 1e-5
+        assert abs(pt["fidelity"] - fid) <= 1e-5
+    assert sweep[-1]["purity"] < 1 - 1e-3
+
+
+def test_view_models_on_the_card(cuda):
+    """``FidelitySweepModel.sweep`` on the card: fidelity in (0, 1] and
+    falling with p, purity below 1 - 1e-3 at p = 0.05;
+    ``DensityMatrixModel(device="cuda")``: the exact rho within 2e-5 of
+    the CPU model's, the 1000-trial ensemble within 0.05 of it."""
+    from quantum_simulator_tpu_torch import DepolarizingNoise
+    from quantum_simulator_tpu_torch.viewmodels import (DensityMatrixModel,
+                                                        FidelitySweepModel)
+
+    points = FidelitySweepModel.sweep(_brick(12, 8), [0.0, 0.01, 0.05],
+                                      trials=64, seed=42, device="cuda")
+    fids = [pt.fidelity for pt in points]
+    assert all(0 < f <= 1 for f in fids)
+    assert all(a > b for a, b in zip(fids, fids[1:]))
+    assert 0 < points[-1].purity < 1 - 1e-3
+
+    def matrix(view):
+        return np.asarray(view.real) + 1j * np.asarray(view.imag)
+
+    circuit = _brick(6, 8, mix_rz=True)
+    nm = _global_noise(DepolarizingNoise(0.05))
+    model = DensityMatrixModel(device="cuda")
+    exact = matrix(model.exact(circuit, nm))
+    want = matrix(DensityMatrixModel(device="cpu").exact(circuit, nm))
+    assert np.abs(exact - want).max() <= 2e-5
+    ens = matrix(model.ensemble(circuit, nm, n_trials=1000, seed=42))
+    assert np.abs(ens - want).max() <= 0.05
+
+
 def test_entry_card_equals_cpu(cuda):
     """``entry()`` on the card (both kernels through the group plan)
     against the same forward on the CPU within 1e-5."""
@@ -1392,6 +2798,50 @@ def test_vqe_benchmark_card_equals_cpu(cuda, tmp_path):
         cpu = _twin_json(vqe_benchmark, argv, "cpu", tmp_path)
         np.testing.assert_allclose(card["result"]["cost_trace"],
                                    cpu["result"]["cost_trace"], atol=1e-4)
+
+
+# Every command-line twin (module under quantum_simulator_tpu_torch, argv)
+# at its default arguments, the full width of its path. Two are cut where
+# their defaults repeat other cases at length: ``mesh_stretch_check`` runs
+# QFT-32 alone, ``error_mitigation`` n = 2 with one Trotter step (its
+# defaults draw 2000 samples of n = 4 density matrices); ``quickstart``
+# skips its PNG.
+ENTRY_TWINS = (
+    ("entry", []),
+    ("scripts.noise_sweep", []),
+    ("scripts.vqe_benchmark", []),
+    ("scripts.qec_threshold", []),
+    ("scripts.dmrg_solve", []),
+    ("scripts.circuit_threshold", []),
+    ("scripts.quantum_volume_check", []),
+    ("scripts.monitored_check", []),
+    ("scripts.huge_state_check", []),
+    ("scripts.sharded_run", []),
+    ("scripts.mesh_stretch_check", ["--config", "qft"]),
+    ("examples.quickstart", ["--no-export"]),
+    ("examples.error_mitigation", ["--n", "2", "--steps", "1"]),
+    ("examples.monitored_circuit", []),
+    ("examples.open_system", []),
+    ("examples.qec_memory", []),
+    ("examples.quench_dynamics", []),
+    ("examples.quench_spectroscopy", []),
+    ("examples.vqe_at_scale", []),
+)
+
+
+@pytest.mark.parametrize("module,argv", ENTRY_TWINS,
+                         ids=[m for m, _ in ENTRY_TWINS])
+def test_command_line_twin_on_the_card(cuda, module, argv):
+    """The twin's ``main`` on the card returns 0, its own checks deciding
+    (the QFT-32 fidelity against the DFT row, the Grover-30 amplitude,
+    norms, shot counts, GHZ correlations)."""
+    import gc
+    import importlib
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    twin = importlib.import_module(f"quantum_simulator_tpu_torch.{module}")
+    assert twin.main(argv) == 0
 
 
 @pytest.fixture
@@ -1476,6 +2926,180 @@ def test_advanced_panel_worker_keeps_results_on_the_pinned_device(
         assert np.abs(a.state.data - b.state.data).max() <= 1e-5
 
 
+def test_main_window_actions_on_the_card(gui_stubs, monkeypatch):
+    """``MainWindow(device="cuda")`` through its actions at n = 10: a Run
+    click (the ideal pass and the shots run, twice the plan's launches;
+    final and reference states within 1e-5 of the plain-twin executor; the
+    panels fed); noise built in ``NoiseConfigDialog`` and a noisy Run click
+    (the ideal plan plus the trajectory batches' plans); step mode over
+    every column; the debugger (noisy), the comparison (fidelity within
+    1e-5 of the twins' overlap), the optimizer and the QEC sweep on worker
+    threads that enter the window's device, the QEC cycle and the
+    benchmark suite (every benchmark passes); the bridge toggled on, one
+    client run (the plan's launches), toggled off. No critical message
+    box, no exception on a worker thread."""
+    import functools
+    import threading
+
+    from quantum_simulator_tpu_torch import DepolarizingNoise
+    from quantum_simulator_tpu_torch.bridge import SimulatorClient
+    from quantum_simulator_tpu_torch.gui import advanced_panels as ap
+    from quantum_simulator_tpu_torch.gui import main_window as mw
+    from quantum_simulator_tpu_torch.gui.dialogs import NoiseConfigDialog
+    from quantum_simulator_tpu_torch.utils.appconfig import AppConfig
+
+    started, errors, scopes = [], [], []
+
+    class _Recorded(threading.Thread):
+        def start(self):
+            started.append(self)
+            super().start()
+
+    real_scope = ap.device_scope
+
+    def recorded_scope(device):
+        scopes.append((threading.current_thread(), device))
+        return real_scope(device)
+
+    monkeypatch.setattr(threading, "Thread", _Recorded)
+    monkeypatch.setattr(threading, "excepthook", lambda a: errors.append(
+        f"{a.exc_type.__name__}: {a.exc_value}"))
+    monkeypatch.setattr(ap, "device_scope", recorded_scope)
+    boxes = gui_stubs.QMessageBox.shown
+    boxes.clear()
+
+    def launches(fn):
+        cuda_exec.reset_launch_counts()
+        fn()
+        torch.cuda.synchronize()
+        return _launches(False)[:2]
+
+    def join_workers():
+        for t in list(started):
+            t.join(600)
+            assert not t.is_alive()
+
+    def status():
+        bar = win.statusBar()
+        return (bar.messages[-1] if hasattr(bar, "messages")
+                else bar.currentMessage())
+
+    win = mw.MainWindow(AppConfig(), device="cuda")
+    assert win.device == torch.device("cuda", torch.cuda.current_device())
+    circuit = _brick(10, 8)
+    program = tprog.compile_circuit(circuit)
+    steps = _step_counts(tplan.get_group_plan(program))
+    want = tplan.group_forward_body(program, program.initial_params, "cuda",
+                                    plain=True)
+    win.circuit_controller.circuit = circuit
+    assert launches(lambda: win._run_with_shots(4096)) == tuple(
+        2 * k for k in steps)
+    res, ref = win.last_result, win.reference_manager.reference
+    assert sum(res.measurement_counts.values()) == 4096
+    assert ref.circuit_hash == circuit.circuit_hash()
+    assert float((res.final_state.device_data - want).abs().max()) <= 1e-5
+    assert float((ref.state.device_data - want).abs().max()) <= 1e-5
+    assert win.histogram_panel._last_counts == res.measurement_counts
+    assert win.statevector_panel._last_state is not None
+    assert status().startswith("Run complete")
+
+    dialog = NoiseConfigDialog()
+    dialog._rows[2][0].setChecked(True)          # Depolarizing
+    dialog._rows[2][1].setValue(0.01)
+    dialog.readout_check.setChecked(True)
+    dialog.p01_spin.setValue(0.01)
+    dialog.p10_spin.setValue(0.02)
+    dialog.exec = lambda: 1
+    monkeypatch.setattr(mw, "NoiseConfigDialog",
+                        lambda current, parent: dialog)
+    win._configure_noise()
+    nm = win.noise_model
+    assert [type(c) for c in nm.global_channels] == [DepolarizingNoise]
+    assert nm.readout_error is not None
+    assert "Depolarizing" in win.noise_indicator.text()
+    traj = _batch_launches(program, nm, 4096)
+    assert launches(lambda: win._run_with_shots(4096)) == tuple(
+        a + b for a, b in zip(steps, traj))
+    assert sum(win.last_result.measurement_counts.values()) == 4096
+    assert float((win.reference_manager.reference.state.device_data
+                  - want).abs().max()) <= 1e-5
+
+    def step_mode():
+        win._on_step_mode()
+        for _ in range(program.num_columns + 2):   # the columns, then stop
+            win._advance_step()
+
+    assert sum(launches(step_mode)) > 0
+    assert status() == "Step mode complete"
+    assert len(win.entropy_panel.model.steps) == program.num_columns + 1
+
+    dp = win.debugger_panel
+    dp.breakpoints = set(win.editor_model.breakpoints)
+    dp.run_debug(circuit, nm, seed=42, block=True)
+    snaps = dp.debugger.snapshots
+    assert len(snaps) == circuit.get_column_count() + 1
+    assert dp._attribution is not None and len(dp._impacts) > 0
+    assert all(-1e-6 <= s.fidelity <= 1 + 1e-5 for s in snaps)
+    assert float((snaps[-1].ideal_state.device_data
+                  - want).abs().max()) <= 1e-5
+
+    circuit_b = _brick(10, 8, mix_rz=True)
+    program_b = tprog.compile_circuit(circuit_b)
+    cp = win.comparison_panel
+    cp.compare(circuit, circuit_b, shots=1024, seed=42)
+    want_b = tplan.group_forward_body(program_b, program_b.initial_params,
+                                      "cuda", plain=True)
+    fid = float((want.conj() * want_b).sum().abs().square())
+    assert abs(cp._last.output_fidelity - fid) <= 1e-5
+    assert cp.table.rowCount() == 9
+
+    op = win.optimizer_panel
+    op.iters_spin.setValue(3)
+    op.cost_combo.setCurrentText("zz_chain")
+    op.grad_combo.setCurrentText("parameter_shift")
+    first = len(started)
+    assert launches(lambda: (op._on_run_clicked(), join_workers()))[0] > 0
+    workers = [(t, d) for t, d in scopes if t in started[first:]]
+    assert workers and all(d == win.device for _, d in workers)
+    assert not op._busy and len(op._history) >= 1
+    assert "optimal cost" in str(op.figure.gca().get_title())
+
+    qp = win.qec_panel
+    qp.p_spin.setValue(0.05)
+    qp.run_cycle()
+    assert "F=" in qp.status.text()
+    first = len(started)
+    qp.run_sweep()
+    join_workers()
+    assert qp.figure.gca().get_xlabel() == "Physical error rate"
+    assert any(t in started[first:] for t, _ in scopes)
+
+    win.noise_model = None
+    win._refresh_noise_indicator()
+    win._run_benchmarks()
+    info = [b for b in boxes if b[:2] == ("information", "Benchmarks")]
+    lines = info[-1][2].splitlines() if info else []
+    assert lines and all(ln.startswith("\u2714") for ln in lines), lines
+
+    monkeypatch.setattr(mw, "BridgeServer",
+                        functools.partial(mw.BridgeServer, port=0))
+    win._toggle_bridge()
+    srv = win.bridge_server
+    try:
+        assert srv.is_running and srv.port > 0
+        reply = {}
+        with SimulatorClient(port=srv.port, timeout=600) as c:
+            assert launches(lambda: reply.update(
+                c.run(shots=1024, seed=42))) == steps
+        assert sum(reply["measurement_counts"].values()) == 1024
+        win._toggle_bridge()
+        assert not srv.is_running
+    finally:
+        srv.stop()
+    assert [b for b in boxes if b[0] == "critical"] == []
+    assert errors == []
+
+
 def test_validation_harness_card_33_of_33(cuda):
     """The acceptance harness on the card: all 33 assertions, the four
     ``[perf]`` bounds included, with dense launches from groups 8 and 9."""
@@ -1499,13 +3123,14 @@ def test_parity_card_equals_cpu(cuda):
 
 def test_interactive_latency_card_meets_edit_target(cuda, tmp_path):
     """The latency twin at n = 16, depth 8 on the card: every edit rerun
-    (ideal 1-gate, realness flip, noisy 1-gate) under 2 s."""
+    (ideal 1-gate, realness flip, noisy 1-gate) under 2 s, and a second
+    process finds the kernel library already built."""
     from quantum_simulator_tpu_torch.scripts import interactive_latency_check
     got = _twin_json(interactive_latency_check,
-                     ["-n", "16", "--depth", "8", "--skip-subprocess"],
-                     "cuda", tmp_path)
+                     ["-n", "16", "--depth", "8"], "cuda", tmp_path)
     assert got["platform"] == "gpu" and got["edit_under_2s"]
     assert got["device"] == torch.cuda.get_device_name(0)
+    assert got["second_process_library_prebuilt"] is True
 
 
 # ---------------------------------------------------------------------------
@@ -1517,17 +3142,20 @@ def _f64(shape, device, seed, scale=1.0):
     return torch.from_numpy(rng.standard_normal(shape) * scale).to(device)
 
 
-# shape -> (cross geometries, batch): between them every dense depth K
-# from 2 to 128 and every cross depth from 4 to 256, both sides of the
-# FMA / DMMA line (K = 16); (2, 8, 16, 64) and (4, 128, 8) run a batch of
-# B = 3 with one operator per trajectory, and (4, 128, 8) leaves each
+# shape -> (cross geometries, batch, operator shared): between them every
+# dense depth K from 2 to 128 and every cross depth from 4 to 256, both
+# sides of the FMA / DMMA line (K = 16); (2, 8, 16, 64) and (4, 128, 8) run
+# a batch of B = 3 with one operator per trajectory, (2, 128, 128) one of
+# B = 8 with one operator shared at stride 0, and (4, 128, 8) leaves each
 # trajectory a ragged tile (the dense K = 128 and cross K = 256 steps have
 # fewer fibers than a tile).
-F64_CASES = {(4, 128, 128): ([(1, 0, 0), (1, 6, 2), (2, 3, 0)], None),
-             (32, 128, 128): ([(1, 0, 0), (1, 6, 2), (2, 3, 0)], None),
+F64_CASES = {(4, 128, 128): ([(1, 0, 0), (1, 6, 2), (2, 3, 0)], None, False),
+             (32, 128, 128): ([(1, 0, 0), (1, 6, 2), (2, 3, 0)], None,
+                              False),
              (2, 8, 16, 64): ([(1, 0, 0), (2, 1, 1), (3, 2, 2), (1, 2, 3)],
-                              3),
-             (4, 128, 8): ([(0, 0, 1), (2, 1, 0), (1, 3, 2)], 3)}
+                              3, False),
+             (4, 128, 8): ([(0, 0, 1), (2, 1, 0), (1, 3, 2)], 3, False),
+             (2, 128, 128): ([(1, 0, 0), (1, 6, 2), (2, 3, 0)], 8, True)}
 
 
 @pytest.mark.parametrize("shape", list(F64_CASES))
@@ -1536,15 +3164,21 @@ def test_f64_kernels_match_twins(cuda, shape, planar, real):
     """Every dense axis and the case's cross geometries of a layout,
     float64 against the float64 twin: 1e-12 x max |x| (sums of at most 256
     terms in another order)."""
-    geoms, batch = F64_CASES[shape]
+    geoms, batch, shared = F64_CASES[shape]
     batched = batch is not None
     lead = ((batch,) if batched else ()) + ((2,) if planar else ())
-    per = (batch,) if batched else ()
+
+    def operator(op_shape, seed, scale):
+        if shared:
+            return _f64((1,) + op_shape, cuda, seed, scale).expand(
+                (batch,) + op_shape)
+        return _f64(((batch,) if batched else ()) + op_shape, cuda, seed,
+                    scale)
+
     x = _f64(lead + shape, cuda, 0)
     tol = 1e-12 * float(x.abs().max())
     for axis, S in enumerate(shape):
-        op = _f64(per + ((S, S) if real else (2, S, S)), cuda, axis,
-                  S ** -0.5)
+        op = operator((S, S) if real else (2, S, S), axis, S ** -0.5)
         want = cuda_exec.dense_axis_plain(x, op, axis, planar, batched)
         cuda_exec.reset_launch_counts()
         got = cuda_exec.dense_axis(x.clone(), op, axis, planar, batched)
@@ -1554,8 +3188,8 @@ def test_f64_kernels_match_twins(cuda, shape, planar, real):
         assert float((got - want).abs().max()) <= tol
     for s, pos, o in geoms:
         S = shape[o]
-        cop = _f64(per + ((2, S, 2, S) if real else (2, 2, S, 2, S)), cuda,
-                   9, (2 * S) ** -0.5)
+        cop = operator((2, S, 2, S) if real else (2, 2, S, 2, S), 9,
+                       (2 * S) ** -0.5)
         want = cuda_exec.cross_bit_axis_plain(x, cop, s, pos, o, planar,
                                               batched)
         cuda_exec.reset_launch_counts()

@@ -19,8 +19,8 @@ tensor each wrapper takes its plain PyTorch twin. Here:
   against the twins; every state element must be read and written by
   exactly one tile.
 
-The kernels themselves are checked on the card by ``tests/test_torch_gpu.py``
-and ``chip_smoke.py``.
+The kernels themselves are checked on the card by
+``tests/test_torch_gpu.py``.
 """
 
 import jax.numpy as jnp

@@ -19,8 +19,8 @@ twins (``dense_axis_plain`` / ``cross_bit_axis_plain``) at 1e-12 x max |x|
   once, and the swizzled / padded shared-memory slabs give conflict-free
   fragment loads.
 
-The kernels themselves are checked on the card by ``tests/test_torch_gpu.py``
-and ``chip_smoke.py`` phase 17.
+The kernels themselves, and the DMMA in their SASS, are checked on the
+card by ``tests/test_torch_gpu.py``.
 """
 
 import numpy as np

@@ -460,8 +460,8 @@ def test_route_names_the_jax_body_it_is_held_against(family, route,
 
 def test_replayed_draws_reproduce_the_batch():
     """A body's returned draws replay its trajectories exactly, for the
-    three bodies (the seam ``chip_smoke.py`` uses to hold the kernel
-    executor against the plain one)."""
+    three bodies (the seam ``tests/test_torch_gpu.py`` uses to hold the
+    kernel executor against the plain one)."""
     tp = tprog.compile_circuit(tq.QuantumCircuit.from_dict(
         brickwork(5, 2, rz=True).to_dict()))
     for ch in (tq.DepolarizingNoise(0.2), tq.AmplitudeDampingNoise(0.3),

@@ -14,8 +14,9 @@ stand-in for the few names they use (``matplotlib.use``,
 ``FancyBboxPatch``). Every drawing call is accepted and recorded, a
 ``set_<x>`` call is read back by ``get_<x>``, and nothing is drawn. It
 stands in for a display toolkit only: the engine calls behind the panels
-run as they would. ``chip_smoke.py`` uses both on a machine that lacks
-the toolkits; the CPU tests draw with the real matplotlib.
+run as they would. The card's GUI tests (``tests/test_torch_gpu.py``)
+use both on a machine that lacks the toolkits; the CPU tests draw with the
+real matplotlib.
 """
 
 from __future__ import annotations
