@@ -43,6 +43,11 @@ _ENTRY_POINTS = ("qs_dense_axis", "qs_cross_bit_axis", "qs_dense_axis_f64",
 # d_batch_stride, stream) -> cudaError_t, the table multiplied into x.
 DIAG_PAIR_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
                       + [ctypes.c_longlong] * 8 + [ctypes.c_void_p])
+# ``qs_swap_bits`` (``csrc/swap_bits.cu``): (x, f64, mode, geometry words,
+# their count, stream) -> cudaError_t, the run of swaps applied to x.
+SWAP_BITS_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                      ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
+                      ctypes.c_void_p]
 
 
 def _sources() -> list[Path]:
@@ -129,6 +134,8 @@ def _load() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.qs_diag_pair.argtypes = DIAG_PAIR_ARGTYPES
     lib.qs_diag_pair.restype = ctypes.c_int
+    lib.qs_swap_bits.argtypes = SWAP_BITS_ARGTYPES
+    lib.qs_swap_bits.restype = ctypes.c_int
     lib.qs_error_string.argtypes = [ctypes.c_int]
     lib.qs_error_string.restype = ctypes.c_char_p
     lib.qs_smem_bytes.argtypes = [ctypes.c_int] * 3

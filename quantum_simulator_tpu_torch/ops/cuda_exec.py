@@ -30,7 +30,11 @@ A third kernel, ``diag_pair`` (``csrc/diag_pair.cu``), serves every
 place, one launch, where the JAX package leaves the step to XLA as an
 elementwise einsum (``_diag_spec``, its plain twin here). It replaces no
 Pallas kernel and is no fiber kernel: it launches outside ``_launch``,
-leaves no launch record and is not in ``KERNELS``.
+leaves no launch record and is not in ``KERNELS``. A fourth, ``swap_bits``
+(``csrc/swap_bits.cu``), is the same kind: it applies a run of SWAP gates
+on disjoint qubit pairs (the composed permutation of the index bits) to
+the whole state in place in one launch, where the JAX package transposes
+two bit dims a swap; its twin is one gather (``swap_bits_plain``).
 
 Each wrapper has a plain PyTorch twin (``*_plain``: ``torch.einsum`` on the
 JAX package's ``_dense_spec`` / ``_cross_spec`` forms, in the state's
@@ -67,6 +71,7 @@ either).
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import NamedTuple
 
@@ -202,6 +207,45 @@ def diag_pair_plain(x: torch.Tensor, d: torch.Tensor, axis_a: int,
     return torch.einsum(_diag_spec(rank, axis_a, axis_b, real, planar,
                                    batched),
                         d if real else _blocked(d, b), x)
+
+
+def swap_pairs(pairs, n_bits: int) -> tuple[tuple[int, int], ...]:
+    """``pairs`` of data-index bits as (low, high); raises on a bit out of
+    ``range(n_bits)``, a pair of one bit, or a bit two pairs share (a
+    SWAP(a, b) then SWAP(b, c) is a 3-cycle, not one exchange)."""
+    out, seen = [], set()
+    for p, q in pairs:
+        lo, hi = sorted((int(p), int(q)))
+        if lo == hi or lo < 0 or hi >= n_bits:
+            raise ValueError(f"swap_bits: pair ({p}, {q}) for {n_bits} bits")
+        if lo in seen or hi in seen:
+            raise ValueError(f"swap_bits: pair ({p}, {q}) shares a bit with "
+                             f"another pair of {tuple(pairs)}")
+        seen.update((lo, hi))
+        out.append((lo, hi))
+    return tuple(out)
+
+
+def swap_index_map(n_bits: int, pairs, device=None) -> torch.Tensor:
+    """pi as an index tensor: entry i is i with bits lo and hi exchanged
+    for every pair."""
+    i = torch.arange(1 << n_bits, device=device)
+    out = i.clone()
+    for lo, hi in swap_pairs(pairs, n_bits):
+        d = ((i >> lo) ^ (i >> hi)) & 1
+        out ^= (d << lo) | (d << hi)
+    return out
+
+
+def swap_bits_plain(x: torch.Tensor, pairs, planar: bool,
+                    batched: bool = False) -> torch.Tensor:
+    """``x[i] <- x[pi(i)]`` over the data index of each plane (and
+    trajectory): pi exchanges the bits of each of ``pairs``, which share no
+    bit. One gather through ``swap_index_map``, out of place."""
+    lead = int(batched) + int(planar)
+    n = _prod(x.shape[lead:]).bit_length() - 1
+    flat = x.reshape(tuple(x.shape[:lead]) + (1 << n,))
+    return flat[..., swap_index_map(n, pairs, x.device)].reshape(x.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -600,12 +644,148 @@ def diag_pair(x: torch.Tensor, d: torch.Tensor, axis_a: int, axis_b: int,
     return x
 
 
+# The geometry ``qs_swap_bits`` takes (``csrc/swap_bits.cu``): its limits
+# and the number of words it is packed into.
+SWAP_MAX_ROW_BITS = 6
+SWAP_MAX_PAIRS = 16
+SWAP_MAX_FIXED = 31
+SWAP_MAX_TILE_BITS = 12
+SWAP_GEOM_WORDS = (7 + 2 * SWAP_MAX_PAIRS + SWAP_MAX_FIXED
+                   + SWAP_MAX_ROW_BITS + SWAP_MAX_TILE_BITS)
+# The kernel's mode flags: tiles exchanged as they are (else their bits
+# permuted through shared memory); 16-byte packs (else one element).
+SWAP_EXCHANGE, SWAP_PACKS = 1, 2
+
+
+class SwapGeometry(NamedTuple):
+    """A run of disjoint bit swaps as the ``swap_bits`` kernel walks it.
+
+    A tile is ``2^row_bits`` rows of ``2^col_bits`` columns: the columns
+    are the lowest data bits (256 bytes), row bit j is data bit
+    ``row_pos[j]``; tile element e takes the value of the partner's
+    element whose bit i is bit ``perm[i]`` of e. The other data bits are
+    ``pairs`` (K of them, both bits outside the tiles) and ``fixed``
+    bits. A plane holds ``2^unit_shift`` units of work, two tiles each:
+    unit bits ``[0, K - 1)`` are the pairs' low bits but one, the next K
+    say which pairs differ (d), the rest are the fixed bits. With d != 0
+    the unit is a tile and its partner (the lowest differing pair's low
+    bit 0 in the first), with d = 0 two tiles pi leaves in place (the top
+    pair's bits 00 and 11); with no pair, one tile."""
+
+    n_units: int
+    plane: int
+    unit_shift: int
+    col_bits: int
+    row_bits: int
+    pairs: tuple[tuple[int, int], ...]
+    fixed: tuple[int, ...]
+    row_pos: tuple[int, ...]
+    perm: tuple[int, ...]
+
+
+def swap_geometry(n_bits: int, n_outer: int, pairs,
+                  itemsize: int) -> SwapGeometry:
+    """The tiles of ``n_outer`` planes of ``2^n_bits`` elements of
+    ``itemsize`` bytes: the row bits are the partners of the swapped
+    column bits, then the lowest bits that no pair moves, up to 64 rows."""
+    pairs = swap_pairs(pairs, n_bits)
+    if n_bits > 32:
+        raise ValueError(f"swap_bits: {n_bits} bits, at most 32 a plane")
+    c = min((256 // itemsize).bit_length() - 1, n_bits)
+    partner = {}
+    for lo, hi in pairs:
+        partner[lo], partner[hi] = hi, lo
+    rows = [partner[b] for b in range(c) if partner.get(b, 0) >= c]
+    fixed = [b for b in range(c, n_bits) if b not in partner]
+    rows = sorted(rows + fixed[:SWAP_MAX_ROW_BITS - len(rows)])
+    outside = tuple(sorted(pr for pr in pairs
+                           if pr[0] >= c and pr[0] not in rows))
+    fixed = tuple(b for b in fixed if b not in rows)
+    pos = list(range(c)) + rows
+    index = {p: i for i, p in enumerate(pos)}
+    perm = tuple(index[partner.get(p, p)] for p in pos)
+    shift = 2 * len(outside) + len(fixed) - (len(outside) > 0)
+    return SwapGeometry(n_outer << shift, 1 << n_bits, shift, c, len(rows),
+                        outside, fixed, tuple(rows), perm)
+
+
+def swap_mode(g: SwapGeometry, itemsize: int, x_ptr: int) -> int:
+    """``SWAP_EXCHANGE`` where no pair has a bit in the tiles (their bits
+    stay put), plus ``SWAP_PACKS`` where a row holds whole 16-byte packs
+    and the state is aligned."""
+    mode = 0 if any(p != i for i, p in enumerate(g.perm)) else SWAP_EXCHANGE
+    if x_ptr % 16 == 0 and (itemsize << g.col_bits) % 16 == 0:
+        mode |= SWAP_PACKS
+    return mode
+
+
+def swap_words(g: SwapGeometry) -> list[int]:
+    """``g`` packed as ``qs_swap_bits`` reads it, arrays padded."""
+    def pad(vals, size):
+        return list(vals) + [0] * (size - len(vals))
+    lo, hi = (list(b) for b in zip(*g.pairs)) if g.pairs else ([], [])
+    words = ([g.n_units, g.plane, g.unit_shift, g.col_bits, g.row_bits,
+              len(g.pairs), len(g.fixed)]
+             + pad(lo, SWAP_MAX_PAIRS) + pad(hi, SWAP_MAX_PAIRS)
+             + pad(g.fixed, SWAP_MAX_FIXED) + pad(g.row_pos, SWAP_MAX_ROW_BITS)
+             + pad(g.perm, SWAP_MAX_TILE_BITS))
+    assert len(words) == SWAP_GEOM_WORDS
+    return words
+
+
+def swap_bits(x: torch.Tensor, pairs, planar: bool,
+              batched: bool = False) -> torch.Tensor:
+    """A run of SWAP gates on disjoint qubit pairs: ``x[i] <- x[pi(i)]``,
+    pi exchanging the data-index bits of each of ``pairs``. The
+    ``swap_bits`` kernel on a CUDA tensor (in place, one launch over the
+    whole state: returns ``x``), the plain twin on a CPU one (a new
+    tensor). float32 or float64, planar or real, batched or not. Not a
+    fiber kernel: no ``_launch``, no launch record. ``launches`` counts
+    launches, ``swaps`` the pairs they served."""
+    if x.device.type == "cpu":
+        return swap_bits_plain(x, pairs, planar, batched)
+    if x.device.type != "cuda":
+        raise ValueError(f"swap_bits: state on {x.device}, expected CUDA "
+                         "or CPU")
+    if x.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"swap_bits: needs a float32 or float64 state, got "
+                        f"{x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("swap_bits: the state must be contiguous")
+    b = int(batched)
+    if planar and x.shape[b] != 2:
+        raise ValueError(f"swap_bits: planar state needs a plane axis of 2 "
+                         f"after {b} batch axes, got shape {tuple(x.shape)}")
+    shape = _layout_shape(x, planar, batched)
+    if any(s < 1 or s & (s - 1) for s in shape):
+        raise ValueError(f"swap_bits: shape {shape} has an axis that is not "
+                         "a power of two")
+    n = _prod(shape).bit_length() - 1
+    pairs = swap_pairs(pairs, n)
+    g = swap_geometry(n, x.numel() >> n, pairs, x.element_size())
+    words = (ctypes.c_longlong * SWAP_GEOM_WORDS)(*swap_words(g))
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = _build.library().qs_swap_bits(
+            x.data_ptr(), int(x.dtype == torch.float64),
+            swap_mode(g, x.element_size(), x.data_ptr()), words,
+            SWAP_GEOM_WORDS, stream)
+    if rc != 0:
+        raise RuntimeError(f"qs_swap_bits: launch failed with CUDA error "
+                           f"{rc} ({_build.error_string(rc)})")
+    swap_bits.launches += 1
+    swap_bits.swaps += len(pairs)
+    return x
+
+
 dense_axis.launches = 0
 cross_bit_axis.launches = 0
 cross_bit_axis.cluster_launches = 0   # of them, on the cluster kernel
 dense_axis_f64.launches = 0
 cross_bit_axis_f64.launches = 0
 diag_pair.launches = 0        # float32 and float64 alike
+swap_bits.launches = 0        # float32 and float64 alike
+swap_bits.swaps = 0           # the pairs (swap steps) its launches served
 
 # The float32 kernels (the default engine) and the float64 ones
 # (``config.enable_complex128``).
@@ -614,6 +794,7 @@ KERNELS_F64 = (dense_axis_f64, cross_bit_axis_f64)
 
 
 def reset_launch_counts() -> None:
-    for k in KERNELS + KERNELS_F64 + (diag_pair,):
+    for k in KERNELS + KERNELS_F64 + (diag_pair, swap_bits):
         k.launches = 0
     cross_bit_axis.cluster_launches = 0
+    swap_bits.swaps = 0

@@ -12,7 +12,9 @@ are, so the port takes the same steps as the JAX package:
 
 * ``AxisMatmulStep`` -> the ``dense_axis`` CUDA kernel (``cuda_exec.py``);
 * ``CrossStep`` -> the ``cross_bit_axis`` CUDA kernel;
-* ``BitPairStep`` -> a transpose for an exact SWAP, else a K=4 einsum;
+* ``BitPairStep`` -> a transpose for an exact SWAP, else a K=4 einsum; on
+  the card each run of exact swaps on disjoint bit pairs (``swap_runs``)
+  is one ``swap_bits`` CUDA kernel launch, in place over the whole state;
 * ``DiagPairStep`` -> the ``diag_pair`` CUDA kernel, in place over the
   whole state in one launch (its plain twin, an elementwise einsum, on the
   CPU);
@@ -1440,12 +1442,66 @@ def _whole_pass(x: torch.Tensor, lead: int, involved, fn, kind: str,
     return apply_in_chunks(x, lead, involved, fn) if big else fn(x)
 
 
+def _data_bit(layout: GroupLayout, axis: int, pos: int) -> int:
+    """The data-index bit of bit ``pos`` (MSB-first) of ``axis``."""
+    return (sum(layout.axis_bits[axis + 1:]) + layout.axis_bits[axis] - 1
+            - pos)
+
+
+def step_bits(layout: GroupLayout, step: BitPairStep) -> tuple[int, int]:
+    """The two data-index bits a ``BitPairStep`` acts on."""
+    return (_data_bit(layout, step.slice_axis, step.slice_pos),
+            _data_bit(layout, step.op_axis, step.op_pos))
+
+
+def swap_runs(plan: GroupPlan) -> list[tuple[int, ...]]:
+    """The maximal runs of consecutive exact-swap bit-pair steps of
+    ``plan`` whose bit pairs share no bit, as positions in ``plan.steps``.
+    Any other step, a non-swap bit pair, or a swap sharing a bit with one
+    already in the run ends a run (the last starts the next)."""
+    runs: list[tuple[int, ...]] = []
+    cur: list[int] = []
+    used: set[int] = set()
+    for i, step in enumerate(plan.steps):
+        if not (isinstance(step, BitPairStep)
+                and plan.bitpair_specs[step.index].is_swap):
+            if cur:
+                runs.append(tuple(cur))
+            cur, used = [], set()
+            continue
+        bits = set(step_bits(plan.layout, step))
+        if bits & used:
+            runs.append(tuple(cur))
+            cur, used = [], set()
+        cur.append(i)
+        used |= bits
+    if cur:
+        runs.append(tuple(cur))
+    return runs
+
+
 def apply_bitpair_step(x: torch.Tensor, plan: GroupPlan, step: BitPairStep,
-                       bitpair_ops, planar: bool,
-                       batched: bool = False) -> torch.Tensor:
+                       bitpair_ops, planar: bool, batched: bool = False,
+                       run: tuple[BitPairStep, ...] | None = None
+                       ) -> torch.Tensor:
     """One whole ``BitPairStep``: ``apply_bitpair`` over the state, or
-    chunk by chunk over a big one (``apply_in_chunks``)."""
+    chunk by chunk over a big one (``apply_in_chunks``). With ``run``, a
+    run of exact swaps on disjoint bit pairs that starts at ``step`` (one
+    of ``swap_runs``): the ``swap_bits`` kernel applies the whole run to
+    the state in place, in one launch (one pass of one chunk); its twin,
+    one gather, on the CPU."""
     with span("step.bitpair"):
+        if run is not None:
+            if run[0] is not step or not all(
+                    plan.bitpair_specs[s.index].is_swap for s in run):
+                raise ValueError("apply_bitpair_step: run must be exact "
+                                 "swaps starting at step")
+            if is_recording():
+                state_pass("bitpair", x, 1, True)
+            return cuda_exec.swap_bits(
+                x.contiguous(), [step_bits(plan.layout, s) for s in run],
+                planar, batched)
+
         def fn(v):
             return apply_bitpair(v, plan, step, bitpair_ops, planar, batched)
         return _whole_pass(x, int(batched) + int(planar),
@@ -1487,9 +1543,11 @@ def execute_group_plan(plan: GroupPlan, operands, program, params,
     """Run all steps on ``x``: planar ``(2, *axis_sizes)``, or real
     ``(*axis_sizes,)`` with ``planar=False`` (only for ``plan.all_real``).
     Dense, cross and pair-diagonal steps go through the ``cuda_exec``
-    kernel wrappers; ``plain=True`` calls their plain PyTorch twins instead
-    on any device (the reference executor the kernels are checked and
-    timed against).
+    kernel wrappers, and on a CUDA state each run of exact swaps on
+    disjoint bit pairs (``swap_runs``) is one ``swap_bits`` launch;
+    ``plain=True`` calls their plain PyTorch twins instead on any device
+    and runs each swap step on its own (the reference executor the kernels
+    are checked and timed against).
 
     ``batched``: ``x`` has a leading trajectory axis ``(T, [2,] ...)`` and
     ``operands`` come from ``build_group_operands_batched``; every dense,
@@ -1502,8 +1560,9 @@ def execute_group_plan(plan: GroupPlan, operands, program, params,
     so ``x`` may be overwritten by the run; pass a state you no longer
     need (or a clone). A state of ``INPLACE_MIN_BYTES`` or more also runs
     its other steps in place, chunk by chunk (``apply_in_chunks``), so no
-    step holds a second state (the pair-diagonal kernel needs no chunks:
-    it writes each amplitude where it read it)."""
+    step holds a second state (the pair-diagonal and swap kernels need no
+    chunks: they write each amplitude where it, or its partner, was
+    read)."""
     layout = plan.layout
     shape = tuple(layout.axis_sizes)
     rank = len(shape)
@@ -1521,8 +1580,17 @@ def execute_group_plan(plan: GroupPlan, operands, program, params,
     cross = (cuda_exec.cross_bit_axis_plain if plain
              else cuda_exec.cross_bit_axis)
 
+    # On the card each run of disjoint swaps is one launch, made at the
+    # run's first step.
+    runs = ({r[0]: tuple(plan.steps[i] for i in r) for r in swap_runs(plan)}
+            if not plain and x.device.type != "cpu" else {})
+
     with span("plan.execute"):
-        for step in plan.steps:
+        skip = 0
+        for i, step in enumerate(plan.steps):
+            if skip:
+                skip -= 1
+                continue
             # einsum and transpose results may be strided views; the
             # kernels take contiguous states
             if isinstance(step, AxisMatmulStep):
@@ -1540,8 +1608,10 @@ def execute_group_plan(plan: GroupPlan, operands, program, params,
                               step.slice_axis, step.slice_pos, step.op_axis,
                               planar, batched)
             elif isinstance(step, BitPairStep):
+                swaps = runs.get(i)
+                skip = len(swaps) - 1 if swaps else 0
                 x = apply_bitpair_step(x, plan, step, bitpair_ops, planar,
-                                       batched)
+                                       batched, run=swaps)
             elif isinstance(step, DiagPairStep):
                 x = apply_diag_pair_step(x, plan, step, diag_ops, planar,
                                          batched, plain=plain)

@@ -130,7 +130,8 @@ def test_no_kernel_spills(cuda):
             spills[entry] = nums[1] + nums[2]   # stack, stores, loads
     names = " ".join(spills)
     for kernel in ("simt_kernel", "cluster_mma_kernel", "f64_fma_kernel",
-                   "f64_mma_kernel", "diag_pair_kernel"):
+                   "f64_mma_kernel", "diag_pair_kernel",
+                   "swap_bits_kernel"):
         assert kernel in names
     assert {k: v for k, v in spills.items() if v} == {}
 
@@ -3584,8 +3585,9 @@ def test_diag_pair_n30_qft_first_diagonal_matches_chunked_twin(cuda):
 
 def test_qft_30_request_counts_one_diag_launch_a_step(cuda):
     """A QFT-30 ``Simulator.run``: one ``diag_pair`` launch per
-    ``DiagPairStep`` (10), each step's pass record one chunk, and the
-    fiber kernels' launch records untouched by them."""
+    ``DiagPairStep`` (10), each step's pass record one chunk, the fiber
+    kernels' launch records untouched by them, and one ``swap_bits``
+    launch serving the 14 swaps."""
     from quantum_simulator_tpu_torch.utils import profiling
 
     c = _qft_30_circuit()
@@ -3606,3 +3608,151 @@ def test_qft_30_request_counts_one_diag_launch_a_step(cuda):
     diag = [ps for ps in rec.passes if ps.kind == "diag"]
     assert len(diag) == n_diag and all(ps.chunks == 1 for ps in diag)
     assert len(rec.launches) == n_fiber
+    # the 14 swaps: one run, one swap_bits launch, one pass of one chunk
+    assert (cuda_exec.swap_bits.launches, cuda_exec.swap_bits.swaps) == (
+        1, 14)
+    assert [(ps.chunks, ps.swap) for ps in rec.passes
+            if ps.kind == "bitpair"] == [(1, True)]
+
+
+# ---------------------------------------------------------------------------
+# The swap kernel (csrc/swap_bits.cu)
+# ---------------------------------------------------------------------------
+
+def _swap_circuit(n, swaps):
+    c = QuantumCircuit(n)
+    for q in range(n):
+        c.add("H", [q], [], 0)
+    for col, (a, b) in enumerate(swaps, 1):
+        c.add("SWAP", [a, b], [], col)
+    return c
+
+
+# Runs the kernel serves on its three paths: the QFT's (the tile's column
+# bits against the top bits: tiles permuted through shared memory), one
+# with no bit in the tile's columns (tiles exchanged in 16-byte packs) and
+# one touching bits 5-6 of the innermost axis (the last float32 column bit
+# and the first bit past it; both past the float64 columns).
+SWAP_CASES = {
+    "qft12": (12, None), "qft20": (20, None), "qft28": (28, None),
+    "high20": (20, [(0, 7), (1, 8), (2, 9)]),
+    "bits5-6_20": (20, [(13, 0), (14, 1)]),
+}
+
+
+def _swap_plan(case):
+    n, swaps = SWAP_CASES[case]
+    c = _qft(n) if swaps is None else _swap_circuit(n, swaps)
+    plan = tplan.build_group_plan(tprog.compile_circuit(c))
+    runs = tplan.swap_runs(plan)
+    assert runs
+    return plan, [tuple(plan.steps[i] for i in r) for r in runs]
+
+
+# Batched: 3 trajectories, at n <= 20 (a batch of n = 28 states is the
+# n = 20 geometry with a longer outer loop).
+SWAP_FORMS = [(case, planar, batched) for case in SWAP_CASES
+              for planar, batched in ((True, False), (False, False),
+                                      (True, True))
+              if not (batched and SWAP_CASES[case][0] > 20)]
+
+
+@pytest.mark.parametrize("case,planar,batched", SWAP_FORMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_swap_bits_run_equals_the_plain_steps_bit_for_bit(cuda, case, dtype,
+                                                          planar, batched):
+    """Each run of the plan in one launch, in place, against its swap
+    steps one by one as the ``plain=True`` executor runs them (chunked
+    from 4 GiB): the same bits."""
+    plan, runs = _swap_plan(case)
+    shape = ((3,) if batched else ()) + ((2,) if planar else ()) + tuple(
+        plan.layout.axis_sizes)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(7)
+    for run in runs:
+        x = torch.randn(shape, generator=gen, device=cuda, dtype=dtype)
+        want = x.clone()
+        for s in run:
+            want = tplan.apply_bitpair_step(want, plan, s, None, planar,
+                                            batched)
+        cuda_exec.reset_launch_counts()
+        ptr = x.data_ptr()
+        got = tplan.apply_bitpair_step(x, plan, run[0], None, planar,
+                                       batched, run=run)
+        torch.cuda.synchronize()
+        assert got.data_ptr() == ptr
+        assert (cuda_exec.swap_bits.launches,
+                cuda_exec.swap_bits.swaps) == (1, len(run))
+        assert torch.equal(got, want)
+        del x, got, want
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("pairs", [[(0, 2), (1, 9), (5, 12)], [(3, 4)],
+                                   [(q, 12 - q) for q in range(6)],
+                                   [(6, 11), (7, 9)]])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_swap_bits_matches_the_index_map(cuda, pairs, dtype):
+    """Pairs no plan emits too (two bits inside the tile's columns, one
+    lone pair inside them), on a batch of planar states, and a state 4
+    bytes off a 16-byte boundary (the exchange path one element a
+    thread): the kernel equals the plain twin's gather."""
+    x = _batch_state(3, (4, 16, 128), True, cuda, seed=4).to(dtype)
+    want = cuda_exec.swap_bits_plain(x, pairs, True, True)
+    got = cuda_exec.swap_bits(x, pairs, True, True)
+    torch.cuda.synchronize()
+    assert got is x and torch.equal(got, want)
+    flat = torch.empty(2 * 8192 + 1, device=cuda, dtype=dtype)
+    xu = flat[1:].view(2, 8192)
+    assert xu.data_ptr() % 16
+    xu.copy_(_state((8192,), True, cuda, seed=9).to(dtype))
+    want = cuda_exec.swap_bits_plain(xu, pairs, True)
+    assert torch.equal(cuda_exec.swap_bits(xu, pairs, True), want)
+
+
+def test_swap_bits_rejects_what_the_kernel_does_not_take(cuda):
+    """A strided view, a qubit two swaps of the run share, a half-precision
+    state: refused before any launch."""
+    x = _state((4, 128, 128), True, cuda)
+    cuda_exec.reset_launch_counts()
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_exec.swap_bits(x.transpose(2, 3), [(0, 15)], True)
+    with pytest.raises(ValueError, match="shares a bit"):
+        cuda_exec.swap_bits(x, [(0, 15), (15, 3)], True)
+    with pytest.raises(TypeError):
+        cuda_exec.swap_bits(x.half(), [(0, 15)], True)
+    assert cuda_exec.swap_bits.launches == 0
+
+
+def test_swap_bits_n30_qft_run_in_place_in_one_launch(cuda):
+    """The QFT-30 plan's 14 swaps on an 8 GiB planar state: one launch,
+    the state's own memory and under 64 MiB more at the peak, and the
+    bits of the chunked transposes one step at a time, compared chunk by
+    chunk."""
+    p = tprog.compile_circuit(_qft_30_circuit())
+    plan = tplan.get_group_plan(p)
+    (run,) = tplan.swap_runs(plan)
+    steps = tuple(plan.steps[i] for i in run)
+    assert len(steps) == 14
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    x = torch.randn((2,) + tuple(plan.layout.axis_sizes), generator=gen,
+                    device=cuda)
+    want = x.clone()
+    for s in steps:
+        want = tplan.apply_bitpair_step(want, plan, s, None, True)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_exec.reset_launch_counts()
+    got = tplan.apply_bitpair_step(x, plan, steps[0], None, True, run=steps)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == x.data_ptr()
+    assert torch.cuda.max_memory_allocated() - base <= 64 * 2**20
+    assert (cuda_exec.swap_bits.launches, cuda_exec.swap_bits.swaps) == (
+        1, 14)
+    worst = _grouped_max_diff(got, want)
+    del got, want, x
+    torch.cuda.empty_cache()
+    assert worst == 0.0
