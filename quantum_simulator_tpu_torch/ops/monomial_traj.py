@@ -28,6 +28,15 @@ circuits (``events``) run through the same windows
 ``monomial_monitored_evolve`` are the n >= 30 forms: they evolve a
 provided grouped state, normalize it once in place and build no complex
 result.
+
+Tracing (``utils/profiling``): a span ``mono.window`` around each
+segment's plan lookup, batched operand build and execution, ``mono.sample``
+around each window's basis sample (with one ``Pass`` record of kind
+``"sample"``: its first marginal reads the whole state) and ``mono.draws``
+around its site draws. ``_run_windows.windows`` counts the window
+boundaries served (one basis sample of the whole batch each) and
+``_run_windows.sites`` the sites drawn at them (per batch, not per
+trajectory).
 """
 
 from __future__ import annotations
@@ -38,7 +47,7 @@ import numpy as np
 import torch
 
 from ..config import CONFIG
-from . import plan as gplan
+from ..utils.profiling import span, state_pass
 from . import program as prog
 from .bigtraj import normalize_, trajectory_is_real
 from .plan import (
@@ -47,7 +56,6 @@ from .plan import (
     OperandOverrides,
     build_group_operands_batched,
     categorical,
-    chunk_ranges,
     execute_group_plan,
     get_group_plan,
     layout_basis_state,
@@ -278,20 +286,14 @@ def monomial_insert_supported(program, noise_model,
 
 def _lead_marginal(y: torch.Tensor, planar: bool) -> torch.Tensor:
     """``(T, A)`` marginal of the leading data axis of a batched grouped
-    state (or of a conditional slice of one); a big state is squared
-    chunk by chunk along that axis."""
-    T, A = y.shape[0], y.shape[1 + int(planar)]
-
-    def marginal(v):
-        p = v.square()
-        if planar:
-            p = p.sum(1)
-        return p.reshape(T, p.shape[1], -1).sum(-1)
-
-    if y.numel() <= gplan.CHUNK_ELEMS:
-        return marginal(y)
-    return torch.cat([marginal(y.narrow(1 + int(planar), start, width))
-                      for start, width in chunk_ranges(A, y.numel())], dim=1)
+    state (or of a conditional slice of one): one norm reduction over the
+    other axes and the planes, which reads the state once and writes no
+    temporary of its size."""
+    lead = 1 + int(planar)
+    rest = tuple(d for d in range(1, y.ndim) if d != lead)
+    if not rest:
+        return y.square()
+    return torch.linalg.vector_norm(y, dim=rest).square()
 
 
 def _sample_axes(x: torch.Tensor, planar: bool, layout: GroupLayout,
@@ -408,22 +410,33 @@ def _run_windows(spec: MonomialSpec, params, x: torch.Tensor, planar: bool,
     n_windows = len(spec.windows)
     for w in range(n_windows + 1):
         seg = spec.segments[w]
-        plan = get_group_plan(seg)
-        operands = build_group_operands_batched(seg, plan, params, n_traj,
-                                                device, overrides)
-        x = execute_group_plan(plan, operands, seg, params, x, planar,
-                               plain, batched=True)
-        del operands
+        with span("mono.window"):
+            plan = get_group_plan(seg)
+            operands = build_group_operands_batched(seg, plan, params,
+                                                    n_traj, device, overrides)
+            x = execute_group_plan(plan, operands, seg, params, x, planar,
+                                   plain, batched=True)
+            del operands
         if w == n_windows:
             break
         forced = draws[w] if draws is not None else (None, None)
-        idxs, nsq = _sample_axes(x, planar, layout, generator, forced[0])
-        overrides, branches, updates = _window_draws(
-            spec, spec.windows[w], idxs, nsq, layout, generator, forced[1])
+        with span("mono.sample"):
+            state_pass("sample", x, 1)
+            idxs, nsq = _sample_axes(x, planar, layout, generator, forced[0])
+        with span("mono.draws"):
+            overrides, branches, updates = _window_draws(
+                spec, spec.windows[w], idxs, nsq, layout, generator,
+                forced[1])
+        _run_windows.windows += 1
+        _run_windows.sites += len(spec.windows[w])
         for ev, bv in updates:
             outcomes[:, ev] = bv
         record.append((idxs, branches))
     return x, outcomes, record
+
+
+_run_windows.windows = 0    # window boundaries served, one sample each
+_run_windows.sites = 0      # sites drawn at them
 
 
 def _body_planar(spec: MonomialSpec) -> bool:

@@ -603,7 +603,7 @@ class Simulator:
         """n >= 30 (``simulator.py:644-687``): T trajectories one after
         the other, the shots spread over all of them (the first
         ``shots % T`` take one more); only shot indices leave the
-        device."""
+        device. Each trajectory is one ``traj.huge`` span."""
         from .ops.bigtraj import huge_trajectory_sample_fn
 
         program = prog.compile_circuit(circuit)
@@ -617,7 +617,8 @@ class Simulator:
                 break
             fn, _ = huge_trajectory_sample_fn(program, self._noise_model,
                                               take, self._device)
-            out = fn(params, self._generator(rng), self._generator(rng))
+            with span("traj.huge"):
+                out = fn(params, self._generator(rng), self._generator(rng))
             all_idx.append(out.indices.cpu().numpy())
         counts: dict[str, int] = {}
         if all_idx:

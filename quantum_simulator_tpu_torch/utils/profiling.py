@@ -10,7 +10,8 @@ port's own recorder:
   reductions), one record per kernel launch (``launch``, from
   ``ops/cuda_exec._launch``), one per whole-state pass that no kernel
   serves (``state_pass``, from ``ops/plan``'s pair-diagonal and bit-pair
-  steps) and its gauges (``gauge(name, value)``).
+  steps and the monomial splice's window samples) and its gauges
+  (``gauge(name, value)``).
   Nothing is written to disk. Off, the default, a span is one check of a
   module-level variable: no record, no clock read, no profiler range.
   On, each span is also a ``torch.profiler.record_function`` range, so it
@@ -83,12 +84,13 @@ class Launch(NamedTuple):
 
 
 class Pass(NamedTuple):
-    """One whole-state pass of the executor outside the fiber kernels: a
-    pair-diagonal step (``"diag"``; on the card the ``diag_pair`` kernel,
-    one pass with ``chunks`` = 1) or a bit-pair step (``"bitpair"``), the
-    state's bytes (planes and batch included), the chunks it ran in (1:
-    the whole state at once), whether it was an exact swap, and the
-    innermost span open (-1 outside any)."""
+    """One whole-state pass outside the fiber kernels: a pair-diagonal
+    step (``"diag"``; on the card the ``diag_pair`` kernel, one pass with
+    ``chunks`` = 1) or a bit-pair step (``"bitpair"``) of the executor, or
+    a window's basis sample of the monomial splice (``"sample"``, whose
+    first marginal reads the state), the state's bytes (planes and batch
+    included), the chunks it ran in (1: the whole state at once), whether
+    it was an exact swap, and the innermost span open (-1 outside any)."""
 
     kind: str
     state_bytes: int

@@ -3756,3 +3756,35 @@ def test_swap_bits_n30_qft_run_in_place_in_one_launch(cuda):
     del got, want, x
     torch.cuda.empty_cache()
     assert worst == 0.0
+
+
+def test_esu2_30_thermal_trajectory_follows_its_kraus_replay(cuda):
+    """One n = 30 trajectory of the thermal-relaxation configuration
+    (``qsbench/configs/esu2_30_thermal.json``) through
+    ``Simulator.run_with_noise``, the cell's own entry recording it: the
+    monomial splice serves 91 windows and 294 sites, and the 8 GiB
+    trajectory state lies within 1e-5 of the float64 replay of its own
+    branches (``qsbench/reference/kraus.py``): complex64 products and
+    sums over 327 gates and 294 sites, a few 1e-6."""
+    import quantum_simulator_tpu_torch as tq
+    from qsbench.cell import Manifest
+    from quantum_simulator_tpu_torch.ops import monomial_traj
+
+    m = Manifest()
+    cfg = m.config("esu2_30_thermal")
+    family = m.module("families", cfg["family"])
+    traffic = m.traffic(m.workload("esu2_30_thermal.noisy")["traffic"])
+    entry = m.module("entries", traffic["entry"])
+    c = family.circuit(cfg, np.random.default_rng(3))
+    torch.cuda.empty_cache()
+    serve = entry.serve_fn(tq, dict(traffic, trajectories=1), "cuda")
+    windows = monomial_traj._run_windows.windows
+    sites = monomial_traj._run_windows.sites
+    (row,) = entry.answer(serve(c, 5, keep=True))["rows"]
+    assert row["route"] == "monomial"
+    assert monomial_traj._run_windows.windows - windows == 91
+    assert monomial_traj._run_windows.sites - sites == 294
+    gap = entry.state_gap(c, row, "cuda")
+    del row
+    torch.cuda.empty_cache()
+    assert gap < 1e-5, gap
